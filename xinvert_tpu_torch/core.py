@@ -1,0 +1,79 @@
+# -*- coding: utf-8 -*-
+"""Dispatch-level API: ``inv_standard2D``, taking coefficient fields directly
+(mirrors xinvert/core.py:88-155).
+
+Counterpart of ``xinvert_tpu/core.py``.  The application layer builds
+coefficients and solves through the same engine; power users call this entry
+with custom coefficients.  The batch dims ride through one batched solve.
+Tensors are built on ``torch.get_default_device()`` in
+``torch.get_default_dtype()``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .field import Field, as_field
+from .grid import Grid
+from .solver import solve
+from . import stencil
+from .models.api import (_collapse_mask, _init_state, _prepare,
+                         _validate_bcs)
+from .models.params import default_iParams, merge_params
+
+__all__ = ["inv_standard2D"]
+
+
+def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None):
+    iP = merge_params(default_iParams, iParams)
+    device = torch.get_default_device()
+    f = as_field(F)
+    dims = [dims] if isinstance(dims, str) else list(dims)
+    if len(dims) != ndim:
+        raise ValueError(f"{ndim:2d} dimensional forcing are needed")
+    ft, vals, Fdef, _ = _prepare(f, dims, iP)
+    grid = Grid.make(dims, [ft.coords[d] for d in dims], coords,
+                     _validate_bcs(iP, ndim))
+
+    # align coefficient fields to the core grid
+    cs = []
+    for c in coeffs:
+        if np.isscalar(c):
+            cs.append(torch.full(grid.shape, float(c),
+                                 dtype=torch.get_default_dtype(),
+                                 device=device))
+            continue
+        cf = as_field(c) if hasattr(c, "dims") else Field(np.asarray(c), dims)
+        cdims = [d for d in dims if d in cf.dims]
+        if tuple(cdims) != cf.dims:
+            cf = cf.transpose(*cdims)
+        shape = [1] * ndim
+        for d in cf.dims:
+            shape[dims.index(d)] = cf.shape[cf.dims.index(d)]
+        cs.append(torch.tensor(np.broadcast_to(
+            np.asarray(cf.values, vals.dtype).reshape(shape), grid.shape),
+            device=device))
+
+    Fdef_t = torch.as_tensor(Fdef, device=device)
+    Fm = torch.where(Fdef_t, torch.as_tensor(vals, device=device), 0.0)
+    spec = family(*cs, Fm,
+                  torch.as_tensor(_collapse_mask(Fdef, ndim), device=device),
+                  grid.deltas, grid.bcs)
+
+    S0 = _init_state(vals, Fdef, icbc, grid, ft)
+    omega = iP["optArg"] if iP["optArg"] is not None else grid.omega_opt
+    res = solve(spec, torch.as_tensor(S0, device=device), omega=omega,
+                tol=iP["tolerance"], max_iters=iP["mxLoop"])
+    S = res.S.cpu().numpy()
+    if icbc is None:
+        S = np.where(Fdef, S, iP["undef"])
+    out = Field(S, ft.dims, ft.coords, name="inverted")
+    return out.transpose(*f.dims) if out.dims != f.dims else out
+
+
+def inv_standard2D(A, B, C, F, dims, coords="lat-lon", icbc=None,
+                   iParams=None):
+    """d/dy(A Sy + B Sx) + d/dx(B Sy + C Sx) = F (core.py:88-155)."""
+    def fam(A_, B_, C_, Fm, Fdef, deltas, bcs):
+        return stencil.standard_2d(A_, B_, C_, Fm, Fdef, deltas, bcs)
+    return _run(fam, (A, B, C), F, dims, coords, iParams, 2, icbc)

@@ -1,0 +1,241 @@
+# -*- coding: utf-8 -*-
+"""Public inversion API: ``invert_Poisson``.
+
+Counterpart of ``xinvert_tpu/models/api.py``, mirroring the reference
+application layer (xinvert/apps.py): the forcing's non-core dims become one
+batch axis solved in a single batched SOR loop (the reference loops slices
+sequentially), coefficients compile to a
+:class:`~xinvert_tpu_torch.stencil.StencilSpec`, and the red-black engine
+runs the sweeps.
+
+Tensors are built on ``torch.get_default_device()`` in
+``torch.get_default_dtype()`` (float32 or float64).  Options of the JAX
+package that are not ported raise ``NotImplementedError`` naming their
+ROADMAP item.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..field import Field, as_field
+from ..grid import Grid
+from ..solver import NOT_PORTED_SCHEMES, solve
+from . import problems
+from .params import default_iParams, default_mParams, merge_params
+
+__all__ = ["invert_Poisson"]
+
+
+#: Telemetry of the most recent ``invert_*`` call: a
+#: :class:`~xinvert_tpu_torch.solver.SolveResult` (iters, rel_change,
+#: overflow) — the machine-readable analog of the reference's per-slice
+#: ``flags`` array (apps.py:2308-2311), which only surfaces through prints.
+LAST_SOLVE = None
+
+
+def _dtype():
+    """numpy dtype of the solve: ``torch.get_default_dtype()``."""
+    dt = torch.get_default_dtype()
+    if dt == torch.float64:
+        return np.float64
+    if dt == torch.float32:
+        return np.float32
+    raise TypeError(f"the default dtype {dt} is not float32/float64")
+
+
+def _undef_mask(vals, undef):
+    """True where the forcing is defined: not ``undef`` and not NaN."""
+    if isinstance(undef, float) and math.isnan(undef):
+        return ~np.isnan(vals)
+    return (vals != undef) & ~np.isnan(vals)
+
+
+def _prepare(F, dims, iParams):
+    """Field -> (transposed field, values[batch..., core...], Fdef, batch dims)."""
+    f = as_field(F)
+    dims = [dims] if isinstance(dims, str) else list(dims)
+    for d in dims:
+        if d not in f.dims:
+            raise ValueError(f"dim {d} not found in forcing dims {f.dims}")
+    batch = tuple(d for d in f.dims if d not in dims)
+    order = batch + tuple(dims)
+    ft = f.transpose(*order) if f.dims != order else f
+    vals = np.asarray(ft.values, dtype=_dtype())
+    return ft, vals, _undef_mask(vals, iParams["undef"]), batch
+
+
+def _collapse_mask(Fdef, core_ndim):
+    """Use a core-shaped mask when it is batch-invariant (the common case);
+    keeps the compiled stencil weights unbatched."""
+    if Fdef.ndim == core_ndim:
+        return Fdef
+    flat = Fdef.reshape((-1,) + Fdef.shape[-core_ndim:])
+    if bool(np.all(flat == flat[0])):
+        return flat[0]
+    return Fdef
+
+
+def _resolve_mp(mp, core_dims, core_shape):
+    """Align Field-valued model parameters to the core grid by dim name."""
+    out = {}
+    pos = {d: i for i, d in enumerate(core_dims)}
+    for k, v in mp.items():
+        if isinstance(v, Field) or (hasattr(v, "dims") and hasattr(v, "values")):
+            fv = as_field(v)
+            extra = [d for d in fv.dims if d not in pos]
+            if extra:
+                raise ValueError(
+                    f"mParams['{k}'] has non-core dims {extra}; batch-varying "
+                    "parameters are not supported")
+            fdims = sorted(fv.dims, key=lambda d: pos[d])
+            if tuple(fdims) != fv.dims:
+                fv = fv.transpose(*fdims)
+            shape = [1] * len(core_dims)
+            for d in fv.dims:
+                shape[pos[d]] = fv.shape[fv.dims.index(d)]
+            out[k] = np.asarray(fv.values, np.float64).reshape(shape)
+        else:
+            out[k] = v
+    return out
+
+
+def _init_state(vals, Fdef, icbc, grid, ft, warm=False):
+    """Initial guess per the reference's __mask_FS (apps.py:2112-2159):
+    zeros without icbc; with icbc, icbc on undef cells and non-periodic
+    domain edges, zeros elsewhere.  ``warm=True`` (the ``warmStart``
+    iParam) instead uses icbc EVERYWHERE as a true warm start."""
+    if icbc is None:
+        return np.zeros_like(vals)
+    fi = as_field(icbc)
+    order = [d for d in ft.dims if d in fi.dims]
+    if tuple(order) != fi.dims:
+        fi = fi.transpose(*order)
+    ic = np.broadcast_to(np.asarray(fi.values, vals.dtype), vals.shape)
+    if warm:
+        return np.array(ic, dtype=vals.dtype)
+    mask = ~Fdef
+    nd = grid.ndim
+    for ax_core, bc in enumerate(grid.bcs):
+        if bc == "periodic":
+            continue
+        ax = vals.ndim - nd + ax_core
+        edge = np.zeros(vals.shape[ax], bool)
+        edge[0] = edge[-1] = True
+        shape = [1] * vals.ndim
+        shape[ax] = -1
+        mask = mask | edge.reshape(shape)
+    return np.where(mask, ic, 0.0)
+
+
+def _auto_check_every(user_iParams, iP, device, dtype) -> int:
+    """Amortised convergence checking on the card.
+
+    The reference checks convergence after EVERY sweep (numbas.py:401-414);
+    on the card that is a norm and a host sync per sweep.  When the user did
+    not ask for a specific cadence, CUDA float32 solves check every
+    min(32, mxLoop/10) sweeps: termination can only land later than the
+    per-sweep rule (never earlier), so the tolerance contract still holds.
+    CPU, float64 and any explicit ``checkEvery`` keep the given cadence.
+    """
+    if user_iParams and "checkEvery" in user_iParams:
+        return int(user_iParams["checkEvery"])
+    ce = int(iP.get("checkEvery", 1))
+    if ce == 1 and device.type == "cuda" and dtype == torch.float32:
+        ce = max(1, min(32, int(iP["mxLoop"]) // 10))
+    return ce
+
+
+def _validate_bcs(iParams, ndim):
+    bcs = list(iParams["BCs"])
+    if ndim == 1:
+        return (bcs[0],)
+    if len(bcs) < ndim:
+        raise ValueError(f"iParams['BCs'] needs {ndim} entries, got {bcs}")
+    return tuple(bcs[:ndim])
+
+
+def _check_ported(iP):
+    """Raise for the options this package does not have yet."""
+    scheme = iP.get("scheme", "sor")
+    if scheme in NOT_PORTED_SCHEMES:
+        raise NotImplementedError(
+            f"iParams['scheme']={scheme!r} is not ported yet "
+            f"({NOT_PORTED_SCHEMES[scheme]})")
+    if iP.get("tolType", "change") == "refined":
+        raise NotImplementedError("iParams['tolType']='refined' is not "
+                                  "ported yet (ROADMAP queue A item 13)")
+    if iP.get("streamChunk"):
+        raise NotImplementedError("iParams['streamChunk'] is not ported yet "
+                                  "(ROADMAP queue A item 14)")
+    if iP.get("mesh") is not None:
+        raise NotImplementedError("iParams['mesh'] is not ported yet "
+                                  "(ROADMAP queue A item 16)")
+
+
+def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
+            ndim):
+    dims = [dims] if isinstance(dims, str) else list(dims)
+    if len(dims) != ndim:
+        raise ValueError(f"{ndim:2d} dimensional forcing are needed")
+    iP = merge_params(default_iParams, iParams)
+    _check_ported(iP)
+    validate = mParams is not None and mParams is not default_mParams
+    mP = merge_params(default_mParams, mParams,
+                      valid_mp if validate else None)
+    device = torch.get_default_device()
+    dtype = torch.get_default_dtype()
+
+    ft, vals, Fdef, batch = _prepare(F, dims, iP)
+    bcs = _validate_bcs(iP, ndim)
+    grid = Grid.make(dims, [ft.coords[d] for d in dims], coords, bcs,
+                     rearth=mP["Rearth"])
+    mPr = _resolve_mp(mP, dims, grid.shape)
+
+    Fdef_c = _collapse_mask(Fdef, ndim)
+    spec = problems.BUILDERS[problem_key](
+        torch.as_tensor(vals, device=device),
+        torch.as_tensor(Fdef_c, device=device), grid, mPr)
+    S0 = _init_state(vals, Fdef, icbc, grid, ft,
+                     warm=bool(iP.get("warmStart", False)))
+    omega = iP["optArg"] if iP["optArg"] is not None else grid.omega_opt
+
+    if iP.get("debug"):
+        print(f"dim grids  : {grid.shape}\ndim intervs: {grid.deltas}\n"
+              f"optArg     : {omega}\nmax loops  : {iP['mxLoop']}\n"
+              f"tolerance  : {iP['tolerance']}\nboundaries : {grid.bcs}")
+
+    res = solve(spec, torch.as_tensor(S0, device=device), omega=omega,
+                tol=iP["tolerance"], max_iters=iP["mxLoop"],
+                check_every=_auto_check_every(iParams, iP, device, dtype),
+                scheme=iP.get("scheme", "sor"),
+                tol_type=iP.get("tolType", "change"))
+    global LAST_SOLVE
+    LAST_SOLVE = res
+    S = res.S.cpu().numpy()
+
+    if iP.get("printInfo"):
+        iters = np.atleast_1d(res.iters.cpu().numpy())
+        rel = np.atleast_1d(res.rel_change.cpu().numpy())
+        ovf = np.atleast_1d(res.overflow.cpu().numpy())
+        for i in range(iters.size):
+            suffix = " (overflows!)" if ovf.flat[i] else ""
+            print(f"loops {iters.flat[i]:4.0f} and tolerance is "
+                  f"{rel.flat[i]:e}{suffix}")
+
+    if icbc is None:
+        S = np.where(Fdef, S, iP["undef"])
+    out = Field(S, ft.dims, ft.coords, name="inverted")
+    if out.dims != as_field(F).dims:
+        out = out.transpose(*as_field(F).dims)
+    return out
+
+
+def invert_Poisson(F, dims, coords="lat-lon", icbc=None,
+                   mParams=None, iParams=None):
+    """Poisson equation for streamfunction/velocity potential
+    (apps.py:67-100)."""
+    return _invert("poisson", F, dims, coords, icbc,
+                   ["g", "Omega", "Rearth"], mParams, iParams, 2)

@@ -1,0 +1,351 @@
+# -*- coding: utf-8 -*-
+"""Red-black SOR engine and convergence driver, in PyTorch.
+
+Counterpart of ``xinvert_tpu/solver.py``.  A sweep is an extend pre-pass
+followed by two half-sweeps (red, then black) of the folded stencil
+``S += r_c * (g + sum_k w_k S[.+off_k] + w0 S)``.  On CUDA tensors the sweeps
+run in the hand-written kernels of :mod:`xinvert_tpu_torch.ops.sor2d`; on CPU
+tensors in their plain PyTorch versions, built from the functions below.
+
+Convergence control replicates the reference exactly: the mean-|S| norm
+(numbas.py:absNorm2D), the relative-change stopping rule, overflow detection
+and the (overflow, rel-change, loop-count) telemetry.  Arrays may carry
+leading batch dims; every slice runs in one batched sweep, and slices that
+have stopped are frozen.
+
+The engine runs on the device of the tensors it is given and never changes
+the caller's tensors in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from .grid import optimal_omega
+from .stencil import StencilSpec, prune_zero_offsets
+
+__all__ = ["SolveResult", "solve", "solve_fixed", "sweep"]
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """Solution plus the reference's ``flags`` telemetry (apps.py:2308-2311)."""
+    S: torch.Tensor
+    iters: torch.Tensor       # loop count at termination (per batch element)
+    rel_change: torch.Tensor  # last relative change of the norm
+    overflow: torch.Tensor    # bool, divergence detected
+
+
+# ---------------------------------------------------------------------------
+# boundary pre-pass ('extend' rows), applied once per iteration before the
+# sweep, exactly like the reference kernels (numbas.py:284-310, :1299-1343).
+# Only the second-to-last dim honours 'extend'.
+# ---------------------------------------------------------------------------
+
+def _apply_extend(spec: StencilSpec, S):
+    """The extend pre-pass on a copy of S (2-D specs)."""
+    if spec.ndim != 2:
+        raise NotImplementedError(
+            "the extend pre-pass is ported for 2-D specs only; 1-D is "
+            "ROADMAP queue A item 7, 3-D item 9")
+    if spec.bcs[-2] != "extend":
+        return S
+    S = S.clone()
+    periodic_x = spec.bcs[-1] == "periodic"
+    if not spec.bih:
+        if periodic_x:
+            S[..., 0, :] = S[..., 1, :]
+            S[..., -1, :] = S[..., -2, :]
+        else:
+            S[..., 0, 1:-1] = S[..., 1, 1:-1]
+            S[..., -1, 1:-1] = S[..., -2, 1:-1]
+            S[..., 0, 0] = S[..., 1, 1]
+            S[..., 0, -1] = S[..., 1, -2]
+            S[..., -1, 0] = S[..., -2, 1]
+            S[..., -1, -1] = S[..., -2, -2]
+    elif periodic_x:
+        # sequential reference semantics: S[0]=old S[1]; S[1]=S[2]
+        S[..., 0, :] = S[..., 1, :]
+        S[..., 1, :] = S[..., 2, :]
+        bm3 = S[..., -3, :].clone()
+        S[..., -1, :] = bm3
+        S[..., -2, :] = bm3
+    else:
+        top = S[..., 2, 1:-1].clone()
+        S[..., 0, 1:-1] = top
+        S[..., 1, 1:-1] = top
+        bot = S[..., -3, 1:-1].clone()
+        S[..., -1, 1:-1] = bot
+        S[..., -2, 1:-1] = bot
+        for (ys, xs, yy, xx) in (((0, 2), (0, 2), 2, 2),
+                                 ((0, 2), (-2, None), 2, -3),
+                                 ((-2, None), (0, 2), -3, 2),
+                                 ((-2, None), (-2, None), -3, -3)):
+            c = S[..., yy, xx].clone()
+            S[..., slice(*ys), slice(*xs)] = c[..., None, None]
+    return S
+
+
+# ---------------------------------------------------------------------------
+# the sweep
+# ---------------------------------------------------------------------------
+
+def _checkerboard(shape, dtype, device):
+    """(sum of core indices) % 2 == 0 mask."""
+    total = 0
+    for ax, n in enumerate(shape):
+        view = [1] * len(shape)
+        view[ax] = n
+        total = total + torch.arange(n, device=device).reshape(view)
+    return (total % 2 == 0).to(dtype)
+
+
+def _neighbor_sum(spec: StencilSpec, S):
+    """sum_k w_k * S[. + off_k] + g  over the core (trailing) axes."""
+    nd = spec.ndim
+    acc = spec.g
+    for k, off in enumerate(spec.offsets):
+        shifts = tuple(-o for o in off if o != 0)
+        axes = tuple(ax - nd for ax, o in enumerate(off) if o != 0)
+        acc = acc + spec.w[k] * torch.roll(S, shifts=shifts, dims=axes)
+    return acc
+
+
+def _color_relax(spec: StencilSpec, omega):
+    """The two per-color relaxation planes: omega * active/(-w0) * color."""
+    core_shape = spec.w0.shape[-spec.ndim:]
+    red = _checkerboard(core_shape, spec.w0.dtype, spec.w0.device)
+    r = float(omega) * spec.relax
+    return r * red, r * (1.0 - red)
+
+
+def _half_sweep(spec: StencilSpec, S, r):
+    """One color's half-sweep with relaxation plane ``r``; every term reads
+    the state from before the half-sweep."""
+    acc = _neighbor_sum(spec, S)
+    return S + r * (acc + spec.w0 * S)
+
+
+def sweep(spec: StencilSpec, S, omega):
+    """One full SOR iteration: extend pre-pass + red half + black half."""
+    rr, rb = _color_relax(spec, omega)
+    return _sweep_with(spec, S, rr, rb)
+
+
+def _sweep_with(spec: StencilSpec, S, rr, rb):
+    S = _apply_extend(spec, S)
+    for r in (rr, rb):
+        S = _half_sweep(spec, S, r)
+    return S
+
+
+def _residual_norm(spec: StencilSpec, S):
+    """Mean |sum_k w_k S[.+off_k] + w0 S + g| over active cells, per slice —
+    the true discrete residual of the folded system."""
+    axes = tuple(range(-spec.ndim, 0))
+    r = torch.where(spec.active, _neighbor_sum(spec, S) + spec.w0 * S, 0.0)
+    n_active = max(int(spec.active.sum()), 1)
+    return torch.sum(torch.abs(r), dim=axes) / n_active
+
+
+def _residual_scale(spec: StencilSpec):
+    """Normaliser for the relative residual: per-slice mean |g| over active
+    cells (the forcing magnitude), with a dtype floor for zero forcing."""
+    axes = tuple(range(-spec.ndim, 0))
+    g = torch.where(spec.active, spec.g, 0.0)
+    n_active = max(int(spec.active.sum()), 1)
+    s = torch.sum(torch.abs(g), dim=axes) / n_active
+    return torch.clamp(s, min=torch.finfo(spec.g.dtype).tiny)
+
+
+# ---------------------------------------------------------------------------
+# drivers
+# ---------------------------------------------------------------------------
+
+def _select_kernel(spec: StencilSpec, S):
+    """The sweep executor for (spec, S): ``"cuda"`` (the hand-written
+    kernels) for CUDA tensors, ``"plain"`` (their PyTorch versions) for CPU
+    tensors.  Anything else raises: there is no silent fallback."""
+    for name in ("w", "w0", "g", "relax", "active"):
+        if getattr(spec, name).device != S.device:
+            raise ValueError(
+                f"spec.{name} is on {getattr(spec, name).device} but the "
+                f"state is on {S.device}")
+    if spec.ndim != 2:
+        raise NotImplementedError(
+            f"{spec.ndim}-D specs are not ported yet (1-D: ROADMAP queue A "
+            "item 7; 3-D: item 9 with kernels B4/B5)")
+    if S.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"no sweep kernel for dtype {S.dtype}")
+    if spec.w0.dtype != S.dtype:
+        raise TypeError(f"spec dtype {spec.w0.dtype} != state dtype "
+                        f"{S.dtype}")
+    if S.device.type == "cpu":
+        return "plain"
+    if S.is_cuda:
+        return "cuda"
+    raise NotImplementedError(f"no sweep kernel for device {S.device}")
+
+
+def _sweeps_fn(kernel):
+    """``run(spec, S, omega, n, with_norm) -> (S', sumabs or None)``."""
+    from .ops import sor2d
+
+    def run(spec, S, omega, n, with_norm):
+        if kernel == "cuda":
+            if with_norm:
+                return sor2d.sor2d_sweeps(spec, S, omega, n, with_norm=True)
+            return sor2d.sor2d_sweeps(spec, S, omega, n), None
+        if with_norm:
+            return sor2d.sor2d_sweeps_reference_norm(spec, S, omega, n)
+        return sor2d.sor2d_sweeps_reference(spec, S, omega, n), None
+    return run
+
+
+def _solve_impl(spec, S0, omega, tol, max_iters, check_every, kernel,
+                tol_type):
+    dtype, device = S0.dtype, S0.device
+    batch_shape = S0.shape[: S0.ndim - spec.ndim]
+    ncells = math.prod(S0.shape[-spec.ndim:])
+    run = _sweeps_fn(kernel)
+    r_scale = _residual_scale(spec) if tol_type == "residual" else None
+    tol_t = torch.tensor(tol, dtype=dtype, device=device)
+
+    # norm_prev < 0 marks "no previous norm yet".  (The reference uses a
+    # float-max sentinel; |norm - MAX| / MAX multiplies by a subnormal,
+    # which flush-to-zero turns into rel == 0 -> instant false convergence.)
+    c = dict(
+        S=S0,
+        it=0,                                         # total sweeps run
+        loop=torch.zeros(batch_shape, dtype=torch.int32, device=device),
+        norm_prev=torch.full(batch_shape, -1.0, dtype=dtype, device=device),
+        rel=torch.ones(batch_shape, dtype=dtype, device=device),
+        overflow=torch.zeros(batch_shape, dtype=torch.bool, device=device),
+        done=torch.zeros(batch_shape, dtype=torch.bool, device=device),
+    )
+    single = math.prod(batch_shape) == 1
+
+    def advance(c, k):
+        # one check window: k sweeps, then the convergence/telemetry update
+        S_new, sum_abs = run(spec, c["S"], omega, k,
+                             with_norm=tol_type != "residual")
+        if tol_type == "residual":
+            norm = torch.broadcast_to(_residual_norm(spec, S_new),
+                                      batch_shape)
+            rel = norm / r_scale
+        else:
+            # the reference's mean-|S| norm (absNorm*, numbas.py:1690-1747)
+            # from the per-slice total |S| the sweeps return
+            norm = sum_abs / ncells
+            prev = c["norm_prev"]
+            rel = torch.where(prev >= 0,
+                              torch.abs(norm - prev)
+                              / torch.where(prev > 0, prev, 1.0),
+                              torch.ones_like(norm))
+        # reference: isnan(norm) or norm > 1e100 (numbas.py:403); ~isfinite
+        # additionally catches inf, which for float32 subsumes the 1e100 test
+        overflow = ~torch.isfinite(norm)
+        if dtype == torch.float64:
+            overflow = overflow | (norm > 1e100)
+        # reference loop semantics (numbas.py:401-414): sweep, increment,
+        # then test — exactly mxLoop sweeps run at the cap and `iters`
+        # counts sweeps performed
+        new_loop = c["loop"] + k
+        stop = overflow | (rel < tol_t) | (new_loop >= max_iters)
+        if spec.stop_on_zero_norm and tol_type != "residual":
+            stop = stop | (norm == 0)
+        if single:
+            # the loop exits the moment `done` flips, so it never advances
+            # a finished slice: the freeze would be the identity
+            def frz(old, new, d=None):
+                return new
+        else:
+            done = c["done"]
+
+            def frz(old, new, d=done):
+                return torch.where(d, old, new)
+        d_state = c["done"].reshape(batch_shape + (1,) * spec.ndim)
+        return dict(
+            S=frz(c["S"], S_new, d_state),
+            it=c["it"] + k,
+            loop=frz(c["loop"], new_loop),
+            norm_prev=frz(c["norm_prev"], norm),
+            rel=frz(c["rel"], rel),
+            overflow=frz(c["overflow"], overflow),
+            done=c["done"] | stop,
+        )
+
+    # only FULL check windows run in the loop (one host sync per window);
+    # the clamped mxLoop remainder runs once after it, so exactly mxLoop
+    # sweeps run even when check_every does not divide it
+    while (c["it"] + check_every <= max_iters
+           and not bool(torch.all(c["done"]))):
+        c = advance(c, check_every)
+    rem = max_iters - c["it"]
+    if rem > 0 and not bool(torch.all(c["done"])):
+        c = advance(c, rem)
+    return SolveResult(S=c["S"], iters=c["loop"], rel_change=c["rel"],
+                       overflow=c["overflow"])
+
+
+#: schemes of the JAX package not ported yet, with their ROADMAP item
+NOT_PORTED_SCHEMES = {"cheby": "ROADMAP queue A item 8",
+                      "direct": "ROADMAP queue A item 10",
+                      "lexico": "ROADMAP queue A item 11"}
+
+
+def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
+          tol: float = 1e-8, max_iters: int = 5000,
+          check_every: int = 1,
+          scheme: str = "sor",
+          tol_type: str = "change") -> SolveResult:
+    """Iterate to convergence with the reference's stopping rule.
+
+    Parameters mirror iParams: ``tol`` is the relative change of the mean-|S|
+    norm between checks (a solution-change criterion, not a residual),
+    ``max_iters`` the reference's mxLoop.  ``omega`` defaults to the
+    grid-optimal factor if None.
+
+    ``check_every`` amortises the convergence test over k sweeps (the
+    termination test then sees the norm every k-th iterate; k=1 reproduces
+    the reference exactly).  ``tol_type="residual"`` stops on the true
+    relative discrete residual mean|r|/mean|g| over active cells instead;
+    ``rel_change`` then reports the final relative residual.
+
+    Runs on the device of ``spec`` and ``S0`` (which must agree): the CUDA
+    kernels on a CUDA device, their plain PyTorch versions on the CPU.
+    """
+    if scheme in NOT_PORTED_SCHEMES:
+        raise NotImplementedError(f"scheme={scheme!r} is not ported yet "
+                                  f"({NOT_PORTED_SCHEMES[scheme]})")
+    if scheme != "sor":
+        raise ValueError(f"unknown scheme {scheme!r}; use 'sor'")
+    if tol_type not in ("change", "residual"):
+        raise ValueError(f"unknown tol_type {tol_type!r}; "
+                         "use 'change' or 'residual'")
+    if int(check_every) < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    if omega is None:
+        omega = optimal_omega(S0.shape[-spec.ndim:])
+    kernel = _select_kernel(spec, S0)
+    # drop identically-zero weight planes: the sweep's memory traffic scales
+    # with the plane count (stencil.prune_zero_offsets; exact)
+    spec = prune_zero_offsets(spec)
+    return _solve_impl(spec, S0, float(omega), float(tol), int(max_iters),
+                       int(check_every), kernel, tol_type)
+
+
+def solve_fixed(spec: StencilSpec, S0, omega, n_iters: int):
+    """Run exactly n_iters SOR iterations (no convergence checks).
+
+    The hot path for benchmarking and for fixed-iteration parity tests.
+    Unlike :func:`solve`, this does not prune zero weight planes: callers
+    chain many calls on one spec, and the prune test is a host sync.
+    """
+    kernel = _select_kernel(spec, S0)
+    S, _ = _sweeps_fn(kernel)(spec, S0, float(omega), int(n_iters),
+                              with_norm=False)
+    return S
