@@ -9,19 +9,29 @@ seed, and runs these phases, each printing its lines:
 
   0  environment: CUDA must be available; the card's name and power limit
      (nvidia-smi), torch and CUDA versions;
-  1  build: nvcc compiles xinvert_tpu_torch/csrc/sor2d.cu (first use);
+  1  build: nvcc compiles xinvert_tpu_torch/csrc/sor2d.cu and csrc/sor3d.cu,
+     one process per source started together (first use), with the seconds
+     each took;
   2  each kernel against its plain PyTorch version on the card: bit-equal
-     (torch.equal) in float32 and float64 after 20 sweeps on several grids,
-     and the fused |S| sums against sum|S| (rtol 1e-5 / 1e-12);
-  3  the main path: invert_Poisson on the masked spherical problem in
-     float32 at 2048x2048 and at a batched 8x73x144, with the launch counts
-     showing it ran through the kernels, and the 8x73x144 answer held
-     against a float64 CPU run of the same call;
-  4  timing at 2048x2048 float32: solve_fixed, 500 sweeps per call, median
-     of 5 chained calls timed with CUDA events, for the kernels and for the
-     plain version, beside a device-to-device copy of the same byte count;
-     the kernels' float64 rate; each kernel's device time per launch
-     (torch.profiler) beside its plain version's.
+     (torch.equal) in float32 and float64, alone and over 20 sweeps, on
+     several 2-D grids and 3-D volumes, and the fused |S| sums against
+     sum|S| (rtol 1e-5 / 1e-12);
+  3  the main paths, in float32 and with no device argument (the entry
+     points default to the card): invert_Poisson at 2048x2048 and at a
+     batched 8x73x144; invert_omega at 37x72x288; invert_3DOcean at
+     30x330x720.  Each path runs with every launch count set to 0 just
+     before it and read just after, which must show it went through its
+     kernels alone, then once more under torch.profiler for the device's
+     busy time against the wall time.  Smaller runs of the same calls are
+     held against a float64 CPU run (device="cpu", the plain version):
+     Poisson 8x73x144, omega 37x72x144, ocean 20x110x240, within 1e-4 of
+     max|S|;
+  4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
+     calls timed with CUDA events, for the kernels and the plain version,
+     beside a device-to-device copy of the bytes a sweep of the kernels
+     moves (2-D 2048x2048, float64 too; 3-D 37x72x288, 73x72x288,
+     30x330x720); each kernel's device time per launch (torch.profiler)
+     beside its plain version's and beside its bound.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Any failed phase raises, and the
@@ -38,13 +48,33 @@ import xinvert_tpu_torch as xt
 from xinvert_tpu_torch.grid import Grid
 from xinvert_tpu_torch.models import api, problems
 from xinvert_tpu_torch.models.params import default_mParams
-from xinvert_tpu_torch.ops import _build, sor2d
+from xinvert_tpu_torch.ops import _build, sor2d, sor3d
 from xinvert_tpu_torch.stencil import StencilSpec, _interior_mask, standard_2d
 
-SOURCE = "xinvert_tpu_torch/csrc/sor2d.cu"
+KERNELS = {   # name: (source, replaces, also_replaces)
+    "sor2d_extend_rows": ("xinvert_tpu_torch/csrc/sor2d.cu",
+                          "xinvert_tpu/ops/pallas_sor.py:43",
+                          "xinvert_tpu/ops/pallas_sor_window.py:67"),
+    "sor2d_color_sweep": ("xinvert_tpu_torch/csrc/sor2d.cu",
+                          "xinvert_tpu/ops/pallas_sor.py:94",
+                          "xinvert_tpu/ops/pallas_sor_window.py:252"),
+    "sor3d_extend_rows": ("xinvert_tpu_torch/csrc/sor3d.cu",
+                          "xinvert_tpu/ops/pallas_sor3d.py:50",
+                          "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
+    "sor3d_color_sweep": ("xinvert_tpu_torch/csrc/sor3d.cu",
+                          "xinvert_tpu/ops/pallas_sor3d.py:75",
+                          "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
+}
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 BIH_OFFSETS = ((2, 0), (1, 0), (-1, 0), (-2, 0), (0, 2), (0, 1), (0, -1),
                (0, -2), (2, 2), (2, -2), (-2, 2), (-2, -2), (1, 1), (-1, 1),
                (1, -1), (-1, -1))
+OFFSETS_3D = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+              (0, 0, -1))
+DIMS_3D = ["LEV", "lat", "lon"]
 
 
 def log(msg):
@@ -97,20 +127,129 @@ def cross_spec(ny, nx, bcs, dtype, device, seed=1):
     return spec, 1.3
 
 
-def random_spec(ny, nx, offsets, bcs, bih, batch, per_slice, dtype, device,
+def random_spec(core, offsets, bcs, bih, batch, per_slice, dtype, device,
                 seed=2):
-    """A diagonally dominant spec from random planes (from_arrays)."""
+    """A diagonally dominant spec from random planes (from_arrays) on a
+    2-D grid or 3-D volume ``core``."""
     rng = np.random.default_rng(seed)
-    shape = (batch, ny, nx) if (batch and per_slice) else (ny, nx)
-    active = np.broadcast_to(_interior_mask((ny, nx), bcs, bih), shape).copy()
+    core = tuple(core)
+    shape = ((batch,) + core) if (batch and per_slice) else core
+    active = np.broadcast_to(_interior_mask(core, bcs, bih), shape).copy()
     active &= rng.random(shape) > 0.05
     w = rng.uniform(0.05, 0.25, (len(offsets),) + shape) * active
     w0 = np.where(active, -1.05 * w.sum(0), 0.0)
     relax = np.where(active, 1.0 / np.where(active, -w0, 1.0), 0.0)
-    g = rng.normal(0.0, 1.0, ((batch,) if batch else ()) + (ny, nx)) * active
+    g = rng.normal(0.0, 1.0, ((batch,) if batch else ()) + core) * active
     spec = StencilSpec.from_arrays(w, w0, g, relax, active, offsets, bcs, bih,
                                    False, device=device, dtype=dtype)
     return spec, 1.2
+
+
+def atmos3d(nz, ny, nx, batch=0):
+    """The QG-omega forcing and N2 level profile of the repository's
+    atmosphere fixture recipe (baroclinic wave train at mid-latitudes,
+    weak troposphere / strong stratosphere stratification); ``batch``
+    stacks scaled copies on a leading time dim."""
+    lev = np.linspace(100000.0, 10000.0, nz)
+    lat = np.linspace(-87.5, 87.5, ny)
+    lon = np.linspace(0.0, 360.0 - 360.0 / nx, nx)
+    L = np.deg2rad(lat)[None, :, None]
+    Lo = np.deg2rad(lon)[None, None, :]
+    P = lev[:, None, None]
+    N2 = np.where(lev > 25000.0, 1.5e-5, 6e-5)
+    rng = np.random.default_rng(2)
+    envelope = np.exp(-((np.abs(L) - np.deg2rad(45)) / np.deg2rad(15)) ** 2)
+    vertical = np.sin(np.pi * (100000.0 - P) / 90000.0)
+    F = np.zeros((nz, ny, nx))
+    for k in range(4, 9):
+        F += (rng.normal() * np.sin(k * Lo + rng.uniform(0, 6)) *
+              envelope * vertical / k)
+    F *= 1e-15
+    coords = {"LEV": lev, "lat": lat, "lon": lon}
+    dims = tuple(DIMS_3D)
+    if batch:
+        F = F[None] * np.linspace(1.0, -0.5, batch)[:, None, None, None]
+        dims = ("time",) + dims
+        coords["time"] = np.arange(batch, dtype=np.float64)
+    return (xt.Field(F, dims, coords),
+            xt.Field(N2, ("LEV",), {"LEV": lev}))
+
+
+def soda_land_mask(lat, lon):
+    """Continent-like land/sea mask of the 0.5-degree global ocean grid
+    (the repository's SODA-analog fixture recipe): smooth blob continents,
+    an Antarctic cap and a partially closed Arctic."""
+    L, Lo = np.meshgrid(np.deg2rad(lat), np.deg2rad(lon), indexing="ij")
+    field = np.zeros_like(L)
+    blobs = [
+        (10, 280, 1.6, 55, 25), (-25, 295, 1.2, 30, 18),
+        (15, 20, 1.7, 45, 30), (50, 80, 1.5, 35, 55),
+        (-25, 133, 1.0, 18, 22), (72, 320, 0.9, 12, 25),
+    ]
+    for lat0, lon0, amp, sy, sx in blobs:
+        dlat = (L - np.deg2rad(lat0)) / np.deg2rad(sy)
+        dlon = np.angle(np.exp(1j * (Lo - np.deg2rad(lon0)))) / np.deg2rad(sx)
+        field += amp * np.exp(-dlat ** 2 - dlon ** 2)
+    land = field > 0.55
+    land |= lat[:, None] < -70.0                     # Antarctica
+    land |= (lat[:, None] > 82.0) & (np.cos(2 * Lo) > -0.3)   # Arctic shelf
+    return land
+
+
+def ocean3d(nz, step=1):
+    """The wide, flat global ocean volume of the 3-D ocean example: the
+    0.5-degree 330x720 land mask (every ``step``-th point), ``nz`` levels
+    150 m apart, deep cells shrinking below level 12 (a crude shelf),
+    high-latitude mass sources over a uniform sink decaying with depth,
+    and an exponential N2 profile."""
+    lat_f = np.linspace(-74.75, 89.75, 330)
+    lon_f = np.linspace(0.25, 360.0 - 360.0 / 720 + 0.25, 720)
+    land2d = soda_land_mask(lat_f, lon_f)[::step, ::step]
+    lat, lon = lat_f[::step], lon_f[::step]
+    lev = np.linspace(0.0, 150.0 * (nz - 1), nz)
+    mask = np.broadcast_to(~land2d, (nz,) + land2d.shape).copy()
+    mask[12:] &= np.roll(mask[0], 2, axis=0)
+    zprof = np.exp(-lev / 700.0)[:, None, None]
+    src = np.exp(-((lat[None, :, None] - 62.0) / 8.0) ** 2) \
+        + np.exp(-((lat[None, :, None] + 58.0) / 8.0) ** 2)
+    F = np.broadcast_to(1e-11 * zprof * (src - 0.35), mask.shape)
+    F = np.where(mask, F, np.nan)
+    coords = {"LEV": lev, "lat": lat, "lon": lon}
+    N2 = xt.Field(1e-5 * np.exp(-lev / 1000.0) + 1e-7, ("LEV",),
+                  {"LEV": lev})
+    return xt.Field(F, tuple(DIMS_3D), coords), N2
+
+
+OCEAN_MP = {"epsilon": 7e-6, "k": 1e-5}
+
+
+def _grid3(f, bcs):
+    return Grid.make(DIMS_3D, [f.coords[d] for d in DIMS_3D], "lat-lon",
+                     bcs=bcs)
+
+
+def omega_spec(nz, ny, nx, batch, dtype, device):
+    """build_omega on the fixture recipe, (fixed, fixed, periodic): batched
+    forcing, shared weights."""
+    F, N2 = atmos3d(nz, ny, nx, batch)
+    grid = _grid3(F, ("fixed", "fixed", "periodic"))
+    vals = torch.as_tensor(F.values, dtype=dtype, device=device)
+    mp = dict(default_mParams, N2=N2.values[:, None, None])
+    spec = problems.build_omega(
+        vals, torch.ones((nz, ny, nx), dtype=torch.bool, device=device),
+        grid, mp)
+    return spec, grid.omega_opt
+
+
+def ocean_spec(nz, dtype, device, step=1):
+    """build_ocean3d (general_3d) on the masked ocean volume of
+    :func:`ocean3d`, (fixed, extend, periodic)."""
+    F, N2 = ocean3d(nz, step)
+    grid = _grid3(F, ("fixed", "extend", "periodic"))
+    vals = torch.as_tensor(F.values, dtype=dtype, device=device)
+    Fdef = ~torch.isnan(vals)
+    mp = dict(default_mParams, N2=N2.values[:, None, None], **OCEAN_MP)
+    return problems.build_ocean3d(vals, Fdef, grid, mp), 1.4
 
 
 # ---------------------------------------------------------------- phase 0
@@ -136,10 +275,15 @@ def phase0():
 
 def phase1():
     t0 = time.perf_counter()
-    _build.load()
+    _build.build_all()
+    for name in _build.SOURCES:
+        _build.load(name)
+    nvcc = ", ".join(f"{name}.cu {_build.BUILD_SECONDS[name]:.3f} s"
+                     if name in _build.BUILD_SECONDS
+                     else f"{name}.cu already built"
+                     for name in _build.SOURCES)
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.3f} s "
-        f"(nvcc {_build.BUILD_SECONDS:.3f} s, flags "
-        f"{' '.join(_build.NVCC_FLAGS)})")
+        f"(nvcc in parallel: {nvcc}; flags {' '.join(_build.NVCC_FLAGS)})")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -148,9 +292,56 @@ def _max_err(a, b):
     return float((a.double() - b.double()).abs().max())
 
 
+def _check_kernels(mod, name, make, errs, n=20):
+    """Each kernel of ``mod`` alone and n sweeps of both, against the plain
+    versions, in float32 and float64; raises on any difference."""
+    p = mod.__name__.rsplit(".", 1)[-1]           # "sor2d" / "sor3d"
+    extend, extend_ref = (getattr(mod, f"{p}_extend"),
+                          getattr(mod, f"{p}_extend_reference"))
+    color, color_ref = (getattr(mod, f"{p}_color_sweep"),
+                        getattr(mod, f"{p}_color_sweep_reference"))
+    sweeps, sweeps_ref = (getattr(mod, f"{p}_sweeps"),
+                          getattr(mod, f"{p}_sweeps_reference"))
+    core = (-3, -2, -1) if p == "sor3d" else (-2, -1)
+    for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        spec, omega = make(dt)
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        S0 = (torch.randn(spec.g.shape, generator=gen, dtype=torch.float64)
+              * 1e-3).to(dt).to(spec.g.device)
+        ext_k = extend(spec, S0)
+        ext_p = extend_ref(spec, S0)
+        ok = torch.equal(ext_k, ext_p)
+        errs[f"{p}_extend_rows"] = max(errs[f"{p}_extend_rows"],
+                                       _max_err(ext_k, ext_p))
+        rel = mod.relax_plane(spec, omega)
+        for c in (0, 1):
+            cs_k = color(spec, ext_k, rel, c)
+            cs_p = color_ref(spec, ext_p, rel, c)
+            ok &= torch.equal(cs_k, cs_p)
+            errs[f"{p}_color_sweep"] = max(errs[f"{p}_color_sweep"],
+                                           _max_err(cs_k, cs_p))
+        out_k = sweeps(spec, S0, omega, n)
+        out_p = sweeps_ref(spec, S0, omega, n)
+        out_n, sumabs = sweeps(spec, S0, omega, n, with_norm=True)
+        torch.cuda.synchronize()
+        err = _max_err(out_k, out_p)
+        for k in (f"{p}_extend_rows", f"{p}_color_sweep"):
+            errs[k] = max(errs[k], err)
+        ok &= torch.equal(out_k, out_p) and torch.equal(out_n, out_k)
+        ok &= bool(torch.isfinite(out_p).all())
+        ref = out_p.double().abs().sum(dim=core)
+        norm_err = float(((sumabs.double() - ref).abs() / ref).max())
+        log(f"[2] {name} {str(dt)[6:]}: bit-equal={ok} "
+            f"max|kernel-plain|={err:.3e} sumabs rel err={norm_err:.3e} "
+            f"(tol {rtol:g})")
+        if not ok or not norm_err <= rtol:
+            raise RuntimeError(f"kernel disagrees with its plain version "
+                               f"on {name} {dt}")
+
+
 def phase2(dev):
-    errs = {"sor2d_extend_rows": 0.0, "sor2d_color_sweep": 0.0}
-    cases = [
+    errs = {name: 0.0 for name in KERNELS}
+    cases_2d = [
         ("gallery 3x73x144 (extend, periodic) masked",
          lambda dt: poisson_spec(73, 144, 3, dt, dev)),
         ("main path 8x73x144 (extend, periodic) masked",
@@ -160,132 +351,184 @@ def phase2(dev):
         ("main path 2048x2048 (extend, periodic) masked",
          lambda dt: poisson_spec(2048, 2048, 0, dt, dev)),
         ("bih 16-offset 29x31 (extend, fixed)",
-         lambda dt: random_spec(29, 31, BIH_OFFSETS, ("extend", "fixed"),
+         lambda dt: random_spec((29, 31), BIH_OFFSETS, ("extend", "fixed"),
                                 True, 0, False, dt, dev)),
         ("bih 16-offset 2x33x37 (extend, periodic) per-slice planes",
-         lambda dt: random_spec(33, 37, BIH_OFFSETS, ("extend", "periodic"),
+         lambda dt: random_spec((33, 37), BIH_OFFSETS, ("extend", "periodic"),
                                 True, 2, True, dt, dev, seed=3)),
         ("odd 2x37x53 (extend, fixed) per-slice planes",
-         lambda dt: random_spec(37, 53, ((1, 0), (-1, 0), (0, 1), (0, -1)),
+         lambda dt: random_spec((37, 53), ((1, 0), (-1, 0), (0, 1), (0, -1)),
                                 ("extend", "fixed"), False, 2, True, dt, dev,
                                 seed=5)),
         ("odd 5x7 (extend, fixed) cross", lambda dt: random_spec(
-            5, 7, ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1)),
+            (5, 7), ((1, 0), (-1, 0), (0, 1), (0, -1), (1, 1), (-1, -1)),
             ("extend", "fixed"), False, 0, False, dt, dev, seed=6)),
     ]
-    for name, make in cases:
-        for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-            spec, omega = make(dt)
-            gen = torch.Generator(device="cpu").manual_seed(7)
-            S0 = (torch.randn(spec.g.shape, generator=gen,
-                              dtype=torch.float64)
-                  * 1e-3).to(dt).to(dev)
-            # each kernel alone
-            ext_k = sor2d.sor2d_extend(spec, S0)
-            ext_p = sor2d.sor2d_extend_reference(spec, S0)
-            ok = torch.equal(ext_k, ext_p)
-            errs["sor2d_extend_rows"] = max(errs["sor2d_extend_rows"],
-                                            _max_err(ext_k, ext_p))
-            rel = sor2d.relax_plane(spec, omega)
-            for color in (0, 1):
-                cs_k = sor2d.sor2d_color_sweep(spec, ext_k, rel, color)
-                cs_p = sor2d.sor2d_color_sweep_reference(spec, ext_p, rel,
-                                                         color)
-                ok &= torch.equal(cs_k, cs_p)
-                errs["sor2d_color_sweep"] = max(errs["sor2d_color_sweep"],
-                                                _max_err(cs_k, cs_p))
-            # 20 full sweeps, and the fused |S| sums
-            out_k = sor2d.sor2d_sweeps(spec, S0, omega, 20)
-            out_p = sor2d.sor2d_sweeps_reference(spec, S0, omega, 20)
-            out_n, sumabs = sor2d.sor2d_sweeps(spec, S0, omega, 20,
-                                               with_norm=True)
-            torch.cuda.synchronize()
-            err = _max_err(out_k, out_p)
-            for k in errs:
-                errs[k] = max(errs[k], err)
-            ok &= torch.equal(out_k, out_p) and torch.equal(out_n, out_k)
-            ok &= bool(torch.isfinite(out_p).all())
-            ref = out_p.double().abs().sum(dim=(-2, -1))
-            norm_err = float(((sumabs.double() - ref).abs() / ref).max())
-            log(f"[2] {name} {str(dt)[6:]}: bit-equal={ok} "
-                f"max|kernel-plain|={err:.3e} sumabs rel err={norm_err:.3e} "
-                f"(tol {rtol:g})")
-            if not ok or not norm_err <= rtol:
-                raise RuntimeError(f"kernel disagrees with its plain version "
-                                   f"on {name} {dt}")
+    cases_3d = [
+        ("omega 3x37x72x144 (fixed, fixed, periodic) batched g",
+         lambda dt: omega_spec(37, 72, 144, 3, dt, dev)),
+        ("main path omega 37x72x288 (fixed, fixed, periodic)",
+         lambda dt: omega_spec(37, 72, 288, 0, dt, dev)),
+        ("main path ocean general_3d 30x330x720 (fixed, extend, periodic) "
+         "masked", lambda dt: ocean_spec(30, dt, dev)),
+        ("ocean general_3d 20x110x240 (fixed, extend, periodic) masked",
+         lambda dt: ocean_spec(20, dt, dev, step=3)),
+        ("2x9x17x23 (fixed, extend, fixed) per-slice planes",
+         lambda dt: random_spec((9, 17, 23), OFFSETS_3D,
+                                ("fixed", "extend", "fixed"), False, 2, True,
+                                dt, dev, seed=8)),
+        ("odd 5x7x9 (fixed, extend, fixed)",
+         lambda dt: random_spec((5, 7, 9), OFFSETS_3D,
+                                ("fixed", "extend", "fixed"), False, 0, False,
+                                dt, dev, seed=9)),
+    ]
+    for name, make in cases_2d:
+        _check_kernels(sor2d, name, make, errs)
+    for name, make in cases_3d:
+        _check_kernels(sor3d, name, make, errs)
     return errs
 
 
 # ---------------------------------------------------------------- phase 3
 
-def _counts():
-    return (sor2d.EXTEND_LAUNCHES, sor2d.LAUNCHES, sor2d.PLAIN_CALLS)
+def _zero_counts():
+    for mod in (sor2d, sor3d):
+        mod.EXTEND_LAUNCHES = mod.LAUNCHES = mod.PLAIN_CALLS = 0
 
 
-def _check_field(sf, field, name):
+def _check_field(out, field, name):
     land = np.isnan(field.values)
-    out = sf.values
-    if not (np.array_equal(np.isnan(out), land)
-            and np.isfinite(out[~land]).all()):
+    vals = out.values
+    if not (np.array_equal(np.isnan(vals), land)
+            and np.isfinite(vals[~land]).all()):
         raise RuntimeError(f"{name}: NaN not exactly on the mask, or "
                            "non-finite values over the ocean")
     if bool(api.LAST_SOLVE.overflow.any()):
         raise RuntimeError(f"{name}: the solve overflowed")
-    if not np.abs(out[~land]).max() > 0:
+    if not np.abs(vals[~land]).max() > 0:
         raise RuntimeError(f"{name}: the solution is zero")
 
 
+def _drive(name, mod, call, field, extend, launches=None):
+    """One call of an entry point with every count set to 0 just before it
+    and read just after; it must have gone through ``mod``'s kernels alone
+    (the extend kernel too when ``extend``).  The full-size main-path runs
+    add their launches to ``launches``."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ext, sweeps = mod.EXTEND_LAUNCHES, mod.LAUNCHES
+    plain = sor2d.PLAIN_CALLS + sor3d.PLAIN_CALLS
+    other = sor3d if mod is sor2d else sor2d
+    res = api.LAST_SOLVE
+    log(f"[3] {name} float32: iters {res.iters.cpu().tolist()} rel_change "
+        f"{res.rel_change.cpu().tolist()} overflow "
+        f"{res.overflow.cpu().tolist()} wall {wall:.3f} s; launches extend "
+        f"{ext} color_sweep {sweeps}, plain calls {plain}")
+    if not (sweeps > 0 and plain == 0 and other.LAUNCHES == 0
+            and other.EXTEND_LAUNCHES == 0):
+        raise RuntimeError(f"{name}: the main path did not run through "
+                           "its kernels alone")
+    if (ext > 0) != extend:
+        raise RuntimeError(f"{name}: {ext} launches of the extend kernel")
+    if launches is not None:
+        p = mod.__name__.rsplit(".", 1)[-1]
+        launches[f"{p}_extend_rows"] += ext
+        launches[f"{p}_color_sweep"] += sweeps
+    _check_field(out, field, name)
+    return out
+
+
+def _busy_share(name, call):
+    """One more call of an entry point under torch.profiler: the device's
+    busy time (the sum of its kernels and copies, which run in order on one
+    stream) against the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(ev.self_device_time_total for ev in prof.key_averages()) / 1e6
+    log(f"[3] {name} float32, profiled call: device busy {busy:.4f} s of "
+        f"{wall:.4f} s wall, idle share {1.0 - busy / wall:.3f}")
+
+
+def _against_cpu(name, card_out, call):
+    """The card's float32 answer against a float64 CPU run of ``call``."""
+    torch.set_default_dtype(torch.float64)
+    ref = call()
+    torch.set_default_dtype(torch.float32)
+    ok = ~np.isnan(ref.values)
+    dev = (np.abs(card_out.values[ok] - ref.values[ok]).max()
+           / np.abs(ref.values[ok]).max())
+    log(f"[3] {name} float32 card vs float64 CPU: max|diff|/max|S| = "
+        f"{dev:.3e} (limit 1e-4); CPU iters "
+        f"{api.LAST_SOLVE.iters.tolist()}")
+    if not dev <= 1e-4:
+        raise RuntimeError(f"{name}: the card's answer disagrees with the "
+                           "float64 CPU run")
+
+
 def phase3():
+    launches = {name: 0 for name in KERNELS}
+    torch.set_default_dtype(torch.float32)
     iP_big = {"BCs": ["extend", "periodic"], "undef": np.nan,
               "mxLoop": 4000, "tolerance": 1e-8, "printInfo": False}
     iP_gal = {"BCs": ["extend", "periodic"], "undef": np.nan,
               "mxLoop": 5000, "tolerance": 1e-6, "printInfo": False}
     big = poisson_field(2048, 2048)
     gal = poisson_field(73, 144, batch=8, seed=1)
-    torch.set_default_dtype(torch.float32)
-    torch.set_default_device("cuda")
-    results = {}
-    # every count starts at 0 just before the main path runs
-    sor2d.EXTEND_LAUNCHES = sor2d.LAUNCHES = sor2d.PLAIN_CALLS = 0
+    out = {}
     for name, field, iP in (("2048x2048", big, iP_big),
                             ("8x73x144", gal, iP_gal)):
-        before = _counts()
-        t0 = time.perf_counter()
-        sf = xt.invert_Poisson(field, dims=["lat", "lon"], iParams=iP)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        after = _counts()
-        res = api.LAST_SOLVE
-        results[name] = sf
-        log(f"[3] invert_Poisson {name} float32: iters "
-            f"{res.iters.cpu().tolist()} rel_change "
-            f"{res.rel_change.cpu().tolist()} overflow "
-            f"{res.overflow.cpu().tolist()} wall {wall:.3f} s; launches "
-            f"extend {after[0] - before[0]} color_sweep "
-            f"{after[1] - before[1]}, plain calls {after[2] - before[2]}")
-        if not (after[0] > before[0] and after[1] > before[1]
-                and after[2] == before[2]):
-            raise RuntimeError(f"{name}: the main path did not run through "
-                               "the kernels alone")
-        _check_field(sf, field, name)
-    launches = {"sor2d_extend_rows": sor2d.EXTEND_LAUNCHES,
-                "sor2d_color_sweep": sor2d.LAUNCHES}
+        call = lambda f=field, i=iP: xt.invert_Poisson(  # noqa: E731
+            f, dims=["lat", "lon"], iParams=i)
+        out[name] = _drive(f"invert_Poisson {name}", sor2d, call, field,
+                           True, launches)
+        _busy_share(f"invert_Poisson {name}", call)
 
-    # the batched answer against a float64 run of the same call on the CPU
-    # (plain path), both checking every 32 sweeps as the card's run does
-    torch.set_default_device("cpu")
-    torch.set_default_dtype(torch.float64)
-    ref = xt.invert_Poisson(gal, dims=["lat", "lon"],
-                            iParams=dict(iP_gal, checkEvery=32))
-    ocean = ~np.isnan(ref.values)
-    dev = (np.abs(results["8x73x144"].values[ocean] - ref.values[ocean]).max()
-           / np.abs(ref.values[ocean]).max())
-    log(f"[3] 8x73x144 float32 card vs float64 CPU: max|diff|/max|S| = "
-        f"{dev:.3e} (limit 1e-4); CPU iters "
-        f"{api.LAST_SOLVE.iters.tolist()}")
-    if not dev <= 1e-4:
-        raise RuntimeError("the card's answer disagrees with the float64 "
-                           "CPU run")
+    iP_om = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 2000,
+             "tolerance": 1e-8, "printInfo": False}
+    F_om, N2_om = atmos3d(37, 72, 288)
+    call = lambda: xt.invert_omega(  # noqa: E731
+        F_om, dims=DIMS_3D, mParams={"N2": N2_om}, iParams=iP_om)
+    _drive("invert_omega 37x72x288", sor3d, call, F_om, False, launches)
+    _busy_share("invert_omega 37x72x288", call)
+    iP_oc = {"BCs": ["fixed", "extend", "periodic"], "undef": np.nan,
+             "mxLoop": 2000, "tolerance": 1e-8, "printInfo": False}
+    F_oc, N2_oc = ocean3d(30)
+    call = lambda: xt.invert_3DOcean(  # noqa: E731
+        F_oc, dims=DIMS_3D, mParams=dict(OCEAN_MP, N2=N2_oc), iParams=iP_oc)
+    _drive("invert_3DOcean 30x330x720", sor3d, call, F_oc, True, launches)
+    _busy_share("invert_3DOcean 30x330x720", call)
+
+    # answers against float64 runs of the same calls on the CPU (the plain
+    # path), both sides checking every 32 sweeps as the card's float32 runs
+    # do by default; the 3-D ones at sizes the CPU can afford
+    _against_cpu("invert_Poisson 8x73x144", out["8x73x144"],
+                 lambda: xt.invert_Poisson(
+                     gal, dims=["lat", "lon"],
+                     iParams=dict(iP_gal, checkEvery=32), device="cpu"))
+    F_s, N2_s = atmos3d(37, 72, 144)
+    iP_s = dict(iP_om, checkEvery=32)
+    om_out = _drive("invert_omega 37x72x144", sor3d, lambda: xt.invert_omega(
+        F_s, dims=DIMS_3D, mParams={"N2": N2_s}, iParams=iP_s), F_s, False)
+    _against_cpu("invert_omega 37x72x144", om_out, lambda: xt.invert_omega(
+        F_s, dims=DIMS_3D, mParams={"N2": N2_s}, iParams=iP_s, device="cpu"))
+    F_d, N2_d = ocean3d(20, step=3)
+    iP_d = dict(iP_oc, checkEvery=32)
+    mP_d = dict(OCEAN_MP, N2=N2_d)
+    oc_out = _drive("invert_3DOcean 20x110x240", sor3d,
+                    lambda: xt.invert_3DOcean(F_d, dims=DIMS_3D,
+                                              mParams=mP_d, iParams=iP_d),
+                    F_d, True)
+    _against_cpu("invert_3DOcean 20x110x240", oc_out,
+                 lambda: xt.invert_3DOcean(F_d, dims=DIMS_3D, mParams=mP_d,
+                                           iParams=iP_d, device="cpu"))
     return launches
 
 
@@ -319,53 +562,69 @@ def _chain_ms(step, S0, calls=5):
     return ms
 
 
-def phase4(card, dev):
-    ny = nx = 2048
-    n = 500
-    spec, omega = poisson_spec(ny, nx, 0, torch.float32, dev)
-    S0 = torch.zeros((ny, nx), dtype=torch.float32, device=dev)
-    K = len(spec.offsets)
-    t_k = _chain_ms(lambda S: xt.solve_fixed(spec, S, omega, n), S0)
-    t_p = _chain_ms(lambda S: sor2d.sor2d_sweeps_reference(spec, S, omega, n),
-                    S0)
-    t_k2 = _chain_ms(lambda S: xt.solve_fixed(spec, S, omega, n), S0)
-    # a device-to-device copy moving the kernel path's bytes per sweep:
-    # 2 * (K + 5) planes (read + write)
-    sweep_bytes = 2 * (K + 5) * ny * nx * 4
-    src = torch.empty(sweep_bytes // 2, dtype=torch.uint8, device=dev)
+def _copy_ms(nbytes, dev):
+    """CUDA-event time of a device-to-device copy of ``nbytes`` bytes."""
+    src = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     dst = torch.empty_like(src)
     dst.copy_(src)
-    t_copy = _time_ms(lambda: dst.copy_(src), 5, inner=20)
-    copy_bw = sweep_bytes / (t_copy * 1e-3)
-    pts = ny * nx * n
+    return _time_ms(lambda: dst.copy_(src), 5, inner=20)
+
+
+def _rates(card, label, spec, omega, shape, plain, dev, n=500):
+    """solve_fixed rates of the kernels (twice) and the plain version, and
+    a device copy of the bytes a sweep of the kernels moves."""
+    S0 = torch.zeros(shape, dtype=spec.w0.dtype, device=dev)
+    K = len(spec.offsets)
+    t_k = _chain_ms(lambda S: xt.solve_fixed(spec, S, omega, n), S0)
+    t_p = _chain_ms(lambda S: plain(spec, S, omega, n), S0)
+    t_k2 = _chain_ms(lambda S: xt.solve_fixed(spec, S, omega, n), S0)
+    pts = int(np.prod(shape)) * n
+    itemsize = spec.w0.element_size()
+    sweep_bytes = 2 * (K + 5) * int(np.prod(shape)) * itemsize
+    t_copy = _copy_ms(sweep_bytes // 2, dev)
     t_kern = min(t_k, t_k2)
-    spec64, _ = poisson_spec(ny, nx, 0, torch.float64, dev)
-    t_64 = _chain_ms(lambda S: xt.solve_fixed(spec64, S, omega, n),
-                     S0.double())
-    log(f"[4] {card} | solve_fixed 2048x2048 float32, {n} sweeps per call, "
-        f"median of 5 chained calls: kernels {t_k:.3f} ms then "
-        f"{t_k2:.3f} ms = {pts / (t_kern * 1e-3):.4e} point-sweeps/s; "
+    log(f"[4] {card} | solve_fixed {label} {str(spec.w0.dtype)[6:]}, {n} "
+        f"sweeps per call, median of 5 chained calls: kernels {t_k:.3f} ms "
+        f"then {t_k2:.3f} ms = {pts / (t_kern * 1e-3):.4e} point-sweeps/s; "
         f"plain {t_p:.3f} ms = {pts / (t_p * 1e-3):.4e} point-sweeps/s")
-    log(f"[4] {card} | solve_fixed 2048x2048 float64, kernels: "
-        f"{t_64:.3f} ms = {pts / (t_64 * 1e-3):.4e} point-sweeps/s")
-    log(f"[4] {card} | kernels move {sweep_bytes} B per sweep = "
-        f"{sweep_bytes * n / (t_kern * 1e-3) / 1e9:.1f} GB/s; "
-        f"device copy of {sweep_bytes // 2} B: {t_copy:.4f} ms = "
-        f"{copy_bw / 1e9:.1f} GB/s")
-    # each kernel against its plain version, per call on the same inputs:
-    # device time (torch.profiler) and CUDA-event time of the wrapper call
-    S = xt.solve_fixed(spec, S0, omega, 50)
-    rel = sor2d.relax_plane(spec, omega)
-    calls = {
-        "sor2d_extend_rows": (
-            lambda: sor2d.sor2d_extend(spec, S),
-            lambda: sor2d.sor2d_extend_reference(spec, S)),
-        "sor2d_color_sweep": (
-            lambda: sor2d.sor2d_color_sweep(spec, S, rel, 0),
-            lambda: sor2d.sor2d_color_sweep_reference(spec, S, rel, 0)),
-    }
+    log(f"[4] {card} | {label}: kernels move {sweep_bytes} B per sweep = "
+        f"{sweep_bytes * n / (t_kern * 1e-3) / 1e9:.1f} GB/s; device copy "
+        f"of {sweep_bytes // 2} B: {t_copy:.4f} ms = "
+        f"{sweep_bytes / (t_copy * 1e-3) / 1e9:.1f} GB/s")
+    return S0
+
+
+def _bound(name, spec, shape):
+    """(bound_ms, bound_by) of one launch of kernel ``name`` on ``spec``:
+    the bytes it must move (each input read once, each output written once)
+    over the HBM rate, against its float32 operations over the peak rate."""
+    itemsize = spec.w0.element_size()
+    cells = int(np.prod(shape))
+    if name.endswith("extend_rows"):
+        # rows 1 and ny-2 read, rows 0 and ny-1 written, in every (batch
+        # slice, level) the pre-pass touches: interior levels in 3-D
+        slabs = cells // (shape[-2] * shape[-1])
+        if spec.ndim == 3:
+            slabs = slabs // shape[-3] * (shape[-3] - 2)
+        nbytes, ops = 4 * slabs * shape[-1] * itemsize, 0
+    else:
+        # S, K weights, w0, g, rel read; S' written (planes shared by the
+        # batch read once); 2K+5 operations per cell
+        K = len(spec.offsets)
+        planes = [spec.w0, spec.g, spec.relax]
+        nbytes = (2 * cells + sum(p.numel() for p in planes)
+                  + spec.w.numel()) * itemsize
+        ops = (2 * K + 5) * cells
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _per_launch(card, label, calls):
+    """Each kernel's device time per launch against its plain version's, on
+    the same inputs (torch.profiler), and the wrappers' CUDA-event times."""
     per = {}
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain, bound) in calls.items():
         _, kern_keys = _device_ms(kern, 50)
         launch = [v for k, v in kern_keys.items() if f"{name}_kernel" in k]
         if len(launch) != 1:
@@ -374,12 +633,59 @@ def phase4(card, dev):
         t_plain, _ = _device_ms(plain, 50)
         w_kern = _time_ms(kern, 5, 50)
         w_plain = _time_ms(plain, 5, 50)
-        per[name] = (t_launch, t_plain)
-        log(f"[4] {card} | {name} 2048x2048 float32: kernel "
-            f"{t_launch:.4f} ms device time per launch, plain version "
-            f"{t_plain:.4f} ms device time per call (torch.profiler, 50 "
-            f"calls); wrapper call {w_kern:.4f} ms vs plain call "
-            f"{w_plain:.4f} ms (CUDA events, median of 5 runs of 50)")
+        per[name] = (t_launch, t_plain) + bound
+        log(f"[4] {card} | {name} {label} float32: kernel {t_launch:.4f} ms "
+            f"device time per launch, plain version {t_plain:.4f} ms device "
+            f"time per call (torch.profiler, 50 calls); bound "
+            f"{bound[0]:.4f} ms ({bound[1]}); wrapper call {w_kern:.4f} ms "
+            f"vs plain call {w_plain:.4f} ms (CUDA events, median of 5 runs "
+            f"of 50)")
+    return per
+
+
+def phase4(card, dev):
+    per = {}
+    # 2-D: the 2048x2048 masked Poisson
+    spec, omega = poisson_spec(2048, 2048, 0, torch.float32, dev)
+    S0 = _rates(card, "2048x2048", spec, omega, (2048, 2048),
+                sor2d.sor2d_sweeps_reference, dev)
+    spec64, _ = poisson_spec(2048, 2048, 0, torch.float64, dev)
+    _rates(card, "2048x2048", spec64, omega, (2048, 2048),
+           sor2d.sor2d_sweeps_reference, dev)
+    S = xt.solve_fixed(spec, S0, omega, 50)
+    rel = sor2d.relax_plane(spec, omega)
+    per.update(_per_launch(card, "2048x2048", {
+        "sor2d_extend_rows": (
+            lambda: sor2d.sor2d_extend(spec, S),
+            lambda: sor2d.sor2d_extend_reference(spec, S),
+            _bound("sor2d_extend_rows", spec, S.shape)),
+        "sor2d_color_sweep": (
+            lambda: sor2d.sor2d_color_sweep(spec, S, rel, 0),
+            lambda: sor2d.sor2d_color_sweep_reference(spec, S, rel, 0),
+            _bound("sor2d_color_sweep", spec, S.shape)),
+    }))
+    del spec, spec64, S, S0, rel
+    # 3-D: the omega volumes (the 37-level one is L2-resident in float32)
+    # and the 0.5-degree ocean
+    for nz in (37, 73):
+        spec, omega = omega_spec(nz, 72, 288, 0, torch.float32, dev)
+        _rates(card, f"omega {nz}x72x288", spec, omega, (nz, 72, 288),
+               sor3d.sor3d_sweeps_reference, dev)
+    spec, omega = ocean_spec(30, torch.float32, dev)
+    S0 = _rates(card, "ocean 30x330x720", spec, omega, (30, 330, 720),
+                sor3d.sor3d_sweeps_reference, dev)
+    S = xt.solve_fixed(spec, S0, omega, 50)
+    rel = sor3d.relax_plane(spec, omega)
+    per.update(_per_launch(card, "30x330x720", {
+        "sor3d_extend_rows": (
+            lambda: sor3d.sor3d_extend(spec, S),
+            lambda: sor3d.sor3d_extend_reference(spec, S),
+            _bound("sor3d_extend_rows", spec, S.shape)),
+        "sor3d_color_sweep": (
+            lambda: sor3d.sor3d_color_sweep(spec, S, rel, 0),
+            lambda: sor3d.sor3d_color_sweep_reference(spec, S, rel, 0),
+            _bound("sor3d_color_sweep", spec, S.shape)),
+    }))
     return per
 
 
@@ -403,6 +709,7 @@ def _device_ms(fn, calls):
 
 
 def main():
+    t_start = time.perf_counter()
     card = phase0()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -411,19 +718,16 @@ def main():
     phase1()
     errs = phase2(dev)
     launches = phase3()
-    torch.set_default_device("cpu")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
-    replaces = {"sor2d_extend_rows": ("xinvert_tpu/ops/pallas_sor.py:43",
-                                      "xinvert_tpu/ops/pallas_sor_window.py:67"),
-                "sor2d_color_sweep": ("xinvert_tpu/ops/pallas_sor.py:94",
-                                      "xinvert_tpu/ops/pallas_sor_window.py:252")}
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": replaces[name][0],
-                "also_replaces": replaces[name][1],
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "also_replaces": also,
                 "launches": launches[name], "max_abs_err": errs[name],
-                "ms": per[name][0], "plain_ms": per[name][1]}
-               for name in ("sor2d_extend_rows", "sor2d_color_sweep")]
+                "ms": per[name][0], "plain_ms": per[name][1],
+                "bound_ms": per[name][2], "bound_by": per[name][3],
+                "library_ms": None}
+               for name, (src, rep, also) in KERNELS.items()]
+    log(f"[5] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

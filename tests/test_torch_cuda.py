@@ -1,12 +1,14 @@
 # -*- coding: utf-8 -*-
-"""The CUDA kernels of the PyTorch port (xinvert_tpu_torch/csrc/sor2d.cu) on
-the card: bit-equal to their plain PyTorch versions, counted, and refusing
-what they do not take.  Every test here needs an NVIDIA GPU (marker
+"""The CUDA kernels of the PyTorch port (xinvert_tpu_torch/csrc/sor2d.cu and
+csrc/sor3d.cu) on the card: bit-equal to their plain PyTorch versions,
+counted, and refusing what they do not take.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -16,7 +18,7 @@ import xinvert_tpu_torch as xt  # noqa: E402
 from xinvert_tpu_torch.grid import Grid  # noqa: E402
 from xinvert_tpu_torch.models import problems  # noqa: E402
 from xinvert_tpu_torch.models.params import default_mParams  # noqa: E402
-from xinvert_tpu_torch.ops import sor2d  # noqa: E402
+from xinvert_tpu_torch.ops import sor2d, sor3d  # noqa: E402
 from xinvert_tpu_torch.stencil import StencilSpec  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -113,9 +115,187 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         xt.solve(spec, S0.cpu())                       # devices differ
     with pytest.raises(ValueError):
         sor2d.sor2d_sweeps(spec, S0.double(), 1.3, 2)  # dtypes differ
+    # a 3-D spec of one level goes to the 3-D kernels, which need 3 levels
     spec3 = StencilSpec(w=spec.w[:, None], w0=spec.w0[None], g=spec.g[None],
                         relax=spec.relax[None], active=spec.active[None],
                         offsets=tuple((0,) + o for o in spec.offsets),
                         bcs=("fixed",) + spec.bcs)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="3x3x3"):
         xt.solve_fixed(spec3, S0[None], 1.3, 2)
+    spec1 = StencilSpec(w=spec.w[:, 0], w0=spec.w0[0], g=spec.g[0],
+                        relax=spec.relax[0], active=spec.active[0],
+                        offsets=((1,), (-1,)), bcs=("fixed",))
+    with pytest.raises(NotImplementedError):                # 1-D: not ported
+        xt.solve_fixed(spec1, S0[0], 1.3, 2)
+
+
+# ---------------------------------------------------------------- 3-D
+
+
+def _grid3(nz, ny, nx, bcs):
+    lev = np.linspace(100000.0, 10000.0, nz)
+    lat = np.linspace(-70.0, 70.0, ny)
+    lon = np.linspace(0.0, 360.0 - 360.0 / nx, nx)
+    return Grid.make(("lev", "lat", "lon"), (lev, lat, lon), "lat-lon",
+                     bcs=bcs)
+
+
+def _omega3d(dtype, device, batch=3, shape=(7, 19, 24)):
+    """build_omega: batched forcing, shared weights."""
+    rng = np.random.default_rng(2)
+    grid = _grid3(*shape, ("fixed", "fixed", "periodic"))
+    vals = torch.as_tensor(rng.standard_normal((batch,) + shape) * 1e-15,
+                           dtype=dtype, device=device)
+    mp = dict(default_mParams, N2=np.linspace(1e-4, 3e-4, shape[0])[:, None,
+                                                                    None])
+    spec = problems.build_omega(vals, torch.ones(shape, dtype=torch.bool,
+                                                 device=device), grid, mp)
+    return spec, torch.as_tensor(rng.normal(0, 1e-3, (batch,) + shape),
+                                 dtype=dtype, device=device)
+
+
+def _ocean3d(dtype, device, shape=(6, 15, 20), bcs=("fixed", "extend",
+                                                     "periodic")):
+    """build_ocean3d (general_3d) with a land block."""
+    rng = np.random.default_rng(3)
+    grid = _grid3(*shape, bcs)
+    Fdef = np.ones(shape, bool)
+    Fdef[:, 5:9, 4:10] = False
+    vals = torch.as_tensor(rng.normal(0.0, 1e-11, shape), dtype=dtype,
+                           device=device)
+    spec = problems.build_ocean3d(vals, torch.as_tensor(Fdef, device=device),
+                                  grid, default_mParams)
+    return spec, torch.as_tensor(rng.normal(0, 1e-3, shape), dtype=dtype,
+                                 device=device)
+
+
+def _random3d(dtype, device, shape, batch, bcs, seed=4):
+    """Random diagonally dominant 6-offset planes, per slice when
+    batched."""
+    from xinvert_tpu_torch.stencil import _interior_mask
+    rng = np.random.default_rng(seed)
+    offs = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+            (0, 0, -1))
+    full = ((batch,) if batch else ()) + shape
+    active = np.broadcast_to(_interior_mask(shape, bcs, False), full).copy()
+    active &= rng.random(full) > 0.05
+    w = rng.uniform(0.05, 0.25, (6,) + full) * active
+    w0 = np.where(active, -1.05 * w.sum(0), 0.0)
+    relax = np.where(active, 1.0 / np.where(active, -w0, 1.0), 0.0)
+    g = rng.normal(0, 1, full) * active
+    spec = StencilSpec.from_arrays(w, w0, g, relax, active, offs, bcs,
+                                   device=device, dtype=dtype)
+    return spec, torch.as_tensor(rng.normal(0, 1e-3, full), dtype=dtype,
+                                 device=device)
+
+
+def _case3d(case, dtype, device):
+    if case == "omega_batch":
+        return _omega3d(dtype, device)
+    if case == "ocean":
+        return _ocean3d(dtype, device)
+    if case == "ocean_fixed_x":
+        return _ocean3d(dtype, device, bcs=("fixed", "extend", "fixed"))
+    if case == "per_slice":
+        return _random3d(dtype, device, (9, 17, 23), 2,
+                         ("fixed", "extend", "fixed"))
+    if case == "many_slices":   # batch x levels past the grid's z limit
+        return _random3d(dtype, device, (32, 4, 5), 2100,
+                         ("fixed", "extend", "periodic"), seed=6)
+    return _random3d(dtype, device, (5, 7, 9), 0, ("fixed", "extend",
+                                                    "fixed"), seed=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["omega_batch", "ocean", "ocean_fixed_x",
+                                  "per_slice", "many_slices", "odd"])
+def test_kernel3d_bit_equal_to_plain(cuda, dtype, case):
+    spec, S0 = _case3d(case, dtype, cuda)
+    before = S0.clone()
+    extend = spec.bcs[-2] == "extend"
+    l0, e0 = sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES
+    out_k, sumabs = sor3d.sor3d_sweeps(spec, S0, 1.3, 15, with_norm=True)
+    out_p = sor3d.sor3d_sweeps_reference(spec, S0, 1.3, 15)
+    torch.cuda.synchronize()
+    assert sor3d.LAUNCHES == l0 + 30
+    assert sor3d.EXTEND_LAUNCHES == e0 + (15 if extend else 0)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(S0, before)
+    ref = out_p.double().abs().sum(dim=(-3, -2, -1))
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(sumabs.double(), ref, rtol=rtol, atol=0)
+    # each kernel alone
+    ext_k = sor3d.sor3d_extend(spec, S0)
+    assert torch.equal(ext_k, sor3d.sor3d_extend_reference(spec, S0))
+    rel = sor3d.relax_plane(spec, 1.3)
+    for color in (0, 1):
+        assert torch.equal(
+            sor3d.sor3d_color_sweep(spec, ext_k, rel, color),
+            sor3d.sor3d_color_sweep_reference(spec, ext_k, rel, color))
+
+
+def test_solve3d_on_card_matches_cpu(cuda):
+    """A checked 3-D solve on the card against the same call on the CPU,
+    float64: the same sweeps, the stopping rule fed by the fused |S|
+    partials instead of a sum on the CPU."""
+    rng = np.random.default_rng(6)
+    nz, ny, nx = 8, 20, 30
+    lev = np.linspace(0.0, 2100.0, nz)
+    lat = np.linspace(-60.0, 60.0, ny)
+    lon = np.linspace(0.0, 360.0 - 360.0 / nx, nx)
+    F = rng.normal(0.0, 1e-11, (nz, ny, nx))
+    F[:, 8:12, 10:16] = np.nan
+    f = xt.Field(F, ("LEV", "lat", "lon"), {"LEV": lev, "lat": lat,
+                                             "lon": lon})
+    iP = {"BCs": ["fixed", "extend", "periodic"], "tolerance": 1e-8,
+          "mxLoop": 300, "printInfo": False}
+    mP = {"N2": xt.Field(1e-5 * np.exp(-lev / 800.0) + 1e-7, ("LEV",),
+                         {"LEV": lev})}
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        from xinvert_tpu_torch.models import api
+        l0 = sor3d.LAUNCHES
+        w_k = xt.invert_3DOcean(f, dims=["LEV", "lat", "lon"], iParams=iP,
+                                mParams=mP)
+        r_k = api.LAST_SOLVE
+        assert sor3d.LAUNCHES > l0 and r_k.S.is_cuda
+        w_c = xt.invert_3DOcean(f, dims=["LEV", "lat", "lon"], iParams=iP,
+                                mParams=mP, device="cpu")
+        r_c = api.LAST_SOLVE
+    finally:
+        torch.set_default_dtype(dtype)
+    assert torch.equal(r_k.iters.cpu(), r_c.iters)
+    ocean = ~np.isnan(F)
+    np.testing.assert_array_equal(np.isnan(w_k.values), ~ocean)
+    np.testing.assert_allclose(w_k.values[ocean], w_c.values[ocean],
+                               rtol=1e-10, atol=1e-12 * np.abs(
+                                   w_c.values[ocean]).max())
+
+
+def test_kernels3d_refuse_what_they_do_not_take(cuda):
+    spec, S0 = _ocean3d(torch.float32, cuda)
+    rel = sor3d.relax_plane(spec, 1.3)
+    with pytest.raises(ValueError, match="on"):
+        xt.solve(spec, S0.cpu())                            # devices differ
+    with pytest.raises(ValueError):
+        sor3d.sor3d_sweeps(spec, S0.double(), 1.3, 2)       # dtypes differ
+    with pytest.raises(TypeError):
+        sor3d.sor3d_sweeps(spec, S0.half(), 1.3, 2)         # no half kernel
+    many = dataclasses.replace(
+        spec, w=torch.cat([spec.w, spec.w[:3]]),
+        offsets=spec.offsets + spec.offsets[:3])
+    with pytest.raises(ValueError, match="at most"):        # K > MAX_K
+        sor3d.sor3d_sweeps(many, S0, 1.3, 2)
+    strided = dataclasses.replace(spec, w0=spec.w0.transpose(1, 2)
+                                  .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):     # bad strides
+        sor3d.sor3d_sweeps(strided, S0, 1.3, 2)
+    with pytest.raises(ValueError):                         # rel on the CPU
+        sor3d.sor3d_color_sweep(spec, S0, rel.cpu(), 0)
+    with pytest.raises(ValueError, match="color"):
+        sor3d.sor3d_color_sweep(spec, S0, rel, 2)
+    far = dataclasses.replace(spec, offsets=((9,) + spec.offsets[0][1:],)
+                              + spec.offsets[1:])
+    with pytest.raises(ValueError, match="does not fit"):   # offset >= nz
+        sor3d.sor3d_sweeps(far, S0, 1.3, 2)

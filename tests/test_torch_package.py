@@ -15,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, xinvert_tpu_torch, xinvert_tpu_torch.ops.sor2d, "
-            "xinvert_tpu_torch.ops._build; "
+            "xinvert_tpu_torch.ops.sor3d, xinvert_tpu_torch.ops._build; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'xinvert_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

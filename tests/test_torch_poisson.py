@@ -2,7 +2,9 @@
 """The slice end to end: xinvert_tpu_torch.invert_Poisson and inv_standard2D
 against xinvert_tpu's, float64 on the CPU.  Same NaN pattern, values at
 rtol 1e-10, equal LAST_SOLVE.iters / .overflow; options the port does not
-have raise NotImplementedError."""
+have raise NotImplementedError.  The port's entry points run on the GPU
+unless asked for the CPU: every call here passes device="cpu", and one test
+checks that a call without it raises on a machine without CUDA."""
 import numpy as np
 import pytest
 
@@ -19,16 +21,22 @@ from xinvert_tpu_torch.models import api as tapi  # noqa: E402
 DATA = "Data/ocean_masked.nc"
 
 
+CPU = {"device": "cpu"}
+
+
 @pytest.fixture
 def f64_cpu():
-    """The port builds its tensors on the default device in the default
-    dtype: float64 on the CPU here, restored afterwards."""
-    dtype, device = torch.get_default_dtype(), torch.get_default_device()
+    """The port builds its tensors in the default dtype: float64 here,
+    restored afterwards (the device is passed to each call)."""
+    dtype = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
-    torch.set_default_device("cpu")
     yield
     torch.set_default_dtype(dtype)
-    torch.set_default_device(device)
+
+
+def _kw(pkg):
+    """The CPU request for the port; the JAX package takes no device."""
+    return CPU if pkg is xt else {}
 
 
 def _compare_fields(a, b):
@@ -53,7 +61,7 @@ def test_ocean_fixture_matches_jax(f64_cpu):
     sf_j = xv.invert_Poisson(xv.open_dataset(DATA).vor, dims=["lat", "lon"],
                              iParams=iP)
     vor = xt.open_dataset(DATA).vor
-    sf_t = xt.invert_Poisson(vor, dims=["lat", "lon"], iParams=iP)
+    sf_t = xt.invert_Poisson(vor, dims=["lat", "lon"], iParams=iP, **CPU)
     _compare_fields(sf_j, sf_t)
     _compare_last_solve()
     assert int(tapi.LAST_SOLVE.iters) == 300      # runs to the cap
@@ -82,7 +90,7 @@ def test_batched_synthetic_matches_jax(f64_cpu):
     sf_j = xv.invert_Poisson(_synthetic(xv.Field), dims=["lat", "lon"],
                              iParams=iP)
     sf_t = xt.invert_Poisson(_synthetic(xt.Field), dims=["lat", "lon"],
-                             iParams=iP)
+                             iParams=iP, **CPU)
     _compare_fields(sf_j, sf_t)
     _compare_last_solve()
     iters = tapi.LAST_SOLVE.iters.numpy()
@@ -100,7 +108,7 @@ def test_icbc_matches_jax(f64_cpu, warm):
         f = _synthetic(pkg.Field, nb=2)
         ic = pkg.Field(np.full(f.shape, 2e4), f.dims, f.coords)
         return pkg.invert_Poisson(f, dims=["lat", "lon"], icbc=ic,
-                                  iParams=iP)
+                                  iParams=iP, **_kw(pkg))
     sf_j, sf_t = run(xv), run(xt)
     _compare_fields(sf_j, sf_t)
     _compare_last_solve()
@@ -111,7 +119,7 @@ def test_print_info_and_debug(f64_cpu, capsys):
     iP = {"BCs": ["extend", "periodic"], "mxLoop": 40, "tolerance": 1e-3,
           "printInfo": True, "debug": True}
     xt.invert_Poisson(_synthetic(xt.Field, nb=2), dims=["lat", "lon"],
-                      iParams=iP)
+                      iParams=iP, **CPU)
     out = capsys.readouterr().out
     assert sum(ln.startswith("loops") for ln in out.splitlines()) == 2
     assert "optArg" in out
@@ -138,7 +146,8 @@ def test_inv_standard2D_matches_jax(f64_cpu, with_icbc):
             pkg.Field(A, ("y", "x"), coords), pkg.Field(B, ("y", "x"), coords),
             pkg.Field(C, ("y", "x"), coords), f, ["y", "x"],
             coords="cartesian", iParams=iP,
-            icbc=pkg.Field(ic, ("y", "x"), coords) if with_icbc else None)
+            icbc=pkg.Field(ic, ("y", "x"), coords) if with_icbc else None,
+            **_kw(pkg))
     sf_j, sf_t = run(xv), run(xt)
     _compare_fields(sf_j, sf_t)
     if with_icbc:       # icbc values kept on the undefined block and edges
@@ -157,13 +166,34 @@ def test_inv_standard2D_matches_jax(f64_cpu, with_icbc):
 def test_unported_options_raise(f64_cpu, iParams):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         xt.invert_Poisson(_synthetic(xt.Field, nb=1), dims=["lat", "lon"],
-                          iParams=dict(iParams, printInfo=False))
+                          iParams=dict(iParams, printInfo=False), **CPU)
 
 
 def test_default_dtype_float32(f64_cpu):
     torch.set_default_dtype(torch.float32)
     xt.invert_Poisson(_synthetic(xt.Field, nb=1), dims=["lat", "lon"],
                       iParams={"BCs": ["extend", "periodic"], "mxLoop": 20,
-                               "printInfo": False})
+                               "printInfo": False}, **CPU)
     assert tapi.LAST_SOLVE.S.dtype == torch.float32
-    assert tapi.LAST_SOLVE.S.device.type == "cpu"
+    assert tapi.LAST_SOLVE.S.device.type == "cpu"     # as the call asked
+
+
+@pytest.mark.parametrize("entry", ["invert_Poisson", "inv_standard2D"])
+def test_default_device_is_the_card(f64_cpu, entry):
+    """Without a device argument an entry point runs on CUDA; on a machine
+    without CUDA it raises and says how to ask for the CPU, rather than
+    carrying on there.  PyTorch's default device is not consulted."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the call would run on it")
+    f = _synthetic(xt.Field, nb=1).isel(time=0)
+    iP = {"BCs": ["extend", "periodic"], "mxLoop": 20, "printInfo": False}
+    if entry == "invert_Poisson":
+        args = (f, ["lat", "lon"])
+    else:
+        one = xt.Field(np.ones(f.shape), f.dims, f.coords)
+        args = (one, 0.0, one, f, ["lat", "lon"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        getattr(xt, entry)(*args, iParams=iP)
+    out = getattr(xt, entry)(*args, iParams=iP, **CPU)
+    assert out.shape == f.shape
+    assert np.isfinite(out.values[~np.isnan(f.values)]).all()

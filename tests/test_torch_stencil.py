@@ -2,7 +2,9 @@
 """Stencil planes of the PyTorch port against the JAX package: the Poisson
 builder (build_poisson -> standard_2d -> _finalize) on the masked ocean
 fixture and on a batched synthetic lat-lon case, standard_2d with cross
-terms, and prune_zero_offsets.  float64 on the CPU; planes at rtol 1e-13."""
+terms, prune_zero_offsets, the 3-D families (standard_3d; general_3d
+centered and upwinded) and the omega and 3-D ocean builders on lat-lon and
+cartesian grids.  float64 on the CPU; planes at rtol 1e-13."""
 import numpy as np
 import pytest
 
@@ -147,3 +149,88 @@ def test_from_arrays_round_trip():
         np.asarray(js.relax), np.asarray(js.active), js.offsets, js.bcs,
         device="cpu", dtype=torch.float32)
     assert f32.w.dtype == torch.float32 and f32.ndim == 2
+
+
+# ---------------------------------------------------------------- 3-D
+
+
+def _planes3d(shape=(6, 9, 11), seed=13):
+    rng = np.random.default_rng(seed)
+    pos = [np.abs(rng.normal(1.0, 0.1, shape)) + 0.5 for _ in range(3)]
+    small = [rng.normal(0, 1e-6, shape) for _ in range(3)]
+    G = -np.abs(rng.normal(1e-10, 1e-11, shape))
+    H = rng.normal(0, 1.0, (2,) + shape)          # batched forcing
+    Fdef = np.ones(shape, bool)
+    Fdef[2:4, 3:6, 4:8] = False
+    return pos, small, G, H, Fdef
+
+
+@pytest.mark.parametrize("family,upwind", [
+    ("standard", None), ("general", 0.0), ("general", 1.0),
+    ("general", "plane")])
+@pytest.mark.parametrize("bcs", [("fixed", "extend", "periodic"),
+                                 ("fixed", "fixed", "fixed")])
+def test_3d_family_planes(family, upwind, bcs):
+    (A, B, C), (D, E, Fc), G, H, Fdef = _planes3d()
+    deltas = (5e3, 1.1e5, 1.0e5)
+    if family == "standard":
+        js = jst.standard_3d(*map(jnp.asarray, (A, B, C, H, Fdef)), deltas,
+                             bcs)
+        ts = tst.standard_3d(*map(torch.as_tensor, (A, B, C, H, Fdef)),
+                             deltas, bcs)
+    else:
+        if upwind == "plane":   # a per-cell sign plane
+            up = np.where(np.random.default_rng(1).random(A.shape) > 0.5,
+                          1.0, -1.0)
+            ju, tu = jnp.asarray(up), torch.as_tensor(up)
+        else:
+            ju = tu = upwind
+        args = (A, B, C, D, E, Fc, G, H, Fdef)
+        js = jst.general_3d(*map(jnp.asarray, args), deltas, bcs, upwind=ju)
+        ts = tst.general_3d(*map(torch.as_tensor, args), deltas, bcs,
+                            upwind=tu)
+    _assert_same_spec(js, ts)
+    assert ts.ndim == 3 and len(ts.offsets) == 6
+    assert ts.w.shape == (6,) + A.shape and ts.g.shape == H.shape
+    # z boundaries are never updated, whatever the BCs
+    assert not ts.active[[0, -1]].any()
+    # from_arrays carries 3-D planes and 3-component offsets unchanged
+    ta = tst.StencilSpec.from_arrays(
+        np.asarray(js.w), np.asarray(js.w0), np.asarray(js.g),
+        np.asarray(js.relax), np.asarray(js.active), js.offsets, js.bcs,
+        js.bih, js.stop_on_zero_norm, device="cpu", dtype=torch.float64)
+    _assert_same_spec(js, ta)
+
+
+def _grid_pair(coords_type, bcs, shape=(7, 10, 12)):
+    nz, ny, nx = shape
+    if coords_type == "lat-lon":
+        axes = (np.linspace(0.0, 1800.0, nz), np.linspace(-60.0, 60.0, ny),
+                np.linspace(0.0, 360.0 - 360.0 / nx, nx))
+    else:
+        axes = (np.linspace(0.0, 1800.0, nz), np.arange(ny) * 1e5,
+                np.arange(nx) * 1e5)
+    dims = ("LEV", "lat", "lon")
+    return (JGrid.make(dims, axes, coords_type, bcs=bcs),
+            TGrid.make(dims, axes, coords_type, bcs=bcs))
+
+
+@pytest.mark.parametrize("coords_type", ["lat-lon", "cartesian"])
+@pytest.mark.parametrize("n2", ["scalar", "profile"])
+@pytest.mark.parametrize("problem", ["omega", "3docean"])
+def test_3d_builder_planes(problem, n2, coords_type):
+    bcs = ("fixed", "extend", "periodic")
+    jg, tg = _grid_pair(coords_type, bcs)
+    nz = jg.shape[0]
+    rng = np.random.default_rng(17)
+    vals = rng.normal(0.0, 1e-11, (2,) + jg.shape)
+    Fdef = np.ones(jg.shape, bool)
+    Fdef[2:4, 3:6, 4:8] = False
+    mp = dict(default_mParams)
+    if n2 == "profile":          # a Field profile aligned to core rank
+        mp["N2"] = (1e-5 * np.exp(-np.arange(nz) / 3.0) + 1e-7)[:, None,
+                                                               None]
+    js = jprob.BUILDERS[problem](jnp.asarray(vals), jnp.asarray(Fdef), jg, mp)
+    ts = tprob.BUILDERS[problem](torch.as_tensor(vals),
+                                 torch.as_tensor(Fdef), tg, mp)
+    _assert_same_spec(js, ts)

@@ -1,11 +1,13 @@
 # -*- coding: utf-8 -*-
-"""Dispatch-level API: ``inv_standard2D``, taking coefficient fields directly
-(mirrors xinvert/core.py:88-155).
+"""Dispatch-level API: ``inv_standard2D``, ``inv_standard3D`` and
+``inv_general3D``, taking coefficient fields directly (mirrors
+xinvert/core.py:20-155, :294-370).
 
 Counterpart of ``xinvert_tpu/core.py``.  The application layer builds
-coefficients and solves through the same engine; power users call this entry
-with custom coefficients.  The batch dims ride through one batched solve.
-Tensors are built on ``torch.get_default_device()`` in
+coefficients and solves through the same engine; power users call these
+entries with custom coefficients.  The batch dims ride through one batched
+solve.  ``device=None`` runs on the CUDA card (and raises without one),
+``device="cpu"`` on the CPU; tensors are built in
 ``torch.get_default_dtype()``.
 """
 from __future__ import annotations
@@ -18,15 +20,16 @@ from .grid import Grid
 from .solver import solve
 from . import stencil
 from .models.api import (_collapse_mask, _init_state, _prepare,
-                         _validate_bcs)
+                         _resolve_device, _validate_bcs)
 from .models.params import default_iParams, merge_params
 
-__all__ = ["inv_standard2D"]
+__all__ = ["inv_standard2D", "inv_standard3D", "inv_general3D"]
 
 
-def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None):
+def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None,
+         device=None):
     iP = merge_params(default_iParams, iParams)
-    device = torch.get_default_device()
+    device = _resolve_device(device)
     f = as_field(F)
     dims = [dims] if isinstance(dims, str) else list(dims)
     if len(dims) != ndim:
@@ -72,8 +75,27 @@ def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None):
 
 
 def inv_standard2D(A, B, C, F, dims, coords="lat-lon", icbc=None,
-                   iParams=None):
+                   iParams=None, device=None):
     """d/dy(A Sy + B Sx) + d/dx(B Sy + C Sx) = F (core.py:88-155)."""
     def fam(A_, B_, C_, Fm, Fdef, deltas, bcs):
         return stencil.standard_2d(A_, B_, C_, Fm, Fdef, deltas, bcs)
-    return _run(fam, (A, B, C), F, dims, coords, iParams, 2, icbc)
+    return _run(fam, (A, B, C), F, dims, coords, iParams, 2, icbc, device)
+
+
+def inv_standard3D(A, B, C, F, dims, coords="lat-lon", icbc=None,
+                   iParams=None, device=None):
+    """d/dz(A Sz) + d/dy(B Sy) + d/dx(C Sx) = F (core.py:20-85)."""
+    def fam(A_, B_, C_, Fm, Fdef, deltas, bcs):
+        return stencil.standard_3d(A_, B_, C_, Fm, Fdef, deltas, bcs)
+    return _run(fam, (A, B, C), F, dims, coords, iParams, 3, icbc, device)
+
+
+def inv_general3D(A, B, C, D, E, F, G, H, dims, coords="lat-lon", icbc=None,
+                  iParams=None, device=None):
+    """A Szz + B Syy + C Sxx + D Sz + E Sy + F Sx + G S = H
+    (core.py:294-370)."""
+    def fam(A_, B_, C_, D_, E_, F_, G_, Hm, Fdef, deltas, bcs):
+        return stencil.general_3d(A_, B_, C_, D_, E_, F_, G_, Hm, Fdef,
+                                  deltas, bcs)
+    return _run(fam, (A, B, C, D, E, F, G), H, dims, coords, iParams, 3, icbc,
+                device)

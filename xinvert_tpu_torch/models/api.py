@@ -1,5 +1,6 @@
 # -*- coding: utf-8 -*-
-"""Public inversion API: ``invert_Poisson``.
+"""Public inversion API: ``invert_Poisson``, ``invert_omega``,
+``invert_3DOcean``.
 
 Counterpart of ``xinvert_tpu/models/api.py``, mirroring the reference
 application layer (xinvert/apps.py): the forcing's non-core dims become one
@@ -8,10 +9,11 @@ sequentially), coefficients compile to a
 :class:`~xinvert_tpu_torch.stencil.StencilSpec`, and the red-black engine
 runs the sweeps.
 
-Tensors are built on ``torch.get_default_device()`` in
-``torch.get_default_dtype()`` (float32 or float64).  Options of the JAX
-package that are not ported raise ``NotImplementedError`` naming their
-ROADMAP item.
+Every entry point takes ``device``: ``None`` (the default) runs on the CUDA
+card and raises when there is none; ``device="cpu"`` runs the plain PyTorch
+version on the CPU.  Tensors are built in ``torch.get_default_dtype()``
+(float32 or float64).  Options of the JAX package that are not ported raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from ..solver import NOT_PORTED_SCHEMES, solve
 from . import problems
 from .params import default_iParams, default_mParams, merge_params
 
-__all__ = ["invert_Poisson"]
+__all__ = ["invert_Poisson", "invert_omega", "invert_3DOcean"]
 
 
 #: Telemetry of the most recent ``invert_*`` call: a
@@ -34,6 +36,19 @@ __all__ = ["invert_Poisson"]
 #: overflow) — the machine-readable analog of the reference's per-slice
 #: ``flags`` array (apps.py:2308-2311), which only surfaces through prints.
 LAST_SOLVE = None
+
+
+def _resolve_device(device=None):
+    """The device an entry point runs on: ``device`` when given, else the
+    CUDA card.  Without CUDA and without an explicit device this raises; it
+    never carries on quietly on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the entry points run on the GPU by default; "
+            "pass device='cpu' to run the plain PyTorch version on the CPU")
+    return torch.device("cuda")
 
 
 def _dtype():
@@ -175,8 +190,15 @@ def _check_ported(iP):
                                   "(ROADMAP queue A item 16)")
 
 
+# auto over-relaxation overrides for problems where the grid-optimal
+# Laplacian formula diverges (the damped advective families; the JAX
+# package's table also holds its 2-D ones); passing iParams['optArg']
+# still wins
+_AUTO_OMEGA = {"3docean": 1.4}
+
+
 def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
-            ndim):
+            ndim, device=None):
     dims = [dims] if isinstance(dims, str) else list(dims)
     if len(dims) != ndim:
         raise ValueError(f"{ndim:2d} dimensional forcing are needed")
@@ -185,7 +207,7 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
     validate = mParams is not None and mParams is not default_mParams
     mP = merge_params(default_mParams, mParams,
                       valid_mp if validate else None)
-    device = torch.get_default_device()
+    device = _resolve_device(device)
     dtype = torch.get_default_dtype()
 
     ft, vals, Fdef, batch = _prepare(F, dims, iP)
@@ -200,7 +222,10 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
         torch.as_tensor(Fdef_c, device=device), grid, mPr)
     S0 = _init_state(vals, Fdef, icbc, grid, ft,
                      warm=bool(iP.get("warmStart", False)))
-    omega = iP["optArg"] if iP["optArg"] is not None else grid.omega_opt
+    if iP["optArg"] is not None:
+        omega = iP["optArg"]
+    else:
+        omega = _AUTO_OMEGA.get(problem_key, grid.omega_opt)
 
     if iP.get("debug"):
         print(f"dim grids  : {grid.shape}\ndim intervs: {grid.deltas}\n"
@@ -234,8 +259,44 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
 
 
 def invert_Poisson(F, dims, coords="lat-lon", icbc=None,
-                   mParams=None, iParams=None):
+                   mParams=None, iParams=None, device=None):
     """Poisson equation for streamfunction/velocity potential
     (apps.py:67-100)."""
     return _invert("poisson", F, dims, coords, icbc,
-                   ["g", "Omega", "Rearth"], mParams, iParams, 2)
+                   ["g", "Omega", "Rearth"], mParams, iParams, 2, device)
+
+
+def _check_N2(mParams):
+    """Refuse a stratification profile with a non-finite or non-positive
+    value past its first level, as the reference does (apps.py:766-888)."""
+    if mParams is None:
+        return
+    N2 = mParams.get("N2", None)
+    if N2 is None or np.isscalar(N2):
+        return
+    arr = np.asarray(as_field(N2).values if hasattr(N2, "dims") else N2,
+                     np.float64).ravel()
+    if not np.isfinite(arr[1:]).all():
+        raise ValueError("infinite stratification coefficient N2")
+    if np.isnan(arr[1:]).any():
+        raise ValueError("nan in coefficient N2")
+    if (arr[1:] <= 0).any():
+        raise ValueError("unstable stratification in coefficient N2")
+
+
+def invert_omega(F, dims, coords="lat-lon", icbc=None,
+                 mParams=None, iParams=None, device=None):
+    """QG omega equation, 3-D (apps.py:766-827)."""
+    _check_N2(mParams)
+    return _invert("omega", F, dims, coords, icbc,
+                   ["f0", "beta", "N2", "g", "Omega", "Rearth"],
+                   mParams, iParams, 3, device)
+
+
+def invert_3DOcean(F, dims, coords="lat-lon", icbc=None,
+                   mParams=None, iParams=None, device=None):
+    """3-D damped ocean flow (apps.py:830-888)."""
+    _check_N2(mParams)
+    return _invert("3docean", F, dims, coords, icbc,
+                   ["f0", "beta", "epsilon", "N2", "k", "g", "Omega", "Rearth"],
+                   mParams, iParams, 3, device)

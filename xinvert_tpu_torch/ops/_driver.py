@@ -1,0 +1,155 @@
+# -*- coding: utf-8 -*-
+"""What the 2-D and 3-D red-black SOR wrappers share.
+
+:mod:`.sor2d` and :mod:`.sor3d` differ only in their layout (the number of
+core axes, their limits, the launch arguments) and in their launch calls.
+Everything else is here, once: the checks on the state and the planes, the
+ping-pong sweep loop with the fused |S| partials on the last black
+half-sweep, and the dispatch of CPU tensors to the plain versions.  Each
+module describes itself with a :class:`Family`; its launch functions and
+plain versions keep counting into that module's own counters.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class Family(NamedTuple):
+    """One kernel pair, its launch layout and its plain versions."""
+    layout: Callable                 # (spec, S, rel=None) -> layout dict
+    launch_extend: Callable          # (spec, lay, A): extend A in place
+    launch_color_sweep: Callable     # (spec, lay, rel, S_in, S_out, color,
+                                     #  partials=None)
+    sweeps_reference: Callable       # (spec, S, omega, n)
+    sweeps_reference_norm: Callable  # (spec, S, omega, n) -> (S, sumabs)
+    extend_reference: Callable       # (spec, S)
+    color_sweep_reference: Callable  # (spec, S, rel, color)
+
+
+def relax_plane(spec, omega):
+    """``omega * relax``: the relaxation plane both versions scale by the
+    color selector."""
+    return float(omega) * spec.relax
+
+
+def check_planes(name, spec, S, rel, nd, max_k):
+    """Validate (spec, S[, rel]) for the ``name`` kernels, which take
+    ``nd`` core axes and at most ``max_k`` offsets.  Returns the layout
+    entries every family has: the core shape, the batch, and the batch and
+    offset strides of the planes (0 for a plane the slices share)."""
+    if not S.is_cuda:
+        raise ValueError(f"the {name} kernels take CUDA tensors, got "
+                         f"{S.device}")
+    if S.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the {name} kernels take float32/float64, got "
+                        f"{S.dtype}")
+    if spec.ndim != nd or S.dim() < nd:
+        raise NotImplementedError(f"the {name} kernels take {nd}-D specs, "
+                                  f"got a {spec.ndim}-D one")
+    core = tuple(S.shape[-nd:])
+    batch_shape = tuple(S.shape[:-nd])
+    B = math.prod(batch_shape)
+    K = len(spec.offsets)
+    if K > max_k:
+        raise ValueError(f"{K} offsets; the kernel takes at most {max_k}")
+    extent = "x".join(map(str, core))
+    for off in spec.offsets:
+        if len(off) != nd or any(abs(o) >= n for o, n in zip(off, core)):
+            raise ValueError(f"offset {off} does not fit a {extent} core")
+    planes = {"w0": spec.w0, "g": spec.g,
+              "relax": spec.relax if rel is None else rel}
+    for pname, p in list(planes.items()) + [("w", spec.w)]:
+        if p.device != S.device or p.dtype != S.dtype:
+            raise ValueError(f"plane {pname} is {p.dtype} on {p.device}; "
+                             f"the state is {S.dtype} on {S.device}")
+        if not p.is_contiguous():
+            raise ValueError(f"plane {pname} is not contiguous")
+    vol = math.prod(core)
+    lay = dict(B=B, core=core, batch_shape=batch_shape, K=K)
+    for pname, p in planes.items():
+        if tuple(p.shape) not in (core, tuple(S.shape)):
+            raise ValueError(f"plane {pname} has shape {tuple(p.shape)}; "
+                             f"the kernels take {core} or {tuple(S.shape)}")
+        lay[f"{pname}_bstride"] = vol if p.dim() > nd else 0
+    if tuple(spec.w.shape) not in ((K,) + core, (K,) + tuple(S.shape)):
+        raise ValueError(f"spec.w has shape {tuple(spec.w.shape)}; the "
+                         f"kernels take {(K,) + core} or "
+                         f"{(K,) + tuple(S.shape)}")
+    w_batched = spec.w.dim() > nd + 1
+    lay.update(w_kstride=B * vol if w_batched else vol,
+               w_bstride=vol if w_batched else 0,
+               stream=torch.cuda.current_stream(S.device).cuda_stream)
+    return lay
+
+
+def _buffer(S, lay):
+    """A fresh contiguous (B, *core) copy of S."""
+    A = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype, device=S.device)
+    A.copy_(S.reshape(A.shape))
+    return A
+
+
+def sweeps(fam, spec, S, omega, n, with_norm=False):
+    """n full red-black sweeps of ``spec`` on ``S``: the extend pre-pass
+    when the y boundary is 'extend', then red, then black, ping-ponging
+    between two buffers.  With ``with_norm`` also the per-slice total |S'|,
+    summed per block by the last black half-sweep (n >= 1 then)."""
+    n = int(n)
+    if n < (1 if with_norm else 0):
+        raise ValueError(f"n must be >= {1 if with_norm else 0}, got {n}")
+    if S.device.type == "cpu":
+        if with_norm:
+            return fam.sweeps_reference_norm(spec, S, omega, n)
+        return fam.sweeps_reference(spec, S, omega, n)
+    rel = relax_plane(spec, omega)
+    lay = fam.layout(spec, S, rel)
+    A = _buffer(S, lay)
+    Bf = torch.empty_like(A)
+    partials = None
+    if with_norm:
+        partials = torch.empty((lay["B"], lay["n_partials"]), dtype=S.dtype,
+                               device=S.device)
+    extend = spec.bcs[-2] == "extend"
+    with torch.cuda.device(S.device):
+        for it in range(n):
+            if extend:
+                fam.launch_extend(spec, lay, A)
+            fam.launch_color_sweep(spec, lay, rel, A, Bf, 0)
+            fam.launch_color_sweep(spec, lay, rel, Bf, A, 1,
+                                   partials if it == n - 1 else None)
+    out = A.reshape(S.shape)
+    if with_norm:
+        return out, partials.sum(-1).reshape(lay["batch_shape"])
+    return out
+
+
+def extend(fam, spec, S):
+    """The extend pre-pass on a copy of S (one launch; a plain copy when
+    the y boundary is not 'extend')."""
+    if S.device.type == "cpu":
+        return fam.extend_reference(spec, S)
+    lay = fam.layout(spec, S)
+    A = _buffer(S, lay)
+    if spec.bcs[-2] == "extend":
+        with torch.cuda.device(S.device):
+            fam.launch_extend(spec, lay, A)
+    return A.reshape(S.shape)
+
+
+def color_sweep(fam, spec, S, rel, color):
+    """One half-sweep of ``color`` (0 red, 1 black) into a new tensor (one
+    launch)."""
+    if S.device.type == "cpu":
+        return fam.color_sweep_reference(spec, S, rel, color)
+    if color not in (0, 1):
+        raise ValueError(f"color must be 0 or 1, got {color}")
+    lay = fam.layout(spec, S, rel)
+    S_in = S if S.is_contiguous() else S.contiguous()
+    out = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype,
+                      device=S.device)
+    with torch.cuda.device(S.device):
+        fam.launch_color_sweep(spec, lay, rel, S_in, out, color)
+    return out.reshape(S.shape)

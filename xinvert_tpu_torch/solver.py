@@ -3,9 +3,10 @@
 
 Counterpart of ``xinvert_tpu/solver.py``.  A sweep is an extend pre-pass
 followed by two half-sweeps (red, then black) of the folded stencil
-``S += r_c * (g + sum_k w_k S[.+off_k] + w0 S)``.  On CUDA tensors the sweeps
-run in the hand-written kernels of :mod:`xinvert_tpu_torch.ops.sor2d`; on CPU
-tensors in their plain PyTorch versions, built from the functions below.
+``S += r_c * (g + sum_k w_k S[.+off_k] + w0 S)``, on 2-D and 3-D specs.  On
+CUDA tensors the sweeps run in the hand-written kernels of
+:mod:`xinvert_tpu_torch.ops.sor2d` and :mod:`xinvert_tpu_torch.ops.sor3d`; on
+CPU tensors in their plain PyTorch versions, built from the functions below.
 
 Convergence control replicates the reference exactly: the mean-|S| norm
 (numbas.py:absNorm2D), the relative-change stopping rule, overflow detection
@@ -27,7 +28,7 @@ import torch
 from .grid import optimal_omega
 from .stencil import StencilSpec, prune_zero_offsets
 
-__all__ = ["SolveResult", "solve", "solve_fixed", "sweep"]
+__all__ = ["SolveResult", "solve", "solve_fixed", "sweep", "sweeps"]
 
 
 @dataclasses.dataclass
@@ -42,20 +43,34 @@ class SolveResult:
 # ---------------------------------------------------------------------------
 # boundary pre-pass ('extend' rows), applied once per iteration before the
 # sweep, exactly like the reference kernels (numbas.py:284-310, :1299-1343).
-# Only the second-to-last dim honours 'extend'.
+# Only the second-to-last dim honours 'extend'; 3-D specs extend on interior
+# z levels only, and ignore 'extend' on z as the reference does.
 # ---------------------------------------------------------------------------
 
 def _apply_extend(spec: StencilSpec, S):
-    """The extend pre-pass on a copy of S (2-D specs)."""
-    if spec.ndim != 2:
+    """The extend pre-pass on a copy of S (2-D and 3-D specs)."""
+    if spec.ndim not in (2, 3):
         raise NotImplementedError(
-            "the extend pre-pass is ported for 2-D specs only; 1-D is "
-            "ROADMAP queue A item 7, 3-D item 9")
+            "the extend pre-pass is ported for 2-D and 3-D specs; 1-D is "
+            "ROADMAP queue A item 7")
     if spec.bcs[-2] != "extend":
         return S
     S = S.clone()
     periodic_x = spec.bcs[-1] == "periodic"
-    if not spec.bih:
+    if spec.ndim == 3:
+        # rows 0 and ny-1 copy rows 1 and ny-2 on levels 1..nz-2, with the
+        # corner clamps when x is not periodic (numbas.py:87-115)
+        if periodic_x:
+            S[..., 1:-1, 0, :] = S[..., 1:-1, 1, :]
+            S[..., 1:-1, -1, :] = S[..., 1:-1, -2, :]
+        else:
+            S[..., 1:-1, 0, 1:-1] = S[..., 1:-1, 1, 1:-1]
+            S[..., 1:-1, -1, 1:-1] = S[..., 1:-1, -2, 1:-1]
+            S[..., 1:-1, 0, 0] = S[..., 1:-1, 1, 1]
+            S[..., 1:-1, 0, -1] = S[..., 1:-1, 1, -2]
+            S[..., 1:-1, -1, 0] = S[..., 1:-1, -2, 1]
+            S[..., 1:-1, -1, -1] = S[..., 1:-1, -2, -2]
+    elif not spec.bih:
         if periodic_x:
             S[..., 0, :] = S[..., 1, :]
             S[..., -1, :] = S[..., -2, :]
@@ -142,6 +157,15 @@ def _sweep_with(spec: StencilSpec, S, rr, rb):
     return S
 
 
+def sweeps(spec: StencilSpec, S, omega, n):
+    """n full SOR iterations with PyTorch ops: the plain version of the
+    sweep kernels."""
+    rr, rb = _color_relax(spec, omega)
+    for _ in range(int(n)):
+        S = _sweep_with(spec, S, rr, rb)
+    return S
+
+
 def _residual_norm(spec: StencilSpec, S):
     """Mean |sum_k w_k S[.+off_k] + w0 S + g| over active cells, per slice —
     the true discrete residual of the folded system."""
@@ -166,51 +190,35 @@ def _residual_scale(spec: StencilSpec):
 # ---------------------------------------------------------------------------
 
 def _select_kernel(spec: StencilSpec, S):
-    """The sweep executor for (spec, S): ``"cuda"`` (the hand-written
-    kernels) for CUDA tensors, ``"plain"`` (their PyTorch versions) for CPU
-    tensors.  Anything else raises: there is no silent fallback."""
+    """The sweep executor for (spec, S): ``ops.sor2d.sor2d_sweeps`` or
+    ``ops.sor3d.sor3d_sweeps``, which launch the hand-written kernels on
+    CUDA tensors and run their plain PyTorch versions on CPU tensors.
+    Anything else raises: there is no silent fallback."""
     for name in ("w", "w0", "g", "relax", "active"):
         if getattr(spec, name).device != S.device:
             raise ValueError(
                 f"spec.{name} is on {getattr(spec, name).device} but the "
                 f"state is on {S.device}")
-    if spec.ndim != 2:
+    if spec.ndim not in (2, 3):
         raise NotImplementedError(
             f"{spec.ndim}-D specs are not ported yet (1-D: ROADMAP queue A "
-            "item 7; 3-D: item 9 with kernels B4/B5)")
+            "item 7)")
     if S.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"no sweep kernel for dtype {S.dtype}")
     if spec.w0.dtype != S.dtype:
         raise TypeError(f"spec dtype {spec.w0.dtype} != state dtype "
                         f"{S.dtype}")
-    if S.device.type == "cpu":
-        return "plain"
-    if S.is_cuda:
-        return "cuda"
-    raise NotImplementedError(f"no sweep kernel for device {S.device}")
+    if S.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no sweep kernel for device {S.device}")
+    from .ops import sor2d, sor3d
+    return sor2d.sor2d_sweeps if spec.ndim == 2 else sor3d.sor3d_sweeps
 
 
-def _sweeps_fn(kernel):
-    """``run(spec, S, omega, n, with_norm) -> (S', sumabs or None)``."""
-    from .ops import sor2d
-
-    def run(spec, S, omega, n, with_norm):
-        if kernel == "cuda":
-            if with_norm:
-                return sor2d.sor2d_sweeps(spec, S, omega, n, with_norm=True)
-            return sor2d.sor2d_sweeps(spec, S, omega, n), None
-        if with_norm:
-            return sor2d.sor2d_sweeps_reference_norm(spec, S, omega, n)
-        return sor2d.sor2d_sweeps_reference(spec, S, omega, n), None
-    return run
-
-
-def _solve_impl(spec, S0, omega, tol, max_iters, check_every, kernel,
-                tol_type):
+def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
+                run_sweeps, tol_type):
     dtype, device = S0.dtype, S0.device
     batch_shape = S0.shape[: S0.ndim - spec.ndim]
     ncells = math.prod(S0.shape[-spec.ndim:])
-    run = _sweeps_fn(kernel)
     r_scale = _residual_scale(spec) if tol_type == "residual" else None
     tol_t = torch.tensor(tol, dtype=dtype, device=device)
 
@@ -230,15 +238,16 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every, kernel,
 
     def advance(c, k):
         # one check window: k sweeps, then the convergence/telemetry update
-        S_new, sum_abs = run(spec, c["S"], omega, k,
-                             with_norm=tol_type != "residual")
         if tol_type == "residual":
+            S_new = run_sweeps(spec, c["S"], omega, k)
             norm = torch.broadcast_to(_residual_norm(spec, S_new),
                                       batch_shape)
             rel = norm / r_scale
         else:
             # the reference's mean-|S| norm (absNorm*, numbas.py:1690-1747)
             # from the per-slice total |S| the sweeps return
+            S_new, sum_abs = run_sweeps(spec, c["S"], omega, k,
+                                        with_norm=True)
             norm = sum_abs / ncells
             prev = c["norm_prev"]
             rel = torch.where(prev >= 0,
@@ -317,6 +326,7 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
 
     Runs on the device of ``spec`` and ``S0`` (which must agree): the CUDA
     kernels on a CUDA device, their plain PyTorch versions on the CPU.
+    2-D and 3-D specs; 1-D specs raise ``NotImplementedError``.
     """
     if scheme in NOT_PORTED_SCHEMES:
         raise NotImplementedError(f"scheme={scheme!r} is not ported yet "
@@ -330,12 +340,12 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     if omega is None:
         omega = optimal_omega(S0.shape[-spec.ndim:])
-    kernel = _select_kernel(spec, S0)
+    run_sweeps = _select_kernel(spec, S0)
     # drop identically-zero weight planes: the sweep's memory traffic scales
     # with the plane count (stencil.prune_zero_offsets; exact)
     spec = prune_zero_offsets(spec)
     return _solve_impl(spec, S0, float(omega), float(tol), int(max_iters),
-                       int(check_every), kernel, tol_type)
+                       int(check_every), run_sweeps, tol_type)
 
 
 def solve_fixed(spec: StencilSpec, S0, omega, n_iters: int):
@@ -345,7 +355,4 @@ def solve_fixed(spec: StencilSpec, S0, omega, n_iters: int):
     Unlike :func:`solve`, this does not prune zero weight planes: callers
     chain many calls on one spec, and the prune test is a host sync.
     """
-    kernel = _select_kernel(spec, S0)
-    S, _ = _sweeps_fn(kernel)(spec, S0, float(omega), int(n_iters),
-                              with_norm=False)
-    return S
+    return _select_kernel(spec, S0)(spec, S0, float(omega), int(n_iters))

@@ -15,8 +15,11 @@ folded into wrap-around neighbor access and masks, so the interior update is
 uniform.
 
 Counterpart of ``xinvert_tpu/stencil.py``; this package ports the
-standard-2D family (the Poisson path).  Tensors stay on the device they were
-built on.
+standard-2D family (the Poisson path) and the two 3-D families (standard-3D,
+the omega equation; general-3D, the 3-D ocean).  The helpers
+(``shift_plane``, ``_interior_mask``, ``_finalize``) are rank-generic: a 3-D
+spec updates z on levels 1..nz-2 only (never periodic, never extended).
+Tensors stay on the device they were built on.
 """
 from __future__ import annotations
 
@@ -27,7 +30,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["StencilSpec", "standard_2d", "prune_zero_offsets", "shift_plane"]
+__all__ = ["StencilSpec", "standard_2d", "standard_3d", "general_3d",
+           "prune_zero_offsets", "shift_plane"]
 
 
 def prune_zero_offsets(spec):
@@ -223,4 +227,100 @@ def standard_2d(A, B, C, F, Fdef, deltas, bcs, include_cross=None):
     w0 = -(Ajp + A) * rsq - (Cip + C)
     g = -F * dxsq
     return _finalize(weights, w0, g, Fdef, F.shape[-2:], bcs, False, True,
+                     dtype)
+
+
+def _upwind_terms(coef, s, scale):
+    """First-order upwind split of a first-derivative term with coefficient
+    ``coef`` (sign-normalised by ``s``: the equation times s has
+    non-negative diffusion).  Returns (w_plus, w_minus, w_center) folded
+    weight contributions with w_plus + w_minus + w_center == 0, the center
+    contribution strengthening the diagonal."""
+    pos = torch.where(s * coef > 0, coef, 0.0)
+    neg = torch.where(s * coef < 0, coef, 0.0)
+    return pos * scale, -neg * scale, -s * torch.abs(coef) * scale
+
+
+def _upwind_on(upwind) -> bool:
+    """True when ``upwind`` requests the upwinded discretisation: a nonzero
+    scalar (+-1 global convention) or a per-cell sign plane (tensors are
+    always 'on' — plain truthiness would raise on them)."""
+    if upwind is None:
+        return False
+    if isinstance(upwind, (int, float)):
+        return upwind != 0
+    return True
+
+
+def standard_3d(A, B, C, F, Fdef, deltas, bcs):
+    r"""d/dz(A Sz) + d/dy(B Sy) + d/dx(C Sx) = F  (numbas.py:16-212).
+
+    A staggered half-grid in z, B in y, C in x.  BCz is accepted but unused in
+    the reference kernel body (z boundaries act fixed) — replicated here.
+    """
+    delz, dely, delx = deltas
+    r2sq = (delx / delz) ** 2
+    r1sq = (delx / dely) ** 2
+    dxsq = delx ** 2
+    dtype = _result_dtype(A, C, F)
+
+    Akp = shift_plane(A, (1, 0, 0))
+    Bjp = shift_plane(B, (0, 1, 0))
+    Cip = shift_plane(C, (0, 0, 1))
+    weights = {
+        (1, 0, 0): Akp * r2sq,
+        (-1, 0, 0): A * r2sq,
+        (0, 1, 0): Bjp * r1sq,
+        (0, -1, 0): B * r1sq,
+        (0, 0, 1): Cip,
+        (0, 0, -1): C,
+    }
+    w0 = -(Akp + A) * r2sq - (Bjp + B) * r1sq - (Cip + C)
+    g = -F * dxsq
+    return _finalize(weights, w0, g, Fdef, F.shape[-3:], bcs, False, False,
+                     dtype)
+
+
+def general_3d(A, B, C, D, E, F, G, H, Fdef, deltas, bcs, upwind=0.0):
+    r"""A Szz + B Syy + C Sxx + D Sz + E Sy + F Sx + G S = H
+    (numbas.py:746-984).
+
+    ``upwind`` (0 = centered first derivatives, reference parity) selects
+    first-order upwinding of the D/E/F advection terms with sign
+    normalisation ``upwind = +-1`` or a per-cell +-1 plane.
+    """
+    delz, dely, delx = deltas
+    r2 = delx / delz
+    r1 = delx / dely
+    r2sq = r2 ** 2
+    r1sq = r1 ** 2
+    dxsq = delx ** 2
+    half = delx / 2.0
+    dtype = _result_dtype(A, C, H)
+
+    w0 = -2.0 * (A * r2sq + B * r1sq + C) + G * dxsq
+    if _upwind_on(upwind):
+        dzp, dzm, dz0 = _upwind_terms(D, upwind, r2 * delx)
+        dyp, dym, dy0 = _upwind_terms(E, upwind, r1 * delx)
+        dxp, dxm, dx0 = _upwind_terms(F, upwind, delx)
+        weights = {
+            (1, 0, 0): A * r2sq + dzp,
+            (-1, 0, 0): A * r2sq + dzm,
+            (0, 1, 0): B * r1sq + dyp,
+            (0, -1, 0): B * r1sq + dym,
+            (0, 0, 1): C + dxp,
+            (0, 0, -1): C + dxm,
+        }
+        w0 = w0 + dz0 + dy0 + dx0
+    else:
+        weights = {
+            (1, 0, 0): A * r2sq + D * r2 * half,
+            (-1, 0, 0): A * r2sq - D * r2 * half,
+            (0, 1, 0): B * r1sq + E * r1 * half,
+            (0, -1, 0): B * r1sq - E * r1 * half,
+            (0, 0, 1): C + F * half,
+            (0, 0, -1): C - F * half,
+        }
+    g = -H * dxsq
+    return _finalize(weights, w0, g, Fdef, H.shape[-3:], bcs, False, False,
                      dtype)
