@@ -13,25 +13,35 @@ seed, and runs these phases, each printing its lines:
      one process per source started together (first use), with the seconds
      each took;
   2  each kernel against its plain PyTorch version on the card: bit-equal
-     (torch.equal) in float32 and float64, alone and over 20 sweeps, on
-     several 2-D grids and 3-D volumes, and the fused |S| sums against
-     sum|S| (rtol 1e-5 / 1e-12);
+     (torch.equal) in float32 and float64, alone and over 20 sweeps, with
+     and without Chebyshev factors, on several 2-D grids and 3-D volumes
+     (every shape the main paths below drive), the in-place 2-D kernel
+     wherever the spec takes it, and the fused |S| sums against sum|S|
+     (rtol 1e-5 / 1e-12);
   3  the main paths, in float32 and with no device argument (the entry
      points default to the card): invert_Poisson at 2048x2048 and at a
      batched 8x73x144; invert_omega at 37x72x288; invert_3DOcean at
-     30x330x720.  Each path runs with every launch count set to 0 just
-     before it and read just after, which must show it went through its
-     kernels alone, then once more under torch.profiler for the device's
-     busy time against the wall time.  Smaller runs of the same calls are
-     held against a float64 CPU run (device="cpu", the plain version):
-     Poisson 8x73x144, omega 37x72x144, ocean 20x110x240, within 1e-4 of
-     max|S|;
+     30x330x720; on the SODA-class monthly curl at 12x330x720,
+     invert_Stommel with the in-place switch on and off (the same iters and
+     bit-equal states), invert_StommelMunk, and invert_Stommel with
+     scheme="cheby"; invert_Poisson 2048x2048 again through the in-place
+     kernel (equal to the first run).  Each path runs with every launch
+     count set to 0 just before it and read just after, which must show it
+     went through its kernels alone, most then once more under
+     torch.profiler for the device's busy time against the wall time.
+     Smaller runs of the same calls are held against a float64 CPU run
+     (device="cpu", the plain version): Poisson 8x73x144, omega 37x72x144,
+     ocean 20x110x240, and the three SODA calls at 2x110x240 (mxLoop cut to
+     2000), within 1e-4 of max|S|;
   4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
      calls timed with CUDA events, for the kernels and the plain version,
      beside a device-to-device copy of the bytes a sweep of the kernels
      moves (2-D 2048x2048, float64 too; 3-D 37x72x288, 73x72x288,
-     30x330x720); each kernel's device time per launch (torch.profiler)
-     beside its plain version's and beside its bound.
+     30x330x720), and the in-place kernel against the pair in turns
+     (2048x2048, Stommel 12x330x720); each kernel's device time per launch
+     (CUDA events around back-to-back launches queued behind a device-side
+     spin, so no host gap counts) beside its plain version's, its bound and
+     a copy of its bytes.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Any failed phase raises, and the
@@ -49,7 +59,8 @@ from xinvert_tpu_torch.grid import Grid
 from xinvert_tpu_torch.models import api, problems
 from xinvert_tpu_torch.models.params import default_mParams
 from xinvert_tpu_torch.ops import _build, sor2d, sor3d
-from xinvert_tpu_torch.stencil import StencilSpec, _interior_mask, standard_2d
+from xinvert_tpu_torch.stencil import (StencilSpec, _interior_mask,
+                                       prune_zero_offsets, standard_2d)
 
 KERNELS = {   # name: (source, replaces, also_replaces)
     "sor2d_extend_rows": ("xinvert_tpu_torch/csrc/sor2d.cu",
@@ -58,6 +69,9 @@ KERNELS = {   # name: (source, replaces, also_replaces)
     "sor2d_color_sweep": ("xinvert_tpu_torch/csrc/sor2d.cu",
                           "xinvert_tpu/ops/pallas_sor.py:94",
                           "xinvert_tpu/ops/pallas_sor_window.py:252"),
+    "sor2d_color_sweep_inplace": ("xinvert_tpu_torch/csrc/sor2d.cu",
+                                  "xinvert_tpu/ops/pallas_sor_window.py:414",
+                                  None),
     "sor3d_extend_rows": ("xinvert_tpu_torch/csrc/sor3d.cu",
                           "xinvert_tpu/ops/pallas_sor3d.py:50",
                           "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
@@ -65,6 +79,12 @@ KERNELS = {   # name: (source, replaces, also_replaces)
                           "xinvert_tpu/ops/pallas_sor3d.py:75",
                           "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
 }
+# each kernel's launch counter
+COUNTERS = {"sor2d_extend_rows": (sor2d, "EXTEND_LAUNCHES"),
+            "sor2d_color_sweep": (sor2d, "LAUNCHES"),
+            "sor2d_color_sweep_inplace": (sor2d, "INPLACE_LAUNCHES"),
+            "sor3d_extend_rows": (sor3d, "EXTEND_LAUNCHES"),
+            "sor3d_color_sweep": (sor3d, "LAUNCHES")}
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -196,6 +216,35 @@ def soda_land_mask(lat, lon):
     return land
 
 
+def soda_curl(months=12, step=1):
+    """The SODA-class monthly wind-stress curl of the 0.5-degree global
+    ocean (the repository's SODA-analog fixture recipe,
+    tools/make_fixtures.py::make_soda_curl): subtropical and subpolar gyre
+    bands with a seasonal cycle and deterministic synoptic texture, NaN
+    over the land mask; the first ``months`` months at every ``step``-th
+    point."""
+    ny, nx = 330, 720
+    lat = np.linspace(-74.75, 89.75, ny)
+    lon = np.linspace(0.25, 360.0 - 360.0 / nx + 0.25, nx)
+    land = soda_land_mask(lat, lon)
+    L = np.deg2rad(lat)[:, None]
+    Lo = np.deg2rad(lon)[None, :]
+    rng = np.random.default_rng(3)
+    texture = np.zeros((ny, nx))
+    for k in range(2, 8):
+        texture += (rng.normal() * np.sin(k * Lo + rng.uniform(0, 6)) *
+                    np.cos((k - 1) * L) / k)
+    months_idx = np.arange(12)
+    seasonal = 1.0 + 0.35 * np.cos(2 * np.pi * (months_idx - 1) / 12.0)
+    base = (np.sin(3 * L) * np.cos(L) + 0.25 * np.sin(5 * L)) * 1e-7
+    curl = (seasonal[:, None, None] * base[None]
+            + 2e-8 * texture[None] * np.cos(L)[None])
+    curl = np.where(land[None], np.nan, curl)[:months, ::step, ::step]
+    coords = {"time": months_idx[:months].astype(np.float64),
+              "lat": lat[::step], "lon": lon[::step]}
+    return xt.Field(curl, ("time", "lat", "lon"), coords)
+
+
 def ocean3d(nz, step=1):
     """The wide, flat global ocean volume of the 3-D ocean example: the
     0.5-degree 330x720 land mask (every ``step``-th point), ``nz`` levels
@@ -252,6 +301,26 @@ def ocean_spec(nz, dtype, device, step=1):
     return problems.build_ocean3d(vals, Fdef, grid, mp), 1.4
 
 
+# the SODA workloads of tests/test_ocean_workloads.py (the reference's
+# test_StommelWBC.py and test_MunkWBC.py): Stommel R 2e-4, D 100;
+# Stommel-Munk with A4 5e3
+STOMMEL_MP = {"R": 2e-4, "D": 100}
+MUNK_MP = {"R": 2e-4, "D": 100, "A4": 5e3}
+
+
+def soda_spec(builder, mp, months, dtype, device, step=1):
+    """A builder of models.problems on the SODA-class curl, (extend,
+    periodic), pruned as solve prunes it: Stommel's zero cross planes go
+    (4 offsets, radius 1), Stommel-Munk keeps 8 of its 16."""
+    f = soda_curl(months, step)
+    grid = Grid.make(("lat", "lon"), (f.coords["lat"], f.coords["lon"]),
+                     "lat-lon", bcs=("extend", "periodic"))
+    vals = torch.as_tensor(f.values, dtype=dtype, device=device)
+    Fdef = ~torch.isnan(vals[0])              # the land mask of every month
+    spec = builder(vals, Fdef, grid, dict(default_mParams, **mp))
+    return prune_zero_offsets(spec), 1.0
+
+
 # ---------------------------------------------------------------- phase 0
 
 def phase0():
@@ -293,8 +362,11 @@ def _max_err(a, b):
 
 
 def _check_kernels(mod, name, make, errs, n=20):
-    """Each kernel of ``mod`` alone and n sweeps of both, against the plain
-    versions, in float32 and float64; raises on any difference."""
+    """Each kernel of ``mod`` alone and n sweeps of them, against the plain
+    versions, in float32 and float64: the color sweep with and without a
+    Chebyshev factor, and, where the spec takes it, the in-place color
+    sweep and the sweeps through it (``sor2d.INPLACE_KERNEL`` set); raises
+    on any difference."""
     p = mod.__name__.rsplit(".", 1)[-1]           # "sor2d" / "sor3d"
     extend, extend_ref = (getattr(mod, f"{p}_extend"),
                           getattr(mod, f"{p}_extend_reference"))
@@ -305,6 +377,8 @@ def _check_kernels(mod, name, make, errs, n=20):
     core = (-3, -2, -1) if p == "sor3d" else (-2, -1)
     for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         spec, omega = make(dt)
+        inplace = p == "sor2d" and sor2d.inplace_eligible(
+            spec, tuple(spec.g.shape[-2:]))
         gen = torch.Generator(device="cpu").manual_seed(7)
         S0 = (torch.randn(spec.g.shape, generator=gen, dtype=torch.float64)
               * 1e-3).to(dt).to(spec.g.device)
@@ -314,24 +388,51 @@ def _check_kernels(mod, name, make, errs, n=20):
         errs[f"{p}_extend_rows"] = max(errs[f"{p}_extend_rows"],
                                        _max_err(ext_k, ext_p))
         rel = mod.relax_plane(spec, omega)
+        fac_1 = float(torch.tensor(1.37, dtype=dt))
         for c in (0, 1):
-            cs_k = color(spec, ext_k, rel, c)
-            cs_p = color_ref(spec, ext_p, rel, c)
-            ok &= torch.equal(cs_k, cs_p)
-            errs[f"{p}_color_sweep"] = max(errs[f"{p}_color_sweep"],
-                                           _max_err(cs_k, cs_p))
-        out_k = sweeps(spec, S0, omega, n)
-        out_p = sweeps_ref(spec, S0, omega, n)
-        out_n, sumabs = sweeps(spec, S0, omega, n, with_norm=True)
-        torch.cuda.synchronize()
-        err = _max_err(out_k, out_p)
-        for k in (f"{p}_extend_rows", f"{p}_color_sweep"):
-            errs[k] = max(errs[k], err)
-        ok &= torch.equal(out_k, out_p) and torch.equal(out_n, out_k)
-        ok &= bool(torch.isfinite(out_p).all())
-        ref = out_p.double().abs().sum(dim=core)
-        norm_err = float(((sumabs.double() - ref).abs() / ref).max())
+            for fac in (1.0, fac_1):
+                cs_k = color(spec, ext_k, rel, c, fac)
+                cs_p = color_ref(spec, ext_p, rel, c, fac)
+                ok &= torch.equal(cs_k, cs_p)
+                errs[f"{p}_color_sweep"] = max(errs[f"{p}_color_sweep"],
+                                               _max_err(cs_k, cs_p))
+                if inplace:
+                    ip_k = sor2d.sor2d_color_sweep_inplace(spec, ext_k, rel,
+                                                           c, fac)
+                    ip_p = sor2d.sor2d_color_sweep_inplace_reference(
+                        spec, ext_p, rel, c, fac)
+                    ok &= torch.equal(ip_k, ip_p)
+                    errs["sor2d_color_sweep_inplace"] = max(
+                        errs["sor2d_color_sweep_inplace"],
+                        _max_err(ip_k, ip_p))
+        # n sweeps at omega, and n cheby sweeps (omega 1 with factors)
+        facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dt))
+                for k in range(2 * n)]
+        kernels = [f"{p}_extend_rows", f"{p}_color_sweep"]
+        runs = [(False, omega, None), (False, 1.0, facs)]
+        if inplace:
+            kernels.append("sor2d_color_sweep_inplace")
+            runs += [(True, omega, None), (True, 1.0, facs)]
+        norm_err = 0.0
+        for switch, om, fac in runs:
+            sor2d.INPLACE_KERNEL = switch
+            i0 = sor2d.INPLACE_LAUNCHES
+            out_k = sweeps(spec, S0, om, n, fac=fac)
+            out_n, sumabs = sweeps(spec, S0, om, n, with_norm=True, fac=fac)
+            sor2d.INPLACE_KERNEL = False
+            out_p = sweeps_ref(spec, S0, om, n, fac)
+            torch.cuda.synchronize()
+            ok &= (sor2d.INPLACE_LAUNCHES > i0) == switch
+            err = _max_err(out_k, out_p)
+            for k in kernels:
+                errs[k] = max(errs[k], err)
+            ok &= torch.equal(out_k, out_p) and torch.equal(out_n, out_k)
+            ok &= bool(torch.isfinite(out_p).all())
+            ref = out_p.double().abs().sum(dim=core)
+            norm_err = max(norm_err, float(
+                ((sumabs.double() - ref).abs() / ref).max()))
         log(f"[2] {name} {str(dt)[6:]}: bit-equal={ok} "
+            f"(in-place kernel: {'checked' if inplace else 'not eligible'}) "
             f"max|kernel-plain|={err:.3e} sumabs rel err={norm_err:.3e} "
             f"(tol {rtol:g})")
         if not ok or not norm_err <= rtol:
@@ -350,6 +451,18 @@ def phase2(dev):
          lambda dt: cross_spec(201, 301, ("fixed", "fixed"), dt, dev)),
         ("main path 2048x2048 (extend, periodic) masked",
          lambda dt: poisson_spec(2048, 2048, 0, dt, dev)),
+        ("main path Stommel 12x330x720 (extend, periodic) SODA, pruned",
+         lambda dt: soda_spec(problems.build_stommel, STOMMEL_MP, 12, dt,
+                              dev)),
+        ("Stommel 2x110x240 (extend, periodic) SODA, pruned",
+         lambda dt: soda_spec(problems.build_stommel, STOMMEL_MP, 2, dt, dev,
+                              step=3)),
+        ("main path Stommel-Munk bih 12x330x720 (extend, periodic) SODA, "
+         "pruned", lambda dt: soda_spec(problems.build_stommelmunk, MUNK_MP,
+                                        12, dt, dev)),
+        ("Stommel-Munk bih 2x110x240 (extend, periodic) SODA, pruned",
+         lambda dt: soda_spec(problems.build_stommelmunk, MUNK_MP, 2, dt,
+                              dev, step=3)),
         ("bih 16-offset 29x31 (extend, fixed)",
          lambda dt: random_spec((29, 31), BIH_OFFSETS, ("extend", "fixed"),
                                 True, 0, False, dt, dev)),
@@ -392,8 +505,9 @@ def phase2(dev):
 # ---------------------------------------------------------------- phase 3
 
 def _zero_counts():
-    for mod in (sor2d, sor3d):
-        mod.EXTEND_LAUNCHES = mod.LAUNCHES = mod.PLAIN_CALLS = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+    sor2d.PLAIN_CALLS = sor3d.PLAIN_CALLS = 0
 
 
 def _check_field(out, field, name):
@@ -409,34 +523,34 @@ def _check_field(out, field, name):
         raise RuntimeError(f"{name}: the solution is zero")
 
 
-def _drive(name, mod, call, field, extend, launches=None):
+def _drive(name, sweep_kernel, call, field, extend, launches=None):
     """One call of an entry point with every count set to 0 just before it
-    and read just after; it must have gone through ``mod``'s kernels alone
-    (the extend kernel too when ``extend``).  The full-size main-path runs
-    add their launches to ``launches``."""
+    and read just after; it must have gone through ``sweep_kernel`` alone
+    (and the extend kernel of its source when ``extend``), with no plain
+    call.  The full-size main-path runs add their launches to
+    ``launches``."""
     _zero_counts()
     t0 = time.perf_counter()
     out = call()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    ext, sweeps = mod.EXTEND_LAUNCHES, mod.LAUNCHES
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
     plain = sor2d.PLAIN_CALLS + sor3d.PLAIN_CALLS
-    other = sor3d if mod is sor2d else sor2d
     res = api.LAST_SOLVE
+    ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
     log(f"[3] {name} float32: iters {res.iters.cpu().tolist()} rel_change "
         f"{res.rel_change.cpu().tolist()} overflow "
-        f"{res.overflow.cpu().tolist()} wall {wall:.3f} s; launches extend "
-        f"{ext} color_sweep {sweeps}, plain calls {plain}")
-    if not (sweeps > 0 and plain == 0 and other.LAUNCHES == 0
-            and other.EXTEND_LAUNCHES == 0):
+        f"{res.overflow.cpu().tolist()} wall {wall:.3f} s; launches: "
+        f"{ran}; plain calls {plain}")
+    expect = {sweep_kernel}
+    if extend:
+        expect.add(sweep_kernel[:5] + "_extend_rows")
+    if {k for k, v in counts.items() if v} != expect or plain:
         raise RuntimeError(f"{name}: the main path did not run through "
-                           "its kernels alone")
-    if (ext > 0) != extend:
-        raise RuntimeError(f"{name}: {ext} launches of the extend kernel")
+                           f"{sorted(expect)} alone")
     if launches is not None:
-        p = mod.__name__.rsplit(".", 1)[-1]
-        launches[f"{p}_extend_rows"] += ext
-        launches[f"{p}_color_sweep"] += sweeps
+        for k, v in counts.items():
+            launches[k] += v
     _check_field(out, field, name)
     return out
 
@@ -453,6 +567,11 @@ def _busy_share(name, call):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = sum(ev.self_device_time_total for ev in prof.key_averages()) / 1e6
+    if not busy > 0:
+        # the profiler's device trace is a diagnostic here, not a check
+        log(f"[3] {name} float32, profiled call: {wall:.4f} s wall; device "
+            f"busy not measured (torch.profiler recorded no device time)")
+        return
     log(f"[3] {name} float32, profiled call: device busy {busy:.4f} s of "
         f"{wall:.4f} s wall, idle share {1.0 - busy / wall:.3f}")
 
@@ -487,8 +606,8 @@ def phase3():
                             ("8x73x144", gal, iP_gal)):
         call = lambda f=field, i=iP: xt.invert_Poisson(  # noqa: E731
             f, dims=["lat", "lon"], iParams=i)
-        out[name] = _drive(f"invert_Poisson {name}", sor2d, call, field,
-                           True, launches)
+        out[name] = (_drive(f"invert_Poisson {name}", "sor2d_color_sweep",
+                            call, field, True, launches), api.LAST_SOLVE)
         _busy_share(f"invert_Poisson {name}", call)
 
     iP_om = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 2000,
@@ -496,40 +615,122 @@ def phase3():
     F_om, N2_om = atmos3d(37, 72, 288)
     call = lambda: xt.invert_omega(  # noqa: E731
         F_om, dims=DIMS_3D, mParams={"N2": N2_om}, iParams=iP_om)
-    _drive("invert_omega 37x72x288", sor3d, call, F_om, False, launches)
+    _drive("invert_omega 37x72x288", "sor3d_color_sweep", call, F_om, False,
+           launches)
     _busy_share("invert_omega 37x72x288", call)
     iP_oc = {"BCs": ["fixed", "extend", "periodic"], "undef": np.nan,
              "mxLoop": 2000, "tolerance": 1e-8, "printInfo": False}
     F_oc, N2_oc = ocean3d(30)
     call = lambda: xt.invert_3DOcean(  # noqa: E731
         F_oc, dims=DIMS_3D, mParams=dict(OCEAN_MP, N2=N2_oc), iParams=iP_oc)
-    _drive("invert_3DOcean 30x330x720", sor3d, call, F_oc, True, launches)
+    _drive("invert_3DOcean 30x330x720", "sor3d_color_sweep", call, F_oc, True,
+           launches)
     _busy_share("invert_3DOcean 30x330x720", call)
+
+    # the 2-D families on the SODA-class curl, 12x330x720: Stommel with the
+    # in-place switch on (B3) and off (the pair), which must agree bit for
+    # bit; Stommel-Munk (biharmonic, the pair); Stommel with scheme="cheby"
+    # (B3 with its factors); the reference workload's iParams, a cheby
+    # omega that converges (1.3)
+    iP_soda = {"BCs": ["extend", "periodic"], "undef": np.nan,
+               "mxLoop": 5000, "tolerance": 1e-12, "optArg": 1,
+               "printInfo": False}
+    iP_cheby = dict(iP_soda, scheme="cheby", optArg=1.3)
+    soda = soda_curl()
+    paths = {
+        "Stommel": lambda f, i, **kw: xt.invert_Stommel(
+            f, dims=["lat", "lon"], iParams=i, mParams=STOMMEL_MP, **kw),
+        "StommelMunk": lambda f, i, **kw: xt.invert_StommelMunk(
+            f, dims=["lat", "lon"], iParams=i, mParams=MUNK_MP, **kw),
+    }
+    sor2d.INPLACE_KERNEL = True
+    st_on = (_drive("invert_Stommel 12x330x720 in-place",
+                    "sor2d_color_sweep_inplace",
+                    lambda: paths["Stommel"](soda, iP_soda), soda, True,
+                    launches), api.LAST_SOLVE)
+    _busy_share("invert_Stommel 12x330x720 in-place",
+                lambda: paths["Stommel"](soda, iP_soda))
+    sor2d.INPLACE_KERNEL = False
+    st_off = (_drive("invert_Stommel 12x330x720 pair", "sor2d_color_sweep",
+                     lambda: paths["Stommel"](soda, iP_soda), soda, True,
+                     launches), api.LAST_SOLVE)
+    _same("invert_Stommel 12x330x720, in-place vs pair", st_on, st_off)
+    _drive("invert_StommelMunk 12x330x720", "sor2d_color_sweep",
+           lambda: paths["StommelMunk"](soda, iP_soda), soda, True, launches)
+    _busy_share("invert_StommelMunk 12x330x720",
+                lambda: paths["StommelMunk"](soda, iP_soda))
+    sor2d.INPLACE_KERNEL = True
+    _drive("invert_Stommel cheby 12x330x720 in-place",
+           "sor2d_color_sweep_inplace",
+           lambda: paths["Stommel"](soda, iP_cheby), soda, True, launches)
+    _busy_share("invert_Stommel cheby 12x330x720 in-place",
+                lambda: paths["Stommel"](soda, iP_cheby))
+    # invert_Poisson 2048x2048 through B3 against the pair's run above
+    call = lambda: xt.invert_Poisson(  # noqa: E731
+        big, dims=["lat", "lon"], iParams=iP_big)
+    big_on = (_drive("invert_Poisson 2048x2048 in-place",
+                     "sor2d_color_sweep_inplace", call, big, True, launches),
+              api.LAST_SOLVE)
+    _same("invert_Poisson 2048x2048, in-place vs pair", big_on,
+          out["2048x2048"])
+    sor2d.INPLACE_KERNEL = False
 
     # answers against float64 runs of the same calls on the CPU (the plain
     # path), both sides checking every 32 sweeps as the card's float32 runs
-    # do by default; the 3-D ones at sizes the CPU can afford
-    _against_cpu("invert_Poisson 8x73x144", out["8x73x144"],
+    # do by default; the 3-D and SODA ones at sizes the CPU can afford (the
+    # SODA ones with mxLoop cut to 2000)
+    _against_cpu("invert_Poisson 8x73x144", out["8x73x144"][0],
                  lambda: xt.invert_Poisson(
                      gal, dims=["lat", "lon"],
                      iParams=dict(iP_gal, checkEvery=32), device="cpu"))
     F_s, N2_s = atmos3d(37, 72, 144)
     iP_s = dict(iP_om, checkEvery=32)
-    om_out = _drive("invert_omega 37x72x144", sor3d, lambda: xt.invert_omega(
-        F_s, dims=DIMS_3D, mParams={"N2": N2_s}, iParams=iP_s), F_s, False)
+    om_out = _drive("invert_omega 37x72x144", "sor3d_color_sweep",
+                    lambda: xt.invert_omega(F_s, dims=DIMS_3D,
+                                            mParams={"N2": N2_s},
+                                            iParams=iP_s), F_s, False)
     _against_cpu("invert_omega 37x72x144", om_out, lambda: xt.invert_omega(
         F_s, dims=DIMS_3D, mParams={"N2": N2_s}, iParams=iP_s, device="cpu"))
     F_d, N2_d = ocean3d(20, step=3)
     iP_d = dict(iP_oc, checkEvery=32)
     mP_d = dict(OCEAN_MP, N2=N2_d)
-    oc_out = _drive("invert_3DOcean 20x110x240", sor3d,
+    oc_out = _drive("invert_3DOcean 20x110x240", "sor3d_color_sweep",
                     lambda: xt.invert_3DOcean(F_d, dims=DIMS_3D,
                                               mParams=mP_d, iParams=iP_d),
                     F_d, True)
     _against_cpu("invert_3DOcean 20x110x240", oc_out,
                  lambda: xt.invert_3DOcean(F_d, dims=DIMS_3D, mParams=mP_d,
                                            iParams=iP_d, device="cpu"))
+    small = soda_curl(months=2, step=3)
+    for name, path, iP, kernel in (
+            ("invert_Stommel", "Stommel", iP_soda,
+             "sor2d_color_sweep_inplace"),
+            ("invert_StommelMunk", "StommelMunk", iP_soda,
+             "sor2d_color_sweep"),
+            ("invert_Stommel cheby", "Stommel", iP_cheby,
+             "sor2d_color_sweep_inplace")):
+        iP_sm = dict(iP, mxLoop=2000, checkEvery=32)
+        sor2d.INPLACE_KERNEL = True
+        card_out = _drive(f"{name} 2x110x240", kernel,
+                          lambda p=path, i=iP_sm: paths[p](small, i), small,
+                          True)
+        sor2d.INPLACE_KERNEL = False
+        _against_cpu(f"{name} 2x110x240", card_out,
+                     lambda p=path, i=iP_sm: paths[p](small, i,
+                                                      device="cpu"))
     return launches
+
+
+def _same(name, a, b):
+    """Two runs of one call, each given as (Field, SolveResult): the same
+    iters and bit-equal states (torch.equal) and fields."""
+    (fa, ra), (fb, rb) = a, b
+    same = (torch.equal(ra.iters, rb.iters) and torch.equal(ra.S, rb.S)
+            and np.array_equal(fa.values, fb.values, equal_nan=True))
+    log(f"[3] {name}: iters {ra.iters.cpu().tolist()} and "
+        f"{rb.iters.cpu().tolist()}, states and fields equal: {same}")
+    if not same:
+        raise RuntimeError(f"{name}: the two runs differ")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -594,10 +795,43 @@ def _rates(card, label, spec, omega, shape, plain, dev, n=500):
     return S0
 
 
+def _rates_inplace(card, label, spec, omega, shape, dev, n=500):
+    """solve_fixed through the in-place kernel against the ping-pong pair,
+    in turns (pair, in-place, in-place, pair), and a device copy of the
+    bytes a sweep of either moves."""
+    S0 = torch.zeros(shape, dtype=spec.w0.dtype, device=dev)
+    times = {}
+    for switch in (False, True, True, False):
+        sor2d.INPLACE_KERNEL = switch
+        i0 = sor2d.INPLACE_LAUNCHES
+        times.setdefault(switch, []).append(_chain_ms(
+            lambda S: xt.solve_fixed(spec, S, omega, n), S0))
+        if (sor2d.INPLACE_LAUNCHES > i0) != switch:
+            raise RuntimeError(f"{label}: solve_fixed did not take the "
+                               f"kernel the switch asked for")
+    sor2d.INPLACE_KERNEL = False
+    pts = int(np.prod(shape)) * n
+    sweep_bytes = (2 * (len(spec.offsets) + 5) * int(np.prod(shape))
+                   * spec.w0.element_size())
+    t_copy = _copy_ms(sweep_bytes // 2, dev)
+    best = {k: min(v) for k, v in times.items()}
+    log(f"[4] {card} | solve_fixed {label} {str(spec.w0.dtype)[6:]}, {n} "
+        f"sweeps per call, median of 5 chained calls, in turns: pair "
+        f"{times[False][0]:.3f} ms, in-place {times[True][0]:.3f} ms, "
+        f"in-place {times[True][1]:.3f} ms, pair {times[False][1]:.3f} ms; "
+        f"in-place {pts / (best[True] * 1e-3):.4e} vs pair "
+        f"{pts / (best[False] * 1e-3):.4e} point-sweeps/s; sweep bytes "
+        f"{sweep_bytes} B at {sweep_bytes * n / (best[True] * 1e-3) / 1e9:.1f}"
+        f" GB/s (in-place); device copy of {sweep_bytes // 2} B "
+        f"{t_copy:.4f} ms = {sweep_bytes / (t_copy * 1e-3) / 1e9:.1f} GB/s")
+    return S0
+
+
 def _bound(name, spec, shape):
-    """(bound_ms, bound_by) of one launch of kernel ``name`` on ``spec``:
-    the bytes it must move (each input read once, each output written once)
-    over the HBM rate, against its float32 operations over the peak rate."""
+    """(bound_ms, bound_by, nbytes) of one launch of kernel ``name`` on
+    ``spec``: the bytes it must move (each input read once, each output
+    written once) over the HBM rate, against its float32 operations over
+    the peak rate."""
     itemsize = spec.w0.element_size()
     cells = int(np.prod(shape))
     if name.endswith("extend_rows"):
@@ -609,37 +843,40 @@ def _bound(name, spec, shape):
         nbytes, ops = 4 * slabs * shape[-1] * itemsize, 0
     else:
         # S, K weights, w0, g, rel read; S' written (planes shared by the
-        # batch read once); 2K+5 operations per cell
+        # batch read once: a checkerboard write still dirties every sector,
+        # so the in-place kernel moves the same bytes); 2K+5 operations per
+        # cell updated (the in-place kernel computes one color only)
         K = len(spec.offsets)
         planes = [spec.w0, spec.g, spec.relax]
         nbytes = (2 * cells + sum(p.numel() for p in planes)
                   + spec.w.numel()) * itemsize
-        ops = (2 * K + 5) * cells
+        ops = (2 * K + 5) * (cells // 2 if name.endswith("inplace")
+                             else cells)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
-def _per_launch(card, label, calls):
+def _per_launch(card, label, calls, dev):
     """Each kernel's device time per launch against its plain version's, on
-    the same inputs (torch.profiler), and the wrappers' CUDA-event times."""
+    the same inputs (:func:`_device_ms`), the wrappers' CUDA-event times,
+    and the bound beside a device copy moving the launch's bytes."""
     per = {}
-    for name, (kern, plain, bound) in calls.items():
-        _, kern_keys = _device_ms(kern, 50)
-        launch = [v for k, v in kern_keys.items() if f"{name}_kernel" in k]
-        if len(launch) != 1:
-            raise RuntimeError(f"the profiler shows no launch of {name}")
-        t_launch = launch[0]
-        t_plain, _ = _device_ms(plain, 50)
+    for name, (kern, plain, launch, (bound_ms, bound_by, nbytes)) \
+            in calls.items():
+        t_launch = _device_ms(launch, 50)
+        t_plain = _device_ms(plain, 10)
         w_kern = _time_ms(kern, 5, 50)
         w_plain = _time_ms(plain, 5, 50)
-        per[name] = (t_launch, t_plain) + bound
+        t_copy = _copy_ms(nbytes // 2, dev)
+        per[name] = (t_launch, t_plain, bound_ms, bound_by)
         log(f"[4] {card} | {name} {label} float32: kernel {t_launch:.4f} ms "
-            f"device time per launch, plain version {t_plain:.4f} ms device "
-            f"time per call (torch.profiler, 50 calls); bound "
-            f"{bound[0]:.4f} ms ({bound[1]}); wrapper call {w_kern:.4f} ms "
-            f"vs plain call {w_plain:.4f} ms (CUDA events, median of 5 runs "
-            f"of 50)")
+            f"device time per launch (50 launches), plain version "
+            f"{t_plain:.4f} ms device time per call (10 calls; CUDA events "
+            f"behind a device spin); bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{nbytes} B at 3.35 TB/s), a device copy moving those bytes "
+            f"{t_copy:.4f} ms; wrapper call {w_kern:.4f} ms vs plain call "
+            f"{w_plain:.4f} ms (CUDA events, median of 5 runs of 50)")
     return per
 
 
@@ -652,19 +889,21 @@ def phase4(card, dev):
     spec64, _ = poisson_spec(2048, 2048, 0, torch.float64, dev)
     _rates(card, "2048x2048", spec64, omega, (2048, 2048),
            sor2d.sor2d_sweeps_reference, dev)
+    _rates_inplace(card, "2048x2048", spec, omega, (2048, 2048), dev)
     S = xt.solve_fixed(spec, S0, omega, 50)
-    rel = sor2d.relax_plane(spec, omega)
-    per.update(_per_launch(card, "2048x2048", {
-        "sor2d_extend_rows": (
-            lambda: sor2d.sor2d_extend(spec, S),
-            lambda: sor2d.sor2d_extend_reference(spec, S),
-            _bound("sor2d_extend_rows", spec, S.shape)),
-        "sor2d_color_sweep": (
-            lambda: sor2d.sor2d_color_sweep(spec, S, rel, 0),
-            lambda: sor2d.sor2d_color_sweep_reference(spec, S, rel, 0),
-            _bound("sor2d_color_sweep", spec, S.shape)),
-    }))
-    del spec, spec64, S, S0, rel
+    per.update(_per_launch(card, "2048x2048",
+                           _launch_calls(sor2d, spec, omega, S), dev))
+    del spec, spec64, S, S0
+    # the SODA-class Stommel 12x330x720 (pruned: 4 offsets, B3-eligible)
+    spec, omega = soda_spec(problems.build_stommel, STOMMEL_MP, 12,
+                            torch.float32, dev)
+    S0 = _rates_inplace(card, "Stommel 12x330x720", spec, omega,
+                        (12, 330, 720), dev)
+    S = xt.solve_fixed(spec, S0, omega, 50)
+    calls = _launch_calls(sor2d, spec, omega, S)
+    del calls["sor2d_extend_rows"]
+    _per_launch(card, "Stommel 12x330x720", calls, dev)
+    del spec, S, S0, calls
     # 3-D: the omega volumes (the 37-level one is L2-resident in float32)
     # and the 0.5-degree ocean
     for nz in (37, 73):
@@ -675,37 +914,85 @@ def phase4(card, dev):
     S0 = _rates(card, "ocean 30x330x720", spec, omega, (30, 330, 720),
                 sor3d.sor3d_sweeps_reference, dev)
     S = xt.solve_fixed(spec, S0, omega, 50)
-    rel = sor3d.relax_plane(spec, omega)
-    per.update(_per_launch(card, "30x330x720", {
-        "sor3d_extend_rows": (
-            lambda: sor3d.sor3d_extend(spec, S),
-            lambda: sor3d.sor3d_extend_reference(spec, S),
-            _bound("sor3d_extend_rows", spec, S.shape)),
-        "sor3d_color_sweep": (
-            lambda: sor3d.sor3d_color_sweep(spec, S, rel, 0),
-            lambda: sor3d.sor3d_color_sweep_reference(spec, S, rel, 0),
-            _bound("sor3d_color_sweep", spec, S.shape)),
-    }))
+    per.update(_per_launch(card, "30x330x720",
+                           _launch_calls(sor3d, spec, omega, S), dev))
     return per
 
 
+def _launch_calls(mod, spec, omega, S):
+    """For each kernel of ``mod`` (sor2d / sor3d) that takes ``spec``: its
+    wrapper, its plain version, one bare launch of the kernel on a buffer
+    holding S (through the module's own launch call, so no copy or
+    allocation is timed with it), and its bound, for
+    :func:`_per_launch`."""
+    p = mod.__name__.rsplit(".", 1)[-1]
+    fam = mod._FAMILY
+    rel = mod.relax_plane(spec, omega)
+    lay = fam.layout(spec, S, rel)
+    A = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype,
+                    device=S.device)
+    A.copy_(S.reshape(A.shape))
+    A2 = torch.empty_like(A)
+    calls = {
+        f"{p}_extend_rows": (
+            lambda: getattr(mod, f"{p}_extend")(spec, S),
+            lambda: getattr(mod, f"{p}_extend_reference")(spec, S),
+            lambda: fam.launch_extend(spec, lay, A)),
+        f"{p}_color_sweep": (
+            lambda: getattr(mod, f"{p}_color_sweep")(spec, S, rel, 0),
+            lambda: getattr(mod, f"{p}_color_sweep_reference")(spec, S, rel,
+                                                               0),
+            lambda: fam.launch_color_sweep(spec, lay, rel, A, A2, 0)),
+    }
+    if p == "sor2d":
+        calls["sor2d_color_sweep_inplace"] = (
+            lambda: sor2d.sor2d_color_sweep_inplace(spec, S, rel, 0),
+            lambda: sor2d.sor2d_color_sweep_inplace_reference(spec, S, rel,
+                                                              0),
+            lambda: fam.launch_color_sweep_inplace(spec, lay, rel, A, 0))
+    return {name: c + (_bound(name, spec, S.shape),)
+            for name, c in calls.items()}
+
+
+_SPIN_CYCLES_PER_S = []
+
+
 def _device_ms(fn, calls):
-    """Device time of ``calls`` calls of fn() from torch.profiler: (ms per
-    call over every kernel and copy, {kernel name: ms per launch})."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    """Device time per call of ``calls`` back-to-back calls of fn(): CUDA
+    events around them, queued behind a device-side spin
+    (torch.cuda._sleep) that lasts longer than the host takes to queue the
+    calls, so the device never waits for the host between the events.  A
+    spin that ended too soon is made longer and the run repeated."""
+    if not _SPIN_CYCLES_PER_S:
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        torch.cuda._sleep(10 ** 7)
+        e1.record()
+        e1.synchronize()
+        _SPIN_CYCLES_PER_S.append(10 ** 7 / (e0.elapsed_time(e1) * 1e-3))
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spin_s = 2.0 * (time.perf_counter() - t0) + 2e-3
+    torch.cuda.synchronize()
+    for _ in range(4):
+        es, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        es.record()
+        torch.cuda._sleep(int(spin_s * _SPIN_CYCLES_PER_S[0]))
+        e0.record()
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    per_launch, total_us = {}, 0.0
-    for ev in prof.key_averages():
-        us = ev.self_device_time_total
-        total_us += us
-        if ev.count:
-            per_launch[ev.key] = us / ev.count / 1e3
-    if not total_us > 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return total_us / calls / 1e3, per_launch
+        queued_s = time.perf_counter() - t0
+        e1.record()
+        e1.synchronize()
+        if es.elapsed_time(e0) * 1e-3 > queued_s + 1e-3:
+            return e0.elapsed_time(e1) / calls
+        spin_s *= 4.0
+    raise RuntimeError("the host could not queue the timed calls ahead of "
+                       "the device")
 
 
 def main():

@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
 """The CUDA kernels of the PyTorch port (xinvert_tpu_torch/csrc/sor2d.cu and
-csrc/sor3d.cu) on the card: bit-equal to their plain PyTorch versions,
-counted, and refusing what they do not take.  Every test here needs an NVIDIA GPU (marker
+csrc/sor3d.cu) on the card: bit-equal to their plain PyTorch versions (the
+in-place 2-D kernel and the Chebyshev factor argument included), counted,
+and refusing what they do not take.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -299,3 +300,184 @@ def test_kernels3d_refuse_what_they_do_not_take(cuda):
                               + spec.offsets[1:])
     with pytest.raises(ValueError, match="does not fit"):   # offset >= nz
         sor3d.sor3d_sweeps(far, S0, 1.3, 2)
+
+
+# ------------------------------------------- the in-place kernel and fac
+
+
+def _stommel(dtype, device, ny=40, nx=72, batch=2):
+    """build_stommel (general_2d, cross planes zero), pruned as solve prunes
+    it: a radius-1 stencil without cross terms, NaN land block."""
+    from xinvert_tpu_torch.stencil import prune_zero_offsets
+    rng = np.random.default_rng(7)
+    lat = np.linspace(-70.0, 80.0, ny)
+    lon = np.linspace(0.0, 360.0 - 360.0 / nx, nx)
+    grid = Grid.make(("lat", "lon"), (lat, lon), "lat-lon",
+                     bcs=("extend", "periodic"))
+    Fdef = np.ones((ny, nx), bool)
+    Fdef[10:18, 20:31] = False
+    vals = torch.as_tensor(rng.normal(0, 1e-7, (batch, ny, nx)),
+                           dtype=dtype, device=device)
+    spec = prune_zero_offsets(problems.build_stommel(
+        vals, torch.as_tensor(Fdef, device=device), grid,
+        dict(default_mParams, R=2e-3)))
+    return spec, torch.as_tensor(rng.normal(0, 1e-3, (batch, ny, nx)),
+                                 dtype=dtype, device=device)
+
+
+def _inplace_case(case, dtype, device):
+    if case == "poisson":
+        return _poisson(dtype, device, nx=72)
+    if case == "poisson_batch":
+        return _poisson(dtype, device, batch=3, nx=72)
+    if case == "fixed_odd":              # no periodic axis: odd sizes pass
+        return _poisson(dtype, device, ny=21, nx=25, bcs=("fixed", "fixed"))
+    if case == "per_slice":
+        from xinvert_tpu_torch.stencil import _interior_mask
+        rng = np.random.default_rng(8)
+        offs = ((1, 0), (-1, 0), (0, 1), (0, -1))
+        bcs = ("extend", "fixed")
+        shape = (2, 17, 23)
+        active = np.broadcast_to(_interior_mask(shape[1:], bcs, False),
+                                 shape).copy()
+        active &= rng.random(shape) > 0.05
+        w = rng.uniform(0.05, 0.25, (4,) + shape) * active
+        w0 = np.where(active, -1.05 * w.sum(0), 0.0)
+        relax = np.where(active, 1.0 / np.where(active, -w0, 1.0), 0.0)
+        g = rng.normal(0, 1, shape) * active
+        spec = StencilSpec.from_arrays(w, w0, g, relax, active, offs, bcs,
+                                       device=device, dtype=dtype)
+        return spec, torch.as_tensor(rng.normal(0, 1e-3, shape), dtype=dtype,
+                                     device=device)
+    return _stommel(dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["poisson", "poisson_batch", "fixed_odd",
+                                  "per_slice", "stommel"])
+def test_inplace_kernel_bit_equal_to_plain(cuda, monkeypatch, dtype, case):
+    spec, S0 = _inplace_case(case, dtype, cuda)
+    assert sor2d.inplace_eligible(spec, tuple(S0.shape[-2:]))
+    before = S0.clone()
+    # each half-sweep alone, with and without a factor
+    for fac in (1.0, 1.37):
+        rel = sor2d.relax_plane(spec, 1.3)
+        for color in (0, 1):
+            assert torch.equal(
+                sor2d.sor2d_color_sweep_inplace(spec, S0, rel, color, fac),
+                sor2d.sor2d_color_sweep_inplace_reference(spec, S0, rel,
+                                                          color, fac))
+    # 20 sweeps through the switch, with and without partials and factors
+    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", True)
+    rng = np.random.default_rng(9)
+    outs = []
+    for fac in (None, list(1.0 + rng.random(40))):
+        fac = None if fac is None else [float(torch.tensor(f, dtype=dtype))
+                                        for f in fac]
+        l0, i0 = sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES
+        out_k = sor2d.sor2d_sweeps(spec, S0, 1.3, 20, fac=fac)
+        out_n, sumabs = sor2d.sor2d_sweeps(spec, S0, 1.3, 20,
+                                           with_norm=True, fac=fac)
+        out_p = sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 20, fac)
+        torch.cuda.synchronize()
+        assert (sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES) == (l0, i0 + 80)
+        assert torch.equal(out_k, out_p) and torch.equal(out_n, out_p)
+        ref = out_p.double().abs().sum(dim=(-2, -1))
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        torch.testing.assert_close(sumabs.double(), ref, rtol=rtol, atol=0)
+        outs.append((fac, out_k))
+    # the pair gives the same answers
+    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", False)
+    for fac, out_k in outs:
+        assert torch.equal(sor2d.sor2d_sweeps(spec, S0, 1.3, 20, fac=fac),
+                           out_k)
+    assert torch.equal(S0, before)
+
+
+def test_inplace_race_gate(cuda, monkeypatch):
+    """An odd nx with periodic x joins two cells of one color across the
+    wrap: the in-place wrapper refuses it, and the switched-on sweeps run
+    the ping-pong pair instead (counted)."""
+    spec, S0 = _poisson(torch.float64, cuda, nx=71)
+    rel = sor2d.relax_plane(spec, 1.3)
+    assert not sor2d.inplace_eligible(spec, tuple(S0.shape))
+    with pytest.raises(ValueError, match="even"):
+        sor2d.sor2d_color_sweep_inplace(spec, S0, rel, 0)
+    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", True)
+    l0, i0 = sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES
+    out = sor2d.sor2d_sweeps(spec, S0, 1.3, 4)
+    assert (sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES) == (l0 + 8, i0)
+    assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 4))
+    cross, S1 = _poisson(torch.float64, cuda)
+    cross = dataclasses.replace(cross, w=torch.cat([cross.w, cross.w[:1]]),
+                                offsets=cross.offsets + ((1, 1),))
+    with pytest.raises(ValueError, match="cross"):
+        sor2d.sor2d_color_sweep_inplace(cross, S1,
+                                        sor2d.relax_plane(cross, 1.3), 0)
+
+
+@pytest.mark.parametrize("dtype,check_every", [(torch.float32, 1),
+                                               (torch.float32, 32),
+                                               (torch.float64, 1)])
+@pytest.mark.parametrize("case", ["diverging", "nan_seed"])
+def test_inplace_stops_like_the_pair(cuda, monkeypatch, dtype, check_every,
+                                     case):
+    """A diverging solve (omega 2.5) and a NaN seeded in the interior of
+    the state: the in-place kernel and the pair stop at the same check with
+    the same overflow flag."""
+    spec, _ = _poisson(dtype, cuda, batch=2, nx=72)
+    S0 = torch.zeros(spec.g.shape, dtype=dtype, device=cuda)
+    omega = 2.5 if case == "diverging" else 1.5
+    if case == "nan_seed":
+        S0[1, 20, 40] = float("nan")
+    res = {}
+    for switch in (False, True):
+        monkeypatch.setattr(sor2d, "INPLACE_KERNEL", switch)
+        i0 = sor2d.INPLACE_LAUNCHES
+        res[switch] = xt.solve(spec, S0, omega=omega, tol=1e-12,
+                               max_iters=3000, check_every=check_every)
+        assert (sor2d.INPLACE_LAUNCHES > i0) == switch
+    for field in ("iters", "overflow"):
+        assert torch.equal(getattr(res[True], field),
+                           getattr(res[False], field)), field
+    assert bool(res[True].overflow.any())
+
+
+def test_pair_kernels_take_a_factor(cuda):
+    """The fac argument of sor2d_color_sweep and sor3d_color_sweep, alone
+    and through 20 sweeps with factors, bit-equal to the plain versions."""
+    for mod, (spec, S0), p in (
+            (sor2d, _bih(torch.float32, cuda, ("extend", "periodic")),
+             "sor2d"),
+            (sor2d, _poisson(torch.float64, cuda, batch=2), "sor2d"),
+            (sor3d, _ocean3d(torch.float32, cuda), "sor3d"),
+            (sor3d, _omega3d(torch.float64, cuda), "sor3d")):
+        rel = mod.relax_plane(spec, 1.0)
+        for color in (0, 1):
+            assert torch.equal(
+                getattr(mod, f"{p}_color_sweep")(spec, S0, rel, color, 1.43),
+                getattr(mod, f"{p}_color_sweep_reference")(spec, S0, rel,
+                                                           color, 1.43))
+        fac = [float(torch.tensor(1.0 + 0.02 * k, dtype=S0.dtype))
+               for k in range(40)]
+        out_k = getattr(mod, f"{p}_sweeps")(spec, S0, 1.0, 20, fac=fac)
+        out_p = getattr(mod, f"{p}_sweeps_reference")(spec, S0, 1.0, 20, fac)
+        assert torch.equal(out_k, out_p)
+
+
+@pytest.mark.parametrize("switch", [False, True])
+def test_cheby_solve_on_card_matches_cpu(cuda, monkeypatch, switch):
+    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", switch)
+    spec, _ = _stommel(torch.float64, cuda)
+    S0 = torch.zeros(spec.g.shape, dtype=torch.float64, device=cuda)
+    spec_cpu = dataclasses.replace(spec, **{
+        f: getattr(spec, f).cpu() for f in ("w", "w0", "g", "relax",
+                                            "active")})
+    kw = dict(omega=1.6, tol=1e-9, max_iters=500, check_every=4,
+              scheme="cheby")
+    i0 = sor2d.INPLACE_LAUNCHES
+    r_k = xt.solve(spec, S0, **kw)
+    assert (sor2d.INPLACE_LAUNCHES > i0) == switch
+    r_c = xt.solve(spec_cpu, S0.cpu(), **kw)
+    assert torch.equal(r_k.iters.cpu(), r_c.iters)
+    torch.testing.assert_close(r_k.S.cpu(), r_c.S, rtol=1e-10, atol=1e-12)

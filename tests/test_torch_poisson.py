@@ -156,7 +156,7 @@ def test_inv_standard2D_matches_jax(f64_cpu, with_icbc):
 
 
 @pytest.mark.parametrize("iParams", [
-    {"scheme": "cheby"},
+    {"scheme": "lexico", "checkEvery": 1},
     {"scheme": "direct"},
     {"scheme": "lexico"},
     {"tolType": "refined"},

@@ -145,7 +145,7 @@ def test_solve_prunes_zero_planes_like_jax():
 def test_solve_rejects_unported_and_mismatched():
     ts = _port(_poisson(_forcing()))
     S0 = torch.zeros(37, 72, dtype=torch.float64)
-    for scheme in ("cheby", "direct", "lexico"):
+    for scheme in ("direct", "lexico"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             xt.solve(ts, S0, scheme=scheme)
     with pytest.raises(ValueError):

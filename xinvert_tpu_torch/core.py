@@ -1,7 +1,8 @@
 # -*- coding: utf-8 -*-
-"""Dispatch-level API: ``inv_standard2D``, ``inv_standard3D`` and
+"""Dispatch-level API: ``inv_standard2D``, ``inv_standard2D_test``,
+``inv_general2D``, ``inv_general2D_bih``, ``inv_standard3D`` and
 ``inv_general3D``, taking coefficient fields directly (mirrors
-xinvert/core.py:20-155, :294-370).
+xinvert/core.py:20-532, without the 1-D ``inv_standard1D``).
 
 Counterpart of ``xinvert_tpu/core.py``.  The application layer builds
 coefficients and solves through the same engine; power users call these
@@ -23,7 +24,8 @@ from .models.api import (_collapse_mask, _init_state, _prepare,
                          _resolve_device, _validate_bcs)
 from .models.params import default_iParams, merge_params
 
-__all__ = ["inv_standard2D", "inv_standard3D", "inv_general3D"]
+__all__ = ["inv_standard2D", "inv_standard2D_test", "inv_general2D",
+           "inv_general2D_bih", "inv_standard3D", "inv_general3D"]
 
 
 def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None,
@@ -80,6 +82,37 @@ def inv_standard2D(A, B, C, F, dims, coords="lat-lon", icbc=None,
     def fam(A_, B_, C_, Fm, Fdef, deltas, bcs):
         return stencil.standard_2d(A_, B_, C_, Fm, Fdef, deltas, bcs)
     return _run(fam, (A, B, C), F, dims, coords, iParams, 2, icbc, device)
+
+
+def inv_standard2D_test(A, B, C, D, E, F, dims, coords="lat-lon", icbc=None,
+                        iParams=None, device=None):
+    """Standard 2D + separate cross coefficients + linear E S term
+    (core.py:159-230)."""
+    def fam(A_, B_, C_, D_, E_, Fm, Fdef, deltas, bcs):
+        return stencil.standard_2d_e(A_, B_, C_, D_, E_, Fm, Fdef, deltas,
+                                     bcs)
+    return _run(fam, (A, B, C, D, E), F, dims, coords, iParams, 2, icbc,
+                device)
+
+
+def inv_general2D(A, B, C, D, E, F, G, dims, coords="lat-lon", icbc=None,
+                  iParams=None, device=None):
+    """A Syy + B Syx + C Sxx + D Sy + E Sx + F S = G (core.py:374-443)."""
+    def fam(A_, B_, C_, D_, E_, F_, Gm, Fdef, deltas, bcs):
+        return stencil.general_2d(A_, B_, C_, D_, E_, F_, Gm, Fdef, deltas,
+                                  bcs)
+    return _run(fam, (A, B, C, D, E, F), G, dims, coords, iParams, 2, icbc,
+                device)
+
+
+def inv_general2D_bih(A, B, C, D, E, F, G, H, I, J, dims, coords="lat-lon",
+                      icbc=None, iParams=None, device=None):
+    """Biharmonic general 2D, 13/17-point stencil (core.py:447-532)."""
+    def fam(A_, B_, C_, D_, E_, F_, G_, H_, I_, Jm, Fdef, deltas, bcs):
+        return stencil.general_2d_bih(A_, B_, C_, D_, E_, F_, G_, H_, I_, Jm,
+                                      Fdef, deltas, bcs)
+    return _run(fam, (A, B, C, D, E, F, G, H, I), J, dims, coords, iParams,
+                2, icbc, device)
 
 
 def inv_standard3D(A, B, C, F, dims, coords="lat-lon", icbc=None,

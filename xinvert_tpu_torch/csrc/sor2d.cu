@@ -1,14 +1,18 @@
 // Red-black SOR sweeps of a 2-D stencil, hand-written for Hopper (sm_90a).
 //
-// Replaces both TPU kernels of the 2-D main path:
+// Replaces the three TPU kernels of the 2-D paths:
 //   - xinvert_tpu/ops/pallas_sor.py::_kernel (+ _extend_rows), the
 //     VMEM-resident multi-sweep kernel for grids that fit on the TPU core;
 //   - xinvert_tpu/ops/pallas_sor_window.py::_kernel (+ _extend_windowed),
 //     the row-windowed kernel for larger grids, with its fused |S| partials
-//     (with_norm) for checked solves.
-// On Hopper the VMEM split between the two has no meaning, so one pair of
-// kernels serves every 2-D shape.  Not ported here: B2's Chebyshev `fac`
-// input and its sharded-block variants (pad_x, clamp_w/e, ext_bot, pad_lo).
+//     (with_norm) for checked solves and its per-half-sweep Chebyshev
+//     factors (fac);
+//   - xinvert_tpu/ops/pallas_sor_window.py::_kernel_inplace, B2's function
+//     for radius-1 stencils without cross terms, updating one buffer in
+//     place (sor2d_color_sweep_inplace below).
+// On Hopper the VMEM split between the first two has no meaning, so one
+// pair of kernels serves every 2-D shape.  Not ported here: B2's
+// sharded-block variants (pad_x, clamp_w/e, ext_bot, pad_lo).
 //
 // One full sweep is three launches on the caller's stream:
 //   sor2d_extend_rows   (when the y boundary is 'extend'), in place on A;
@@ -17,13 +21,16 @@
 // A half-sweep reads only the pre-half-sweep state (ping-pong buffers):
 // cross and +-2 offsets read same-color neighbours, and the reference sweep
 // computes every term from the old state, so an in-place update would race
-// and differ.
+// and differ.  The in-place variant replaces the two color launches where
+// no neighbour shares the cell's color (see its kernel).
 //
 // Arithmetic, per cell and in this order, for every cell (not only cells of
 // the active color, so NaN/Inf propagate through 0*(...) exactly as in the
 // plain version):
 //   acc = g;  for k: acc = acc + w_k * S_in[(j+dy_k) mod ny, (i+dx_k) mod nx]
-//   sel = ((j + i) & 1) == color ? 1 : 0;   r = rel * sel   (rel = omega*relax)
+//   sel = ((j + i) & 1) == color ? 1 : 0
+//   r = (rel * sel) * fac        (rel = omega*relax; fac = 1 for SOR, the
+//                                 half-sweep's Chebyshev factor for cheby)
 //   S_out = s + r * (acc + w0 * s)
 // Built with -fmad=false, every product and sum rounds on its own, as the
 // plain PyTorch ops do, so the kernels are bit-for-bit equal to the plain
@@ -60,6 +67,47 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// The update of cell (j, i) of slice b from the state sb, in the order of
+// the header: shared by both color-sweep kernels, so their arithmetic is
+// one and the same.
+template <typename T>
+__device__ __forceinline__ T cell_update(const T* sb, const T* w, const T* w0,
+                                         const T* g, const T* rel,
+                                         const Sor2dArgs& a, long long b,
+                                         int j, int i, T s, T sel, T fac) {
+  const long long idx = (long long)j * a.nx + i;
+  T acc = g[b * a.g_bstride + idx];
+  const T* wb = w + b * a.w_bstride + idx;
+  for (int k = 0; k < a.K; ++k) {
+    int jj = j + a.dy[k];
+    int ii = i + a.dx[k];
+    jj = jj < 0 ? jj + a.ny : (jj >= a.ny ? jj - a.ny : jj);
+    ii = ii < 0 ? ii + a.nx : (ii >= a.nx ? ii - a.nx : ii);
+    acc = acc + wb[k * a.w_kstride] * sb[(long long)jj * a.nx + ii];
+  }
+  const T r = (rel[b * a.rel_bstride + idx] * sel) * fac;
+  return s + r * (acc + w0[b * a.w0_bstride + idx] * s);
+}
+
+// Per-block sum of |out| (out-of-range threads add 0) into slot
+// (b, blockIdx.y, blockIdx.x) of partials, reduced in a fixed order: warp
+// shuffles, then the 8 warp sums by thread 0.  Every thread of the block
+// calls it.
+template <typename T>
+__device__ __forceinline__ void block_partial(T out, T* partials,
+                                              long long b) {
+  __shared__ T warp_sums[SWEEP_BX * SWEEP_BY / 32];
+  const int tid = threadIdx.y * SWEEP_BX + threadIdx.x;
+  T v = warp_sum(out < T(0) ? -out : out);
+  if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
+  __syncthreads();
+  if (tid == 0) {
+    T t = warp_sums[0];
+    for (int q = 1; q < SWEEP_BX * SWEEP_BY / 32; ++q) t = t + warp_sums[q];
+    partials[b * gridDim.x * gridDim.y + blockIdx.y * gridDim.x + blockIdx.x] = t;
+  }
+}
+
 template <typename T>
 __global__ void sor2d_color_sweep_kernel(const T* __restrict__ s_in,
                                          T* __restrict__ s_out,
@@ -68,7 +116,7 @@ __global__ void sor2d_color_sweep_kernel(const T* __restrict__ s_in,
                                          const T* __restrict__ g,
                                          const T* __restrict__ rel,
                                          T* __restrict__ partials,
-                                         Sor2dArgs a) {
+                                         Sor2dArgs a, T fac) {
   const int i = blockIdx.x * SWEEP_BX + threadIdx.x;
   const int j = blockIdx.y * SWEEP_BY + threadIdx.y;
   const long long b = blockIdx.z;
@@ -77,35 +125,62 @@ __global__ void sor2d_color_sweep_kernel(const T* __restrict__ s_in,
   if (i < a.nx && j < a.ny) {
     const long long idx = (long long)j * a.nx + i;
     const T* sb = s_in + b * plane;
-    const T s = sb[idx];
-    T acc = g[b * a.g_bstride + idx];
-    const T* wb = w + b * a.w_bstride + idx;
-    for (int k = 0; k < a.K; ++k) {
-      int jj = j + a.dy[k];
-      int ii = i + a.dx[k];
-      jj = jj < 0 ? jj + a.ny : (jj >= a.ny ? jj - a.ny : jj);
-      ii = ii < 0 ? ii + a.nx : (ii >= a.nx ? ii - a.nx : ii);
-      acc = acc + wb[k * a.w_kstride] * sb[(long long)jj * a.nx + ii];
-    }
     const T sel = (((j + i) & 1) == a.color) ? T(1) : T(0);
-    const T r = rel[b * a.rel_bstride + idx] * sel;
-    out = s + r * (acc + w0[b * a.w0_bstride + idx] * s);
+    out = cell_update(sb, w, w0, g, rel, a, b, j, i, sb[idx], sel, fac);
     s_out[b * plane + idx] = out;
   }
-  if (partials != nullptr) {
-    // per-block sum of |S_out| (out-of-range threads add 0), reduced in a
-    // fixed order: warp shuffles, then the 8 warp sums by thread 0
-    __shared__ T warp_sums[SWEEP_BX * SWEEP_BY / 32];
-    const int tid = threadIdx.y * SWEEP_BX + threadIdx.x;
-    T v = warp_sum(out < T(0) ? -out : out);
-    if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
-    __syncthreads();
-    if (tid == 0) {
-      T t = warp_sums[0];
-      for (int q = 1; q < SWEEP_BX * SWEEP_BY / 32; ++q) t = t + warp_sums[q];
-      partials[b * gridDim.x * gridDim.y + blockIdx.y * gridDim.x + blockIdx.x] = t;
+  if (partials != nullptr) block_partial(out, partials, b);
+}
+
+// B3, in place: one half-sweep of `color` on the one buffer S.  Only cells
+// of the active color are computed and written, with the arithmetic above
+// (sel = 1); the others keep their value, which is what the plain version
+// gives them (s + 0*(...) == s) wherever their update term is finite.  On a
+// state that already holds a NaN or an Inf the two may differ in which
+// inactive cells turn NaN; the norm is then non-finite on both paths and
+// the solve stops on overflow at the same check.
+//
+// No race: the wrapper takes only radius-1 stencils without cross terms, so
+// each neighbour of an active cell has the other color and nobody writes it
+// in this launch.  The wrapped reads keep that when the wrap joins cells of
+// opposite parity: an even nx when x is periodic, an even ny when y is.  A
+// non-periodic axis wraps only between its two boundary lines, which the
+// sweep never updates (relax = 0 there), so whichever value such a read
+// sees is the same one.  S carries no __restrict__: it is read and written.
+//
+// Bound: HBM bytes, as the pair.  A checkerboard write still dirties every
+// 32-byte sector and every plane is read in whole sectors, so the launch
+// moves the pair's bytes (K+4 planes read, one written); what it saves is
+// the second state buffer.  Measured (NVIDIA H100 80GB HBM3, 700.00 W;
+// chip_smoke.py phase 4): at 2048x2048 float32 it takes 1.20x the pair's
+// time per sweep (65.0 against 54.2 ms per 500), and the pair's time
+// (0.0275 against 0.0273 ms per launch) at 12x330x720, whose 40 MB stay in
+// the L2.  The suspect, not
+// measured: every sector it writes is half-written, and one that leaves
+// the L2 half-written costs the memory a read-modify-write.  Writing the
+// unchanged cells back too would make the sectors whole.
+template <typename T>
+__global__ void sor2d_color_sweep_inplace_kernel(T* S,
+                                                 const T* __restrict__ w,
+                                                 const T* __restrict__ w0,
+                                                 const T* __restrict__ g,
+                                                 const T* __restrict__ rel,
+                                                 T* __restrict__ partials,
+                                                 Sor2dArgs a, T fac) {
+  const int i = blockIdx.x * SWEEP_BX + threadIdx.x;
+  const int j = blockIdx.y * SWEEP_BY + threadIdx.y;
+  const long long b = blockIdx.z;
+  T out = T(0);
+  if (i < a.nx && j < a.ny) {
+    const long long idx = (long long)j * a.nx + i;
+    T* sb = S + b * (long long)a.ny * a.nx;
+    out = sb[idx];
+    if (((j + i) & 1) == a.color) {
+      out = cell_update<T>(sb, w, w0, g, rel, a, b, j, i, out, T(1), fac);
+      sb[idx] = out;
     }
   }
+  if (partials != nullptr) block_partial(out, partials, b);
 }
 
 // The extend pre-pass (xinvert_tpu/solver.py:_apply_extend, 2-D branches),
@@ -153,6 +228,7 @@ __global__ void sor2d_extend_rows_kernel(T* __restrict__ S, int ny, int nx,
 #undef AT
 }
 
+// s_in == nullptr selects the in-place kernel, on s_out.
 template <typename T>
 static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
                               const T* w0, const T* g, const T* rel,
@@ -160,7 +236,7 @@ static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
                               const int* dy, const int* dx,
                               long long w_kstride, long long w_bstride,
                               long long w0_bstride, long long g_bstride,
-                              long long rel_bstride, int color,
+                              long long rel_bstride, int color, double fac,
                               void* stream) {
   if (K < 0 || K > SOR2D_MAX_K || B < 1 || B > 65535 || ny < 1 || nx < 1)
     return (int)cudaErrorInvalidValue;
@@ -175,8 +251,14 @@ static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
   a.rel_bstride = rel_bstride;
   dim3 block(SWEEP_BX, SWEEP_BY, 1);
   dim3 grid((nx + SWEEP_BX - 1) / SWEEP_BX, (ny + SWEEP_BY - 1) / SWEEP_BY, B);
-  sor2d_color_sweep_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      s_in, s_out, w, w0, g, rel, partials, a);
+  // the caller computed fac in T, so the conversion back is exact
+  if (s_in == nullptr)
+    sor2d_color_sweep_inplace_kernel<T><<<grid, block, 0,
+                                          (cudaStream_t)stream>>>(
+        s_out, w, w0, g, rel, partials, a, (T)fac);
+  else
+    sor2d_color_sweep_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
+        s_in, s_out, w, w0, g, rel, partials, a, (T)fac);
   return (int)cudaGetLastError();
 }
 
@@ -204,11 +286,11 @@ int sor2d_color_sweep_f32(const float* s_in, float* s_out, const float* w,
                           const int* dy, const int* dx, long long w_kstride,
                           long long w_bstride, long long w0_bstride,
                           long long g_bstride, long long rel_bstride,
-                          int color, void* stream) {
+                          int color, double fac, void* stream) {
   return launch_color_sweep<float>(s_in, s_out, w, w0, g, rel, partials, B,
                                    ny, nx, K, dy, dx, w_kstride, w_bstride,
                                    w0_bstride, g_bstride, rel_bstride, color,
-                                   stream);
+                                   fac, stream);
 }
 
 int sor2d_color_sweep_f64(const double* s_in, double* s_out, const double* w,
@@ -217,11 +299,40 @@ int sor2d_color_sweep_f64(const double* s_in, double* s_out, const double* w,
                           int nx, int K, const int* dy, const int* dx,
                           long long w_kstride, long long w_bstride,
                           long long w0_bstride, long long g_bstride,
-                          long long rel_bstride, int color, void* stream) {
+                          long long rel_bstride, int color, double fac,
+                          void* stream) {
   return launch_color_sweep<double>(s_in, s_out, w, w0, g, rel, partials, B,
                                     ny, nx, K, dy, dx, w_kstride, w_bstride,
                                     w0_bstride, g_bstride, rel_bstride, color,
-                                    stream);
+                                    fac, stream);
+}
+
+int sor2d_color_sweep_inplace_f32(float* S, const float* w, const float* w0,
+                                  const float* g, const float* rel,
+                                  float* partials, int B, int ny, int nx,
+                                  int K, const int* dy, const int* dx,
+                                  long long w_kstride, long long w_bstride,
+                                  long long w0_bstride, long long g_bstride,
+                                  long long rel_bstride, int color,
+                                  double fac, void* stream) {
+  return launch_color_sweep<float>(nullptr, S, w, w0, g, rel, partials, B,
+                                   ny, nx, K, dy, dx, w_kstride, w_bstride,
+                                   w0_bstride, g_bstride, rel_bstride, color,
+                                   fac, stream);
+}
+
+int sor2d_color_sweep_inplace_f64(double* S, const double* w,
+                                  const double* w0, const double* g,
+                                  const double* rel, double* partials, int B,
+                                  int ny, int nx, int K, const int* dy,
+                                  const int* dx, long long w_kstride,
+                                  long long w_bstride, long long w0_bstride,
+                                  long long g_bstride, long long rel_bstride,
+                                  int color, double fac, void* stream) {
+  return launch_color_sweep<double>(nullptr, S, w, w0, g, rel, partials, B,
+                                    ny, nx, K, dy, dx, w_kstride, w_bstride,
+                                    w0_bstride, g_bstride, rel_bstride, color,
+                                    fac, stream);
 }
 
 int sor2d_extend_rows_f32(float* S, int B, int ny, int nx, int periodic_x,

@@ -25,7 +25,9 @@
 // plain version):
 //   acc = g;  for k: acc = acc + w_k * S_in[(l+dz_k) mod nz,
 //                                           (j+dy_k) mod ny, (i+dx_k) mod nx]
-//   sel = ((l + j + i) & 1) == color ? 1 : 0;  r = rel * sel  (rel = omega*relax)
+//   sel = ((l + j + i) & 1) == color ? 1 : 0
+//   r = (rel * sel) * fac        (rel = omega*relax; fac = 1 for SOR, the
+//                                 half-sweep's Chebyshev factor for cheby)
 //   S_out = s + r * (acc + w0 * s)
 // All three axes wrap, as torch.roll does; only cells with r == 0 read the
 // wrapped values.  Built with -fmad=false, every product and sum rounds on
@@ -79,7 +81,7 @@ __global__ void sor3d_color_sweep_kernel(const T* __restrict__ s_in,
                                          const T* __restrict__ g,
                                          const T* __restrict__ rel,
                                          T* __restrict__ partials,
-                                         Sor3dArgs a) {
+                                         Sor3dArgs a, T fac) {
   const int i = blockIdx.x * SWEEP_BX + threadIdx.x;
   const int j = blockIdx.y * SWEEP_BY + threadIdx.y;
   const long long plane = (long long)a.ny * a.nx;
@@ -104,7 +106,7 @@ __global__ void sor3d_color_sweep_kernel(const T* __restrict__ s_in,
                         sb[ll * plane + (long long)jj * a.nx + ii];
       }
       const T sel = (((l + j + i) & 1) == a.color) ? T(1) : T(0);
-      const T r = rel[b * a.rel_bstride + idx] * sel;
+      const T r = (rel[b * a.rel_bstride + idx] * sel) * fac;
       out = s + r * (acc + w0[b * a.w0_bstride + idx] * s);
       s_out[b * vol + idx] = out;
     }
@@ -156,7 +158,7 @@ static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
                               const int* dx, long long w_kstride,
                               long long w_bstride, long long w0_bstride,
                               long long g_bstride, long long rel_bstride,
-                              int color, void* stream) {
+                              int color, double fac, void* stream) {
   if (K < 0 || K > SOR3D_MAX_K || B < 1 || nz < 1 || ny < 1 || nx < 1 ||
       (color != 0 && color != 1))
     return (int)cudaErrorInvalidValue;
@@ -176,8 +178,9 @@ static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
   dim3 block(SWEEP_BX, SWEEP_BY, 1);
   dim3 grid((nx + SWEEP_BX - 1) / SWEEP_BX, (unsigned)gy,
             (unsigned)(n_bz < MAX_GRID_YZ ? n_bz : MAX_GRID_YZ));
+  // the caller computed fac in T, so the conversion back is exact
   sor3d_color_sweep_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      s_in, s_out, w, w0, g, rel, partials, a);
+      s_in, s_out, w, w0, g, rel, partials, a, (T)fac);
   return (int)cudaGetLastError();
 }
 
@@ -207,11 +210,12 @@ int sor3d_color_sweep_f32(const float* s_in, float* s_out, const float* w,
                           int K, const int* dz, const int* dy, const int* dx,
                           long long w_kstride, long long w_bstride,
                           long long w0_bstride, long long g_bstride,
-                          long long rel_bstride, int color, void* stream) {
+                          long long rel_bstride, int color, double fac,
+                          void* stream) {
   return launch_color_sweep<float>(s_in, s_out, w, w0, g, rel, partials, B,
                                    nz, ny, nx, K, dz, dy, dx, w_kstride,
                                    w_bstride, w0_bstride, g_bstride,
-                                   rel_bstride, color, stream);
+                                   rel_bstride, color, fac, stream);
 }
 
 int sor3d_color_sweep_f64(const double* s_in, double* s_out, const double* w,
@@ -221,11 +225,11 @@ int sor3d_color_sweep_f64(const double* s_in, double* s_out, const double* w,
                           const int* dx, long long w_kstride,
                           long long w_bstride, long long w0_bstride,
                           long long g_bstride, long long rel_bstride,
-                          int color, void* stream) {
+                          int color, double fac, void* stream) {
   return launch_color_sweep<double>(s_in, s_out, w, w0, g, rel, partials, B,
                                     nz, ny, nx, K, dz, dy, dx, w_kstride,
                                     w_bstride, w0_bstride, g_bstride,
-                                    rel_bstride, color, stream);
+                                    rel_bstride, color, fac, stream);
 }
 
 int sor3d_extend_rows_f32(float* S, int B, int nz, int ny, int nx,

@@ -1,5 +1,9 @@
 # -*- coding: utf-8 -*-
-"""Public inversion API: ``invert_Poisson``, ``invert_omega``,
+"""Public inversion API: ``invert_Poisson``, the other 2-D inverters
+(``invert_RefState``, ``invert_PV2D``, ``invert_Eliassen``,
+``invert_GillMatsuno[_test]``, ``invert_Stommel[_test]``,
+``invert_StommelMunk``, ``invert_StommelArons``, ``invert_geostrophic``,
+``invert_BrethertonHaidvogel``, ``invert_Fofonoff``), ``invert_omega`` and
 ``invert_3DOcean``.
 
 Counterpart of ``xinvert_tpu/models/api.py``, mirroring the reference
@@ -28,7 +32,12 @@ from ..solver import NOT_PORTED_SCHEMES, solve
 from . import problems
 from .params import default_iParams, default_mParams, merge_params
 
-__all__ = ["invert_Poisson", "invert_omega", "invert_3DOcean"]
+__all__ = ["invert_Poisson", "invert_RefState", "invert_PV2D",
+           "invert_Eliassen", "invert_GillMatsuno", "invert_GillMatsuno_test",
+           "invert_Stommel", "invert_Stommel_test", "invert_StommelMunk",
+           "invert_StommelArons", "invert_geostrophic",
+           "invert_BrethertonHaidvogel", "invert_Fofonoff", "invert_omega",
+           "invert_3DOcean"]
 
 
 #: Telemetry of the most recent ``invert_*`` call: a
@@ -191,10 +200,12 @@ def _check_ported(iP):
 
 
 # auto over-relaxation overrides for problems where the grid-optimal
-# Laplacian formula diverges (the damped advective families; the JAX
-# package's table also holds its 2-D ones); passing iParams['optArg']
-# still wins
-_AUTO_OMEGA = {"3docean": 1.4}
+# Laplacian formula diverges: the damped advective families and the stiff
+# biharmonic stencil.  Passing iParams['optArg'] still wins.
+_AUTO_OMEGA = {
+    "gillmatsuno": 1.4, "gillmatsuno_test": 1.4, "stommelarons": 1.4,
+    "3docean": 1.4, "stommelmunk": 1.0,
+}
 
 
 def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
@@ -264,6 +275,103 @@ def invert_Poisson(F, dims, coords="lat-lon", icbc=None,
     (apps.py:67-100)."""
     return _invert("poisson", F, dims, coords, icbc,
                    ["g", "Omega", "Rearth"], mParams, iParams, 2, device)
+
+
+def invert_RefState(PV, dims, coords="z-lat", icbc=None,
+                    mParams=None, iParams=None, device=None):
+    """Balanced symmetric-vortex PV inversion (apps.py:104-145)."""
+    return _invert("refstate", PV, dims, coords, icbc,
+                   ["Ang0", "ang0", "Gamma", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_PV2D(PV, dims, coords="z-lat", icbc=None,
+                mParams=None, iParams=None, device=None):
+    """QG PV inversion in a vertical plane (apps.py:246-297)."""
+    return _invert("pv2d", PV, dims, coords, icbc,
+                   ["f0", "beta", "N2", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_Eliassen(F, dims, coords="z-lat", icbc=None,
+                    mParams=None, iParams=None, device=None):
+    """Sawyer-Eliassen overturning circulation (apps.py:300-346)."""
+    return _invert("eliassen", F, dims, coords, icbc,
+                   ["A", "B", "C", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_GillMatsuno(Q, dims, coords="lat-lon", icbc=None,
+                       mParams=None, iParams=None, device=None):
+    """Gill-Matsuno heat-induced mass/wind response (apps.py:349-394)."""
+    return _invert("gillmatsuno", Q, dims, coords, icbc,
+                   ["f0", "beta", "epsilon", "Phi", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_GillMatsuno_test(Q, dims, coords="lat-lon", icbc=None,
+                            mParams=None, iParams=None, device=None):
+    """Gill-Matsuno, standardised form (apps.py:397-442)."""
+    return _invert("gillmatsuno_test", Q, dims, coords, icbc,
+                   ["f0", "beta", "epsilon", "Phi", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_Stommel(curl, dims, coords="lat-lon", icbc=None,
+                   mParams=None, iParams=None, device=None):
+    """Stommel wind-driven gyre (apps.py:445-488)."""
+    return _invert("stommel", curl, dims, coords, icbc,
+                   ["beta", "R", "D", "rho0", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_Stommel_test(curl, dims, coords="lat-lon", icbc=None,
+                        mParams=None, iParams=None, device=None):
+    """Stommel gyre, standardised form (apps.py:491-534)."""
+    return _invert("stommel_test", curl, dims, coords, icbc,
+                   ["f0", "beta", "R", "D", "rho0", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_StommelMunk(curl, dims, coords="lat-lon", icbc=None,
+                       mParams=None, iParams=None, device=None):
+    """Stommel-Munk gyre with biharmonic viscosity (apps.py:537-582)."""
+    return _invert("stommelmunk", curl, dims, coords, icbc,
+                   ["A4", "beta", "R", "D", "rho0", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_StommelArons(Q, dims, coords="lat-lon", icbc=None,
+                        mParams=None, iParams=None, device=None):
+    """Stommel-Arons abyssal circulation (apps.py:585-629)."""
+    return _invert("stommelarons", Q, dims, coords, icbc,
+                   ["f0", "beta", "epsilon", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_geostrophic(lapPhi, dims, coords="lat-lon", icbc=None,
+                       mParams=None, iParams=None, device=None):
+    """Geostrophic streamfunction from Laplacian of geopotential
+    (apps.py:632-673)."""
+    return _invert("geostrophic", lapPhi, dims, coords, icbc,
+                   ["f0", "beta", "Omega", "g", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_BrethertonHaidvogel(h, dims, coords="cartesian", icbc=None,
+                               mParams=None, iParams=None, device=None):
+    """Steady flow over topography (apps.py:676-718)."""
+    return _invert("brethertonhaidvogel", h, dims, coords, icbc,
+                   ["f0", "beta", "D", "lambda", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
+
+
+def invert_Fofonoff(F, dims, coords="cartesian", icbc=None,
+                    mParams=None, iParams=None, device=None):
+    """Fofonoff inviscid free mode (apps.py:721-763)."""
+    return _invert("fofonoff", F, dims, coords, icbc,
+                   ["c0", "c1", "f0", "beta", "g", "Omega", "Rearth"],
+                   mParams, iParams, 2, device)
 
 
 def _check_N2(mParams):

@@ -40,6 +40,7 @@ _LIBS = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {"sor2d": {"sor2d_partials_per_slice": ([_I, _I], _I)},
                "sor3d": {"sor3d_partials_per_slice": ([_I, _I, _I], _I)}}
 for _t in ("f32", "f64"):
@@ -47,12 +48,15 @@ for _t in ("f32", "f64"):
         [_P, _I, _I, _I, _I, _I, _P], _I)
     _SIGNATURES["sor2d"][f"sor2d_color_sweep_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-         _L, _L, _L, _L, _L, _I, _P], _I)
+         _L, _L, _L, _L, _L, _I, _D, _P], _I)
+    _SIGNATURES["sor2d"][f"sor2d_color_sweep_inplace_{_t}"] = (
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+         _L, _L, _L, _L, _L, _I, _D, _P], _I)
     _SIGNATURES["sor3d"][f"sor3d_extend_rows_{_t}"] = (
         [_P, _I, _I, _I, _I, _I, _P], _I)
     _SIGNATURES["sor3d"][f"sor3d_color_sweep_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-         _L, _L, _L, _L, _L, _I, _P], _I)
+         _L, _L, _L, _L, _L, _I, _D, _P], _I)
 
 
 def _nvcc():

@@ -2,31 +2,41 @@
 """What the 2-D and 3-D red-black SOR wrappers share.
 
 :mod:`.sor2d` and :mod:`.sor3d` differ only in their layout (the number of
-core axes, their limits, the launch arguments) and in their launch calls.
-Everything else is here, once: the checks on the state and the planes, the
-ping-pong sweep loop with the fused |S| partials on the last black
-half-sweep, and the dispatch of CPU tensors to the plain versions.  Each
-module describes itself with a :class:`Family`; its launch functions and
-plain versions keep counting into that module's own counters.
+core axes, their limits, the launch arguments), in their launch calls, and
+in that :mod:`.sor2d` also has an in-place color sweep.  Everything else is
+here, once: the checks on the state and the planes, the sweep loop (on
+ping-pong buffers, or on one buffer where the family's ``use_inplace``
+lets it) with the fused |S| partials on the last black half-sweep and the
+per-half-sweep Chebyshev factors, and the dispatch of CPU tensors to the
+plain versions.  Each module describes itself with a :class:`Family`; its
+launch functions and plain versions keep counting into that module's own
+counters.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
 
 class Family(NamedTuple):
-    """One kernel pair, its launch layout and its plain versions."""
+    """One kernel pair, its launch layout and its plain versions; the
+    in-place color sweep and its gate where the family has one."""
     layout: Callable                 # (spec, S, rel=None) -> layout dict
     launch_extend: Callable          # (spec, lay, A): extend A in place
     launch_color_sweep: Callable     # (spec, lay, rel, S_in, S_out, color,
-                                     #  partials=None)
-    sweeps_reference: Callable       # (spec, S, omega, n)
-    sweeps_reference_norm: Callable  # (spec, S, omega, n) -> (S, sumabs)
+                                     #  fac=1.0, partials=None)
+    sweeps_reference: Callable       # (spec, S, omega, n, fac=None)
+    sweeps_reference_norm: Callable  # (spec, S, omega, n, fac=None)
+                                     #  -> (S, sumabs)
     extend_reference: Callable       # (spec, S)
-    color_sweep_reference: Callable  # (spec, S, rel, color)
+    color_sweep_reference: Callable  # (spec, S, rel, color, fac=1.0)
+    use_inplace: Optional[Callable] = None      # (spec, core) -> bool:
+                                     #  sweeps() takes the in-place kernel
+    launch_color_sweep_inplace: Optional[Callable] = None
+                                     # (spec, lay, rel, S, color, fac=1.0,
+                                     #  partials=None)
 
 
 def relax_plane(spec, omega):
@@ -92,22 +102,30 @@ def _buffer(S, lay):
     return A
 
 
-def sweeps(fam, spec, S, omega, n, with_norm=False):
+def sweeps(fam, spec, S, omega, n, with_norm=False, fac=None):
     """n full red-black sweeps of ``spec`` on ``S``: the extend pre-pass
-    when the y boundary is 'extend', then red, then black, ping-ponging
-    between two buffers.  With ``with_norm`` also the per-slice total |S'|,
-    summed per block by the last black half-sweep (n >= 1 then)."""
+    when the y boundary is 'extend', then red, then black.  They ping-pong
+    between two buffers, or update one buffer in place where the family's
+    ``use_inplace`` takes (spec, core).  With ``with_norm`` also the
+    per-slice total |S'|, summed per block by the last black half-sweep
+    (n >= 1 then).  ``fac`` (cyclic Chebyshev) holds 2n factors, one per
+    half-sweep in launch order, each scaling that half-sweep's relaxation
+    plane; None runs every half-sweep with factor 1."""
     n = int(n)
     if n < (1 if with_norm else 0):
         raise ValueError(f"n must be >= {1 if with_norm else 0}, got {n}")
+    if fac is not None and len(fac) != 2 * n:
+        raise ValueError(f"{len(fac)} factors for {n} sweeps; need {2 * n}")
     if S.device.type == "cpu":
         if with_norm:
-            return fam.sweeps_reference_norm(spec, S, omega, n)
-        return fam.sweeps_reference(spec, S, omega, n)
+            return fam.sweeps_reference_norm(spec, S, omega, n, fac)
+        return fam.sweeps_reference(spec, S, omega, n, fac)
     rel = relax_plane(spec, omega)
     lay = fam.layout(spec, S, rel)
     A = _buffer(S, lay)
-    Bf = torch.empty_like(A)
+    inplace = (fam.use_inplace is not None
+               and fam.use_inplace(spec, lay["core"]))
+    Bf = None if inplace else torch.empty_like(A)
     partials = None
     if with_norm:
         partials = torch.empty((lay["B"], lay["n_partials"]), dtype=S.dtype,
@@ -115,11 +133,19 @@ def sweeps(fam, spec, S, omega, n, with_norm=False):
     extend = spec.bcs[-2] == "extend"
     with torch.cuda.device(S.device):
         for it in range(n):
+            f_red, f_black = (1.0, 1.0) if fac is None else fac[2 * it:
+                                                                 2 * it + 2]
+            last = partials if it == n - 1 else None
             if extend:
                 fam.launch_extend(spec, lay, A)
-            fam.launch_color_sweep(spec, lay, rel, A, Bf, 0)
-            fam.launch_color_sweep(spec, lay, rel, Bf, A, 1,
-                                   partials if it == n - 1 else None)
+            if inplace:
+                fam.launch_color_sweep_inplace(spec, lay, rel, A, 0, f_red)
+                fam.launch_color_sweep_inplace(spec, lay, rel, A, 1, f_black,
+                                               last)
+            else:
+                fam.launch_color_sweep(spec, lay, rel, A, Bf, 0, f_red)
+                fam.launch_color_sweep(spec, lay, rel, Bf, A, 1, f_black,
+                                       last)
     out = A.reshape(S.shape)
     if with_norm:
         return out, partials.sum(-1).reshape(lay["batch_shape"])
@@ -139,11 +165,11 @@ def extend(fam, spec, S):
     return A.reshape(S.shape)
 
 
-def color_sweep(fam, spec, S, rel, color):
-    """One half-sweep of ``color`` (0 red, 1 black) into a new tensor (one
-    launch)."""
+def color_sweep(fam, spec, S, rel, color, fac=1.0):
+    """One half-sweep of ``color`` (0 red, 1 black), its relaxation plane
+    scaled by ``fac``, into a new tensor (one launch)."""
     if S.device.type == "cpu":
-        return fam.color_sweep_reference(spec, S, rel, color)
+        return fam.color_sweep_reference(spec, S, rel, color, fac)
     if color not in (0, 1):
         raise ValueError(f"color must be 0 or 1, got {color}")
     lay = fam.layout(spec, S, rel)
@@ -151,5 +177,5 @@ def color_sweep(fam, spec, S, rel, color):
     out = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype,
                       device=S.device)
     with torch.cuda.device(S.device):
-        fam.launch_color_sweep(spec, lay, rel, S_in, out, color)
+        fam.launch_color_sweep(spec, lay, rel, S_in, out, color, fac)
     return out.reshape(S.shape)

@@ -52,19 +52,20 @@ _CORE = (-3, -2, -1)
 # plain versions (CPU path; on the card only tests and smoke runs call them)
 # ---------------------------------------------------------------------------
 
-def sor3d_sweeps_reference(spec, S, omega, n):
-    """n full red-black sweeps with PyTorch ops."""
+def sor3d_sweeps_reference(spec, S, omega, n, fac=None):
+    """n full red-black sweeps with PyTorch ops (``fac``: the 2n Chebyshev
+    factors, see :func:`sor3d_sweeps`)."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
-    return solver.sweeps(spec, S, omega, n)
+    return solver.sweeps(spec, S, omega, n, fac)
 
 
-def sor3d_sweeps_reference_norm(spec, S, omega, n):
+def sor3d_sweeps_reference_norm(spec, S, omega, n, fac=None):
     """:func:`sor3d_sweeps_reference` plus the per-slice total |S| over the
     core cells (the fused norm output of the kernel path)."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
-    S = solver.sweeps(spec, S, omega, n)
+    S = solver.sweeps(spec, S, omega, n, fac)
     return S, torch.sum(torch.abs(S), dim=_CORE)
 
 
@@ -75,14 +76,14 @@ def sor3d_extend_reference(spec, S):
     return solver._apply_extend(spec, S)
 
 
-def sor3d_color_sweep_reference(spec, S, rel, color):
+def sor3d_color_sweep_reference(spec, S, rel, color, fac=1.0):
     """One half-sweep of ``color`` (0 red, 1 black) with PyTorch ops;
-    ``rel`` is :func:`relax_plane`."""
+    ``rel`` is :func:`relax_plane`, scaled by ``fac``."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     red = solver._checkerboard(S.shape[-3:], S.dtype, S.device)
     sel = red if color == 0 else 1.0 - red
-    return solver._half_sweep(spec, S, rel * sel)
+    return solver._half_sweep(spec, S, fac * (rel * sel))
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +129,8 @@ def _launch_extend(spec, lay, A):
                            f"{err}")
 
 
-def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, partials=None):
+def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
+                        partials=None):
     """sor3d_color_sweep: S_out = half-sweep ``color`` of S_in."""
     global LAUNCHES
     err = lay["sweep_fn"](
@@ -139,23 +141,25 @@ def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, partials=None):
         ctypes.addressof(lay["dz"]), ctypes.addressof(lay["dy"]),
         ctypes.addressof(lay["dx"]),
         lay["w_kstride"], lay["w_bstride"], lay["w0_bstride"],
-        lay["g_bstride"], lay["relax_bstride"], int(color), lay["stream"])
+        lay["g_bstride"], lay["relax_bstride"], int(color), float(fac),
+        lay["stream"])
     LAUNCHES += 1
     if err:
         raise RuntimeError(f"sor3d_color_sweep launch failed: CUDA error "
                            f"{err}")
 
 
-def sor3d_sweeps(spec, S, omega, n, with_norm=False):
+def sor3d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     """n full red-black sweeps (extend pre-pass when the y boundary is
     'extend', then red, then black) of ``spec`` on ``S``.
 
     With ``with_norm`` returns ``(S', sumabs)``, sumabs being the per-slice
     total |S'| over the core cells, which the last black half-sweep sums
-    per block as it writes S' (n >= 1 then).  CPU tensors take the plain
-    version.
+    per block as it writes S' (n >= 1 then).  ``fac`` (cyclic Chebyshev)
+    holds 2n factors in the state's dtype, one per half-sweep, each scaling
+    ``omega * relax``.  CPU tensors take the plain version.
     """
-    return _driver.sweeps(_FAMILY, spec, S, omega, n, with_norm)
+    return _driver.sweeps(_FAMILY, spec, S, omega, n, with_norm, fac)
 
 
 def sor3d_extend(spec, S):
@@ -165,11 +169,11 @@ def sor3d_extend(spec, S):
     return _driver.extend(_FAMILY, spec, S)
 
 
-def sor3d_color_sweep(spec, S, rel, color):
+def sor3d_color_sweep(spec, S, rel, color, fac=1.0):
     """One half-sweep of ``color`` (0 red, 1 black) into a new tensor
-    (one kernel launch); ``rel`` is :func:`relax_plane`.  CPU tensors take
-    the plain version."""
-    return _driver.color_sweep(_FAMILY, spec, S, rel, color)
+    (one kernel launch); ``rel`` is :func:`relax_plane`, scaled by
+    ``fac``.  CPU tensors take the plain version."""
+    return _driver.color_sweep(_FAMILY, spec, S, rel, color, fac)
 
 
 _FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,

@@ -3,7 +3,9 @@
 
 Counterpart of ``xinvert_tpu/solver.py``.  A sweep is an extend pre-pass
 followed by two half-sweeps (red, then black) of the folded stencil
-``S += r_c * (g + sum_k w_k S[.+off_k] + w0 S)``, on 2-D and 3-D specs.  On
+``S += r_c * (g + sum_k w_k S[.+off_k] + w0 S)``, on 2-D and 3-D specs;
+``scheme="cheby"`` scales each half-sweep's ``r_c`` by the next factor of
+the cyclic Chebyshev recurrence, computed on the host.  On
 CUDA tensors the sweeps run in the hand-written kernels of
 :mod:`xinvert_tpu_torch.ops.sor2d` and :mod:`xinvert_tpu_torch.ops.sor3d`; on
 CPU tensors in their plain PyTorch versions, built from the functions below.
@@ -23,12 +25,14 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .grid import optimal_omega
 from .stencil import StencilSpec, prune_zero_offsets
 
-__all__ = ["SolveResult", "solve", "solve_fixed", "sweep", "sweeps"]
+__all__ = ["SolveResult", "solve", "solve_fixed", "solve_fixed_cheby",
+           "sweep", "sweeps", "rho2_from_omega"]
 
 
 @dataclasses.dataclass
@@ -157,12 +161,73 @@ def _sweep_with(spec: StencilSpec, S, rr, rb):
     return S
 
 
-def sweeps(spec: StencilSpec, S, omega, n):
+def sweeps(spec: StencilSpec, S, omega, n, fac=None):
     """n full SOR iterations with PyTorch ops: the plain version of the
-    sweep kernels."""
+    sweep kernels.  ``fac`` (cyclic Chebyshev) holds 2n factors, one per
+    half-sweep, scaling ``omega * relax``; see :func:`_sweep_cheby`."""
     rr, rb = _color_relax(spec, omega)
-    for _ in range(int(n)):
-        S = _sweep_with(spec, S, rr, rb)
+    for it in range(int(n)):
+        if fac is None:
+            S = _sweep_with(spec, S, rr, rb)
+        else:
+            S = _sweep_cheby(spec, S, fac[2 * it], fac[2 * it + 1], rr, rb)
+    return S
+
+
+# ---------------------------------------------------------------------------
+# cyclic Chebyshev (scheme="cheby").  The factors are host scalars in the
+# state's dtype, computed in the JAX package's operation order, so a launch
+# needs no device sync and the kernels and the plain version see one
+# sequence.
+# ---------------------------------------------------------------------------
+
+def _np_dtype(dtype):
+    return np.float32 if dtype == torch.float32 else np.float64
+
+
+def rho2_from_omega(omega, dtype):
+    """Jacobi spectral-radius estimate rho^2 from an SOR factor, as a numpy
+    scalar of the torch ``dtype``.
+
+    Inverts omega_opt = 2 / (1 + sqrt(1 - rho^2)) (apps.py:2289-2290), so
+    the grid-derived omega doubles as the Chebyshev parameter source.
+    """
+    dt = _np_dtype(dtype)
+    s = dt(2.0) / dt(omega) - dt(1.0)
+    return np.clip(dt(1.0) - s * s, dt(0.0), dt(1.0 - 1e-12))
+
+
+def _cheby_next(m, w, rho2):
+    """The cyclic Chebyshev semi-iterative factor for half-sweep ``m``
+    (0-based), given the previous factor ``w`` (Golub & Varga 1961):
+    w(0)=1, w(1)=1/(1-rho2/2), w(m+1)=1/(1-rho2*w(m)/4); in rho2's dtype."""
+    dt = type(rho2)
+    if m == 0:
+        return dt(1.0)
+    if m == 1:
+        return dt(1.0) / (dt(1.0) - rho2 / dt(2.0))
+    return dt(1.0) / (dt(1.0) - rho2 * w / dt(4.0))
+
+
+def _cheby_factors(m, w, rho2, count):
+    """The next ``count`` factors after half-sweep state (m, w), as Python
+    floats (exact), and the state after them."""
+    out = []
+    for _ in range(count):
+        w = _cheby_next(m, w, rho2)
+        m += 1
+        out.append(float(w))
+    return out, m, w
+
+
+def _sweep_cheby(spec: StencilSpec, S, fac_r, fac_b, base_r, base_b):
+    """One full iteration of cyclic-Chebyshev red-black SOR: each
+    half-sweep's relaxation plane ``base`` (omega 1) scaled by its factor,
+    ``(w * base)`` as in the JAX package (the kernels compute
+    ``base * w``: the product commutes, so the two stay bit-equal)."""
+    S = _apply_extend(spec, S)
+    for w, base in ((fac_r, base_r), (fac_b, base_b)):
+        S = _half_sweep(spec, S, w * base)
     return S
 
 
@@ -215,12 +280,28 @@ def _select_kernel(spec: StencilSpec, S):
 
 
 def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
-                run_sweeps, tol_type):
+                run_sweeps, tol_type, scheme):
     dtype, device = S0.dtype, S0.device
     batch_shape = S0.shape[: S0.ndim - spec.ndim]
     ncells = math.prod(S0.shape[-spec.ndim:])
     r_scale = _residual_scale(spec) if tol_type == "residual" else None
     tol_t = torch.tensor(tol, dtype=dtype, device=device)
+
+    if scheme == "cheby":
+        # the (m, w) recurrence state rides the loop carry across check
+        # windows; the sweeps run at omega 1 with the factors on top
+        rho2 = rho2_from_omega(omega, dtype)
+        aux0 = (0, rho2.dtype.type(1.0))
+
+        def step(S, aux, k, with_norm):
+            fac, m, w = _cheby_factors(aux[0], aux[1], rho2, 2 * k)
+            return (run_sweeps(spec, S, 1.0, k, with_norm=with_norm,
+                               fac=fac), (m, w))
+    else:
+        aux0 = ()
+
+        def step(S, aux, k, with_norm):
+            return run_sweeps(spec, S, omega, k, with_norm=with_norm), aux
 
     # norm_prev < 0 marks "no previous norm yet".  (The reference uses a
     # float-max sentinel; |norm - MAX| / MAX multiplies by a subnormal,
@@ -233,21 +314,21 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
         rel=torch.ones(batch_shape, dtype=dtype, device=device),
         overflow=torch.zeros(batch_shape, dtype=torch.bool, device=device),
         done=torch.zeros(batch_shape, dtype=torch.bool, device=device),
+        aux=aux0,                            # cheby (m, w) recurrence state
     )
     single = math.prod(batch_shape) == 1
 
     def advance(c, k):
         # one check window: k sweeps, then the convergence/telemetry update
         if tol_type == "residual":
-            S_new = run_sweeps(spec, c["S"], omega, k)
+            S_new, aux = step(c["S"], c["aux"], k, False)
             norm = torch.broadcast_to(_residual_norm(spec, S_new),
                                       batch_shape)
             rel = norm / r_scale
         else:
             # the reference's mean-|S| norm (absNorm*, numbas.py:1690-1747)
             # from the per-slice total |S| the sweeps return
-            S_new, sum_abs = run_sweeps(spec, c["S"], omega, k,
-                                        with_norm=True)
+            (S_new, sum_abs), aux = step(c["S"], c["aux"], k, True)
             norm = sum_abs / ncells
             prev = c["norm_prev"]
             rel = torch.where(prev >= 0,
@@ -285,6 +366,7 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
             rel=frz(c["rel"], rel),
             overflow=frz(c["overflow"], overflow),
             done=c["done"] | stop,
+            aux=aux,
         )
 
     # only FULL check windows run in the loop (one host sync per window);
@@ -301,8 +383,7 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
 
 
 #: schemes of the JAX package not ported yet, with their ROADMAP item
-NOT_PORTED_SCHEMES = {"cheby": "ROADMAP queue A item 8",
-                      "direct": "ROADMAP queue A item 10",
+NOT_PORTED_SCHEMES = {"direct": "ROADMAP queue A item 10",
                       "lexico": "ROADMAP queue A item 11"}
 
 
@@ -324,6 +405,11 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
     relative discrete residual mean|r|/mean|g| over active cells instead;
     ``rel_change`` then reports the final relative residual.
 
+    ``scheme="cheby"`` runs cyclic-Chebyshev red-black SOR: each half-sweep
+    takes the next factor of the Golub-Varga recurrence seeded by the
+    Jacobi spectral radius that ``omega`` implies (:func:`rho2_from_omega`),
+    carried across check windows.
+
     Runs on the device of ``spec`` and ``S0`` (which must agree): the CUDA
     kernels on a CUDA device, their plain PyTorch versions on the CPU.
     2-D and 3-D specs; 1-D specs raise ``NotImplementedError``.
@@ -331,8 +417,8 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
     if scheme in NOT_PORTED_SCHEMES:
         raise NotImplementedError(f"scheme={scheme!r} is not ported yet "
                                   f"({NOT_PORTED_SCHEMES[scheme]})")
-    if scheme != "sor":
-        raise ValueError(f"unknown scheme {scheme!r}; use 'sor'")
+    if scheme not in ("sor", "cheby"):
+        raise ValueError(f"unknown scheme {scheme!r}; use 'sor' or 'cheby'")
     if tol_type not in ("change", "residual"):
         raise ValueError(f"unknown tol_type {tol_type!r}; "
                          "use 'change' or 'residual'")
@@ -345,7 +431,7 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
     # with the plane count (stencil.prune_zero_offsets; exact)
     spec = prune_zero_offsets(spec)
     return _solve_impl(spec, S0, float(omega), float(tol), int(max_iters),
-                       int(check_every), run_sweeps, tol_type)
+                       int(check_every), run_sweeps, tol_type, scheme)
 
 
 def solve_fixed(spec: StencilSpec, S0, omega, n_iters: int):
@@ -356,3 +442,15 @@ def solve_fixed(spec: StencilSpec, S0, omega, n_iters: int):
     chain many calls on one spec, and the prune test is a host sync.
     """
     return _select_kernel(spec, S0)(spec, S0, float(omega), int(n_iters))
+
+
+def solve_fixed_cheby(spec: StencilSpec, S0, omega, n_iters: int):
+    """Run exactly ``n_iters`` cyclic-Chebyshev red-black SOR iterations
+    (no convergence checks).  The half-sweep factor follows the Golub-Varga
+    recurrence seeded by the Jacobi spectral radius implied by ``omega``
+    (:func:`rho2_from_omega`); like :func:`solve_fixed`, no pruning."""
+    run_sweeps = _select_kernel(spec, S0)
+    rho2 = rho2_from_omega(omega, S0.dtype)
+    fac, _, _ = _cheby_factors(0, rho2.dtype.type(1.0), rho2,
+                               2 * int(n_iters))
+    return run_sweeps(spec, S0, 1.0, int(n_iters), fac=fac)

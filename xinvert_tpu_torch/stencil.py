@@ -14,12 +14,14 @@ red-black engine (:mod:`xinvert_tpu_torch.solver`) executes.  Periodicity is
 folded into wrap-around neighbor access and masks, so the interior update is
 uniform.
 
-Counterpart of ``xinvert_tpu/stencil.py``; this package ports the
-standard-2D family (the Poisson path) and the two 3-D families (standard-3D,
-the omega equation; general-3D, the 3-D ocean).  The helpers
-(``shift_plane``, ``_interior_mask``, ``_finalize``) are rank-generic: a 3-D
-spec updates z on levels 1..nz-2 only (never periodic, never extended).
-Tensors stay on the device they were built on.
+Counterpart of ``xinvert_tpu/stencil.py``; this package ports the four 2-D
+families (standard-2D, the Poisson path; standard-2D with separate cross
+coefficients and a linear term; general-2D; the biharmonic general-2D) and
+the two 3-D families (standard-3D, the omega equation; general-3D, the 3-D
+ocean).  The 1-D family is not ported yet.  The helpers (``shift_plane``,
+``_interior_mask``, ``_finalize``) are rank-generic: a 3-D spec updates z on
+levels 1..nz-2 only (never periodic, never extended).  Tensors stay on the
+device they were built on.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-__all__ = ["StencilSpec", "standard_2d", "standard_3d", "general_3d",
+__all__ = ["StencilSpec", "standard_2d", "standard_2d_e", "general_2d",
+           "general_2d_bih", "standard_3d", "general_3d",
            "prune_zero_offsets", "shift_plane"]
 
 
@@ -230,6 +233,42 @@ def standard_2d(A, B, C, F, Fdef, deltas, bcs, include_cross=None):
                      dtype)
 
 
+def standard_2d_e(A, B, C, D, E, F, Fdef, deltas, bcs):
+    r"""d/dy(A dS/dy + B dS/dx) + d/dx(C dS/dy + D dS/dx) + E S = F.
+
+    The reference's invert_standard_2D_test (numbas.py:421-629): separate
+    cross coefficients B (y-staggered) and C (x-staggered) plus a linear term
+    E that also enters the denominator.
+    """
+    dely, delx = deltas
+    ratio = delx / dely
+    rsq = ratio ** 2
+    rq = ratio / 4.0
+    dxsq = delx ** 2
+    dtype = _result_dtype(A, D, F)
+
+    Ajp = shift_plane(A, (1, 0))
+    Dip = shift_plane(D, (0, 1))
+    Bjp = shift_plane(B, (1, 0))
+    Bjm = shift_plane(B, (-1, 0))
+    Cip = shift_plane(C, (0, 1))
+    Cim = shift_plane(C, (0, -1))
+    weights = {
+        (1, 0): Ajp * rsq,
+        (-1, 0): A * rsq,
+        (0, 1): Dip,
+        (0, -1): D,
+        (1, 1): (Bjp + Cip) * rq,
+        (1, -1): -(Bjp + Cim) * rq,
+        (-1, 1): -(Bjm + Cip) * rq,
+        (-1, -1): (Bjm + Cim) * rq,
+    }
+    w0 = -(Ajp + A) * rsq - (Dip + D) + E * dxsq
+    g = -F * dxsq
+    return _finalize(weights, w0, g, Fdef, F.shape[-2:], bcs, False, True,
+                     dtype)
+
+
 def _upwind_terms(coef, s, scale):
     """First-order upwind split of a first-derivative term with coefficient
     ``coef`` (sign-normalised by ``s``: the equation times s has
@@ -250,6 +289,101 @@ def _upwind_on(upwind) -> bool:
     if isinstance(upwind, (int, float)):
         return upwind != 0
     return True
+
+
+def general_2d(A, B, C, D, E, F, G, Fdef, deltas, bcs, upwind=0.0):
+    r"""A Syy + B Syx + C Sxx + D Sy + E Sx + F S = G  (numbas.py:988-1201).
+
+    ``upwind`` (0 = centered first derivatives, reference parity) selects
+    first-order upwinding of the D/E advection terms with sign
+    normalisation ``upwind = +-1`` or a per-cell +-1 plane.
+    """
+    dely, delx = deltas
+    ratio = delx / dely
+    rsq = ratio ** 2
+    rq = ratio / 4.0
+    dxsq = delx ** 2
+    half = delx / 2.0
+    dtype = _result_dtype(A, C, G)
+
+    w0 = -2.0 * (A * rsq + C) + F * dxsq
+    if _upwind_on(upwind):
+        dyp, dym, dy0 = _upwind_terms(D, upwind, ratio * delx)
+        exp, exm, ex0 = _upwind_terms(E, upwind, delx)
+        weights = {
+            (1, 0): A * rsq + dyp,
+            (-1, 0): A * rsq + dym,
+            (0, 1): C + exp,
+            (0, -1): C + exm,
+        }
+        w0 = w0 + dy0 + ex0
+    else:
+        weights = {
+            (1, 0): A * rsq + D * ratio * half,
+            (-1, 0): A * rsq - D * ratio * half,
+            (0, 1): C + E * half,
+            (0, -1): C - E * half,
+        }
+    weights.update({
+        (1, 1): B * rq,
+        (1, -1): -B * rq,
+        (-1, 1): -B * rq,
+        (-1, -1): B * rq,
+    })
+    g = -G * dxsq
+    return _finalize(weights, w0, g, Fdef, G.shape[-2:], bcs, False, False,
+                     dtype)
+
+
+def general_2d_bih(A, B, C, D, E, F, G, H, I, J, Fdef, deltas, bcs):
+    r"""A Syyyy + B Syyxx + C Sxxxx + D Syy + E Syx + F Sxx + G Sy + H Sx
+    + I S = J  — the 13/17-point biharmonic family (numbas.py:1205-1586).
+
+    The reference updates with ``S -= omega * temp / denom``; negating all
+    terms brings it to the universal ``denominator == -w0`` form.
+    """
+    dely, delx = deltas
+    ratio = delx / dely
+    rsq = ratio ** 2
+    rq = ratio / 4.0
+    rssr = ratio ** 4
+    dxsq = delx ** 2
+    dxtr = delx ** 3
+    dxssr = delx ** 4
+    dtype = _result_dtype(A, C, J)
+
+    n = {}  # neighbor coefficients of `temp` (to be negated)
+
+    def add(off, val):
+        n[off] = n.get(off, 0.0) + val
+
+    # A d4/dy4 and C d4/dx4
+    add((2, 0), A * rssr); add((1, 0), -4.0 * A * rssr)
+    add((-1, 0), -4.0 * A * rssr); add((-2, 0), A * rssr)
+    add((0, 2), C); add((0, 1), -4.0 * C)
+    add((0, -1), -4.0 * C); add((0, -2), C)
+    # B d4/dy2dx2 (coarse +-2 cross, /16)
+    b = B * rsq / 16.0
+    for sy in (2, -2):
+        add((sy, 2), b); add((sy, 0), -2.0 * b); add((sy, -2), b)
+    add((0, 2), -2.0 * b); add((0, -2), -2.0 * b)
+    # D d2/dy2, F d2/dx2
+    add((1, 0), D * rsq * dxsq); add((-1, 0), D * rsq * dxsq)
+    add((0, 1), F * dxsq); add((0, -1), F * dxsq)
+    # E d2/dydx
+    e = E * rq * dxsq
+    add((1, 1), e); add((-1, 1), -e); add((1, -1), -e); add((-1, -1), e)
+    # G d/dy, H d/dx
+    add((1, 0), G * dxtr * ratio / 2.0); add((-1, 0), -G * dxtr * ratio / 2.0)
+    add((0, 1), H * dxtr / 2.0); add((0, -1), -H * dxtr / 2.0)
+
+    center = (6.0 * (A * rssr + C) + B * rsq / 4.0
+              - 2.0 * (D * rsq + F) * dxsq + I * dxssr)
+    weights = {off: -val for off, val in n.items()}
+    w0 = -center
+    g = J * dxssr
+    return _finalize(weights, w0, g, Fdef, J.shape[-2:], bcs, True, False,
+                     dtype)
 
 
 def standard_3d(A, B, C, F, Fdef, deltas, bcs):
