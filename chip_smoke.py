@@ -11,13 +11,14 @@ seed, and runs these phases, each printing its lines:
      (nvidia-smi), torch and CUDA versions;
   1  build: nvcc compiles xinvert_tpu_torch/csrc/sor2d.cu and csrc/sor3d.cu,
      one process per source started together (first use), with the seconds
-     each took;
+     each took and ptxas's registers and spills of the tiled kernels;
   2  each kernel against its plain PyTorch version on the card: bit-equal
-     (torch.equal) in float32 and float64, alone and over 20 sweeps, with
-     and without Chebyshev factors, on several 2-D grids and 3-D volumes
-     (every shape the main paths below drive), the in-place 2-D kernel
-     wherever the spec takes it, and the fused |S| sums against sum|S|
-     (rtol 1e-5 / 1e-12);
+     (torch.equal) in float32 and float64 on several 2-D grids and 3-D
+     volumes (every shape the main paths below drive): the two tiled 2-D
+     kernels over n in {1, k, 20, 37} sweeps, at omega and with Chebyshev
+     factors; the first version's kernels (extend, color sweep, in-place
+     color sweep) alone and over 20 sweeps; the 3-D pair; the fused |S|
+     sums against sum|S| (rtol 1e-5 / 1e-12);
   3  the main paths, in float32 and with no device argument (the entry
      points default to the card): invert_Poisson at 2048x2048 and at a
      batched 8x73x144; invert_omega at 37x72x288; invert_3DOcean at
@@ -27,27 +28,34 @@ seed, and runs these phases, each printing its lines:
      scheme="cheby"; invert_Poisson 2048x2048 again through the in-place
      kernel (equal to the first run).  Each path runs with every launch
      count set to 0 just before it and read just after, which must show it
-     went through its kernels alone, most then once more under
+     went through its kernels alone (in 2-D the tiled kernels, with no
+     launch of the first version's), most then once more under
      torch.profiler for the device's busy time against the wall time.
-     Smaller runs of the same calls are held against a float64 CPU run
+     Each 2-D path runs again through the first version's three launches a
+     sweep, which must give the same iters and bit-equal states.  Smaller
+     runs of the same calls are held against a float64 CPU run
      (device="cpu", the plain version): Poisson 8x73x144, omega 37x72x144,
      ocean 20x110x240, and the three SODA calls at 2x110x240 (mxLoop cut to
      2000), within 1e-4 of max|S|;
   4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
      calls timed with CUDA events, for the kernels and the plain version,
      beside a device-to-device copy of the bytes a sweep of the kernels
-     moves (2-D 2048x2048, float64 too; 3-D 37x72x288, 73x72x288,
-     30x330x720), and the in-place kernel against the pair in turns
-     (2048x2048, Stommel 12x330x720); each kernel's device time per launch
-     (CUDA events around back-to-back launches queued behind a device-side
-     spin, so no host gap counts) beside its plain version's, its bound and
-     a copy of its bytes.
+     must move (2-D 2048x2048, float64 too; 3-D 37x72x288, 73x72x288,
+     30x330x720); in 2-D at 2048x2048, Stommel and Stommel-Munk 12x330x720,
+     the tiled kernels per sweep in turns against the first version's pair
+     and B3, and a scan of sweeps per launch and window width beside the
+     plan's choice; each kernel's device time per launch (CUDA events
+     around back-to-back launches queued behind a device-side spin, so no
+     host gap counts), per sweep for the tiled kernels, beside its plain
+     version's, its bound (k sweeps for the tiled kernels) and a copy of
+     its bytes.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Any failed phase raises, and the
 script exits non-zero without printing that line.
 """
 import json
+import math
 import subprocess
 import time
 
@@ -63,6 +71,12 @@ from xinvert_tpu_torch.stencil import (StencilSpec, _interior_mask,
                                        prune_zero_offsets, standard_2d)
 
 KERNELS = {   # name: (source, replaces, also_replaces)
+    "sor2d_sweeps_tiled": ("xinvert_tpu_torch/csrc/sor2d.cu",
+                           "xinvert_tpu/ops/pallas_sor_window.py:252",
+                           "xinvert_tpu/ops/pallas_sor.py:94"),
+    "sor2d_sweeps_tiled_inplace": ("xinvert_tpu_torch/csrc/sor2d.cu",
+                                   "xinvert_tpu/ops/pallas_sor_window.py:414",
+                                   None),
     "sor2d_extend_rows": ("xinvert_tpu_torch/csrc/sor2d.cu",
                           "xinvert_tpu/ops/pallas_sor.py:43",
                           "xinvert_tpu/ops/pallas_sor_window.py:67"),
@@ -80,7 +94,9 @@ KERNELS = {   # name: (source, replaces, also_replaces)
                           "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
 }
 # each kernel's launch counter
-COUNTERS = {"sor2d_extend_rows": (sor2d, "EXTEND_LAUNCHES"),
+COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
+            "sor2d_sweeps_tiled_inplace": (sor2d, "TILED_INPLACE_LAUNCHES"),
+            "sor2d_extend_rows": (sor2d, "EXTEND_LAUNCHES"),
             "sor2d_color_sweep": (sor2d, "LAUNCHES"),
             "sor2d_color_sweep_inplace": (sor2d, "INPLACE_LAUNCHES"),
             "sor3d_extend_rows": (sor3d, "EXTEND_LAUNCHES"),
@@ -353,6 +369,14 @@ def phase1():
                      for name in _build.SOURCES)
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.3f} s "
         f"(nvcc in parallel: {nvcc}; flags {' '.join(_build.NVCC_FLAGS)})")
+    # ptxas -v on the tiled kernels: registers, spills, shared memory
+    lines = _build.BUILD_LOG.get("sor2d", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "tiled" in line:
+            inst = line.split("'")[1] if "'" in line else line
+            info = " | ".join(x.split(":", 1)[-1].strip()
+                              for x in lines[i + 2:i + 4])
+            log(f"[1] ptxas {inst}: {info}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -365,15 +389,16 @@ def _check_kernels(mod, name, make, errs, n=20):
     """Each kernel of ``mod`` alone and n sweeps of them, against the plain
     versions, in float32 and float64: the color sweep with and without a
     Chebyshev factor, and, where the spec takes it, the in-place color
-    sweep and the sweeps through it (``sor2d.INPLACE_KERNEL`` set); raises
-    on any difference."""
+    sweep and the sweeps through it (``sor2d.INPLACE_KERNEL`` set); in 2-D
+    the sweeps of the first version (``sor2d_sweeps_pair``) and the tiled
+    kernels (:func:`_check_tiled`); raises on any difference."""
     p = mod.__name__.rsplit(".", 1)[-1]           # "sor2d" / "sor3d"
     extend, extend_ref = (getattr(mod, f"{p}_extend"),
                           getattr(mod, f"{p}_extend_reference"))
     color, color_ref = (getattr(mod, f"{p}_color_sweep"),
                         getattr(mod, f"{p}_color_sweep_reference"))
-    sweeps, sweeps_ref = (getattr(mod, f"{p}_sweeps"),
-                          getattr(mod, f"{p}_sweeps_reference"))
+    sweeps = sor2d.sor2d_sweeps_pair if p == "sor2d" else mod.sor3d_sweeps
+    sweeps_ref = getattr(mod, f"{p}_sweeps_reference")
     core = (-3, -2, -1) if p == "sor3d" else (-2, -1)
     for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         spec, omega = make(dt)
@@ -437,6 +462,50 @@ def _check_kernels(mod, name, make, errs, n=20):
             f"(tol {rtol:g})")
         if not ok or not norm_err <= rtol:
             raise RuntimeError(f"kernel disagrees with its plain version "
+                               f"on {name} {dt}")
+        if p == "sor2d":
+            _check_tiled(name, spec, omega, S0, rtol, errs)
+
+
+def _check_tiled(name, spec, omega, S0, rtol, errs):
+    """Both tiled kernels (the in-place one where the spec takes it) over
+    n in {1, k, 20, 37} sweeps, at omega and as cheby (omega 1 with 2n
+    factors), against the plain version: torch.equal, finite, and the
+    fused |S| sums of the last launch against sum|S|."""
+    dt = S0.dtype
+    shape = tuple(S0.shape[-2:])
+    facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dt))
+            for k in range(74)]
+    kinds = [("sor2d_sweeps_tiled", sor2d.sor2d_sweeps_tiled, False)]
+    if sor2d.inplace_eligible(spec, shape):
+        kinds.append(("sor2d_sweeps_tiled_inplace",
+                      sor2d.sor2d_sweeps_tiled_inplace, True))
+    for kname, fn, inplace in kinds:
+        plan = sor2d.tile_plan(spec, shape, dt, inplace)
+        counter = COUNTERS[kname][1]
+        ok, norm_err, err = True, 0.0, 0.0
+        for n in sorted({1, plan.k, 20, 37}):
+            for om, fac in ((omega, None), (1.0, facs[:2 * n])):
+                c0 = getattr(sor2d, counter)
+                out, sumabs = fn(spec, S0, om, n, with_norm=True, fac=fac)
+                ref = sor2d.sor2d_sweeps_reference(spec, S0, om, n, fac)
+                torch.cuda.synchronize()
+                ok &= getattr(sor2d, counter) == c0 + -(-n // plan.k)
+                ok &= torch.equal(out, ref) and bool(
+                    torch.isfinite(ref).all())
+                err = max(err, _max_err(out, ref))
+                tot = ref.double().abs().sum(dim=(-2, -1))
+                norm_err = max(norm_err, float(
+                    ((sumabs.double() - tot).abs() / tot).max()))
+        errs[kname] = max(errs[kname], err)
+        log(f"[2] {name} {str(dt)[6:]}: {kname} (k {plan.k}, tile "
+            f"{plan.ty}x{plan.tx}, halo {plan.hy}x{plan.hx}, "
+            f"{plan.threads} threads x {plan.cpt} cells) n in "
+            f"{sorted({1, plan.k, 20, 37})}, with and without factors: "
+            f"bit-equal={ok} max|kernel-plain|={err:.3e} sumabs rel err="
+            f"{norm_err:.3e} (tol {rtol:g})")
+        if not ok or not norm_err <= rtol:
+            raise RuntimeError(f"{kname} disagrees with its plain version "
                                f"on {name} {dt}")
 
 
@@ -523,11 +592,10 @@ def _check_field(out, field, name):
         raise RuntimeError(f"{name}: the solution is zero")
 
 
-def _drive(name, sweep_kernel, call, field, extend, launches=None):
+def _drive(name, kernels, call, field, launches=None):
     """One call of an entry point with every count set to 0 just before it
-    and read just after; it must have gone through ``sweep_kernel`` alone
-    (and the extend kernel of its source when ``extend``), with no plain
-    call.  The full-size main-path runs add their launches to
+    and read just after; it must have gone through ``kernels`` alone, with
+    no plain call.  The full-size main-path runs add their launches to
     ``launches``."""
     _zero_counts()
     t0 = time.perf_counter()
@@ -542,17 +610,44 @@ def _drive(name, sweep_kernel, call, field, extend, launches=None):
         f"{res.rel_change.cpu().tolist()} overflow "
         f"{res.overflow.cpu().tolist()} wall {wall:.3f} s; launches: "
         f"{ran}; plain calls {plain}")
-    expect = {sweep_kernel}
-    if extend:
-        expect.add(sweep_kernel[:5] + "_extend_rows")
-    if {k for k, v in counts.items() if v} != expect or plain:
+    if {k for k, v in counts.items() if v} != set(kernels) or plain:
         raise RuntimeError(f"{name}: the main path did not run through "
-                           f"{sorted(expect)} alone")
+                           f"{sorted(kernels)} alone")
     if launches is not None:
         for k, v in counts.items():
             launches[k] += v
     _check_field(out, field, name)
     return out
+
+
+TILED = {False: ("sor2d_sweeps_tiled",),
+         True: ("sor2d_sweeps_tiled_inplace",)}
+FIRST = {False: ("sor2d_extend_rows", "sor2d_color_sweep"),
+         True: ("sor2d_extend_rows", "sor2d_color_sweep_inplace")}
+
+
+def _drive2d(name, call, field, inplace, launches):
+    """A 2-D main path through the tiled kernels alone (the in-place one
+    with ``inplace``, the switch set), then the same call through the
+    first version's three launches a sweep (``sor2d_sweeps`` set to
+    ``sor2d_sweeps_pair``, B3 where the switch takes the spec): the same
+    iters, bit-equal states and fields.  Returns the tiled run as
+    (Field, SolveResult)."""
+    sor2d.INPLACE_KERNEL = inplace
+    try:
+        tiled = (_drive(name, TILED[inplace], call, field, launches),
+                 api.LAST_SOLVE)
+        tiled_sweeps = sor2d.sor2d_sweeps
+        sor2d.sor2d_sweeps = sor2d.sor2d_sweeps_pair
+        try:
+            first = (_drive(f"{name}, first version", FIRST[inplace], call,
+                            field), api.LAST_SOLVE)
+        finally:
+            sor2d.sor2d_sweeps = tiled_sweeps
+    finally:
+        sor2d.INPLACE_KERNEL = False
+    _same(f"{name}, tiled vs first version", tiled, first)
+    return tiled
 
 
 def _busy_share(name, call):
@@ -606,8 +701,8 @@ def phase3():
                             ("8x73x144", gal, iP_gal)):
         call = lambda f=field, i=iP: xt.invert_Poisson(  # noqa: E731
             f, dims=["lat", "lon"], iParams=i)
-        out[name] = (_drive(f"invert_Poisson {name}", "sor2d_color_sweep",
-                            call, field, True, launches), api.LAST_SOLVE)
+        out[name] = _drive2d(f"invert_Poisson {name}", call, field, False,
+                             launches)
         _busy_share(f"invert_Poisson {name}", call)
 
     iP_om = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 2000,
@@ -615,7 +710,7 @@ def phase3():
     F_om, N2_om = atmos3d(37, 72, 288)
     call = lambda: xt.invert_omega(  # noqa: E731
         F_om, dims=DIMS_3D, mParams={"N2": N2_om}, iParams=iP_om)
-    _drive("invert_omega 37x72x288", "sor3d_color_sweep", call, F_om, False,
+    _drive("invert_omega 37x72x288", ("sor3d_color_sweep",), call, F_om,
            launches)
     _busy_share("invert_omega 37x72x288", call)
     iP_oc = {"BCs": ["fixed", "extend", "periodic"], "undef": np.nan,
@@ -623,15 +718,16 @@ def phase3():
     F_oc, N2_oc = ocean3d(30)
     call = lambda: xt.invert_3DOcean(  # noqa: E731
         F_oc, dims=DIMS_3D, mParams=dict(OCEAN_MP, N2=N2_oc), iParams=iP_oc)
-    _drive("invert_3DOcean 30x330x720", "sor3d_color_sweep", call, F_oc, True,
-           launches)
+    _drive("invert_3DOcean 30x330x720",
+           ("sor3d_color_sweep", "sor3d_extend_rows"), call, F_oc, launches)
     _busy_share("invert_3DOcean 30x330x720", call)
 
     # the 2-D families on the SODA-class curl, 12x330x720: Stommel with the
-    # in-place switch on (B3) and off (the pair), which must agree bit for
-    # bit; Stommel-Munk (biharmonic, the pair); Stommel with scheme="cheby"
-    # (B3 with its factors); the reference workload's iParams, a cheby
-    # omega that converges (1.3)
+    # in-place switch on and off, which must agree bit for bit;
+    # Stommel-Munk (biharmonic, the ping-pong kernel); Stommel with
+    # scheme="cheby" (in place, with its factors); the reference
+    # workload's iParams, a cheby omega that converges (1.3); each also
+    # through the first version, equal
     iP_soda = {"BCs": ["extend", "periodic"], "undef": np.nan,
                "mxLoop": 5000, "tolerance": 1e-12, "optArg": 1,
                "printInfo": False}
@@ -643,37 +739,34 @@ def phase3():
         "StommelMunk": lambda f, i, **kw: xt.invert_StommelMunk(
             f, dims=["lat", "lon"], iParams=i, mParams=MUNK_MP, **kw),
     }
+    st_call = lambda: paths["Stommel"](soda, iP_soda)  # noqa: E731
+    st_on = _drive2d("invert_Stommel 12x330x720 in-place", st_call, soda,
+                     True, launches)
     sor2d.INPLACE_KERNEL = True
-    st_on = (_drive("invert_Stommel 12x330x720 in-place",
-                    "sor2d_color_sweep_inplace",
-                    lambda: paths["Stommel"](soda, iP_soda), soda, True,
-                    launches), api.LAST_SOLVE)
-    _busy_share("invert_Stommel 12x330x720 in-place",
-                lambda: paths["Stommel"](soda, iP_soda))
+    _busy_share("invert_Stommel 12x330x720 in-place", st_call)
     sor2d.INPLACE_KERNEL = False
-    st_off = (_drive("invert_Stommel 12x330x720 pair", "sor2d_color_sweep",
-                     lambda: paths["Stommel"](soda, iP_soda), soda, True,
-                     launches), api.LAST_SOLVE)
-    _same("invert_Stommel 12x330x720, in-place vs pair", st_on, st_off)
-    _drive("invert_StommelMunk 12x330x720", "sor2d_color_sweep",
-           lambda: paths["StommelMunk"](soda, iP_soda), soda, True, launches)
-    _busy_share("invert_StommelMunk 12x330x720",
-                lambda: paths["StommelMunk"](soda, iP_soda))
+    st_off = _drive2d("invert_Stommel 12x330x720 ping-pong", st_call, soda,
+                      False, launches)
+    _busy_share("invert_Stommel 12x330x720 ping-pong", st_call)
+    _same("invert_Stommel 12x330x720, in-place vs ping-pong", st_on, st_off)
+    munk_call = lambda: paths["StommelMunk"](soda, iP_soda)  # noqa: E731
+    _drive2d("invert_StommelMunk 12x330x720", munk_call, soda, False,
+             launches)
+    _busy_share("invert_StommelMunk 12x330x720", munk_call)
+    cheby_call = lambda: paths["Stommel"](soda, iP_cheby)  # noqa: E731
+    _drive2d("invert_Stommel cheby 12x330x720 in-place", cheby_call, soda,
+             True, launches)
     sor2d.INPLACE_KERNEL = True
-    _drive("invert_Stommel cheby 12x330x720 in-place",
-           "sor2d_color_sweep_inplace",
-           lambda: paths["Stommel"](soda, iP_cheby), soda, True, launches)
-    _busy_share("invert_Stommel cheby 12x330x720 in-place",
-                lambda: paths["Stommel"](soda, iP_cheby))
-    # invert_Poisson 2048x2048 through B3 against the pair's run above
+    _busy_share("invert_Stommel cheby 12x330x720 in-place", cheby_call)
+    sor2d.INPLACE_KERNEL = False
+    # invert_Poisson 2048x2048 through the in-place kernel against the
+    # ping-pong run above
     call = lambda: xt.invert_Poisson(  # noqa: E731
         big, dims=["lat", "lon"], iParams=iP_big)
-    big_on = (_drive("invert_Poisson 2048x2048 in-place",
-                     "sor2d_color_sweep_inplace", call, big, True, launches),
-              api.LAST_SOLVE)
-    _same("invert_Poisson 2048x2048, in-place vs pair", big_on,
+    big_on = _drive2d("invert_Poisson 2048x2048 in-place", call, big, True,
+                      launches)
+    _same("invert_Poisson 2048x2048, in-place vs ping-pong", big_on,
           out["2048x2048"])
-    sor2d.INPLACE_KERNEL = False
 
     # answers against float64 runs of the same calls on the CPU (the plain
     # path), both sides checking every 32 sweeps as the card's float32 runs
@@ -685,35 +778,32 @@ def phase3():
                      iParams=dict(iP_gal, checkEvery=32), device="cpu"))
     F_s, N2_s = atmos3d(37, 72, 144)
     iP_s = dict(iP_om, checkEvery=32)
-    om_out = _drive("invert_omega 37x72x144", "sor3d_color_sweep",
+    om_out = _drive("invert_omega 37x72x144", ("sor3d_color_sweep",),
                     lambda: xt.invert_omega(F_s, dims=DIMS_3D,
                                             mParams={"N2": N2_s},
-                                            iParams=iP_s), F_s, False)
+                                            iParams=iP_s), F_s)
     _against_cpu("invert_omega 37x72x144", om_out, lambda: xt.invert_omega(
         F_s, dims=DIMS_3D, mParams={"N2": N2_s}, iParams=iP_s, device="cpu"))
     F_d, N2_d = ocean3d(20, step=3)
     iP_d = dict(iP_oc, checkEvery=32)
     mP_d = dict(OCEAN_MP, N2=N2_d)
-    oc_out = _drive("invert_3DOcean 20x110x240", "sor3d_color_sweep",
+    oc_out = _drive("invert_3DOcean 20x110x240",
+                    ("sor3d_color_sweep", "sor3d_extend_rows"),
                     lambda: xt.invert_3DOcean(F_d, dims=DIMS_3D,
                                               mParams=mP_d, iParams=iP_d),
-                    F_d, True)
+                    F_d)
     _against_cpu("invert_3DOcean 20x110x240", oc_out,
                  lambda: xt.invert_3DOcean(F_d, dims=DIMS_3D, mParams=mP_d,
                                            iParams=iP_d, device="cpu"))
     small = soda_curl(months=2, step=3)
-    for name, path, iP, kernel in (
-            ("invert_Stommel", "Stommel", iP_soda,
-             "sor2d_color_sweep_inplace"),
-            ("invert_StommelMunk", "StommelMunk", iP_soda,
-             "sor2d_color_sweep"),
-            ("invert_Stommel cheby", "Stommel", iP_cheby,
-             "sor2d_color_sweep_inplace")):
+    for name, path, iP, inplace in (
+            ("invert_Stommel", "Stommel", iP_soda, True),
+            ("invert_StommelMunk", "StommelMunk", iP_soda, False),
+            ("invert_Stommel cheby", "Stommel", iP_cheby, True)):
         iP_sm = dict(iP, mxLoop=2000, checkEvery=32)
         sor2d.INPLACE_KERNEL = True
-        card_out = _drive(f"{name} 2x110x240", kernel,
-                          lambda p=path, i=iP_sm: paths[p](small, i), small,
-                          True)
+        card_out = _drive(f"{name} 2x110x240", TILED[inplace],
+                          lambda p=path, i=iP_sm: paths[p](small, i), small)
         sor2d.INPLACE_KERNEL = False
         _against_cpu(f"{name} 2x110x240", card_out,
                      lambda p=path, i=iP_sm: paths[p](small, i,
@@ -773,7 +863,8 @@ def _copy_ms(nbytes, dev):
 
 def _rates(card, label, spec, omega, shape, plain, dev, n=500):
     """solve_fixed rates of the kernels (twice) and the plain version, and
-    a device copy of the bytes a sweep of the kernels moves."""
+    a device copy of the bytes a sweep of the kernels must move (2-D: the
+    tiled kernel's planes and state once per launch of k sweeps)."""
     S0 = torch.zeros(shape, dtype=spec.w0.dtype, device=dev)
     K = len(spec.offsets)
     t_k = _chain_ms(lambda S: xt.solve_fixed(spec, S, omega, n), S0)
@@ -781,59 +872,147 @@ def _rates(card, label, spec, omega, shape, plain, dev, n=500):
     t_k2 = _chain_ms(lambda S: xt.solve_fixed(spec, S, omega, n), S0)
     pts = int(np.prod(shape)) * n
     itemsize = spec.w0.element_size()
-    sweep_bytes = 2 * (K + 5) * int(np.prod(shape)) * itemsize
+    if spec.ndim == 2:
+        k = sor2d.tile_plan(spec, tuple(shape[-2:]), spec.w0.dtype).k
+        sweep_bytes = _bound("sor2d_sweeps_tiled", spec, shape, k)[2] // k
+    else:
+        sweep_bytes = 2 * (K + 5) * int(np.prod(shape)) * itemsize
     t_copy = _copy_ms(sweep_bytes // 2, dev)
     t_kern = min(t_k, t_k2)
     log(f"[4] {card} | solve_fixed {label} {str(spec.w0.dtype)[6:]}, {n} "
         f"sweeps per call, median of 5 chained calls: kernels {t_k:.3f} ms "
         f"then {t_k2:.3f} ms = {pts / (t_kern * 1e-3):.4e} point-sweeps/s; "
         f"plain {t_p:.3f} ms = {pts / (t_p * 1e-3):.4e} point-sweeps/s")
-    log(f"[4] {card} | {label}: kernels move {sweep_bytes} B per sweep = "
-        f"{sweep_bytes * n / (t_kern * 1e-3) / 1e9:.1f} GB/s; device copy "
+    log(f"[4] {card} | {label}: kernels must move {sweep_bytes} B per sweep "
+        f"= {sweep_bytes * n / (t_kern * 1e-3) / 1e9:.1f} GB/s; device copy "
         f"of {sweep_bytes // 2} B: {t_copy:.4f} ms = "
         f"{sweep_bytes / (t_copy * 1e-3) / 1e9:.1f} GB/s")
     return S0
 
 
-def _rates_inplace(card, label, spec, omega, shape, dev, n=500):
-    """solve_fixed through the in-place kernel against the ping-pong pair,
-    in turns (pair, in-place, in-place, pair), and a device copy of the
-    bytes a sweep of either moves."""
+def _turns(card, label, spec, omega, shape, dev, n=200):
+    """n sweeps per call, median of 5 chained calls, in turns: the first
+    version's pair, the tiled kernel, the tiled kernel, the pair; and,
+    where the spec takes them, B3, the in-place tiled kernel, the in-place
+    tiled kernel, B3.  Returns ms per sweep, the best of each pair of
+    turns."""
     S0 = torch.zeros(shape, dtype=spec.w0.dtype, device=dev)
+    runs = [("pair", False, sor2d.sor2d_sweeps_pair),
+            ("sor2d_sweeps_tiled", False, sor2d.sor2d_sweeps_tiled)]
+    if sor2d.inplace_eligible(spec, tuple(shape[-2:])):
+        runs += [("B3", True, sor2d.sor2d_sweeps_pair),
+                 ("sor2d_sweeps_tiled_inplace", True,
+                  sor2d.sor2d_sweeps_tiled_inplace)]
     times = {}
-    for switch in (False, True, True, False):
-        sor2d.INPLACE_KERNEL = switch
-        i0 = sor2d.INPLACE_LAUNCHES
-        times.setdefault(switch, []).append(_chain_ms(
-            lambda S: xt.solve_fixed(spec, S, omega, n), S0))
-        if (sor2d.INPLACE_LAUNCHES > i0) != switch:
-            raise RuntimeError(f"{label}: solve_fixed did not take the "
-                               f"kernel the switch asked for")
-    sor2d.INPLACE_KERNEL = False
-    pts = int(np.prod(shape)) * n
-    sweep_bytes = (2 * (len(spec.offsets) + 5) * int(np.prod(shape))
-                   * spec.w0.element_size())
-    t_copy = _copy_ms(sweep_bytes // 2, dev)
-    best = {k: min(v) for k, v in times.items()}
-    log(f"[4] {card} | solve_fixed {label} {str(spec.w0.dtype)[6:]}, {n} "
-        f"sweeps per call, median of 5 chained calls, in turns: pair "
-        f"{times[False][0]:.3f} ms, in-place {times[True][0]:.3f} ms, "
-        f"in-place {times[True][1]:.3f} ms, pair {times[False][1]:.3f} ms; "
-        f"in-place {pts / (best[True] * 1e-3):.4e} vs pair "
-        f"{pts / (best[False] * 1e-3):.4e} point-sweeps/s; sweep bytes "
-        f"{sweep_bytes} B at {sweep_bytes * n / (best[True] * 1e-3) / 1e9:.1f}"
-        f" GB/s (in-place); device copy of {sweep_bytes // 2} B "
-        f"{t_copy:.4f} ms = {sweep_bytes / (t_copy * 1e-3) / 1e9:.1f} GB/s")
-    return S0
+    for i in range(0, len(runs), 2):
+        for label_, switch, fn in (runs[i], runs[i + 1], runs[i + 1],
+                                   runs[i]):
+            sor2d.INPLACE_KERNEL = switch
+            times.setdefault(label_, []).append(_chain_ms(
+                lambda S, fn=fn: fn(spec, S, omega, n), S0) / n)
+            sor2d.INPLACE_KERNEL = False
+    pts = int(np.prod(shape))
+    log(f"[4] {card} | {label} {str(spec.w0.dtype)[6:]}, {n} sweeps per "
+        f"call, median of 5 chained calls, in turns: " + "; ".join(
+            f"{k} {v[0]:.5f} / {v[1]:.5f} ms per sweep = "
+            f"{pts / (min(v) * 1e-3):.4e} point-sweeps/s"
+            for k, v in times.items()))
+    return {k: min(v) for k, v in times.items()}
 
 
-def _bound(name, spec, shape):
+# the instantiations each plan scan tries (itemsize 4 only): (threads,
+# cells per thread, weight planes in shared memory)
+SCAN_CONFIGS = {4: ((1024, 4, 0),), 8: ((1024, 4, 1), (512, 4, 0))}
+
+
+def _plan_scan(card, label, spec, omega, shape, dev, n=48):
+    """The ping-pong tiled kernel's time per sweep over its instantiations
+    (``SCAN_CONFIGS``), sweeps per launch and window widths (windows as
+    tall as the instantiation allows), beside the plan's own choice: the
+    table behind ``sor2d.tile_plan``."""
+    S0 = torch.zeros(shape, dtype=spec.w0.dtype, device=dev)
+    core = tuple(shape[-2:])
+    dt = spec.w0.dtype
+    chosen = sor2d.tile_plan(spec, core, dt)
+    r = sor2d._radius(spec)
+    ey, ex = sor2d._extend_reach(spec)
+    key = (4, chosen.kmax, False)
+    table = sor2d._CONFIGS[key]
+    fam = sor2d._FAMILY
+    results = []
+    for conf in SCAN_CONFIGS.get(chosen.kmax, (table,)):
+        sor2d._CONFIGS[key] = conf
+        for k in ((2, 3, 4, 5, 6) if r == 1 else (1, 2, 3)):
+            for tx in (32, 64, 96):
+                hy, hx = 2 * r * k + ey, 2 * r * k + ex
+                ty = (conf[0] * conf[1] // (tx + 2 * hx) - 2 * hy) // 8 * 8
+                try:
+                    plan = sor2d.make_plan(spec, core, dt, False, k, ty, tx)
+                except ValueError:
+                    continue
+                sor2d._FAMILY = fam._replace(
+                    tile_plan=lambda *a, p=plan: p)
+                try:
+                    ms = _chain_ms(lambda S: sor2d.sor2d_sweeps_tiled(
+                        spec, S, omega, n), S0, calls=3) / n
+                finally:
+                    sor2d._FAMILY = fam
+                results.append((ms, conf, k, plan.ty, plan.tx))
+    sor2d._CONFIGS[key] = table
+    results.sort()
+    log(f"[4] {card} | plan scan {label}: the plan {table} k {chosen.k} "
+        f"tile {chosen.ty}x{chosen.tx}; ms per sweep ((threads, cells, "
+        f"weights in shared memory), k, tile): " + ", ".join(
+            f"{ms:.5f} ({c}, {k}, {ty}x{tx})"
+            for ms, c, k, ty, tx in results))
+
+
+def _launch_cost(card, label, spec, omega, S, dev):
+    """Where a tiled launch's time goes: the plan's launch (device time
+    behind a spin) at 1..k sweeps; the fit's intercept is what a launch
+    pays whatever its sweeps (loading the windows, writing the tiles), its
+    slope what each sweep adds (with k = 1 no fit: the slope is the whole
+    launch); beside them the bytes of the windows and of the launch itself
+    at 3.35 TB/s."""
+    core = tuple(S.shape[-2:])
+    dt = S.dtype
+    plan = sor2d.tile_plan(spec, core, dt)
+    fam = sor2d._FAMILY
+    rel = sor2d.relax_plane(spec, omega)
+    lay = fam.layout(spec, S, rel)
+    A = torch.empty((lay["B"],) + lay["core"], dtype=dt, device=dev)
+    A.copy_(S.reshape(A.shape))
+    A2 = torch.empty_like(A)
+    ns = list(range(1, plan.k + 1))
+    ts = [_device_ms(lambda n=n: fam.launch_tiled(spec, lay, plan, rel, A,
+                                                  A2, n, [1.0] * 2 * n), 20)
+          for n in ns]
+    slope, icpt = np.polyfit(ns, ts, 1) if len(ns) > 1 else (ts[0], 0.0)
+    blocks = math.prod(plan.tiles(core)) * lay["B"]
+    nbytes = _bound("sor2d_sweeps_tiled", spec, S.shape, 1)[2]
+    win_bytes = (blocks * plan.winy * plan.winx
+                 * (len(spec.offsets) + 4) * dt.itemsize)
+    log(f"[4] {card} | launch cost {label}: window {plan.winy}x{plan.winx}"
+        f" (tile {plan.ty}x{plan.tx}), {blocks} "
+        f"tiles x slices over "
+        f"{torch.cuda.get_device_properties(dev).multi_processor_count} "
+        f"SMs; ms per launch at " + ", ".join(
+            f"{n} sweeps {t:.5f}" for n, t in zip(ns, ts))
+        + f"; fit: {icpt:.5f} ms a launch + {slope:.5f} ms a sweep; the "
+        f"windows' {win_bytes} B at 3.35 TB/s {win_bytes / 3.35e9:.5f} ms, "
+        f"the launch's own {nbytes} B {nbytes / 3.35e9:.5f} ms")
+
+
+def _bound(name, spec, shape, k=1):
     """(bound_ms, bound_by, nbytes) of one launch of kernel ``name`` on
-    ``spec``: the bytes it must move (each input read once, each output
-    written once) over the HBM rate, against its float32 operations over
-    the peak rate."""
+    ``spec`` (``k`` sweeps for the tiled kernels): the bytes it must move
+    (each input read once, each output written once) over the HBM rate,
+    against its float32 operations over the peak rate."""
     itemsize = spec.w0.element_size()
     cells = int(np.prod(shape))
+    K = len(spec.offsets)
+    planes = [spec.w0, spec.g, spec.relax]
+    plane_bytes = (sum(p.numel() for p in planes) + spec.w.numel()) * itemsize
     if name.endswith("extend_rows"):
         # rows 1 and ny-2 read, rows 0 and ny-1 written, in every (batch
         # slice, level) the pre-pass touches: interior levels in 3-D
@@ -841,15 +1020,17 @@ def _bound(name, spec, shape):
         if spec.ndim == 3:
             slabs = slabs // shape[-3] * (shape[-3] - 2)
         nbytes, ops = 4 * slabs * shape[-1] * itemsize, 0
+    elif "tiled" in name:
+        # k sweeps: the planes and S read once, S written once; each sweep
+        # updates every cell once (2K+5 operations)
+        nbytes = 2 * cells * itemsize + plane_bytes
+        ops = (2 * K + 5) * cells * k
     else:
         # S, K weights, w0, g, rel read; S' written (planes shared by the
         # batch read once: a checkerboard write still dirties every sector,
         # so the in-place kernel moves the same bytes); 2K+5 operations per
         # cell updated (the in-place kernel computes one color only)
-        K = len(spec.offsets)
-        planes = [spec.w0, spec.g, spec.relax]
-        nbytes = (2 * cells + sum(p.numel() for p in planes)
-                  + spec.w.numel()) * itemsize
+        nbytes = 2 * cells * itemsize + plane_bytes
         ops = (2 * K + 5) * (cells // 2 if name.endswith("inplace")
                              else cells)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
@@ -860,23 +1041,35 @@ def _bound(name, spec, shape):
 def _per_launch(card, label, calls, dev):
     """Each kernel's device time per launch against its plain version's, on
     the same inputs (:func:`_device_ms`), the wrappers' CUDA-event times,
-    and the bound beside a device copy moving the launch's bytes."""
+    and the bound beside a device copy moving the launch's bytes; per sweep
+    too for the tiled kernels (k sweeps a launch)."""
     per = {}
-    for name, (kern, plain, launch, (bound_ms, bound_by, nbytes)) \
+    for name, (kern, plain, launch, k, (bound_ms, bound_by, nbytes)) \
             in calls.items():
         t_launch = _device_ms(launch, 50)
-        t_plain = _device_ms(plain, 10)
+        try:
+            t_plain = _device_ms(plain, 10)
+            how = ("device time per call (10 calls; CUDA events behind a "
+                   "device spin)")
+        except RuntimeError:
+            # the plain version's allocations can hold the host back; then
+            # CUDA events around back-to-back calls, host gaps included
+            t_plain = _time_ms(plain, 3, 10)
+            how = ("per call (10 calls; CUDA events, host gaps included: the "
+                   "host could not queue ahead of a device spin)")
         w_kern = _time_ms(kern, 5, 50)
         w_plain = _time_ms(plain, 5, 50)
         t_copy = _copy_ms(nbytes // 2, dev)
         per[name] = (t_launch, t_plain, bound_ms, bound_by)
-        log(f"[4] {card} | {name} {label} float32: kernel {t_launch:.4f} ms "
-            f"device time per launch (50 launches), plain version "
-            f"{t_plain:.4f} ms device time per call (10 calls; CUDA events "
-            f"behind a device spin); bound {bound_ms:.4f} ms ({bound_by}, "
-            f"{nbytes} B at 3.35 TB/s), a device copy moving those bytes "
-            f"{t_copy:.4f} ms; wrapper call {w_kern:.4f} ms vs plain call "
-            f"{w_plain:.4f} ms (CUDA events, median of 5 runs of 50)")
+        sweeps = (f" ({k} sweeps: {t_launch / k:.5f} ms per sweep, bound "
+                  f"{bound_ms / k:.5f})" if k > 1 else "")
+        log(f"[4] {card} | {name} {label} float32: kernel "
+            f"{t_launch:.5f} ms device time per launch (50 launches){sweeps},"
+            f" plain version {t_plain:.4f} ms {how}; bound "
+            f"{bound_ms:.5f} ms ({bound_by}, {nbytes} B at 3.35 TB/s), a "
+            f"device copy moving those bytes {t_copy:.4f} ms; wrapper call "
+            f"{w_kern:.4f} ms vs plain call {w_plain:.4f} ms (CUDA events, "
+            f"median of 5 runs of 50)")
     return per
 
 
@@ -889,21 +1082,28 @@ def phase4(card, dev):
     spec64, _ = poisson_spec(2048, 2048, 0, torch.float64, dev)
     _rates(card, "2048x2048", spec64, omega, (2048, 2048),
            sor2d.sor2d_sweeps_reference, dev)
-    _rates_inplace(card, "2048x2048", spec, omega, (2048, 2048), dev)
+    del spec64
+    _turns(card, "2048x2048", spec, omega, (2048, 2048), dev)
+    _plan_scan(card, "2048x2048", spec, omega, (2048, 2048), dev)
     S = xt.solve_fixed(spec, S0, omega, 50)
+    _launch_cost(card, "2048x2048", spec, omega, S, dev)
     per.update(_per_launch(card, "2048x2048",
                            _launch_calls(sor2d, spec, omega, S), dev))
-    del spec, spec64, S, S0
-    # the SODA-class Stommel 12x330x720 (pruned: 4 offsets, B3-eligible)
-    spec, omega = soda_spec(problems.build_stommel, STOMMEL_MP, 12,
-                            torch.float32, dev)
-    S0 = _rates_inplace(card, "Stommel 12x330x720", spec, omega,
-                        (12, 330, 720), dev)
-    S = xt.solve_fixed(spec, S0, omega, 50)
-    calls = _launch_calls(sor2d, spec, omega, S)
-    del calls["sor2d_extend_rows"]
-    _per_launch(card, "Stommel 12x330x720", calls, dev)
-    del spec, S, S0, calls
+    del spec, S, S0
+    # the SODA-class Stommel (pruned: 4 offsets, in-place eligible) and
+    # Stommel-Munk (pruned: 8 offsets, radius 2), 12x330x720
+    for label, builder, mp in (
+            ("Stommel 12x330x720", problems.build_stommel, STOMMEL_MP),
+            ("Stommel-Munk 12x330x720", problems.build_stommelmunk,
+             MUNK_MP)):
+        spec, omega = soda_spec(builder, mp, 12, torch.float32, dev)
+        _turns(card, label, spec, omega, (12, 330, 720), dev)
+        _plan_scan(card, label, spec, omega, (12, 330, 720), dev)
+        S = xt.solve_fixed(spec, torch.zeros((12, 330, 720), device=dev),
+                           omega, 50)
+        _launch_cost(card, label, spec, omega, S, dev)
+        _per_launch(card, label, _launch_calls(sor2d, spec, omega, S), dev)
+        del spec, S
     # 3-D: the omega volumes (the 37-level one is L2-resident in float32)
     # and the 0.5-degree ocean
     for nz in (37, 73):
@@ -923,8 +1123,8 @@ def _launch_calls(mod, spec, omega, S):
     """For each kernel of ``mod`` (sor2d / sor3d) that takes ``spec``: its
     wrapper, its plain version, one bare launch of the kernel on a buffer
     holding S (through the module's own launch call, so no copy or
-    allocation is timed with it), and its bound, for
-    :func:`_per_launch`."""
+    allocation is timed with it), its sweeps per launch and its bound,
+    for :func:`_per_launch`."""
     p = mod.__name__.rsplit(".", 1)[-1]
     fam = mod._FAMILY
     rel = mod.relax_plane(spec, omega)
@@ -937,20 +1137,35 @@ def _launch_calls(mod, spec, omega, S):
         f"{p}_extend_rows": (
             lambda: getattr(mod, f"{p}_extend")(spec, S),
             lambda: getattr(mod, f"{p}_extend_reference")(spec, S),
-            lambda: fam.launch_extend(spec, lay, A)),
+            lambda: fam.launch_extend(spec, lay, A), 1),
         f"{p}_color_sweep": (
             lambda: getattr(mod, f"{p}_color_sweep")(spec, S, rel, 0),
             lambda: getattr(mod, f"{p}_color_sweep_reference")(spec, S, rel,
                                                                0),
-            lambda: fam.launch_color_sweep(spec, lay, rel, A, A2, 0)),
+            lambda: fam.launch_color_sweep(spec, lay, rel, A, A2, 0), 1),
     }
     if p == "sor2d":
-        calls["sor2d_color_sweep_inplace"] = (
-            lambda: sor2d.sor2d_color_sweep_inplace(spec, S, rel, 0),
-            lambda: sor2d.sor2d_color_sweep_inplace_reference(spec, S, rel,
-                                                              0),
-            lambda: fam.launch_color_sweep_inplace(spec, lay, rel, A, 0))
-    return {name: c + (_bound(name, spec, S.shape),)
+        core = lay["core"]
+        kinds = [("sor2d_sweeps_tiled", sor2d.sor2d_sweeps_tiled, False)]
+        if sor2d.inplace_eligible(spec, core):
+            calls["sor2d_color_sweep_inplace"] = (
+                lambda: sor2d.sor2d_color_sweep_inplace(spec, S, rel, 0),
+                lambda: sor2d.sor2d_color_sweep_inplace_reference(
+                    spec, S, rel, 0),
+                lambda: fam.launch_color_sweep_inplace(spec, lay, rel, A, 0),
+                1)
+            kinds.append(("sor2d_sweeps_tiled_inplace",
+                          sor2d.sor2d_sweeps_tiled_inplace, True))
+        for name, fn, inplace in kinds:
+            plan = sor2d.tile_plan(spec, core, S.dtype, inplace)
+            calls[name] = (
+                lambda fn=fn, k=plan.k: fn(spec, S, omega, k),
+                lambda k=plan.k: sor2d.sor2d_sweeps_reference(spec, S,
+                                                              omega, k),
+                lambda plan=plan: fam.launch_tiled(
+                    spec, lay, plan, rel, A, A2, plan.k, [1.0] * 2 * plan.k),
+                plan.k)
+    return {name: c + (_bound(name, spec, S.shape, c[3]),)
             for name, c in calls.items()}
 
 

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
 """The CUDA kernels of the PyTorch port (xinvert_tpu_torch/csrc/sor2d.cu and
 csrc/sor3d.cu) on the card: bit-equal to their plain PyTorch versions (the
-in-place 2-D kernel and the Chebyshev factor argument included), counted,
-and refusing what they do not take.  Every test here needs an NVIDIA GPU (marker
+2-D tiled kernels, the first version's pair and in-place kernel, and the
+Chebyshev factor argument included), counted, and refusing what they do not
+take.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -85,7 +86,8 @@ def test_kernel_bit_equal_to_plain(cuda, dtype, case):
         spec, S0 = _bih(dtype, cuda, ("extend", case[4:]))
     before = S0.clone()
     l0 = sor2d.LAUNCHES
-    out_k, sumabs = sor2d.sor2d_sweeps(spec, S0, 1.3, 15, with_norm=True)
+    out_k, sumabs = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 15,
+                                            with_norm=True)
     out_p = sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 15)
     torch.cuda.synchronize()
     assert sor2d.LAUNCHES == l0 + 30
@@ -94,6 +96,118 @@ def test_kernel_bit_equal_to_plain(cuda, dtype, case):
     ref = out_p.double().abs().sum(dim=(-2, -1))
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(sumabs.double(), ref, rtol=rtol, atol=0)
+
+
+def _case2d(case, dtype, device):
+    if case == "poisson":
+        return _poisson(dtype, device)
+    if case == "poisson_batch":
+        return _poisson(dtype, device, batch=3)
+    if case == "fixed":
+        return _poisson(dtype, device, bcs=("fixed", "fixed"))
+    if case == "stommel":
+        return _stommel(dtype, device)
+    return _bih(dtype, device, ("extend", case[4:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["poisson", "poisson_batch", "fixed",
+                                  "bih_periodic", "bih_fixed", "stommel"])
+def test_tiled_bit_equal_to_plain(cuda, dtype, case):
+    """Both tiled kernels, n not a multiple of k, with and without factors,
+    and the fused |S| sums of the last launch."""
+    spec, S0 = _case2d(case, dtype, cuda)
+    core = tuple(S0.shape[-2:])
+    before = S0.clone()
+    kernels = [(sor2d.sor2d_sweeps_tiled, "TILED_LAUNCHES", False)]
+    if sor2d.inplace_eligible(spec, core):
+        kernels.append((sor2d.sor2d_sweeps_tiled_inplace,
+                        "TILED_INPLACE_LAUNCHES", True))
+    rng = np.random.default_rng(3)
+    for fn, counter, inplace in kernels:
+        k = sor2d.tile_plan(spec, core, dtype, inplace).k
+        n = 2 * k + 1
+        fac = [float(torch.tensor(f, dtype=dtype))
+               for f in 1.0 + 0.4 * rng.random(2 * n)]
+        for f, omega in ((None, 1.3), (fac, 1.0)):
+            c0, l0 = getattr(sor2d, counter), sor2d.LAUNCHES
+            out_k, sumabs = fn(spec, S0, omega, n, with_norm=True, fac=f)
+            out_p = sor2d.sor2d_sweeps_reference(spec, S0, omega, n, f)
+            torch.cuda.synchronize()
+            assert getattr(sor2d, counter) == c0 + 3
+            assert sor2d.LAUNCHES == l0
+            assert torch.equal(out_k, out_p)
+            assert torch.equal(fn(spec, S0, omega, 1, fac=None if f is None
+                                  else f[:2]),
+                               sor2d.sor2d_sweeps_reference(
+                                   spec, S0, omega, 1,
+                                   None if f is None else f[:2]))
+            ref = out_p.double().abs().sum(dim=(-2, -1))
+            rtol = 1e-5 if dtype == torch.float32 else 1e-12
+            torch.testing.assert_close(sumabs.double(), ref, rtol=rtol,
+                                       atol=0)
+    assert torch.equal(S0, before)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["poisson_batch", "fixed", "bih_fixed"])
+def test_tiled_at_odd_origins(cuda, monkeypatch, dtype, case):
+    """Tiles of 7 x 9 cells (odd origins: the parity is global) through
+    the ping-pong kernel, bit-equal to the plain version; the fused sums,
+    which need whole 32 x 8 blocks per tile, are refused for them."""
+    spec, S0 = _case2d(case, dtype, cuda)
+    plan = sor2d.make_plan(spec, tuple(S0.shape[-2:]), dtype, False, 2, 7, 9)
+    monkeypatch.setattr(sor2d, "_FAMILY", sor2d._FAMILY._replace(
+        tile_plan=lambda *a: plan))
+    for n in (1, 5):
+        out = sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, n)
+        assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3,
+                                                             n))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, 2, with_norm=True)
+
+
+@pytest.mark.parametrize("switch", [False, True])
+def test_2d_solve_launches_only_the_tiled_kernels(cuda, monkeypatch,
+                                                  switch):
+    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", switch)
+    spec, _ = _stommel(torch.float32, cuda)
+    S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
+    names = ("TILED_LAUNCHES", "TILED_INPLACE_LAUNCHES", "LAUNCHES",
+             "INPLACE_LAUNCHES", "EXTEND_LAUNCHES", "PLAIN_CALLS")
+    before = {n: getattr(sor2d, n) for n in names}
+    xt.solve(spec, S0, omega=1.5, tol=1e-9, max_iters=200, check_every=8)
+    ran = {n for n in names if getattr(sor2d, n) != before[n]}
+    assert ran == {"TILED_INPLACE_LAUNCHES" if switch else "TILED_LAUNCHES"}
+
+
+@pytest.mark.parametrize("dtype,check_every", [(torch.float32, 1),
+                                               (torch.float32, 32),
+                                               (torch.float64, 1)])
+@pytest.mark.parametrize("case", ["diverging", "nan_seed"])
+def test_tiled_stops_like_the_plain_version(cuda, monkeypatch, dtype,
+                                            check_every, case):
+    """A diverging solve (omega 2.5) and a NaN seeded in the interior of
+    the state, through both tiled kernels, against the same solve on the
+    CPU (the plain version): the same check, the same overflow flag."""
+    spec, _ = _poisson(dtype, cuda, batch=2, nx=72)
+    S0 = torch.zeros(spec.g.shape, dtype=dtype, device=cuda)
+    omega = 2.5 if case == "diverging" else 1.5
+    if case == "nan_seed":
+        S0[1, 20, 40] = float("nan")
+    kw = dict(omega=omega, tol=1e-12, max_iters=3000,
+              check_every=check_every)
+    spec_cpu = dataclasses.replace(spec, **{
+        f: getattr(spec, f).cpu() for f in ("w", "w0", "g", "relax",
+                                            "active")})
+    plain = xt.solve(spec_cpu, S0.cpu(), **kw)
+    for switch in (False, True):
+        monkeypatch.setattr(sor2d, "INPLACE_KERNEL", switch)
+        res = xt.solve(spec, S0, **kw)
+        for field in ("iters", "overflow"):
+            assert torch.equal(getattr(res, field).cpu(),
+                               getattr(plain, field)), (switch, field)
+    assert bool(plain.overflow.any())
 
 
 def test_solve_on_card_matches_cpu(cuda):
@@ -368,6 +482,7 @@ def test_inplace_kernel_bit_equal_to_plain(cuda, monkeypatch, dtype, case):
                 sor2d.sor2d_color_sweep_inplace_reference(spec, S0, rel,
                                                           color, fac))
     # 20 sweeps through the switch, with and without partials and factors
+    # (the first version's loop: three launches a sweep)
     monkeypatch.setattr(sor2d, "INPLACE_KERNEL", True)
     rng = np.random.default_rng(9)
     outs = []
@@ -375,9 +490,9 @@ def test_inplace_kernel_bit_equal_to_plain(cuda, monkeypatch, dtype, case):
         fac = None if fac is None else [float(torch.tensor(f, dtype=dtype))
                                         for f in fac]
         l0, i0 = sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES
-        out_k = sor2d.sor2d_sweeps(spec, S0, 1.3, 20, fac=fac)
-        out_n, sumabs = sor2d.sor2d_sweeps(spec, S0, 1.3, 20,
-                                           with_norm=True, fac=fac)
+        out_k = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 20, fac=fac)
+        out_n, sumabs = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 20,
+                                                with_norm=True, fac=fac)
         out_p = sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 20, fac)
         torch.cuda.synchronize()
         assert (sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES) == (l0, i0 + 80)
@@ -389,24 +504,30 @@ def test_inplace_kernel_bit_equal_to_plain(cuda, monkeypatch, dtype, case):
     # the pair gives the same answers
     monkeypatch.setattr(sor2d, "INPLACE_KERNEL", False)
     for fac, out_k in outs:
-        assert torch.equal(sor2d.sor2d_sweeps(spec, S0, 1.3, 20, fac=fac),
-                           out_k)
+        assert torch.equal(sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 20,
+                                                   fac=fac), out_k)
     assert torch.equal(S0, before)
 
 
 def test_inplace_race_gate(cuda, monkeypatch):
     """An odd nx with periodic x joins two cells of one color across the
-    wrap: the in-place wrapper refuses it, and the switched-on sweeps run
-    the ping-pong pair instead (counted)."""
+    wrap: the in-place wrappers refuse it, and the switched-on sweeps run
+    the ping-pong kernels instead (counted)."""
     spec, S0 = _poisson(torch.float64, cuda, nx=71)
     rel = sor2d.relax_plane(spec, 1.3)
     assert not sor2d.inplace_eligible(spec, tuple(S0.shape))
     with pytest.raises(ValueError, match="even"):
         sor2d.sor2d_color_sweep_inplace(spec, S0, rel, 0)
+    with pytest.raises(ValueError, match="even"):
+        sor2d.sor2d_sweeps_tiled_inplace(spec, S0, 1.3, 2)
     monkeypatch.setattr(sor2d, "INPLACE_KERNEL", True)
     l0, i0 = sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES
-    out = sor2d.sor2d_sweeps(spec, S0, 1.3, 4)
+    out = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 4)
     assert (sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES) == (l0 + 8, i0)
+    assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 4))
+    t0, ti0 = sor2d.TILED_LAUNCHES, sor2d.TILED_INPLACE_LAUNCHES
+    out = sor2d.sor2d_sweeps(spec, S0, 1.3, 4)
+    assert sor2d.TILED_LAUNCHES > t0 and sor2d.TILED_INPLACE_LAUNCHES == ti0
     assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 4))
     cross, S1 = _poisson(torch.float64, cuda)
     cross = dataclasses.replace(cross, w=torch.cat([cross.w, cross.w[:1]]),
@@ -423,14 +544,16 @@ def test_inplace_race_gate(cuda, monkeypatch):
 def test_inplace_stops_like_the_pair(cuda, monkeypatch, dtype, check_every,
                                      case):
     """A diverging solve (omega 2.5) and a NaN seeded in the interior of
-    the state: the in-place kernel and the pair stop at the same check with
-    the same overflow flag."""
+    the state: the in-place kernel and the pair (the first version's loop,
+    which the solve runs with ``sor2d_sweeps`` set to it) stop at the same
+    check with the same overflow flag."""
     spec, _ = _poisson(dtype, cuda, batch=2, nx=72)
     S0 = torch.zeros(spec.g.shape, dtype=dtype, device=cuda)
     omega = 2.5 if case == "diverging" else 1.5
     if case == "nan_seed":
         S0[1, 20, 40] = float("nan")
     res = {}
+    monkeypatch.setattr(sor2d, "sor2d_sweeps", sor2d.sor2d_sweeps_pair)
     for switch in (False, True):
         monkeypatch.setattr(sor2d, "INPLACE_KERNEL", switch)
         i0 = sor2d.INPLACE_LAUNCHES
@@ -460,7 +583,8 @@ def test_pair_kernels_take_a_factor(cuda):
                                                            color, 1.43))
         fac = [float(torch.tensor(1.0 + 0.02 * k, dtype=S0.dtype))
                for k in range(40)]
-        out_k = getattr(mod, f"{p}_sweeps")(spec, S0, 1.0, 20, fac=fac)
+        loop = "sweeps_pair" if p == "sor2d" else "sweeps"
+        out_k = getattr(mod, f"{p}_{loop}")(spec, S0, 1.0, 20, fac=fac)
         out_p = getattr(mod, f"{p}_sweeps_reference")(spec, S0, 1.0, 20, fac)
         assert torch.equal(out_k, out_p)
 
@@ -475,9 +599,9 @@ def test_cheby_solve_on_card_matches_cpu(cuda, monkeypatch, switch):
                                             "active")})
     kw = dict(omega=1.6, tol=1e-9, max_iters=500, check_every=4,
               scheme="cheby")
-    i0 = sor2d.INPLACE_LAUNCHES
+    i0 = sor2d.TILED_INPLACE_LAUNCHES
     r_k = xt.solve(spec, S0, **kw)
-    assert (sor2d.INPLACE_LAUNCHES > i0) == switch
+    assert (sor2d.TILED_INPLACE_LAUNCHES > i0) == switch
     r_c = xt.solve(spec_cpu, S0.cpu(), **kw)
     assert torch.equal(r_k.iters.cpu(), r_c.iters)
     torch.testing.assert_close(r_k.S.cpu(), r_c.S, rtol=1e-10, atol=1e-12)

@@ -11,10 +11,17 @@
 //     for radius-1 stencils without cross terms, updating one buffer in
 //     place (sor2d_color_sweep_inplace below).
 // On Hopper the VMEM split between the first two has no meaning, so one
-// pair of kernels serves every 2-D shape.  Not ported here: B2's
-// sharded-block variants (pad_x, clamp_w/e, ext_bot, pad_lo).
+// design serves every 2-D shape.  Not ported here: B2's sharded-block
+// variants (pad_x, clamp_w/e, ext_bot, pad_lo).
 //
-// One full sweep is three launches on the caller's stream:
+// The sweeps run in the two tiled kernels at the end of this file
+// (sor2d_sweeps_tiled, and sor2d_sweeps_tiled_inplace for B3's specs):
+// k full sweeps per launch on a window held in shared memory, the extend
+// pre-pass folded in.  The three one-half-sweep kernels below are the first
+// version; they stay as the yardstick the tiled kernels are timed against.
+//
+// In the first version one full sweep is three launches on the caller's
+// stream:
 //   sor2d_extend_rows   (when the y boundary is 'extend'), in place on A;
 //   sor2d_color_sweep   color 0 (red),   A -> B;
 //   sor2d_color_sweep   color 1 (black), B -> A.
@@ -273,7 +280,384 @@ static int launch_extend_rows(T* S, int B, int ny, int nx, int periodic_x,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tiled kernels: k full sweeps per launch (B2's design on Hopper).
+//
+// A block owns a ty x tx tile of the grid and walks a group of batch slices.
+// For each slice it loads a (ty + 2hy) x (tx + 2hx) window into shared
+// memory, runs k sweeps on it (the extend pre-pass, red, black; every term
+// from the pre-half-sweep state, as above) and writes back only its tile.
+// Each half-sweep reads radius r cells away, so a cell's value after k
+// sweeps depends on cells up to 2rk rows and columns away; the extend adds
+// up to 2 more, once, where its copied rows sit between a tile and the edge
+// of its window (e = 1, or 2 for the biharmonic's two rings).  With
+// h >= 2rk + e the owned cells come out exact, whatever the cells near the
+// window's edge hold.
+//
+// Windows are loaded with modular global indices on both axes, as the plain
+// version rolls every axis: the top tile's window holds rows ny-hy..ny-1
+// above row 0, exactly as torch.roll sees them, so the wrapped reads of the
+// boundary lines (relax 0, but NaN passes through 0*x) match the plain
+// version even on a state that holds a NaN.  A window wider than an axis
+// holds some cells twice; each copy evolves alike and each owned cell is
+// written once.  Parity is the global (j + i) & 1, whatever the tile origin.
+//
+// The extend pre-pass runs before red in every sweep, in the blocks whose
+// window holds a row it writes (edge tiles only): every window cell whose
+// global row is a written row takes its source cell's value (read all, sync,
+// write), in solver._apply_extend's order; a source outside the window
+// belongs to a cell outside the valid cone and is skipped.
+//
+// Registers hold the coefficients: each thread owns CPT window cells (cell
+// c = tid + j * NT, row-major), with their w_k, w0, g and rel; where the
+// plan's table says so (16 offsets, or 8 in float64) the w_k planes live in
+// shared memory instead, so a window keeps its size.  A window of 4096
+// cells in float32 (2048 with 8 offsets, and in float64) fills an SM's
+// registers, so one block runs per SM.  A block walks a group of batch
+// slices of its tile, and a plane the batch shares stays in registers from
+// one slice to the next.  The state buffers are padded by r cells on every
+// side so edge reads stay in the buffer (the pad is zero and never
+// written).  The ping-pong kernel keeps two buffers and computes every
+// window cell in each half-sweep (s + 0*(...) for the other color, as the
+// pair); the in-place kernel keeps one and computes the active color only,
+// as B3 does (radius-1 stencils without cross terms, even periodic sizes:
+// every neighbour of an active cell has the other color).
+//
+// The owned tile is written back in rows of 32 cells.  The fused |S|
+// partials are summed per 32 x 8 block of the grid in the pair's order, so
+// a checked solve's norms, and so its stopping check, are the first
+// version's bit for bit; tiles hold whole blocks (ty a multiple of 8, tx of
+// 32, or one tile along the axis).
+//
+// Bound: device-memory bytes per launch, (K+4) planes read and one written
+// per cell, over k sweeps.  What the design pays for that: the window
+// overhead (window over tile area) and K+2 shared-memory accesses per cell
+// and half-sweep.  Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
+// phase 4): a launch costs a fixed part about twice its windows' bytes at
+// the HBM rate plus a part per sweep, and the two do not overlap, since one
+// block fills an SM.
+// ---------------------------------------------------------------------------
+
+#define TILED_MAX_SWEEPS 8
+
+// Mirrored field by field by ops/sor2d.py::_TiledParams (ctypes).
+struct TiledParams {
+  int B, ny, nx, K, nsweeps;
+  int ty, tx, hy, hx, winy, winx, pad;  // tile, halo, window, pad ring
+  int tiles_y, tiles_x, spb;            // spb: slices each block walks
+  int extend, periodic_x, bih;
+  int kmax, cpt, nt, inplace, wsmem;    // the instantiation
+  int dy[SOR2D_MAX_K];
+  int dx[SOR2D_MAX_K];
+  long long w_kstride, w_bstride, w0_bstride, g_bstride, rel_bstride;
+  double fac[2 * TILED_MAX_SWEEPS];     // per half-sweep; exact in T
+};
+
+struct TiledArgs {
+  TiledParams p;
+  int stride;                 // padded row stride of a shared buffer
+  int soff[SOR2D_MAX_K];      // neighbour offsets in a shared buffer
+};
+
+__device__ __forceinline__ int pos_mod(int v, int n) {
+  v %= n;
+  return v < 0 ? v + n : v;
+}
+
+// Source of the extend pre-pass for global cell (R, C), as an offset
+// (dr, dc); false when the pre-pass does not write the cell.
+__device__ __forceinline__ bool extend_source(int R, int C, int ny, int nx,
+                                              int periodic_x, int bih,
+                                              int* dr, int* dc) {
+  if (!bih) {
+    if (R != 0 && R != ny - 1) return false;
+    *dr = R == 0 ? 1 : -1;
+    *dc = 0;
+    if (!periodic_x) *dc = C == 0 ? 1 : (C == nx - 1 ? -1 : 0);
+    return true;
+  }
+  // rows 0, 1 copy old row 1 and row 2; rows ny-2, ny-1 copy row ny-3; with
+  // a non-periodic x the columns clamp to 2..nx-3
+  if (R == 0) *dr = periodic_x ? 1 : 2;
+  else if (R == 1) *dr = 1;
+  else if (R == ny - 2) *dr = -1;
+  else if (R == ny - 1) *dr = -2;
+  else return false;
+  *dc = periodic_x ? 0 : (C < 2 ? 2 - C : (C >= nx - 2 ? nx - 3 - C : 0));
+  return true;
+}
+
+template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS>
+__global__ void __launch_bounds__(NT, 1)
+sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
+                          const T* __restrict__ w, const T* __restrict__ w0,
+                          const T* __restrict__ g, const T* __restrict__ rel,
+                          T* __restrict__ partials, const TiledArgs a) {
+  // the weight planes in registers, or (WS) in shared memory after the
+  // state buffers, as wsm[k * cells + c]
+  constexpr int KR = WS ? 1 : KMAX;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const TiledParams& p = a.p;
+  const int tid = threadIdx.x;
+  const int buf_cells = (p.winy + 2 * p.pad) * a.stride;
+  const int cells = p.winy * p.winx;
+  T* const wsm = sm + (INPLACE ? 1 : 2) * buf_cells;
+  T* const rowsum = wsm + (WS ? p.K * cells : 0);   // 8 per 32 x 8 block
+  const int ty0 = blockIdx.y * p.ty, tx0 = blockIdx.x * p.tx;
+  const int wy0 = ty0 - p.hy, wx0 = tx0 - p.hx;
+  const long long plane = (long long)p.ny * p.nx;
+
+  // the thread's cells: shared index, global index in the plane, parity
+  int sidx[CPT], gidx[CPT];
+  unsigned live = 0u, par = 0u;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int c = tid + j * NT;
+    sidx[j] = 0;
+    gidx[j] = 0;
+    if (c < cells) {
+      const int l = c / p.winx, m = c - l * p.winx;
+      const int R = pos_mod(wy0 + l, p.ny), C = pos_mod(wx0 + m, p.nx);
+      sidx[j] = (l + p.pad) * a.stride + m + p.pad;
+      gidx[j] = R * p.nx + C;
+      live |= 1u << j;
+      par |= (unsigned)((R + C) & 1) << j;
+    }
+  }
+  for (int e = tid; e < (INPLACE ? 1 : 2) * buf_cells; e += NT) sm[e] = T(0);
+  // the pre-pass writes a row of this window (edge tiles only)
+  const bool edge = p.extend && (wy0 <= 1 || wy0 + p.winy >= p.ny - 1);
+
+  // the block walks slices [b_first, b_end) of its tile; a plane the batch
+  // shares stays in registers (or wsm) from one slice to the next
+  T cw[CPT][KR], cw0[CPT], cg[CPT], crel[CPT];
+  const int b_first = blockIdx.z * p.spb;
+  const int b_end = min(p.B, b_first + p.spb);
+  for (int b = b_first; b < b_end; ++b) {
+    const bool first = b == b_first;
+    const bool lw = first || p.w_bstride, l0 = first || p.w0_bstride;
+    const bool lg = first || p.g_bstride, lr = first || p.rel_bstride;
+    __syncthreads();   // the buffers are free (zeroed, or written back)
+    // every load of the slice first, then the stores to shared memory
+    T sv0[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      if (!((live >> j) & 1u)) continue;
+      const long long q = gidx[j];
+      if (!WS && lw) {
+#pragma unroll
+        for (int k = 0; k < KR; ++k)
+          if (k < p.K) cw[j][k] = w[k * p.w_kstride + b * p.w_bstride + q];
+      }
+      if (l0) cw0[j] = w0[b * p.w0_bstride + q];
+      if (lg) cg[j] = g[b * p.g_bstride + q];
+      if (lr) crel[j] = rel[b * p.rel_bstride + q];
+      sv0[j] = s_in[b * plane + q];
+    }
+    if (WS && lw) {
+      for (int k = 0; k < p.K; ++k) {
+        const T* wk = w + k * p.w_kstride + b * p.w_bstride;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          if ((live >> j) & 1u) wsm[k * cells + tid + j * NT] = wk[gidx[j]];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      if ((live >> j) & 1u) sm[sidx[j]] = sv0[j];
+    __syncthreads();
+
+    int cur = 0, nxt = INPLACE ? 0 : buf_cells;   // offsets of the buffers
+    for (int s = 0; s < p.nsweeps; ++s) {
+      if (edge) {
+        T ev[CPT];
+        unsigned emask = 0u;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          if (!((live >> j) & 1u)) continue;
+          const int R = gidx[j] / p.nx, C = gidx[j] - R * p.nx;
+          int dr, dc;
+          if (!extend_source(R, C, p.ny, p.nx, p.periodic_x, p.bih, &dr, &dc))
+            continue;
+          const int c = tid + j * NT;
+          const int l = c / p.winx + dr, m = c % p.winx + dc;
+          if (l < 0 || l >= p.winy || m < 0 || m >= p.winx) continue;
+          ev[j] = sm[cur + sidx[j] + dr * a.stride + dc];
+          emask |= 1u << j;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+          if ((emask >> j) & 1u) sm[cur + sidx[j]] = ev[j];
+        __syncthreads();
+      }
+#pragma unroll
+      for (int color = 0; color < 2; ++color) {
+        const T fac = (T)p.fac[2 * s + color];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          if (!((live >> j) & 1u)) continue;
+          const bool active = (int)((par >> j) & 1u) == color;
+          if (INPLACE && !active) continue;
+          const int si = cur + sidx[j];
+          const T sv = sm[si];
+          T acc = cg[j];
+#pragma unroll
+          for (int k = 0; k < KMAX; ++k)
+            if (k < p.K)
+              acc = acc + (WS ? wsm[k * cells + tid + j * NT] : cw[j][k])
+                              * sm[si + a.soff[k]];
+          const T r = (crel[j] * (active ? T(1) : T(0))) * fac;
+          sm[nxt + sidx[j]] = sv + r * (acc + cw0[j] * sv);
+        }
+        __syncthreads();
+        const int t = cur;
+        cur = nxt;
+        nxt = t;
+      }
+    }
+    // write back the owned tile from buffer 0 (an even number of swaps),
+    // one warp a row of 32 cells; with partials, the |S| sum of each 32 x 8
+    // block of the grid the tile holds, in sor2d_color_sweep's order (the
+    // warp's shuffle tree over a row, then the 8 row sums in turn), so the
+    // norms of a checked solve are those of the first version bit for bit
+    const int oy = min(p.ty, p.ny - ty0), ox = min(p.tx, p.nx - tx0);
+    const int nby = (oy + 7) / 8, nbx = (ox + 31) / 32;
+    const int lane = tid & 31;
+    for (int q = tid >> 5; q < nby * nbx * 8; q += NT / 32) {
+      const int blk = q >> 3;
+      const int i = (blk / nbx) * 8 + (q & 7);
+      const int jx = (blk % nbx) * 32 + lane;
+      T v = T(0);
+      if (i < oy && jx < ox) {
+        v = sm[(p.hy + i + p.pad) * a.stride + p.hx + jx + p.pad];
+        s_out[b * plane + (long long)(ty0 + i) * p.nx + tx0 + jx] = v;
+      }
+      if (partials != nullptr) {
+        v = warp_sum(v < T(0) ? -v : v);
+        if (lane == 0) rowsum[q] = v;
+      }
+    }
+    if (partials != nullptr) {
+      __syncthreads();
+      const int pby = (p.ny + 7) / 8, pbx = (p.nx + 31) / 32;
+      for (int blk = tid; blk < nby * nbx; blk += NT) {
+        T t = rowsum[blk * 8];
+        for (int r = 1; r < 8; ++r) t = t + rowsum[blk * 8 + r];
+        partials[((long long)b * pby + ty0 / 8 + blk / nbx) * pbx +
+                 tx0 / 32 + blk % nbx] = t;
+      }
+    }
+  }
+}
+
+template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS>
+static int launch_tiled_inst(const T* s_in, T* s_out, const T* w,
+                             const T* w0, const T* g, const T* rel,
+                             T* partials, const TiledArgs& a, dim3 grid,
+                             size_t smem, cudaStream_t stream) {
+  auto kern =
+      sor2d_sweeps_tiled_kernel<T, KMAX, CPT, NT, INPLACE, WS>;
+  // raise the instantiation's shared-memory limit only when a launch needs
+  // more than before, on each device: set on every launch, it kept the host
+  // from queueing launches ahead of the device (measured on the H100)
+  static size_t granted[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev < 0 || dev >= 64)
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidDevice);
+  if (smem > granted[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev] = smem;
+  }
+  kern<<<grid, NT, smem, stream>>>(s_in, s_out, w, w0, g, rel, partials, a);
+  return (int)cudaGetLastError();
+}
+
+// Checks the parameters and launches the instantiation they name (the
+// table in ops/sor2d.py::_CONFIGS); cudaErrorInvalidValue on anything else.
+template <typename T>
+static int launch_tiled(const T* s_in, T* s_out, const T* w, const T* w0,
+                        const T* g, const T* rel, T* partials,
+                        const TiledParams* pp, void* stream) {
+  const TiledParams& p = *pp;
+  if (p.K < 0 || p.K > p.kmax || p.B < 1 || p.ny < 1 || p.nx < 1 ||
+      (long long)p.ny * p.nx >= (1LL << 31) || p.nsweeps < 1 ||
+      p.nsweeps > TILED_MAX_SWEEPS || p.ty < 1 || p.tx < 1 ||
+      p.winy != p.ty + 2 * p.hy || p.winx != p.tx + 2 * p.hx ||
+      p.winy * p.winx > p.nt * p.cpt || p.spb < 1 ||
+      p.tiles_y != (p.ny + p.ty - 1) / p.ty ||
+      p.tiles_x != (p.nx + p.tx - 1) / p.tx ||
+      (p.B + p.spb - 1) / p.spb > 65535 || p.tiles_y > 65535)
+    return (int)cudaErrorInvalidValue;
+  // the partials of 32 x 8 blocks need tiles that hold whole blocks
+  if (partials != nullptr && ((p.tiles_y > 1 && p.ty % 8) ||
+                              (p.tiles_x > 1 && p.tx % 32)))
+    return (int)cudaErrorInvalidValue;
+  // the halo must cover k sweeps' dependence cone (header)
+  int r = 0;
+  for (int k = 0; k < p.K; ++k) {
+    r = max(r, abs(p.dy[k]));
+    r = max(r, abs(p.dx[k]));
+  }
+  const int e = p.extend ? (p.bih ? 2 : 1) : 0;
+  const int ex = p.periodic_x ? 0 : e;
+  if (p.pad < r || p.hy < 2 * r * p.nsweeps + e ||
+      p.hx < 2 * r * p.nsweeps + ex)
+    return (int)cudaErrorInvalidValue;
+  TiledArgs a;
+  a.p = p;
+  a.stride = p.winx + 2 * p.pad;
+  for (int k = 0; k < SOR2D_MAX_K; ++k)
+    a.soff[k] = k < p.K ? p.dy[k] * a.stride + p.dx[k] : 0;
+  // the state buffers, the weight planes where they live in shared
+  // memory, the row sums of the tile's 32 x 8 blocks
+  const size_t smem =
+      ((size_t)(p.inplace ? 1 : 2) * (p.winy + 2 * p.pad) * a.stride +
+       (p.wsmem ? (size_t)p.K * p.winy * p.winx : 0) +
+       (size_t)((p.ty + 7) / 8) * 8 * ((p.tx + 31) / 32)) * sizeof(T);
+  dim3 grid(p.tiles_x, p.tiles_y, (p.B + p.spb - 1) / p.spb);
+  cudaStream_t st = (cudaStream_t)stream;
+#define TILED_CASE(KM, CP, N, IP, WSM)                                      \
+  if (p.kmax == KM && p.cpt == CP && p.nt == N && p.inplace == IP &&        \
+      p.wsmem == WSM)                                                       \
+    return launch_tiled_inst<T, KM, CP, N, IP, WSM>(                        \
+        s_in, s_out, w, w0, g, rel, partials, a, grid, smem, st);
+  if constexpr (sizeof(T) == 4) {
+    TILED_CASE(4, 4, 1024, 0, 0)
+    TILED_CASE(4, 4, 1024, 1, 0)
+    TILED_CASE(8, 4, 512, 0, 0)
+    TILED_CASE(8, 4, 1024, 0, 1)   // the alternative chip_smoke.py scans
+    TILED_CASE(16, 2, 1024, 0, 1)
+  } else {
+    TILED_CASE(4, 4, 512, 0, 0)
+    TILED_CASE(4, 4, 512, 1, 0)
+    TILED_CASE(8, 4, 512, 0, 1)
+    TILED_CASE(16, 2, 512, 0, 1)
+  }
+#undef TILED_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" {
+
+int sor2d_sweeps_tiled_f32(const float* s_in, float* s_out, const float* w,
+                           const float* w0, const float* g, const float* rel,
+                           float* partials, const TiledParams* p,
+                           void* stream) {
+  return launch_tiled<float>(s_in, s_out, w, w0, g, rel, partials, p, stream);
+}
+
+int sor2d_sweeps_tiled_f64(const double* s_in, double* s_out,
+                           const double* w, const double* w0, const double* g,
+                           const double* rel, double* partials,
+                           const TiledParams* p, void* stream) {
+  return launch_tiled<double>(s_in, s_out, w, w0, g, rel, partials, p,
+                              stream);
+}
 
 // Number of |S| partials a color sweep writes per batch slice.
 int sor2d_partials_per_slice(int ny, int nx) {

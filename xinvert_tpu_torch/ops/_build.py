@@ -20,20 +20,25 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load", "build_all", "SOURCES", "NVCC_FLAGS", "BUILD_SECONDS"]
+__all__ = ["load", "build_all", "SOURCES", "NVCC_FLAGS", "BUILD_SECONDS",
+           "BUILD_LOG"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {name: _PKG / "csrc" / f"{name}.cu" for name in ("sor2d", "sor3d")}
 _BUILD_DIR = _PKG / "_build"
 
 # -fmad=false: no contraction of a*b+c, so every step rounds as the plain
-# PyTorch version's separate ops do (bit-for-bit equality)
+# PyTorch version's separate ops do (bit-for-bit equality); -Xptxas -v:
+# each kernel's registers, shared memory and spills (BUILD_LOG)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 #: seconds each source's nvcc took in this process (absent when its library
 #: was already built)
 BUILD_SECONDS = {}
+#: what each source's nvcc printed on stderr in this process (ptxas -v)
+BUILD_LOG = {}
 
 _LIBS = {}
 
@@ -49,6 +54,7 @@ for _t in ("f32", "f64"):
     _SIGNATURES["sor2d"][f"sor2d_color_sweep_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
          _L, _L, _L, _L, _L, _I, _D, _P], _I)
+    _SIGNATURES["sor2d"][f"sor2d_sweeps_tiled_{_t}"] = ([_P] * 9, _I)
     _SIGNATURES["sor2d"][f"sor2d_color_sweep_inplace_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
          _L, _L, _L, _L, _L, _I, _D, _P], _I)
@@ -105,6 +111,7 @@ def build_all():
     for name, (tmp, t0, proc) in procs.items():
         _, err = proc.communicate()
         BUILD_SECONDS[name] = time.perf_counter() - t0
+        BUILD_LOG[name] = err
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {SOURCES[name]} "
                           f"(exit {proc.returncode}):\n{err}")

@@ -3,12 +3,13 @@
 
 :mod:`.sor2d` and :mod:`.sor3d` differ only in their layout (the number of
 core axes, their limits, the launch arguments), in their launch calls, and
-in that :mod:`.sor2d` also has an in-place color sweep.  Everything else is
-here, once: the checks on the state and the planes, the sweep loop (on
-ping-pong buffers, or on one buffer where the family's ``use_inplace``
-lets it) with the fused |S| partials on the last black half-sweep and the
-per-half-sweep Chebyshev factors, and the dispatch of CPU tensors to the
-plain versions.  Each module describes itself with a :class:`Family`; its
+in that :mod:`.sor2d` also has an in-place color sweep and the tiled
+kernels (k sweeps per launch).  Everything else is here, once: the checks
+on the state and the planes, the two sweep loops (ceil(n / k) tiled
+launches; or three launches a sweep, on ping-pong buffers or on one buffer
+where the family's ``use_inplace`` lets it) with the fused |S| partials on
+the last launch and the per-half-sweep Chebyshev factors, and the dispatch
+of CPU tensors to the plain versions.  Each module describes itself with a :class:`Family`; its
 launch functions and plain versions keep counting into that module's own
 counters.
 """
@@ -37,6 +38,11 @@ class Family(NamedTuple):
     launch_color_sweep_inplace: Optional[Callable] = None
                                      # (spec, lay, rel, S, color, fac=1.0,
                                      #  partials=None)
+    tile_plan: Optional[Callable] = None  # (spec, core, dtype, inplace)
+                                     #  -> plan with .k and .tiles(core)
+    launch_tiled: Optional[Callable] = None
+                                     # (spec, lay, plan, rel, S_in, S_out,
+                                     #  n, fac, partials=None): n sweeps
 
 
 def relax_plane(spec, omega):
@@ -102,24 +108,81 @@ def _buffer(S, lay):
     return A
 
 
-def sweeps(fam, spec, S, omega, n, with_norm=False, fac=None):
-    """n full red-black sweeps of ``spec`` on ``S``: the extend pre-pass
-    when the y boundary is 'extend', then red, then black.  They ping-pong
-    between two buffers, or update one buffer in place where the family's
-    ``use_inplace`` takes (spec, core).  With ``with_norm`` also the
-    per-slice total |S'|, summed per block by the last black half-sweep
-    (n >= 1 then).  ``fac`` (cyclic Chebyshev) holds 2n factors, one per
-    half-sweep in launch order, each scaling that half-sweep's relaxation
-    plane; None runs every half-sweep with factor 1."""
+def _check_sweeps(n, with_norm, fac):
     n = int(n)
     if n < (1 if with_norm else 0):
         raise ValueError(f"n must be >= {1 if with_norm else 0}, got {n}")
     if fac is not None and len(fac) != 2 * n:
         raise ValueError(f"{len(fac)} factors for {n} sweeps; need {2 * n}")
+    return n
+
+
+def _plain(fam, spec, S, omega, n, with_norm, fac):
+    if with_norm:
+        return fam.sweeps_reference_norm(spec, S, omega, n, fac)
+    return fam.sweeps_reference(spec, S, omega, n, fac)
+
+
+def sweeps(fam, spec, S, omega, n, with_norm=False, fac=None):
+    """n full red-black sweeps of ``spec`` on ``S`` (the extend pre-pass
+    when the y boundary is 'extend', then red, then black): through the
+    family's tiled kernels where it has them (in place where its
+    ``use_inplace`` takes (spec, core)), else :func:`sweeps_pair`.  With
+    ``with_norm`` also the per-slice total |S'| (n >= 1 then).  ``fac``
+    (cyclic Chebyshev) holds 2n factors, one per half-sweep in order, each
+    scaling that half-sweep's relaxation plane; None runs every half-sweep
+    with factor 1."""
+    if fam.launch_tiled is None:
+        return sweeps_pair(fam, spec, S, omega, n, with_norm, fac)
+    inplace = (S.device.type != "cpu" and fam.use_inplace is not None
+               and fam.use_inplace(spec, tuple(S.shape[-spec.ndim:])))
+    return sweeps_tiled(fam, spec, S, omega, n, with_norm, fac, inplace)
+
+
+def sweeps_tiled(fam, spec, S, omega, n, with_norm=False, fac=None,
+                 inplace=False):
+    """:func:`sweeps` through the tiled kernel (``inplace``: its in-place
+    twin): ceil(n / k) launches of the family's plan, each taking its
+    slice of the factors, the last one also the |S| partials (the same
+    ``n_partials`` blocks, summed in the same order, as the color sweeps);
+    the buffers ping-pong between launches."""
+    n = _check_sweeps(n, with_norm, fac)
     if S.device.type == "cpu":
-        if with_norm:
-            return fam.sweeps_reference_norm(spec, S, omega, n, fac)
-        return fam.sweeps_reference(spec, S, omega, n, fac)
+        return _plain(fam, spec, S, omega, n, with_norm, fac)
+    rel = relax_plane(spec, omega)
+    lay = fam.layout(spec, S, rel)
+    plan = fam.tile_plan(spec, lay["core"], S.dtype, inplace)
+    A = _buffer(S, lay)
+    Bf = torch.empty_like(A)
+    partials = None
+    if with_norm:
+        partials = torch.empty((lay["B"], lay["n_partials"]), dtype=S.dtype,
+                               device=S.device)
+    done = 0
+    with torch.cuda.device(S.device):
+        while done < n:
+            m = min(plan.k, n - done)
+            f = [1.0] * (2 * m) if fac is None else fac[2 * done:
+                                                        2 * (done + m)]
+            fam.launch_tiled(spec, lay, plan, rel, A, Bf, m, f,
+                             partials if done + m == n else None)
+            A, Bf = Bf, A
+            done += m
+    out = A.reshape(S.shape)
+    if with_norm:
+        return out, partials.sum(-1).reshape(lay["batch_shape"])
+    return out
+
+
+def sweeps_pair(fam, spec, S, omega, n, with_norm=False, fac=None):
+    """:func:`sweeps` through three launches a sweep: the extend kernel,
+    then the red and black color sweeps, which ping-pong between two
+    buffers or update one buffer in place where the family's
+    ``use_inplace`` takes (spec, core); the last black half-sweep sums the
+    |S| partials per block."""
+    n = _check_sweeps(n, with_norm, fac)
+    if S.device.type == "cpu":
+        return _plain(fam, spec, S, omega, n, with_norm, fac)
     rel = relax_plane(spec, omega)
     lay = fam.layout(spec, S, rel)
     A = _buffer(S, lay)

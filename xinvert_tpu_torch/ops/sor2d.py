@@ -9,32 +9,42 @@ partials and its Chebyshev factors) and
 how.  Each kernel has a wrapper here and a plain PyTorch version built from
 :mod:`xinvert_tpu_torch.solver`'s sweep pieces:
 
-- ``sor2d_extend_rows``: :func:`sor2d_extend`, plain
-  :func:`sor2d_extend_reference`;
-- ``sor2d_color_sweep``: :func:`sor2d_color_sweep`, plain
-  :func:`sor2d_color_sweep_reference`;
-- ``sor2d_color_sweep_inplace``: :func:`sor2d_color_sweep_inplace`, plain
-  :func:`sor2d_color_sweep_inplace_reference`;
-- all of them, n sweeps: :func:`sor2d_sweeps`, plain
-  :func:`sor2d_sweeps_reference` and :func:`sor2d_sweeps_reference_norm`.
+- ``sor2d_sweeps_tiled`` (k sweeps per launch on shared-memory windows, the
+  extend pre-pass folded in): :func:`sor2d_sweeps_tiled`, plain
+  :func:`sor2d_sweeps_reference` and :func:`sor2d_sweeps_reference_norm`;
+- ``sor2d_sweeps_tiled_inplace`` (the same with one buffer, B3's design):
+  :func:`sor2d_sweeps_tiled_inplace`, the same plain versions;
+- the first version, one half-sweep per launch, kept as the yardstick the
+  tiled kernels are timed against and reached by no entry point:
+  ``sor2d_extend_rows`` (:func:`sor2d_extend`, plain
+  :func:`sor2d_extend_reference`), ``sor2d_color_sweep``
+  (:func:`sor2d_color_sweep`, plain :func:`sor2d_color_sweep_reference`),
+  ``sor2d_color_sweep_inplace`` (:func:`sor2d_color_sweep_inplace`, plain
+  :func:`sor2d_color_sweep_inplace_reference`), and n sweeps of them,
+  :func:`sor2d_sweeps_pair`.
 
-:func:`sor2d_sweeps` takes the in-place kernel in place of the two
-``sor2d_color_sweep`` launches when ``INPLACE_KERNEL`` is set (the
-environment variable ``XINVERT_INPLACE=1`` at import, as in the JAX
-package) and the spec passes :func:`_no_cross_r1` and the race check of
-:func:`inplace_eligible`; otherwise it runs the ping-pong pair.
+:func:`sor2d_sweeps`, which the solver calls, runs the tiled kernels: the
+in-place one when ``INPLACE_KERNEL`` is set (the environment variable
+``XINVERT_INPLACE=1`` at import, as in the JAX package) and the spec passes
+:func:`_no_cross_r1` and the race check of :func:`inplace_eligible`, the
+ping-pong one otherwise.  :func:`tile_plan` sizes their tiles and sweeps
+per launch; :func:`sor2d_sweeps_tiled_emulated` replays a plan's windows
+with torch ops, so the tiling's semantics are testable on the CPU.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; any other input raises.  ``LAUNCHES``,
-``INPLACE_LAUNCHES`` and ``EXTEND_LAUNCHES`` count kernel launches,
-``PLAIN_CALLS`` calls of the plain versions, so a run can show which path
-it took.  No function here changes the caller's tensors: the kernels work
-on buffers the wrappers allocate.
+only for CPU tensors; any other input raises.  ``TILED_LAUNCHES``,
+``TILED_INPLACE_LAUNCHES``, ``LAUNCHES``, ``INPLACE_LAUNCHES`` and
+``EXTEND_LAUNCHES`` count kernel launches, ``PLAIN_CALLS`` calls of the
+plain versions, so a run can show which path it took.  No function here
+changes the caller's tensors: the kernels work on buffers the wrappers
+allocate.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -42,24 +52,266 @@ from .. import solver
 from . import _driver
 from ._driver import relax_plane
 
-__all__ = ["sor2d_sweeps", "sor2d_sweeps_reference",
-           "sor2d_sweeps_reference_norm", "sor2d_extend",
-           "sor2d_extend_reference", "sor2d_color_sweep",
+__all__ = ["sor2d_sweeps", "sor2d_sweeps_tiled",
+           "sor2d_sweeps_tiled_inplace", "sor2d_sweeps_tiled_emulated",
+           "tile_plan", "TilePlan", "sor2d_sweeps_pair",
+           "sor2d_sweeps_reference", "sor2d_sweeps_reference_norm",
+           "sor2d_extend", "sor2d_extend_reference", "sor2d_color_sweep",
            "sor2d_color_sweep_reference", "sor2d_color_sweep_inplace",
            "sor2d_color_sweep_inplace_reference", "inplace_eligible",
            "relax_plane", "MAX_K"]
 
 MAX_K = 16          # offsets the color-sweep kernel takes (csrc SOR2D_MAX_K)
 _MAX_BATCH = 65535  # batch slices per launch (a grid dimension)
+MAX_TILED_SWEEPS = 8  # sweeps per tiled launch (csrc TILED_MAX_SWEEPS)
 
 #: sweeps take the in-place kernel for eligible specs (off by default, as
 #: in the JAX package; tests and smoke runs set the attribute)
 INPLACE_KERNEL = os.environ.get("XINVERT_INPLACE") == "1"
 
+TILED_LAUNCHES = 0          # sor2d_sweeps_tiled kernel launches
+TILED_INPLACE_LAUNCHES = 0  # sor2d_sweeps_tiled_inplace kernel launches
 LAUNCHES = 0          # sor2d_color_sweep kernel launches
 INPLACE_LAUNCHES = 0  # sor2d_color_sweep_inplace kernel launches
 EXTEND_LAUNCHES = 0   # sor2d_extend_rows kernel launches
 PLAIN_CALLS = 0       # calls of the plain versions
+
+
+# ---------------------------------------------------------------------------
+# the tile plan of the tiled kernels
+# ---------------------------------------------------------------------------
+
+#: (itemsize, kmax, inplace) -> (threads, cells per thread, weight planes
+#: in shared memory): the kernel instantiations of csrc/sor2d.cu
+#: (TILED_CASE).  A thread holds the coefficients of its cells in registers
+#: (the weight planes in shared memory where the last entry is 1), so
+#: threads x cells bounds a window: 4096 cells in float32 (2048 with 8
+#: offsets), 2048 in float64; one block fills an SM.  Chosen from
+#: chip_smoke.py's phase-4 scans (PERF.md, PR 4).
+_CONFIGS = {(4, 4, False): (1024, 4, 0), (4, 4, True): (1024, 4, 0),
+            (4, 8, False): (512, 4, 0), (4, 16, False): (1024, 2, 1),
+            (8, 4, False): (512, 4, 0), (8, 4, True): (512, 4, 0),
+            (8, 8, False): (512, 4, 1), (8, 16, False): (512, 2, 1)}
+_SMEM_MAX = 232448  # shared memory a block can have on Hopper
+#: sweeps per launch by stencil radius, and the preferred tile width
+_SWEEPS = {1: 4, 2: 1}
+_WIDTH = 64   # columns of a tile
+
+
+class TilePlan(NamedTuple):
+    """The tiling of one (spec, core, dtype, kernel): owned tiles of
+    ``ty`` x ``tx`` cells in windows of (ty + 2hy) x (tx + 2hx), ``k``
+    sweeps per launch, ``threads`` per block each holding ``cpt`` cells,
+    ``smem`` bytes of shared memory (the state, padded by ``pad``, the
+    weight planes where ``wsmem``, the row sums of the |S| partials)."""
+    ty: int
+    tx: int
+    k: int
+    hy: int
+    hx: int
+    pad: int
+    threads: int
+    cpt: int
+    wsmem: int
+    kmax: int
+    inplace: bool
+    smem: int
+
+    @property
+    def winy(self):
+        return self.ty + 2 * self.hy
+
+    @property
+    def winx(self):
+        return self.tx + 2 * self.hx
+
+    def tiles(self, core):
+        """(tiles along y, tiles along x) of a ``core`` = (ny, nx) grid."""
+        return (-(-core[0] // self.ty), -(-core[1] // self.tx))
+
+
+def _radius(spec):
+    return max((abs(o) for off in spec.offsets for o in off), default=0)
+
+
+def _extend_reach(spec):
+    """(rows, columns) the extend pre-pass reads away from a cell it writes
+    (csrc/sor2d.cu: the e added to the halo)."""
+    if spec.bcs[-2] != "extend":
+        return 0, 0
+    e = 2 if spec.bih else 1
+    return e, (0 if spec.bcs[-1] == "periodic" else e)
+
+
+def make_plan(spec, core, dtype, inplace, k, ty, tx):
+    """The plan with ``k`` sweeps per launch and ``ty`` x ``tx`` tiles, its
+    halo the least that covers k sweeps; raises if the window does not fit
+    the instantiation's threads x cells or shared memory.  The kernels
+    write the fused |S| partials only for tiles that hold whole 32 x 8
+    blocks (ty a multiple of 8, tx of 32, or one tile along the axis):
+    :func:`tile_plan`'s plans do."""
+    K = len(spec.offsets)
+    kmax = 4 if K <= 4 else (8 if K <= 8 else 16)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nt, cpt, wsmem = _CONFIGS[(itemsize, kmax, bool(inplace))]
+    r = _radius(spec)
+    ey, ex = _extend_reach(spec)
+    hy, hx = 2 * r * k + ey, 2 * r * k + ex
+    if not (1 <= k <= MAX_TILED_SWEEPS and ty >= 1 and tx >= 1):
+        raise ValueError(f"no tiled plan with k={k}, tile {ty}x{tx}")
+    winy, winx = ty + 2 * hy, tx + 2 * hx
+    if winy * winx > nt * cpt:
+        raise ValueError(f"a {winy}x{winx} window exceeds the {nt * cpt} "
+                         "cells of the kernel")
+    # the state buffers, the weight planes where they live in shared
+    # memory, the row sums of the tile's 32 x 8 blocks
+    # (csrc/sor2d.cu::launch_tiled)
+    smem = ((1 if inplace else 2) * (winy + 2 * r) * (winx + 2 * r)
+            + (K * winy * winx if wsmem else 0)
+            + -(-ty // 8) * 8 * -(-tx // 32)) * itemsize
+    if smem > _SMEM_MAX:
+        raise ValueError(f"a {winy}x{winx} window needs {smem} bytes of "
+                         "shared memory")
+    return TilePlan(ty, tx, k, hy, hx, r, nt, cpt, wsmem, kmax, bool(inplace),
+                    smem)
+
+
+def tile_plan(spec, core, dtype, inplace=False):
+    """The tiled kernels' plan for ``spec`` on a ``core`` = (ny, nx) grid
+    in ``dtype``: ``_SWEEPS`` sweeps per launch by radius (fewer where no
+    window fits); tiles ``_WIDTH`` columns wide (32 where that leaves no
+    rows), or the whole x axis where its window fits; as many rows as the
+    instantiation's cells allow, a multiple of 8, or the whole y axis.
+    The tiles thus hold whole 32 x 8 blocks, whose |S| sums the kernels
+    add in the first version's order.  Raises where even one sweep per
+    launch leaves no such window (a radius beyond the package's stencils
+    with 16 offsets in float64)."""
+    ny, nx = core
+    K = len(spec.offsets)
+    kmax = 4 if K <= 4 else (8 if K <= 8 else 16)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nt, cpt = _CONFIGS[(itemsize, kmax, bool(inplace))][:2]
+    r = _radius(spec)
+    ey, ex = _extend_reach(spec)
+    for k in range(min(_SWEEPS.get(r, 1), MAX_TILED_SWEEPS), 0, -1):
+        hy, hx = 2 * r * k + ey, 2 * r * k + ex
+        for tx in (nx, _WIDTH, 32):
+            if tx > nx or (tx < nx and tx % 32):
+                continue
+            rows = nt * cpt // (tx + 2 * hx) - 2 * hy
+            ty = ny if ny <= rows else rows // 8 * 8
+            while ty >= 1:
+                try:
+                    return make_plan(spec, core, dtype, inplace, k, ty, tx)
+                except ValueError:      # shared memory: fewer rows
+                    ty = ty - 8 if ty > 8 and ty % 8 == 0 else 0
+    raise ValueError(f"no tiled plan for radius {r} with {K} offsets in "
+                     f"{dtype}")
+
+
+# ---------------------------------------------------------------------------
+# the plan replayed with torch ops (tests the tiling's semantics on the CPU;
+# not the plain version, and no entry point calls it)
+# ---------------------------------------------------------------------------
+
+def _extend_window(spec, win, R, C, ny, nx):
+    """The extend pre-pass on a window whose cells are global (R, C): each
+    cell the pre-pass writes takes its source cell's value from the window
+    (read all, then write), as csrc/sor2d.cu::extend_source."""
+    periodic_x = spec.bcs[-1] == "periodic"
+    zero = torch.zeros_like(R)
+    if not spec.bih:
+        tgt = (R == 0) | (R == ny - 1)
+        dr = torch.where(R == 0, 1, -1)
+        dc = zero if periodic_x else torch.where(
+            C == 0, 1, torch.where(C == nx - 1, -1, 0))
+    else:
+        tgt = (R == 0) | (R == 1) | (R == ny - 2) | (R == ny - 1)
+        dr = torch.where(R == 0, 1 if periodic_x else 2,
+                         torch.where(R == 1, 1,
+                                     torch.where(R == ny - 2, -1, -2)))
+        dc = zero if periodic_x else torch.where(
+            C < 2, 2 - C, torch.where(C >= nx - 2, nx - 3 - C, 0))
+    winy, winx = R.shape
+    ll = torch.arange(winy)[:, None] + dr
+    mm = torch.arange(winx)[None, :] + dc
+    ok = tgt & (ll >= 0) & (ll < winy) & (mm >= 0) & (mm < winx)
+    src = win[..., ll.clamp(0, winy - 1), mm.clamp(0, winx - 1)]
+    return torch.where(ok, src, win)
+
+
+def _window_planes(spec, rel, B, rows, cols):
+    """The coefficient planes over a window: w (K, B', wy, wx), w0, g, rel
+    (B', wy, wx), B' being 1 for a plane the batch shares."""
+    def cut(p):
+        p = p.reshape((-1,) + tuple(p.shape[-2:]))
+        return p[:, rows][:, :, cols]
+    K = len(spec.offsets)
+    w = spec.w.reshape((K, -1) + tuple(spec.w.shape[-2:]))
+    w = w[:, :, rows][:, :, :, cols]
+    return w, cut(spec.w0), cut(spec.g), cut(rel)
+
+
+def sor2d_sweeps_tiled_emulated(spec, S, omega, n, with_norm=False,
+                                fac=None, inplace=False, plan=None):
+    """n sweeps as the tiled kernels run them, with torch ops: ``plan``
+    (default :func:`tile_plan`) cut into launches of at most ``plan.k``
+    sweeps; each launch loads every tile's window with modular indices,
+    runs its sweeps there (the extend pre-pass in windows that hold a row
+    it writes, then red, then black; ``inplace`` updates the active color
+    only, as the in-place kernel) and writes back only the owned tile.
+    With ``with_norm`` also the per-slice total |S'| of the last launch's
+    owned tiles.  Equal to :func:`sor2d_sweeps_reference` wherever the plan
+    is right; it exists to test that."""
+    ny, nx = S.shape[-2:]
+    batch_shape = tuple(S.shape[:-2])
+    B = max(1, S.numel() // (ny * nx))
+    plan = plan or tile_plan(spec, (ny, nx), S.dtype, inplace)
+    rel = relax_plane(spec, omega)
+    A = S.reshape(B, ny, nx).clone()
+    n = int(n)
+    nty, ntx = plan.tiles((ny, nx))
+    done, sums = 0, None
+    while done < n:
+        m = min(plan.k, n - done)
+        out = torch.empty_like(A)
+        sums = torch.zeros(B, dtype=S.dtype)
+        for ti in range(nty):
+            for tj in range(ntx):
+                ty0, tx0 = ti * plan.ty, tj * plan.tx
+                rows = torch.remainder(
+                    torch.arange(plan.winy) + ty0 - plan.hy, ny)
+                cols = torch.remainder(
+                    torch.arange(plan.winx) + tx0 - plan.hx, nx)
+                R = rows[:, None].expand(plan.winy, plan.winx)
+                C = cols[None, :].expand(plan.winy, plan.winx)
+                red = (R + C) % 2 == 0
+                w, w0, g, rl = _window_planes(spec, rel, B, rows, cols)
+                win = A[:, rows][:, :, cols]
+                for s in range(m):
+                    if spec.bcs[-2] == "extend":
+                        win = _extend_window(spec, win, R, C, ny, nx)
+                    for color in (0, 1):
+                        f = 1.0 if fac is None else fac[2 * (done + s)
+                                                        + color]
+                        sel = red if color == 0 else ~red
+                        r = (rl * sel.to(S.dtype)) * f
+                        acc = g
+                        for k, (dy, dx) in enumerate(spec.offsets):
+                            acc = acc + w[k] * torch.roll(
+                                win, shifts=(-dy, -dx), dims=(-2, -1))
+                        new = win + r * (acc + w0 * win)
+                        win = torch.where(sel, new, win) if inplace else new
+                oy, ox = min(plan.ty, ny - ty0), min(plan.tx, nx - tx0)
+                own = win[:, plan.hy:plan.hy + oy, plan.hx:plan.hx + ox]
+                out[:, ty0:ty0 + oy, tx0:tx0 + ox] = own
+                sums = sums + own.abs().sum(dim=(-2, -1))
+        A = out
+        done += m
+    out = A.reshape(S.shape)
+    if with_norm:
+        return out, sums.reshape(batch_shape)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -176,8 +428,71 @@ def _layout(spec, S, rel=None):
                n_partials=lib.sor2d_partials_per_slice(ny, nx),
                extend_fn=getattr(lib, f"sor2d_extend_rows_{sfx}"),
                sweep_fn=getattr(lib, f"sor2d_color_sweep_{sfx}"),
-               inplace_fn=getattr(lib, f"sor2d_color_sweep_inplace_{sfx}"))
+               inplace_fn=getattr(lib, f"sor2d_color_sweep_inplace_{sfx}"),
+               tiled_fn=getattr(lib, f"sor2d_sweeps_tiled_{sfx}"))
     return lay
+
+
+class _TiledParams(ctypes.Structure):
+    """csrc/sor2d.cu::TiledParams, field by field."""
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "B", "ny", "nx", "K", "nsweeps", "ty", "tx", "hy", "hx", "winy",
+        "winx", "pad", "tiles_y", "tiles_x", "spb", "extend", "periodic_x",
+        "bih", "kmax", "cpt", "nt", "inplace", "wsmem")]
+                + [("dy", ctypes.c_int * MAX_K), ("dx", ctypes.c_int * MAX_K)]
+                + [(f, ctypes.c_longlong) for f in (
+                    "w_kstride", "w_bstride", "w0_bstride", "g_bstride",
+                    "rel_bstride")]
+                + [("fac", ctypes.c_double * (2 * MAX_TILED_SWEEPS))])
+
+
+def _slices_per_block(lay, plan, S):
+    """Batch slices each block walks: one where no plane is shared; where
+    the batch shares a plane (its coefficients then stay in registers from
+    slice to slice), as many as leave two blocks per SM to go round."""
+    B = lay["B"]
+    if B == 1 or all(lay[f"{p}_bstride"] for p in ("w", "w0", "g", "relax")):
+        return max(1, -(-B // _MAX_BATCH))
+    if "sms" not in lay:
+        lay["sms"] = torch.cuda.get_device_properties(
+            S.device).multi_processor_count
+    tiles = math.prod(plan.tiles(lay["core"]))
+    groups = min(B, max(1, -(-2 * lay["sms"] // tiles)))
+    return -(-B // groups)
+
+
+def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
+    """sor2d_sweeps_tiled (or its in-place twin, as ``plan.inplace`` says):
+    S_out = n sweeps of S_in in one launch, ``fac`` its 2n factors."""
+    global TILED_LAUNCHES, TILED_INPLACE_LAUNCHES
+    ny, nx = lay["core"]
+    tiles_y, tiles_x = plan.tiles(lay["core"])
+    p = _TiledParams(
+        B=lay["B"], ny=ny, nx=nx, K=lay["K"], nsweeps=int(n), ty=plan.ty,
+        tx=plan.tx, hy=plan.hy, hx=plan.hx, winy=plan.winy, winx=plan.winx,
+        pad=plan.pad, tiles_y=tiles_y, tiles_x=tiles_x,
+        spb=_slices_per_block(lay, plan, S_in),
+        extend=int(spec.bcs[-2] == "extend"),
+        periodic_x=int(spec.bcs[-1] == "periodic"), bih=int(spec.bih),
+        kmax=plan.kmax, cpt=plan.cpt, nt=plan.threads, wsmem=plan.wsmem,
+        inplace=int(plan.inplace), dy=lay["dy"], dx=lay["dx"],
+        w_kstride=lay["w_kstride"], w_bstride=lay["w_bstride"],
+        w0_bstride=lay["w0_bstride"], g_bstride=lay["g_bstride"],
+        rel_bstride=lay["relax_bstride"])
+    p.fac[:2 * int(n)] = [float(f) for f in fac]
+    err = lay["tiled_fn"](S_in.data_ptr(), S_out.data_ptr(),
+                          spec.w.data_ptr(), spec.w0.data_ptr(),
+                          spec.g.data_ptr(), rel.data_ptr(),
+                          None if partials is None else partials.data_ptr(),
+                          ctypes.byref(p), lay["stream"])
+    name = "sor2d_sweeps_tiled"
+    if plan.inplace:
+        TILED_INPLACE_LAUNCHES += 1
+        name += "_inplace"
+    else:
+        TILED_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def _launch_extend(spec, lay, A):
@@ -231,18 +546,49 @@ def _launch_color_sweep_inplace(spec, lay, rel, S, color, fac=1.0,
 
 def sor2d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     """n full red-black sweeps (extend pre-pass when the y boundary is
-    'extend', then red, then black) of ``spec`` on ``S``.
+    'extend', then red, then black) of ``spec`` on ``S``, through the
+    tiled kernels, ceil(n / k) launches of the spec's :func:`tile_plan`.
 
     With ``with_norm`` returns ``(S', sumabs)``, sumabs being the per-slice
-    total |S'| over the core cells, which the last black half-sweep sums
-    per block as it writes S' (n >= 1 then).  ``fac`` (cyclic Chebyshev,
+    total |S'| over the core cells, which the last launch sums per tile as
+    it writes S' (n >= 1 then).  ``fac`` (cyclic Chebyshev,
     :func:`~xinvert_tpu_torch.solver.solve_fixed_cheby`) holds 2n factors in
     the state's dtype, one per half-sweep, each scaling ``omega * relax``.
     With ``INPLACE_KERNEL`` set, a spec that :func:`_no_cross_r1` and
-    :func:`inplace_eligible` take runs the in-place kernel; any other runs
-    the ping-pong pair.  CPU tensors take the plain version.
+    :func:`inplace_eligible` take runs the in-place tiled kernel; any other
+    runs the ping-pong one.  CPU tensors take the plain version.
     """
     return _driver.sweeps(_FAMILY, spec, S, omega, n, with_norm, fac)
+
+
+def sor2d_sweeps_tiled(spec, S, omega, n, with_norm=False, fac=None):
+    """:func:`sor2d_sweeps` through the ping-pong tiled kernel, whatever
+    ``INPLACE_KERNEL`` says.  CPU tensors take the plain version."""
+    return _driver.sweeps_tiled(_FAMILY, spec, S, omega, n, with_norm, fac,
+                                inplace=False)
+
+
+def sor2d_sweeps_tiled_inplace(spec, S, omega, n, with_norm=False, fac=None):
+    """:func:`sor2d_sweeps` through the in-place tiled kernel, whatever
+    ``INPLACE_KERNEL`` says; a spec that :func:`inplace_eligible` refuses
+    raises.  CPU tensors take the plain version."""
+    if S.device.type != "cpu" and not inplace_eligible(
+            spec, tuple(S.shape[-2:])):
+        raise ValueError("the in-place kernel takes radius-1 stencils "
+                         "without cross terms and an even size along a "
+                         "periodic axis")
+    return _driver.sweeps_tiled(_FAMILY, spec, S, omega, n, with_norm, fac,
+                                inplace=True)
+
+
+def sor2d_sweeps_pair(spec, S, omega, n, with_norm=False, fac=None):
+    """n sweeps through the first version, three launches each:
+    ``sor2d_extend_rows``, then the two ``sor2d_color_sweep`` half-sweeps,
+    or, where ``INPLACE_KERNEL`` and the gate take the spec, the two
+    ``sor2d_color_sweep_inplace`` ones.  The yardstick of the tiled
+    kernels; no entry point calls it.  CPU tensors take the plain
+    version."""
+    return _driver.sweeps_pair(_FAMILY, spec, S, omega, n, with_norm, fac)
 
 
 def sor2d_extend(spec, S):
@@ -282,4 +628,5 @@ def sor2d_color_sweep_inplace(spec, S, rel, color, fac=1.0):
 _FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,
                          sor2d_sweeps_reference, sor2d_sweeps_reference_norm,
                          sor2d_extend_reference, sor2d_color_sweep_reference,
-                         _use_inplace, _launch_color_sweep_inplace)
+                         _use_inplace, _launch_color_sweep_inplace,
+                         tile_plan, _launch_tiled)
