@@ -18,7 +18,11 @@ seed, and runs these phases, each printing its lines:
      kernels over n in {1, k, 20, 37} sweeps, at omega and with Chebyshev
      factors; the first version's kernels (extend, color sweep, in-place
      color sweep) alone and over 20 sweeps; the 3-D pair; the fused |S|
-     sums against sum|S| (rtol 1e-5 / 1e-12);
+     sums against sum|S| (rtol 1e-5 / 1e-12); multigrid's point smoother
+     (mg._smooth) on every level of three pyramids (bench.py's 2048x2048
+     Poisson, the SODA Stommel-Munk biharmonic one, a Fofonoff-like
+     standard_2d_e one), n in {1, 2, 3, 60}, one state and a batch under a
+     batched forcing, the in-place switch off and on;
   3  the main paths, in float32 and with no device argument (the entry
      points default to the card): invert_Poisson at 2048x2048 and at a
      batched 8x73x144; invert_omega at 37x72x288; invert_3DOcean at
@@ -36,7 +40,16 @@ seed, and runs these phases, each printing its lines:
      runs of the same calls are held against a float64 CPU run
      (device="cpu", the plain version): Poisson 8x73x144, omega 37x72x144,
      ocean 20x110x240, and the three SODA calls at 2x110x240 (mxLoop cut to
-     2000), within 1e-4 of max|S|;
+     2000), within 1e-4 of max|S|.  Then the multigrid paths, float32, no
+     device argument: solve_mg with full multigrid on bench.py's 2048x2048
+     masked Poisson (must converge to 1e-6 through the tiled kernel alone),
+     invert_Stommel_mg on the SODA curl (12 months), invert_StommelMunk_mg
+     on 2 of its months, invert_omega_mg at 37x72x288, invert_3DOcean_mg at
+     30x330x720: cycles, residual, converged, wall and set-up seconds, host
+     syncs, the idle share (of the whole 2048x2048 solve; of one V-cycle
+     of the others), and the field beside the SOR one; smaller runs
+     against float64 on the CPU (256x256, 2x55x120, the cartesian Munk
+     gyre 65x129, 37x36x72, 20x55x120), within 1e-4 of max|S|;
   4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
      calls timed with CUDA events, for the kernels and the plain version,
      beside a device-to-device copy of the bytes a sweep of the kernels
@@ -48,14 +61,18 @@ seed, and runs these phases, each printing its lines:
      around back-to-back launches queued behind a device-side spin, so no
      host gap counts), per sweep for the tiled kernels, beside its plain
      version's, its bound (k sweeps for the tiled kernels) and a copy of
-     its bytes.
+     its bytes; where a 2048x2048 V-cycle's device time goes (smoothing
+     against the rest), its wall time and host gap, host syncs per cycle.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Any failed phase raises, and the
 script exits non-zero without printing that line.
 """
+import dataclasses
+import inspect
 import json
 import math
+import os
 import subprocess
 import time
 
@@ -63,6 +80,7 @@ import numpy as np
 import torch
 
 import xinvert_tpu_torch as xt
+from xinvert_tpu_torch import mg
 from xinvert_tpu_torch.grid import Grid
 from xinvert_tpu_torch.models import api, problems
 from xinvert_tpu_torch.models.params import default_mParams
@@ -337,6 +355,65 @@ def soda_spec(builder, mp, months, dtype, device, step=1):
     return prune_zero_offsets(spec), 1.0
 
 
+# ------------------------------------------------------- multigrid inputs
+
+def extra_mg_pyramid(dtype, device, n=2048):
+    """The JAX package's bench.py multigrid problem (``_extra_mg``),
+    rebuilt from its recipe: an n x n cartesian Poisson, A = C = 1, F =
+    N(0, 1) * 1e-9 from seed 0, the block [n/3:n/2, n/4:n/2] masked,
+    spacing 1e5, BCs fixed/fixed; its point-smoothed pyramid."""
+    rng = np.random.default_rng(0)
+    A = torch.ones((n, n), dtype=dtype, device=device)
+    F = torch.as_tensor((rng.normal(0, 1, (n, n)) * 1e-9).astype(np.float32),
+                        dtype=dtype, device=device)
+    Fdef = torch.ones((n, n), dtype=torch.bool, device=device)
+    Fdef[n // 3:n // 2, n // 4:n // 2] = False
+    return mg.build_pyramid_standard2d(A, 0.0, A, F, Fdef, (1.0e5, 1.0e5),
+                                       ("fixed", "fixed"))
+
+
+def soda_munk_pyramid(dtype, device):
+    """The biharmonic Stommel-Munk pyramid of the SODA-class curl
+    (12x330x720, extend/periodic, the land mask), 16 offsets on every
+    level (multigrid does not prune)."""
+    f = soda_curl(12)
+    grid = Grid.make(("lat", "lon"), (f.coords["lat"], f.coords["lon"]),
+                     "lat-lon", bcs=("extend", "periodic"))
+    vals = torch.as_tensor(f.values, dtype=dtype, device=device)
+    Fdef = ~torch.isnan(vals[0])
+    coeffs, _ = problems.stommelmunk_coeffs(
+        vals, Fdef, grid, dict(default_mParams, **MUNK_MP))
+    return mg.build_pyramid_bih2d(
+        coeffs, torch.zeros(grid.shape, dtype=dtype, device=device), Fdef,
+        grid.deltas, grid.bcs)
+
+
+def fofonoff_pyramid(dtype, device, ny=257, nx=385):
+    """A Fofonoff-like standard_2d_e pyramid (cartesian, fixed/fixed, the
+    screening term -c0 psi): level 0 standard_2d_e, coarser levels the
+    upwinded general_2d with its 8 cross and first-derivative offsets."""
+    y = np.linspace(0.0, 5e5, ny)
+    x = np.linspace(0.0, 6e5, nx)
+    grid = Grid.make(("y", "x"), (y, x), "cartesian", bcs=("fixed", "fixed"))
+    F = torch.zeros((ny, nx), dtype=dtype, device=device)
+    Fdef = torch.ones((ny, nx), dtype=torch.bool, device=device)
+    A, B, C, D, E, Fs = problems.fofonoff_e_coeffs(
+        F, Fdef, grid, dict(default_mParams, f0=1e-4, beta=2e-11, c0=8e-9,
+                            c1=1e-4))
+    return mg.build_pyramid_standard2d_e(A, B, C, D, E, Fs, Fdef,
+                                         grid.deltas, grid.bcs)
+
+
+MG_PYRAMIDS = {
+    "multigrid main path 2048x2048 masked Poisson (fixed, fixed)":
+        extra_mg_pyramid,
+    "multigrid Stommel-Munk bih 330x720 SODA (extend, periodic)":
+        soda_munk_pyramid,
+    "multigrid Fofonoff-like standard_2d_e 257x385 (fixed, fixed)":
+        fofonoff_pyramid,
+}
+
+
 # ---------------------------------------------------------------- phase 0
 
 def phase0():
@@ -352,7 +429,8 @@ def phase0():
     log(card)
     log(f"[0] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
-        f"count {torch.cuda.device_count()}")
+        f"count {torch.cuda.device_count()}; CPU threads "
+        f"{torch.get_num_threads()} of {len(os.sched_getaffinity(0))} cores")
     return card
 
 
@@ -509,6 +587,70 @@ def _check_tiled(name, spec, omega, S0, rtol, errs):
                                f"on {name} {dt}")
 
 
+def _bit_equal(a, b):
+    """torch.equal, NaN matching NaN in place."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a),
+                                               torch.where(nb, 0.0, b))
+
+
+def _check_mg_smoothing(name, make, dev, errs):
+    """mg._smooth on every level of a pyramid, through the solver's
+    executor (the tiled kernels), against the plain version on the same
+    CUDA tensors: torch.equal, in float32 and float64, n in {1, 2, 3, 60},
+    one state and a batch of three under a batched g_override, with the
+    in-place switch off and on (the in-place kernel where the gate takes
+    the level); a smoothing that launched no tiled kernel or called the
+    plain version fails.  A level whose smoothing diverges (the coarse
+    levels of the SODA biharmonic pyramid do, as in the JAX package) must
+    grow its NaN and Inf as the plain version does."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        levels = make(dt, dev)
+        ok, checks, blown, used = True, 0, 0, set()
+        for lv in levels:
+            core = tuple(lv.spec.w0.shape)
+            g3 = torch.randn((3,) + core, generator=gen, dtype=torch.float64)
+            batched = dataclasses.replace(lv, spec=mg._with_g(
+                lv.spec, g3.to(dtype=dt, device=dev)))
+            for level, batch in ((lv, ()), (batched, (3,))):
+                S = torch.randn(batch + core, generator=gen,
+                                dtype=torch.float64).to(dtype=dt, device=dev)
+                for switch in (False, True):
+                    sor2d.INPLACE_KERNEL = switch
+                    for n in (1, 2, 3, 60):
+                        t0, i0 = (sor2d.TILED_LAUNCHES,
+                                  sor2d.TILED_INPLACE_LAUNCHES)
+                        p0 = sor2d.PLAIN_CALLS
+                        out = mg._smooth(level, S, n)
+                        ok &= sor2d.PLAIN_CALLS == p0
+                        ref = sor2d.sor2d_sweeps_reference(level.spec, S,
+                                                           level.omega, n)
+                        torch.cuda.synchronize()
+                        inplace = sor2d.TILED_INPLACE_LAUNCHES > i0
+                        ok &= inplace or sor2d.TILED_LAUNCHES > t0
+                        ok &= inplace == (switch and sor2d._use_inplace(
+                            level.spec, core))
+                        ok &= _bit_equal(out, ref)
+                        blown += not bool(torch.isfinite(ref).all())
+                        kname = TILED[inplace][0]
+                        used.add(kname)
+                        errs[kname] = max(errs[kname], _max_err(out, ref))
+                        checks += 1
+                    sor2d.INPLACE_KERNEL = False
+        log(f"[2] {name} {str(dt)[6:]}: mg._smooth on levels "
+            f"{[tuple(lv.spec.w0.shape) for lv in levels]} (omega "
+            f"{[round(lv.omega, 4) for lv in levels]}), one state and a "
+            f"batch of 3 under a batched g_override, n in {{1, 2, 3, 60}}, "
+            f"in-place switch off and on: {checks} checks through "
+            f"{sorted(used)}, bit-equal={ok} ({blown} of them grew "
+            f"non-finite in both versions alike)")
+        if not ok:
+            raise RuntimeError(f"mg._smooth disagrees with the plain version "
+                               f"on {name} {dt}")
+        del levels
+
+
 def phase2(dev):
     errs = {name: 0.0 for name in KERNELS}
     cases_2d = [
@@ -568,6 +710,11 @@ def phase2(dev):
         _check_kernels(sor2d, name, make, errs)
     for name, make in cases_3d:
         _check_kernels(sor3d, name, make, errs)
+    t0 = time.perf_counter()
+    for name, make in MG_PYRAMIDS.items():
+        _check_mg_smoothing(name, make, dev, errs)
+    log(f"[t] phase 2's multigrid smoothing checks took "
+        f"{time.perf_counter() - t0:.1f} s")
     return errs
 
 
@@ -650,38 +797,50 @@ def _drive2d(name, call, field, inplace, launches):
     return tiled
 
 
-def _busy_share(name, call):
-    """One more call of an entry point under torch.profiler: the device's
-    busy time (the sum of its kernels and copies, which run in order on one
-    stream) against the call's wall time."""
+def _profiled(call):
+    """``call()`` under torch.profiler: (its result, the wall time, the
+    device's busy time: the sum of its kernels and copies, which run in
+    order on one stream)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        call()
+        out = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = sum(ev.self_device_time_total for ev in prof.key_averages()) / 1e6
+    return out, wall, busy
+
+
+def _idle(wall, busy):
     if not busy > 0:
         # the profiler's device trace is a diagnostic here, not a check
-        log(f"[3] {name} float32, profiled call: {wall:.4f} s wall; device "
-            f"busy not measured (torch.profiler recorded no device time)")
-        return
-    log(f"[3] {name} float32, profiled call: device busy {busy:.4f} s of "
-        f"{wall:.4f} s wall, idle share {1.0 - busy / wall:.3f}")
+        return ("device busy not measured (torch.profiler recorded no "
+                "device time)")
+    return (f"device busy {busy:.4f} s of {wall:.4f} s wall, idle share "
+            f"{1.0 - busy / wall:.3f}")
+
+
+def _busy_share(name, call):
+    """One more call of an entry point under torch.profiler: the device's
+    busy time against the call's wall time."""
+    _, wall, busy = _profiled(call)
+    log(f"[3] {name} float32, profiled call: {_idle(wall, busy)}")
 
 
 def _against_cpu(name, card_out, call):
     """The card's float32 answer against a float64 CPU run of ``call``."""
     torch.set_default_dtype(torch.float64)
+    t0 = time.perf_counter()
     ref = call()
+    cpu_s = time.perf_counter() - t0
     torch.set_default_dtype(torch.float32)
     ok = ~np.isnan(ref.values)
     dev = (np.abs(card_out.values[ok] - ref.values[ok]).max()
            / np.abs(ref.values[ok]).max())
     log(f"[3] {name} float32 card vs float64 CPU: max|diff|/max|S| = "
         f"{dev:.3e} (limit 1e-4); CPU iters "
-        f"{api.LAST_SOLVE.iters.tolist()}")
+        f"{api.LAST_SOLVE.iters.tolist()} in {cpu_s:.1f} s")
     if not dev <= 1e-4:
         raise RuntimeError(f"{name}: the card's answer disagrees with the "
                            "float64 CPU run")
@@ -710,16 +869,17 @@ def phase3():
     F_om, N2_om = atmos3d(37, 72, 288)
     call = lambda: xt.invert_omega(  # noqa: E731
         F_om, dims=DIMS_3D, mParams={"N2": N2_om}, iParams=iP_om)
-    _drive("invert_omega 37x72x288", ("sor3d_color_sweep",), call, F_om,
-           launches)
+    sor = {"omega": _drive("invert_omega 37x72x288", ("sor3d_color_sweep",),
+                           call, F_om, launches)}
     _busy_share("invert_omega 37x72x288", call)
     iP_oc = {"BCs": ["fixed", "extend", "periodic"], "undef": np.nan,
              "mxLoop": 2000, "tolerance": 1e-8, "printInfo": False}
     F_oc, N2_oc = ocean3d(30)
     call = lambda: xt.invert_3DOcean(  # noqa: E731
         F_oc, dims=DIMS_3D, mParams=dict(OCEAN_MP, N2=N2_oc), iParams=iP_oc)
-    _drive("invert_3DOcean 30x330x720",
-           ("sor3d_color_sweep", "sor3d_extend_rows"), call, F_oc, launches)
+    sor["3docean"] = _drive("invert_3DOcean 30x330x720",
+                            ("sor3d_color_sweep", "sor3d_extend_rows"), call,
+                            F_oc, launches)
     _busy_share("invert_3DOcean 30x330x720", call)
 
     # the 2-D families on the SODA-class curl, 12x330x720: Stommel with the
@@ -748,10 +908,11 @@ def phase3():
     st_off = _drive2d("invert_Stommel 12x330x720 ping-pong", st_call, soda,
                       False, launches)
     _busy_share("invert_Stommel 12x330x720 ping-pong", st_call)
+    sor["stommel"] = st_off[0]
     _same("invert_Stommel 12x330x720, in-place vs ping-pong", st_on, st_off)
     munk_call = lambda: paths["StommelMunk"](soda, iP_soda)  # noqa: E731
-    _drive2d("invert_StommelMunk 12x330x720", munk_call, soda, False,
-             launches)
+    sor["stommelmunk"] = _drive2d("invert_StommelMunk 12x330x720", munk_call,
+                                  soda, False, launches)[0]
     _busy_share("invert_StommelMunk 12x330x720", munk_call)
     cheby_call = lambda: paths["Stommel"](soda, iP_cheby)  # noqa: E731
     _drive2d("invert_Stommel cheby 12x330x720 in-place", cheby_call, soda,
@@ -808,7 +969,7 @@ def phase3():
         _against_cpu(f"{name} 2x110x240", card_out,
                      lambda p=path, i=iP_sm: paths[p](small, i,
                                                       device="cpu"))
-    return launches
+    return launches, sor
 
 
 def _same(name, a, b):
@@ -821,6 +982,226 @@ def _same(name, a, b):
         f"{rb.iters.cpu().tolist()}, states and fields equal: {same}")
     if not same:
         raise RuntimeError(f"{name}: the two runs differ")
+
+
+# ------------------------------------------------------ phase 3, multigrid
+
+_SETUP = {}
+
+
+def _timed_solve_mg(levels, **kw):
+    """mg.solve_mg, noting when it starts (the entry's set-up ends) and
+    what it was given."""
+    torch.cuda.synchronize()
+    _SETUP.update(t=time.perf_counter(), levels=levels, kw=kw)
+    return _SOLVE_MG(levels, **kw)
+
+
+_SOLVE_MG = mg.solve_mg
+
+
+def _entry_call(fn, field, **kw):
+    """A call of an ``invert_*_mg`` entry with no device argument, returning
+    (Field, cycles, residual, converged) from its LAST_SOLVE and its
+    default tol."""
+    tol = kw.get("tol", inspect.signature(fn).parameters["tol"].default)
+
+    def call():
+        out = fn(field, **kw)
+        res = api.LAST_SOLVE
+        return (out, int(res.iters), float(res.rel_change),
+                float(res.rel_change) < tol)
+    return call
+
+
+def _drive_mg(name, kernels, call, launches=None):
+    """One multigrid solve (``call`` returns (out, cycles, residual,
+    converged)) with every count set to 0 just before it and read just
+    after: it must have launched ``kernels`` alone, with no plain call.
+    Prints cycles, residual, converged, wall time, the set-up seconds (the
+    call's start to solve_mg's), host syncs and launches; the full-size
+    runs add their launches to ``launches``."""
+    _zero_counts()
+    mg.HOST_SYNCS = 0
+    _SETUP.clear()
+    t0 = time.perf_counter()
+    out, cycles, res, conv = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    setup = _SETUP.get("t", t0) - t0
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+    plain = sor2d.PLAIN_CALLS + sor3d.PLAIN_CALLS
+    ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
+    log(f"[3] {name} float32: cycles {cycles} residual {res:.4e} converged "
+        f"{conv} wall {wall:.3f} s (set-up {setup:.3f} s, solve "
+        f"{wall - setup:.3f} s); host syncs {mg.HOST_SYNCS}; launches: "
+        f"{ran}; plain calls {plain}")
+    if {k for k, v in counts.items() if v} != set(kernels) or plain:
+        raise RuntimeError(f"{name}: the multigrid path did not run through "
+                           f"{sorted(kernels) or 'torch ops'} alone")
+    if launches is not None:
+        for k, v in counts.items():
+            launches[k] += v
+    return out, cycles, res, conv
+
+
+def _cycle_share(name):
+    """The device idle share of one V-cycle of the last solve_mg call (its
+    levels, its first state and forcing, its smoothing counts) under
+    torch.profiler.  A whole line-smoothed solve launches about a million
+    small kernels, which the profiler takes minutes to digest; its
+    V-cycles all repeat one launch pattern."""
+    levels, kw = _SETUP["levels"], _SETUP["kw"]
+    nd = levels[0].spec.ndim
+    S = kw["S0"]
+    S = S.reshape((-1,) + S.shape[-nd:]) if S.dim() > nd else S
+    g = kw.get("g0")
+    g = None if g is None else g.reshape(S.shape)
+    args = (kw.get("nu1", 2), kw.get("nu2", 2), 60,
+            0.8 if levels[0].masked else 1.0, levels[0].smoother)
+    _, wall, busy = _profiled(lambda: mg._vcycle(levels, 0, S, g, *args))
+    log(f"[3] {name}, one V-cycle ({levels[0].smoother} smoothing, "
+        f"{len(levels)} levels) under torch.profiler: {_idle(wall, busy)}")
+
+
+def _vs_sor(name, out, sor):
+    """The multigrid field beside phase 3's SOR field of the same call."""
+    a, b = out.values, sor.values
+    ok = np.isfinite(a) & np.isfinite(b)
+    if not ok.any():
+        log(f"[3] {name}: the multigrid field has no finite cell (it "
+            f"diverged); no comparison with the SOR field")
+        return
+    log(f"[3] {name}: max|MG - SOR|/max|SOR| = "
+        f"{np.abs(a[ok] - b[ok]).max() / np.abs(b[ok]).max():.4e} over "
+        f"{ok.sum()} of {np.isfinite(b).sum()} ocean cells (the SOR field "
+        f"of phase 3, stopped by its own rule)")
+
+
+def phase3_mg(launches, sor):
+    """The multigrid paths in float32 with no device argument: bench.py's
+    2048x2048 FMG problem through solve_mg (must converge to 1e-6 through
+    the tiled kernel alone), then invert_Stommel_mg and
+    invert_StommelMunk_mg on the SODA-class curl, invert_omega_mg at
+    37x72x288 and invert_3DOcean_mg at 30x330x720, each beside phase 3's
+    SOR field, with its device idle share; smaller runs of each against a
+    float64 CPU run.  Returns the host syncs per cycle of the 2048x2048
+    solve."""
+    torch.set_default_dtype(torch.float32)
+    mg.solve_mg = _timed_solve_mg
+    try:
+        dev = torch.device("cuda", 0)
+
+        def extra(n, device, dtype):
+            def call():
+                pyr = extra_mg_pyramid(dtype, device, n)
+                return mg.solve_mg(pyr, tol=1e-6, max_cycles=80, fmg=True)
+            return call
+        S, cycles, res, conv = _drive_mg(
+            "solve_mg 2048x2048 FMG (bench.py's problem)",
+            TILED[False], extra(2048, dev, torch.float32), launches)
+        syncs = mg.HOST_SYNCS / max(cycles, 1)
+        if not (conv and res < 1e-6 and bool(torch.isfinite(S).all())):
+            raise RuntimeError("solve_mg 2048x2048 did not converge to 1e-6")
+        _busy_share("solve_mg 2048x2048 FMG", extra(2048, dev,
+                                                     torch.float32))
+        # the same recipe at 256x256 against float64 on the CPU
+        S_c = _drive_mg("solve_mg 256x256 FMG", TILED[False],
+                        extra(256, dev, torch.float32))[0]
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        t0 = time.perf_counter()
+        try:
+            S_r, k_r, res_r, _ = extra(256, "cpu", torch.float64)()
+        finally:
+            torch.set_num_threads(threads)
+        cpu_s = time.perf_counter() - t0
+        dev_ = float((S_c.double().cpu() - S_r).abs().max()
+                     / S_r.abs().max())
+        log(f"[3] solve_mg 256x256 float32 card vs float64 CPU: "
+            f"max|diff|/max|S| = {dev_:.3e} (limit 1e-4); CPU cycles {k_r} "
+            f"residual {res_r:.3e} in {cpu_s:.1f} s")
+        if not dev_ <= 1e-4:
+            raise RuntimeError("solve_mg: the card's answer disagrees with "
+                               "the float64 CPU run")
+
+        soda = soda_curl()
+        iP = {"BCs": ["extend", "periodic"], "undef": np.nan}
+        kw2 = dict(dims=["lat", "lon"], iParams=iP)
+        # the SODA-class grid reaches 89.75N: the polar metric picks x-line
+        # smoothing (torch ops, no kernel) for both gyres
+        st = _entry_call(xt.invert_Stommel_mg, soda, mParams=STOMMEL_MP,
+                         **kw2)
+        out = _drive_mg("invert_Stommel_mg 12x330x720", (), st, launches)[0]
+        _cycle_share("invert_Stommel_mg 12x330x720")
+        _vs_sor("invert_Stommel_mg 12x330x720", out, sor["stommel"])
+        munk_months = 2
+        soda_m = soda_curl(months=munk_months)
+        mk = _entry_call(xt.invert_StommelMunk_mg, soda_m, mParams=MUNK_MP,
+                         **kw2)
+        out = _drive_mg(f"invert_StommelMunk_mg {munk_months}x330x720", (),
+                        mk, launches)[0]
+        _cycle_share(f"invert_StommelMunk_mg {munk_months}x330x720")
+        _vs_sor(f"invert_StommelMunk_mg {munk_months}x330x720", out,
+                xt.Field(sor["stommelmunk"].values[:munk_months],
+                         soda_m.dims, soda_m.coords))
+        F_om, N2_om = atmos3d(37, 72, 288)
+        kw3 = dict(dims=DIMS_3D, iParams={"BCs": ["fixed", "fixed",
+                                                 "periodic"]})
+        om = _entry_call(xt.invert_omega_mg, F_om, mParams={"N2": N2_om},
+                         **kw3)
+        out = _drive_mg("invert_omega_mg 37x72x288", (), om, launches)[0]
+        _cycle_share("invert_omega_mg 37x72x288")
+        _vs_sor("invert_omega_mg 37x72x288", out, sor["omega"])
+        F_oc, N2_oc = ocean3d(30)
+        kw_oc = dict(dims=DIMS_3D, iParams={"BCs": ["fixed", "extend",
+                                                   "periodic"],
+                                            "undef": np.nan})
+        oc = _entry_call(xt.invert_3DOcean_mg, F_oc,
+                         mParams=dict(OCEAN_MP, N2=N2_oc), **kw_oc)
+        out = _drive_mg("invert_3DOcean_mg 30x330x720", (), oc, launches)[0]
+        _cycle_share("invert_3DOcean_mg 30x330x720")
+        _vs_sor("invert_3DOcean_mg 30x330x720", out, sor["3docean"])
+
+        # smaller runs against float64 on the CPU; Stommel-Munk's is the
+        # cartesian Munk gyre of the JAX package's tests at half its size
+        # (point smoothing: the biharmonic tiled kernel), as its SODA run
+        # diverges in both packages
+        small = soda_curl(months=2, step=6)
+        F_s, N2_s = atmos3d(37, 36, 72)
+        F_d, N2_d = ocean3d(20, step=6)
+        Ly = 2 * np.pi * 1e6
+        y, x = np.linspace(0.0, Ly, 65), np.linspace(0.0, 1e7, 129)
+        gyre = xt.Field(-0.3 * np.sin(np.pi * y[:, None] / Ly) * np.pi / Ly
+                        * np.ones((1, 129)), ("y", "x"), {"y": y, "x": x})
+        for name, kernels, fn, field, kw in (
+                ("invert_Stommel_mg 2x55x120", (), xt.invert_Stommel_mg,
+                 small, dict(kw2, mParams=STOMMEL_MP)),
+                ("invert_StommelMunk_mg cartesian gyre 65x129",
+                 TILED[False], xt.invert_StommelMunk_mg, gyre,
+                 dict(dims=["y", "x"], coords="cartesian",
+                      iParams={"BCs": ["fixed", "fixed"]},
+                      mParams={"beta": 1.8e-11, "R": 0.0008, "D": 200,
+                               "A4": 5e3})),
+                ("invert_omega_mg 37x36x72", (), xt.invert_omega_mg, F_s,
+                 dict(kw3, mParams={"N2": N2_s})),
+                ("invert_3DOcean_mg 20x55x120", (), xt.invert_3DOcean_mg,
+                 F_d, dict(kw_oc, mParams=dict(OCEAN_MP, N2=N2_d)))):
+            card_out = _drive_mg(name, kernels,
+                                 _entry_call(fn, field, **kw))[0]
+            # many small ops: one CPU thread spends least on each
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                _against_cpu(name, card_out,
+                             lambda fn=fn, f=field, kw=kw: fn(
+                                 f, device="cpu", **kw))
+            finally:
+                torch.set_num_threads(threads)
+    finally:
+        mg.solve_mg = _SOLVE_MG
+        torch.set_default_dtype(torch.float32)
+    return syncs
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1119,6 +1500,56 @@ def phase4(card, dev):
     return per
 
 
+def phase4_mg(card, dev, syncs):
+    """Where a V-cycle's time goes on bench.py's 2048x2048 FMG problem,
+    float32: ten chained V-cycles under torch.profiler, their device time
+    split by kernel into the smoothing (the tiled kernel) and the rest
+    (residuals, transfers, corrections: torch's kernels), the tiled
+    launches per cycle, the wall time per cycle and its host gap (wall
+    minus device busy), and phase 3's host syncs per cycle.  (A V-cycle
+    queues about 400 kernels, more than the host can queue ahead of a
+    device spin, so no spin-based device time here.)"""
+    pyr = extra_mg_pyramid(torch.float32, dev)
+    args = (2, 2, 60, 0.8, "point")
+    S = mg._vcycle(pyr, 0, torch.zeros_like(pyr[0].spec.w0), None, *args)
+    reps = 10
+    t0 = sor2d.TILED_LAUNCHES
+
+    def cycles():
+        out = S
+        for _ in range(reps):
+            out = mg._vcycle(pyr, 0, out, None, *args)
+        return out
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        cycles()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) / reps * 1e3
+    launches = (sor2d.TILED_LAUNCHES - t0) / reps
+    smooth = rest = 0.0
+    for ev in prof.key_averages():
+        if "sor2d_sweeps_tiled" in ev.key:
+            smooth += ev.self_device_time_total
+        else:
+            rest += ev.self_device_time_total
+    smooth, rest = smooth / 1e3 / reps, rest / 1e3 / reps
+    if not smooth + rest > 0:
+        log(f"[4] {card} | multigrid V-cycle 2048x2048 float32: wall "
+            f"{wall:.4f} ms per cycle; device time not measured "
+            f"(torch.profiler recorded no device time)")
+        return
+    log(f"[4] {card} | multigrid V-cycle 2048x2048 float32 ({len(pyr)} "
+        f"levels, nu 2+2, 60 coarse sweeps, point smoothing; {reps} "
+        f"chained cycles under torch.profiler): device "
+        f"{smooth + rest:.4f} ms per cycle, of which smoothing "
+        f"{smooth:.4f} ms ({launches:.0f} tiled launches) and the rest "
+        f"(residuals, transfers, corrections) {rest:.4f} ms; wall "
+        f"{wall:.4f} ms per cycle, host gap {wall - smooth - rest:.4f} ms; "
+        f"host syncs per cycle {syncs:.2f} (phase 3's solve)")
+
+
 def _launch_calls(mod, spec, omega, S):
     """For each kernel of ``mod`` (sor2d / sor3d) that takes ``spec``: its
     wrapper, its plain version, one bare launch of the kernel on a buffer
@@ -1212,16 +1643,26 @@ def _device_ms(fn, calls):
 
 def main():
     t_start = time.perf_counter()
+
+    def stamp(phase):
+        log(f"[t] {phase} ended at {time.perf_counter() - t_start:.1f} s")
     card = phase0()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase1()
+    stamp("phase 1")
     errs = phase2(dev)
-    launches = phase3()
+    stamp("phase 2")
+    launches, sor = phase3()
+    stamp("phase 3 (SOR paths)")
+    syncs = phase3_mg(launches, sor)
+    stamp("phase 3 (multigrid paths)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
+    phase4_mg(card, dev, syncs)
+    stamp("phase 4")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "also_replaces": also,
                 "launches": launches[name], "max_abs_err": errs[name],

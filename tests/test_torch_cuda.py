@@ -605,3 +605,96 @@ def test_cheby_solve_on_card_matches_cpu(cuda, monkeypatch, switch):
     r_c = xt.solve(spec_cpu, S0.cpu(), **kw)
     assert torch.equal(r_k.iters.cpu(), r_c.iters)
     torch.testing.assert_close(r_k.S.cpu(), r_c.S, rtol=1e-10, atol=1e-12)
+
+
+# ------------------------------------------------------------- multigrid
+
+def _mg_poisson(dtype, device, ny=129, nx=128, bcs=("extend", "periodic")):
+    """A masked cartesian Poisson pyramid (point smoothing) on the card."""
+    from xinvert_tpu_torch import mg
+    rng = np.random.default_rng(0)
+    A = torch.as_tensor(np.abs(rng.normal(1, .05, (ny, nx))) + 1.0,
+                        dtype=dtype, device=device)
+    F = torch.as_tensor(rng.normal(0, 1e-9, (ny, nx)), dtype=dtype,
+                        device=device)
+    Fdef = np.ones((ny, nx), bool)
+    Fdef[ny // 3:ny // 2, nx // 4:nx // 2] = False
+    return mg.build_pyramid_standard2d(A, 0.0, A, F, Fdef, (1.2e5, 1.0e5),
+                                       bcs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("inplace", [False, True])
+def test_mg_smoothing_through_the_kernel(cuda, monkeypatch, dtype, inplace):
+    """mg._smooth on every level of a pyramid, single and with a batched
+    forcing (a g_override plane per member), through the tiled kernel:
+    torch.equal to the plain version on the same CUDA tensors."""
+    from xinvert_tpu_torch import mg
+    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", inplace)
+    levels = _mg_poisson(dtype, cuda)
+    assert len(levels) >= 3 and levels[0].smoother == "point"
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    for lv in levels:
+        shape = tuple(lv.spec.w0.shape)
+        g3 = torch.randn((3,) + shape, generator=gen, dtype=torch.float64)
+        batched = dataclasses.replace(lv, spec=mg._with_g(
+            lv.spec, g3.to(dtype=dtype, device=cuda)))
+        for level, batch in ((lv, ()), (batched, (3,))):
+            S = (torch.randn(batch + shape, generator=gen,
+                             dtype=torch.float64) * 1e-2).to(dtype).to(cuda)
+            for n in (1, 2, 3, 60):
+                t0 = sor2d.TILED_LAUNCHES + sor2d.TILED_INPLACE_LAUNCHES
+                p0 = sor2d.PLAIN_CALLS
+                out = mg._smooth(level, S, n)
+                ref = sor2d.sor2d_sweeps_reference(level.spec, S,
+                                                   level.omega, n)
+                assert (sor2d.TILED_LAUNCHES + sor2d.TILED_INPLACE_LAUNCHES
+                        > t0)
+                assert sor2d.PLAIN_CALLS == p0 + 1
+                assert torch.equal(out, ref), (shape, batch, n)
+
+
+def test_mg_solve_on_card_equals_plain_on_card(cuda, monkeypatch):
+    """A 129x128 solve_mg (fmg, float32) through the kernel equals the same
+    solve with the plain sweeps on the same card: the same cycles,
+    bit-equal states."""
+    from xinvert_tpu_torch import mg
+    levels = _mg_poisson(torch.float32, cuda)
+    t0 = sor2d.TILED_LAUNCHES
+    S_k, k_k, r_k, ok_k = mg.solve_mg(levels, tol=1e-5, max_cycles=40,
+                                      fmg=True)
+    assert sor2d.TILED_LAUNCHES > t0
+    monkeypatch.setattr(mg, "_select_kernel",
+                        lambda spec, S: sor2d.sor2d_sweeps_reference)
+    S_p, k_p, r_p, ok_p = mg.solve_mg(levels, tol=1e-5, max_cycles=40,
+                                      fmg=True)
+    assert (k_k, r_k, ok_k) == (k_p, r_p, ok_p) and ok_k
+    assert torch.equal(S_k, S_p)
+
+
+def test_invert_poisson_mg_defaults_to_the_card(cuda):
+    """invert_Poisson_mg with no device argument smooths through the tiled
+    kernel (no plain call) and agrees with a float64 CPU run."""
+    rng = np.random.default_rng(2)
+    ny, nx = 65, 128
+    lat = np.linspace(-60.0, 60.0, ny)
+    lon = np.linspace(0.0, 360.0 - 360.0 / nx, nx)
+    vals = rng.standard_normal((2, ny, nx)) * 1e-5
+    vals[:, 20:30, 40:60] = np.nan
+    F = xt.Field(vals, ("time", "lat", "lon"),
+                 {"time": np.arange(2.0), "lat": lat, "lon": lon})
+    iP = {"BCs": ["extend", "periodic"], "undef": np.nan}
+    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    out = xt.invert_Poisson_mg(F, ["lat", "lon"], iParams=iP, tol=1e-6)
+    assert sor2d.TILED_LAUNCHES > t0 and sor2d.PLAIN_CALLS == p0
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        ref = xt.invert_Poisson_mg(F, ["lat", "lon"], iParams=iP, tol=1e-6,
+                                   device="cpu")
+    finally:
+        torch.set_default_dtype(dtype)
+    ok = ~np.isnan(ref.values)
+    np.testing.assert_array_equal(np.isnan(out.values), ~ok)
+    assert (np.abs(out.values[ok] - ref.values[ok]).max()
+            <= 1e-4 * np.abs(ref.values[ok]).max())

@@ -12,7 +12,10 @@ and the 3-D ones (``invert_omega``, the QG omega equation;
 ``invert_3DOcean``, the 3-D damped ocean; ``inv_standard3D``,
 ``inv_general3D``) end to end: each builds a stencil program and a
 red-black SOR engine (or its cyclic-Chebyshev variant, ``scheme="cheby"``)
-iterates it under the reference's stopping rule.  The sweeps run on the
+iterates it under the reference's stopping rule.  Their 15 multigrid twins
+(``invert_*_mg``, module :mod:`~xinvert_tpu_torch.mg`) solve the same
+equations with V-cycles to a residual tolerance, smoothing through the
+same kernels; ``invert_MultiGrid`` runs any inverter coarse to fine.  The sweeps run on the
 NVIDIA GPU in hand-written CUDA kernels (``csrc/sor2d.cu``,
 ``csrc/sor3d.cu``, built with nvcc on first use; ``XINVERT_INPLACE=1``
 selects the in-place 2-D kernel for radius-1 stencils without cross terms);
@@ -40,4 +43,13 @@ from .models.api import (invert_Poisson, invert_RefState,       # noqa: F401
                          invert_Stommel_test, invert_StommelMunk,
                          invert_StommelArons, invert_geostrophic,
                          invert_BrethertonHaidvogel, invert_Fofonoff,
-                         invert_omega, invert_3DOcean)
+                         invert_omega, invert_3DOcean, invert_Poisson_mg,
+                         invert_omega_mg, invert_StommelMunk_mg,
+                         invert_PV2D_mg, invert_Eliassen_mg,
+                         invert_geostrophic_mg, invert_RefState_mg,
+                         invert_Fofonoff_mg, invert_BrethertonHaidvogel_mg,
+                         invert_GillMatsuno_test_mg, invert_Stommel_test_mg,
+                         invert_GillMatsuno_mg, invert_Stommel_mg,
+                         invert_StommelArons_mg, invert_3DOcean_mg,
+                         invert_MultiGrid)
+from . import mg                                                # noqa: F401

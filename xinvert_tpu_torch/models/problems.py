@@ -29,12 +29,17 @@ from ..grid import Grid
 from .params import UNDEFTMP
 
 __all__ = [
-    "build_poisson", "poisson_coeffs", "build_refstate", "build_pv2d",
-    "build_eliassen", "build_gillmatsuno", "build_gillmatsuno_test",
-    "build_stommel", "build_stommel_test", "build_stommelmunk",
-    "build_stommelarons", "build_geostrophic", "build_bretherton",
-    "build_fofonoff", "build_omega", "omega_coeffs", "build_ocean3d",
-    "ocean3d_coeffs", "BUILDERS",
+    "build_poisson", "poisson_coeffs", "build_refstate",
+    "refstate_std_coeffs", "build_pv2d", "pv2d_std_coeffs",
+    "build_eliassen", "eliassen_std_coeffs", "build_gillmatsuno",
+    "gillmatsuno_coeffs", "build_gillmatsuno_test",
+    "gillmatsuno_test_e_coeffs", "build_stommel", "stommel_coeffs",
+    "build_stommel_test", "stommel_test_e_coeffs", "build_stommelmunk",
+    "stommelmunk_coeffs", "build_stommelarons", "stommelarons_coeffs",
+    "build_geostrophic", "geostrophic_std_coeffs", "build_bretherton",
+    "bretherton_e_coeffs", "build_fofonoff", "fofonoff_e_coeffs",
+    "build_omega", "omega_coeffs", "build_ocean3d", "ocean3d_coeffs",
+    "BUILDERS",
 ]
 
 
@@ -201,21 +206,33 @@ def build_refstate(Q, Qdef, grid: Grid, mp):
                                include_cross=False)
 
 
-def build_pv2d(PV, PVdef, grid: Grid, mp):
-    """QG PV inversion in (p, y) (apps.py:1556-1579)."""
+def pv2d_std_coeffs(PV, PVdef, grid: Grid, mp):
+    """The PV2D A/B/C planes and filled forcing (apps.py:1556-1579); shared
+    by the SOR builder and the multigrid entry point."""
     A = np.broadcast_to(np.asarray(mp["f0"], np.float64) ** 2
                         / np.asarray(mp["N2"], np.float64), grid.shape)
-    return stencil.standard_2d(_like(A, PV), 0.0, _ones(PV, grid),
-                               _fill(PV, PVdef), PVdef, grid.deltas,
-                               grid.bcs, include_cross=False)
+    return _like(A, PV), 0.0, _ones(PV, grid), _fill(PV, PVdef)
+
+
+def build_pv2d(PV, PVdef, grid: Grid, mp):
+    """QG PV inversion in (p, y) (apps.py:1556-1579)."""
+    A, B, C, Fs = pv2d_std_coeffs(PV, PVdef, grid, mp)
+    return stencil.standard_2d(A, B, C, Fs, PVdef, grid.deltas, grid.bcs,
+                               include_cross=False)
+
+
+def eliassen_std_coeffs(F, Fdef, grid: Grid, mp):
+    """The Eliassen A/B/C planes and filled forcing (apps.py:1582-1606)."""
+    A, B, C = (_like(np.broadcast_to(np.asarray(mp[k], np.float64),
+                                     grid.shape), F) for k in "ABC")
+    return A, B, C, _fill(F, Fdef)
 
 
 def build_eliassen(F, Fdef, grid: Grid, mp):
     """Sawyer-Eliassen overturning with full cross terms (apps.py:1582-1606)."""
-    A, B, C = (_like(np.broadcast_to(np.asarray(mp[k], np.float64),
-                                     grid.shape), F) for k in "ABC")
-    return stencil.standard_2d(A, B, C, _fill(F, Fdef), Fdef, grid.deltas,
-                               grid.bcs, include_cross=True)
+    A, B, C, Fs = eliassen_std_coeffs(F, Fdef, grid, mp)
+    return stencil.standard_2d(A, B, C, Fs, Fdef, grid.deltas, grid.bcs,
+                               include_cross=True)
 
 
 def gillmatsuno_coeffs(Q, Qdef, grid: Grid, mp):
@@ -457,29 +474,41 @@ def _e_family_coeffs(F, grid, mp, E_param):
             None)
 
 
-def build_bretherton(h, hdef, grid: Grid, mp):
-    """Bretherton-Haidvogel flow over topography (apps.py:1934-1972)."""
+def bretherton_e_coeffs(h, hdef, grid: Grid, mp):
+    """The Bretherton-Haidvogel +E psi planes (apps.py:1934-1972); shared
+    by the SOR builder and the multigrid entry point."""
     nd = grid.ndim
     depth, lamb = _bcast(mp["D"], nd, 0), _bcast(mp["lambda"], nd, 0)
     A, D, E, f, cosG = _e_family_coeffs(h, grid, mp, lamb * depth)
     scale = f / depth if cosG is None else f / depth * cosG
-    Fs = -_fill(h, hdef) * _like(scale, h)
     zero = _zeros(h, grid)
-    return stencil.standard_2d_e(A, zero, zero, D, E, Fs, hdef, grid.deltas,
+    return A, zero, zero, D, E, -_fill(h, hdef) * _like(scale, h)
+
+
+def build_bretherton(h, hdef, grid: Grid, mp):
+    """Bretherton-Haidvogel flow over topography (apps.py:1934-1972)."""
+    A, B, C, D, E, Fs = bretherton_e_coeffs(h, hdef, grid, mp)
+    return stencil.standard_2d_e(A, B, C, D, E, Fs, hdef, grid.deltas,
                                  grid.bcs)
 
 
-def build_fofonoff(F, Fdef, grid: Grid, mp):
-    """Fofonoff inviscid free mode (apps.py:1975-2013); the forcing is made
-    from the Coriolis profile, the input F gives only its mask."""
+def fofonoff_e_coeffs(F, Fdef, grid: Grid, mp):
+    """The Fofonoff +E psi planes (apps.py:1975-2013); the forcing is made
+    from the Coriolis profile, the input F gives only its shape and mask.
+    Shared by the SOR builder and the multigrid entry point."""
     nd = grid.ndim
     c0, c1 = _bcast(mp["c0"], nd, 0), _bcast(mp["c1"], nd, 0)
     A, D, E, f, cosG = _e_family_coeffs(F, grid, mp, c0)
     Fs = _core(c1 - f if cosG is None else (c1 - f) * cosG, F, grid)
     zero = _zeros(F, grid)
-    return stencil.standard_2d_e(A, zero, zero, D, E,
-                                 torch.broadcast_to(Fs, F.shape), Fdef,
-                                 grid.deltas, grid.bcs)
+    return A, zero, zero, D, E, torch.broadcast_to(Fs, F.shape)
+
+
+def build_fofonoff(F, Fdef, grid: Grid, mp):
+    """Fofonoff inviscid free mode (apps.py:1975-2013)."""
+    A, B, C, D, E, Fs = fofonoff_e_coeffs(F, Fdef, grid, mp)
+    return stencil.standard_2d_e(A, B, C, D, E, Fs, Fdef, grid.deltas,
+                                 grid.bcs)
 
 
 def omega_coeffs(F, Fdef, grid: Grid, mp):
