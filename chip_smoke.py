@@ -11,14 +11,18 @@ seed, and runs these phases, each printing its lines:
      (nvidia-smi), torch and CUDA versions;
   1  build: nvcc compiles xinvert_tpu_torch/csrc/sor2d.cu and csrc/sor3d.cu,
      one process per source started together (first use), with the seconds
-     each took and ptxas's registers and spills of the tiled kernels;
+     each took and ptxas's registers and spills of the tiled kernels and
+     the 3-D color sweep;
   2  each kernel against its plain PyTorch version on the card: bit-equal
      (torch.equal) in float32 and float64 on several 2-D grids and 3-D
      volumes (every shape the main paths below drive): the two tiled 2-D
      kernels over n in {1, k, 20, 37} sweeps, at omega and with Chebyshev
      factors; the first version's kernels (extend, color sweep, in-place
-     color sweep) alone and over 20 sweeps; the 3-D pair; the fused |S|
-     sums against sum|S| (rtol 1e-5 / 1e-12); multigrid's point smoother
+     color sweep) alone and over 20 sweeps; the 3-D pair, with the extend
+     pre-pass folded into the red launch over n in {1, 2, 37} with factors,
+     NaN/Inf-seeded boundary rows, the folded red launch alone, and the
+     first version's three launches a sweep (sor3d_sweeps_pair); the fused
+     |S| sums against sum|S| (rtol 1e-5 / 1e-12); multigrid's point smoother
      (mg._smooth) on every level of three pyramids (bench.py's 2048x2048
      Poisson, the SODA Stommel-Munk biharmonic one, a Fofonoff-like
      standard_2d_e one), n in {1, 2, 3, 60}, one state and a batch under a
@@ -36,11 +40,21 @@ seed, and runs these phases, each printing its lines:
      launch of the first version's), most then once more under
      torch.profiler for the device's busy time against the wall time.
      Each 2-D path runs again through the first version's three launches a
-     sweep, which must give the same iters and bit-equal states.  Smaller
+     sweep, which must give the same iters and bit-equal states; so does
+     invert_3DOcean, whose folded run must launch sor3d_extend_rows 0
+     times.  Smaller
      runs of the same calls are held against a float64 CPU run
      (device="cpu", the plain version): Poisson 8x73x144, omega 37x72x144,
      ocean 20x110x240, and the three SODA calls at 2x110x240 (mxLoop cut to
-     2000), within 1e-4 of max|S|.  Then the multigrid paths, float32, no
+     2000), within 1e-4 of max|S|.  Then the direct engine
+     (scheme="direct", float32 and float64, no device argument, no kernel
+     launch): bench.py's 2048x2048 spherical Poisson unmasked, its wall
+     time and residual, its gap to float64 and to SOR at mxLoop 4000 (mean
+     removed); a float64 manufactured-field check at 2048x2048 (within
+     1e-7); the capacitance path on a 0.25-degree 720x1440 grid with a
+     2000-cell island (time split, residual, below 1e-8 in float64, gap to
+     SOR); the 2048x2048 blob mask, past MAX_HOLES, which must warn and
+     give phase 3's SOR field exactly.  Then the multigrid paths, float32, no
      device argument: solve_mg with full multigrid on bench.py's 2048x2048
      masked Poisson (must converge to 1e-6 through the tiled kernel alone),
      invert_Stommel_mg on the SODA curl (12 months), invert_StommelMunk_mg
@@ -61,7 +75,9 @@ seed, and runs these phases, each printing its lines:
      around back-to-back launches queued behind a device-side spin, so no
      host gap counts), per sweep for the tiled kernels, beside its plain
      version's, its bound (k sweeps for the tiled kernels) and a copy of
-     its bytes; where a 2048x2048 V-cycle's device time goes (smoothing
+     its bytes; the folded 3-D pair per sweep in turns against the first
+     version, and its red launch (folded and not) against the black one;
+     where a 2048x2048 V-cycle's device time goes (smoothing
      against the rest), its wall time and host gap, host syncs per cycle.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -75,6 +91,7 @@ import math
 import os
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -137,16 +154,18 @@ def log(msg):
 
 # ----------------------------------------------------------------- inputs
 
-def poisson_field(ny, nx, batch=0, seed=0):
+def poisson_field(ny, nx, batch=0, seed=0, masked=True):
     """The masked spherical Poisson forcing: sin(3 lon) cos(2 lat) + 0.1
-    noise on a lat-lon grid, NaN over a continent-shaped block."""
+    noise on a lat-lon grid, NaN over a continent-shaped block (``masked``;
+    without it, __graft_entry__._poisson_problem(masked=False)'s field)."""
     lat = np.linspace(-88.75, 88.75, ny)
     lon = np.linspace(0.0, 360.0 - 360.0 / nx, nx)
     rng = np.random.default_rng(seed)
     llat, llon = np.deg2rad(lat)[:, None], np.deg2rad(lon)[None, :]
     shape = (batch, ny, nx) if batch else (ny, nx)
     vor = np.sin(3 * llon) * np.cos(2 * llat) + 0.1 * rng.standard_normal(shape)
-    vor[..., ny // 3:ny // 2, nx // 4:nx // 2] = np.nan
+    if masked:
+        vor[..., ny // 3:ny // 2, nx // 4:nx // 2] = np.nan
     dims = (("time",) if batch else ()) + ("lat", "lon")
     coords = {"lat": lat, "lon": lon}
     if batch:
@@ -447,14 +466,16 @@ def phase1():
                      for name in _build.SOURCES)
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.3f} s "
         f"(nvcc in parallel: {nvcc}; flags {' '.join(_build.NVCC_FLAGS)})")
-    # ptxas -v on the tiled kernels: registers, spills, shared memory
-    lines = _build.BUILD_LOG.get("sor2d", "").splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "tiled" in line:
-            inst = line.split("'")[1] if "'" in line else line
-            info = " | ".join(x.split(":", 1)[-1].strip()
-                              for x in lines[i + 2:i + 4])
-            log(f"[1] ptxas {inst}: {info}")
+    # ptxas -v on the tiled kernels and the 3-D color sweep (the extend
+    # read-through's registers): registers, spills, shared memory
+    for src, key in (("sor2d", "tiled"), ("sor3d", "color_sweep")):
+        lines = _build.BUILD_LOG.get(src, "").splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and key in line:
+                inst = line.split("'")[1] if "'" in line else line
+                info = " | ".join(x.split(":", 1)[-1].strip()
+                                  for x in lines[i + 2:i + 4])
+                log(f"[1] ptxas {inst}: {info}")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -543,6 +564,8 @@ def _check_kernels(mod, name, make, errs, n=20):
                                f"on {name} {dt}")
         if p == "sor2d":
             _check_tiled(name, spec, omega, S0, rtol, errs)
+        elif spec.bcs[-2] == "extend":
+            _check_fold(name, spec, omega, S0, rtol, errs)
 
 
 def _check_tiled(name, spec, omega, S0, rtol, errs):
@@ -585,6 +608,62 @@ def _check_tiled(name, spec, omega, S0, rtol, errs):
         if not ok or not norm_err <= rtol:
             raise RuntimeError(f"{kname} disagrees with its plain version "
                                f"on {name} {dt}")
+
+
+def _check_fold(name, spec, omega, S0, rtol, errs):
+    """The 3-D pair with the extend pre-pass folded into the red launch
+    (sor3d_sweeps, the solver's executor) over n in {1, 2, 37}, at omega
+    and as cheby, against the plain version: torch.equal, finite, two
+    launches a sweep and no extend launch, the fused |S| sums of the last
+    black launch against sum|S|; NaN and Inf seeded in the boundary rows of
+    the interior levels (the pre-pass overwrites them: finite, equal); the
+    folded red launch alone; and the first version (sor3d_sweeps_pair:
+    the extend launch, then the unfolded pair) over 37 sweeps, equal."""
+    dt = S0.dtype
+    facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dt))
+            for k in range(74)]
+    ok, norm_err, err = True, 0.0, 0.0
+    seeded = S0.clone()
+    seeded[..., 1:-1, 0, :] = float("nan")
+    seeded[..., 1:-1, -1, :] = float("inf")
+    for n in (1, 2, 37):
+        for om, fac in ((omega, None), (1.0, facs[:2 * n])):
+            for S in ((S0, seeded) if n == 2 else (S0,)):
+                l0, e0 = sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES
+                out, sumabs = sor3d.sor3d_sweeps(spec, S, om, n,
+                                                 with_norm=True, fac=fac)
+                ref = sor3d.sor3d_sweeps_reference(spec, S, om, n, fac)
+                torch.cuda.synchronize()
+                ok &= (sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES) == (l0 + 2 * n,
+                                                                  e0)
+                ok &= torch.equal(out, ref) and bool(
+                    torch.isfinite(ref).all())
+                err = max(err, _max_err(out, ref))
+                tot = ref.double().abs().sum(dim=(-3, -2, -1))
+                norm_err = max(norm_err, float(
+                    ((sumabs.double() - tot).abs() / tot).max()))
+    rel = sor3d.relax_plane(spec, omega)
+    for S in (S0, seeded):
+        red = sor3d.sor3d_color_sweep(spec, S, rel, 0, facs[1], extend=True)
+        ref = sor3d.sor3d_color_sweep_reference(spec, S, rel, 0, facs[1],
+                                                extend=True)
+        ok &= torch.equal(red, ref)
+        err = max(err, _max_err(red, ref))
+    e0 = sor3d.EXTEND_LAUNCHES
+    first = sor3d.sor3d_sweeps_pair(spec, S0, 1.0, 37, fac=facs)
+    ref = sor3d.sor3d_sweeps_reference(spec, S0, 1.0, 37, facs)
+    torch.cuda.synchronize()
+    ok &= sor3d.EXTEND_LAUNCHES == e0 + 37 and torch.equal(first, ref)
+    errs["sor3d_color_sweep"] = max(errs["sor3d_color_sweep"], err)
+    log(f"[2] {name} {str(dt)[6:]}: sor3d_color_sweep with the extend "
+        f"pre-pass folded in, n in [1, 2, 37], with and without factors, "
+        f"NaN/Inf-seeded boundary rows, the red launch alone, and the first "
+        f"version's three launches a sweep: bit-equal={ok} "
+        f"max|kernel-plain|={err:.3e} sumabs rel err={norm_err:.3e} "
+        f"(tol {rtol:g})")
+    if not ok or not norm_err <= rtol:
+        raise RuntimeError(f"the folded 3-D pair disagrees with its plain "
+                           f"version on {name} {dt}")
 
 
 def _bit_equal(a, b):
@@ -705,6 +784,11 @@ def phase2(dev):
          lambda dt: random_spec((5, 7, 9), OFFSETS_3D,
                                 ("fixed", "extend", "fixed"), False, 0, False,
                                 dt, dev, seed=9)),
+        ("one interior level 2x3x9x11 (fixed, extend, periodic) shared "
+         "planes", lambda dt: random_spec((3, 9, 11), OFFSETS_3D,
+                                          ("fixed", "extend", "periodic"),
+                                          False, 2, False, dt, dev,
+                                          seed=10)),
     ]
     for name, make in cases_2d:
         _check_kernels(sor2d, name, make, errs)
@@ -877,9 +961,8 @@ def phase3():
     F_oc, N2_oc = ocean3d(30)
     call = lambda: xt.invert_3DOcean(  # noqa: E731
         F_oc, dims=DIMS_3D, mParams=dict(OCEAN_MP, N2=N2_oc), iParams=iP_oc)
-    sor["3docean"] = _drive("invert_3DOcean 30x330x720",
-                            ("sor3d_color_sweep", "sor3d_extend_rows"), call,
-                            F_oc, launches)
+    sor["3docean"] = _drive3d("invert_3DOcean 30x330x720", call, F_oc,
+                              launches)
     _busy_share("invert_3DOcean 30x330x720", call)
 
     # the 2-D families on the SODA-class curl, 12x330x720: Stommel with the
@@ -948,8 +1031,7 @@ def phase3():
     F_d, N2_d = ocean3d(20, step=3)
     iP_d = dict(iP_oc, checkEvery=32)
     mP_d = dict(OCEAN_MP, N2=N2_d)
-    oc_out = _drive("invert_3DOcean 20x110x240",
-                    ("sor3d_color_sweep", "sor3d_extend_rows"),
+    oc_out = _drive("invert_3DOcean 20x110x240", ("sor3d_color_sweep",),
                     lambda: xt.invert_3DOcean(F_d, dims=DIMS_3D,
                                               mParams=mP_d, iParams=iP_d),
                     F_d)
@@ -969,7 +1051,32 @@ def phase3():
         _against_cpu(f"{name} 2x110x240", card_out,
                      lambda p=path, i=iP_sm: paths[p](small, i,
                                                       device="cpu"))
+    sor["poisson"] = out["2048x2048"]
     return launches, sor
+
+
+def _drive3d(name, call, field, launches):
+    """A 3-D main path with an extend y boundary through the folded pair
+    alone (two launches of sor3d_color_sweep a sweep, no
+    sor3d_extend_rows launch), then the same call through the first
+    version's three launches a sweep (``sor3d_sweeps`` set to
+    ``sor3d_sweeps_pair``): the same iters, bit-equal states and fields.
+    Returns the folded run's Field."""
+    folded = (_drive(name, ("sor3d_color_sweep",), call, field, launches),
+              api.LAST_SOLVE)
+    sweeps = sor3d.LAUNCHES / max(int(folded[1].iters.max()), 1)
+    folded_sweeps = sor3d.sor3d_sweeps
+    sor3d.sor3d_sweeps = sor3d.sor3d_sweeps_pair
+    try:
+        first = (_drive(f"{name}, first version",
+                        ("sor3d_color_sweep", "sor3d_extend_rows"), call,
+                        field), api.LAST_SOLVE)
+    finally:
+        sor3d.sor3d_sweeps = folded_sweeps
+    log(f"[3] {name}: the folded pair {sweeps:.2f} launches a sweep, "
+        f"sor3d_extend_rows 0 launches")
+    _same(f"{name}, folded vs first version", folded, first)
+    return folded[0]
 
 
 def _same(name, a, b):
@@ -982,6 +1089,173 @@ def _same(name, a, b):
         f"{rb.iters.cpu().tolist()}, states and fields equal: {same}")
     if not same:
         raise RuntimeError(f"{name}: the two runs differ")
+
+
+# --------------------------------------------------------- phase 3, direct
+
+def masked_025_field(seed=5):
+    """A 0.25-degree cell-centred global lat-lon field (720x1440): the
+    Poisson recipe's sin(3 lon) cos(2 lat) + 0.1 noise, NaN over a 40x50
+    = 2000-cell island at 10-20N, 150-162.5E (within MAX_HOLES)."""
+    ny, nx = 720, 1440
+    lat = -89.875 + 0.25 * np.arange(ny)
+    lon = 0.125 + 0.25 * np.arange(nx)
+    rng = np.random.default_rng(seed)
+    llat, llon = np.deg2rad(lat)[:, None], np.deg2rad(lon)[None, :]
+    vor = (np.sin(3 * llon) * np.cos(2 * llat)
+           + 0.1 * rng.standard_normal((ny, nx)))
+    vor[400:440, 600:650] = np.nan
+    return xt.Field(vor, ("lat", "lon"), {"lat": lat, "lon": lon})
+
+
+def _direct(name, field, iP, dtype):
+    """invert_Poisson with scheme='direct' in ``dtype`` and no device
+    argument, with every count set to 0 just before it and read just
+    after: it must launch no kernel and call no plain version (the direct
+    engine is torch ops), and leave its answer on the card, NaN exactly on
+    the mask.  Returns (Field, SolveResult, wall seconds)."""
+    torch.set_default_dtype(dtype)
+    try:
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = xt.invert_Poisson(field, dims=["lat", "lon"], iParams=iP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.set_default_dtype(torch.float32)
+    res = api.LAST_SOLVE
+    ran = {k for k, (mod, attr) in COUNTERS.items() if getattr(mod, attr)}
+    plain = sor2d.PLAIN_CALLS + sor3d.PLAIN_CALLS
+    if ran or plain or not res.S.is_cuda or int(res.iters.max()) != 1:
+        raise RuntimeError(f"{name}: the direct path launched {sorted(ran)}"
+                           f", made {plain} plain calls, or left the card")
+    _check_field(out, field, name)
+    return out, res, wall
+
+
+def _gap(a, b):
+    """max|a - b| / max|b| over the cells finite in both, each with its
+    mean removed (the singular problems' gauge constant)."""
+    ok = np.isfinite(a) & np.isfinite(b)
+    a, b = a[ok] - a[ok].mean(), b[ok] - b[ok].mean()
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def _manufactured_2048(dev):
+    """solve_direct on the card in float64 at 2048x2048 (the unmasked
+    spherical Poisson, extend/periodic) against a manufactured field: the
+    forcing made from a smooth field St by the operator itself, so St
+    solves it up to the gauge constant."""
+    from xinvert_tpu_torch import solver
+    from xinvert_tpu_torch.ops import direct
+    f = poisson_field(2048, 2048, masked=False)
+    grid = Grid.make(("lat", "lon"), (f.coords["lat"], f.coords["lon"]),
+                     "lat-lon", bcs=("extend", "periodic"))
+    spec = problems.build_poisson(
+        torch.zeros((2048, 2048), dtype=torch.float64, device=dev),
+        torch.ones((2048, 2048), dtype=torch.bool, device=dev), grid,
+        default_mParams)
+    y = torch.linspace(-1.0, 1.0, 2048, dtype=torch.float64,
+                       device=dev)[:, None]
+    x = (torch.arange(2048, dtype=torch.float64, device=dev)
+         * (2 * np.pi / 2048))[None, :]
+    St = torch.cos(2 * y) * torch.sin(3 * x) + 0.5 * torch.cos(y) * torch.cos(
+        5 * x)
+    St[0], St[-1] = St[1].clone(), St[-2].clone()
+    g = -(solver._neighbor_sum(dataclasses.replace(
+        spec, g=torch.zeros_like(spec.g)), St) + spec.w0 * St)
+    spec = dataclasses.replace(spec, g=torch.where(spec.active, g, 0.0))
+    t0 = time.perf_counter()
+    S = direct.solve_direct(spec, torch.zeros_like(St))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    err = S - St
+    err = float((err - err[1:-1].mean()).abs().max() / St.abs().max())
+    log(f"[3] direct solve_direct 2048x2048 float64 on a manufactured field "
+        f"(extend, periodic, the gauge): max|S - St|/max|St| = {err:.3e} "
+        f"with the mean removed (limit 1e-7) in {wall:.3f} s")
+    if not err <= 1e-7:
+        raise RuntimeError("solve_direct missed the manufactured field")
+
+
+def phase3_direct(sor, dev):
+    """The direct engine (scheme='direct') in float32 and float64 with no
+    device argument: bench.py's 2048x2048 spherical Poisson unmasked
+    (__graft_entry__._poisson_problem(masked=False)), beside SOR at mxLoop
+    4000; a manufactured-field check at that size; the capacitance path on
+    a 0.25-degree 720x1440 grid with a 2000-cell island, its time split,
+    beside SOR; and the blob mask at 2048x2048, which it declines: a
+    warning and exactly phase 3's scheme='sor' field."""
+    from xinvert_tpu_torch.ops import direct
+    base = {"BCs": ["extend", "periodic"], "undef": np.nan,
+            "printInfo": False}
+    iP = dict(base, scheme="direct")
+    iP_sor = dict(base, mxLoop=4000, tolerance=1e-8)
+    big = poisson_field(2048, 2048, masked=False)
+    fields = {}
+    for dt in (torch.float32, torch.float64):
+        name = f"direct invert_Poisson 2048x2048 unmasked {str(dt)[6:]}"
+        out, res, wall = _direct(name, big, iP, dt)
+        wall2 = _direct(name, big, iP, dt)[2]
+        fields[dt] = out.values
+        log(f"[3] {name}: wall {wall:.3f} s (a second call {wall2:.3f} s), "
+            f"relative residual {float(res.rel_change):.4e} (the "
+            f"inconsistent forcing's projected-out part), iters 1, no "
+            f"kernel launch")
+    sor_big = _drive("invert_Poisson 2048x2048 unmasked (SOR, beside "
+                     "direct)", TILED[False], lambda: xt.invert_Poisson(
+                         big, dims=["lat", "lon"], iParams=iP_sor), big)
+    ref = fields[torch.float64]
+    log(f"[3] direct 2048x2048 unmasked, mean removed: float32 vs float64 "
+        f"{_gap(fields[torch.float32], ref):.4e}; SOR float32 (mxLoop 4000, "
+        f"iters {api.LAST_SOLVE.iters.tolist()}) vs direct float64 "
+        f"{_gap(sor_big.values, ref):.4e} (of max|S|)")
+    _manufactured_2048(dev)
+
+    isl = masked_025_field()
+    land = np.isnan(isl.values)
+    holes = int(land.sum())
+    masked = {}
+    for dt in (torch.float32, torch.float64):
+        name = (f"direct invert_Poisson 720x1440 0.25-degree, a 2000-cell "
+                f"island, {str(dt)[6:]}")
+        out, res, wall = _direct(name, isl, iP, dt)
+        split = dict(direct.LAST_MASKED_SECONDS)
+        masked[dt] = (out.values, float(res.rel_change))
+        log(f"[3] {name}: capacitance path, wall {wall:.3f} s: the unmasked "
+            f"and unit solves {split['unit']:.3f} s ({-(-holes // 256)} "
+            f"chunks of up to 256), the dense solve ({holes} holes, float64 "
+            f"on the host) {split['dense']:.3f} s, the re-solve and pin "
+            f"{wall - split['unit'] - split['dense']:.3f} s; relative "
+            f"residual {float(res.rel_change):.4e}")
+    sor_isl = _drive("invert_Poisson 720x1440 island (SOR, beside direct)",
+                     TILED[False], lambda: xt.invert_Poisson(
+                         isl, dims=["lat", "lon"], iParams=iP_sor), isl)
+    ref = masked[torch.float64][0]
+    log(f"[3] direct 720x1440 island vs float64 direct, over the "
+        f"{int((~land).sum())} ocean cells (no gauge: the island pins it): "
+        f"float32 {np.abs(masked[torch.float32][0] - ref)[~land].max() / np.abs(ref[~land]).max():.4e}, "
+        f"SOR float32 (mxLoop 4000, iters {api.LAST_SOLVE.iters.tolist()}) "
+        f"{np.abs(sor_isl.values - ref)[~land].max() / np.abs(ref[~land]).max():.4e}")
+    if not masked[torch.float64][1] <= 1e-8:
+        raise RuntimeError("the float64 capacitance solve's relative "
+                           "residual is above 1e-8")
+
+    blob = poisson_field(2048, 2048)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fb = _drive("invert_Poisson 2048x2048 blob mask, scheme='direct' "
+                    "(declined: SOR)", TILED[False], lambda: xt.invert_Poisson(
+                        blob, dims=["lat", "lon"],
+                        iParams=dict(iP_sor, scheme="direct")), blob)
+    warned = any("falling back" in str(w.message) for w in caught)
+    log(f"[3] the blob mask's {int(np.isnan(blob.values)[1:-1].sum())} holes "
+        f"(past MAX_HOLES {direct.MAX_HOLES}): warned {warned}")
+    if not warned:
+        raise RuntimeError("the declined direct solve did not warn")
+    _same("invert_Poisson 2048x2048, scheme='direct' fallback vs "
+          "scheme='sor'", (fb, api.LAST_SOLVE), sor["poisson"])
 
 
 # ------------------------------------------------------ phase 3, multigrid
@@ -1497,7 +1771,52 @@ def phase4(card, dev):
     S = xt.solve_fixed(spec, S0, omega, 50)
     per.update(_per_launch(card, "30x330x720",
                            _launch_calls(sor3d, spec, omega, S), dev))
+    per["sor3d_color_sweep"] = _fold_timing(card, spec, omega, S, dev,
+                                            per["sor3d_color_sweep"])
     return per
+
+
+def _fold_timing(card, spec, omega, S, dev, per_color, n=200):
+    """The 3-D pair with the extend pre-pass folded in against the first
+    version (the extend launch and the unfolded pair): ms per sweep, n
+    sweeps per call, median of 5 chained calls, in turns (first, folded,
+    folded, first); and the device time per launch of the folded red
+    launch, the unfolded red and the black one, each 50 bare launches
+    behind a device spin.  Returns the color sweep's entry of the kernels
+    line with its time per launch on the main path: the mean of the folded
+    red and the black launch."""
+    S0 = torch.zeros(S.shape, dtype=S.dtype, device=dev)
+    runs = (("first version", sor3d.sor3d_sweeps_pair),
+            ("folded", sor3d.sor3d_sweeps))
+    times = {}
+    for label, fn in (runs[0], runs[1], runs[1], runs[0]):
+        times.setdefault(label, []).append(_chain_ms(
+            lambda S_, fn=fn: fn(spec, S_, omega, n), S0) / n)
+    fam = sor3d._FAMILY
+    rel = sor3d.relax_plane(spec, omega)
+    lay = fam.layout(spec, S, rel)
+    A = S.reshape((lay["B"],) + lay["core"]).clone()
+    A2 = torch.empty_like(A)
+    red_f = _device_ms(lambda: fam.launch_color_sweep(
+        spec, lay, rel, A, A2, 0, extend=True), 50)
+    red = _device_ms(lambda: fam.launch_color_sweep(spec, lay, rel, A, A2,
+                                                    0), 50)
+    black = _device_ms(lambda: fam.launch_color_sweep(spec, lay, rel, A, A2,
+                                                      1), 50)
+    ext = _device_ms(lambda: fam.launch_extend(spec, lay, A), 50)
+    pts = int(np.prod(S.shape))
+    log(f"[4] {card} | 3-D pair 30x330x720 float32, {n} sweeps per call, "
+        f"median of 5 chained calls, in turns: " + "; ".join(
+            f"{k} {v[0]:.5f} / {v[1]:.5f} ms per sweep = "
+            f"{pts / (min(v) * 1e-3):.4e} point-sweeps/s"
+            for k, v in times.items()))
+    log(f"[4] {card} | 3-D pair 30x330x720 float32, device time per launch "
+        f"(50 launches behind a spin): red with the extend folded in "
+        f"{red_f:.5f} ms, red unfolded {red:.5f} ms (the fold adds "
+        f"{red_f - red:+.5f} ms, {100 * (red_f / red - 1):+.2f}%), black "
+        f"{black:.5f} ms, the extend launch {ext:.5f} ms; a sweep: folded "
+        f"{red_f + black:.5f} ms, first version {ext + red + black:.5f} ms")
+    return ((red_f + black) / 2,) + tuple(per_color[1:])
 
 
 def phase4_mg(card, dev, syncs):
@@ -1657,6 +1976,8 @@ def main():
     stamp("phase 2")
     launches, sor = phase3()
     stamp("phase 3 (SOR paths)")
+    phase3_direct(sor, dev)
+    stamp("phase 3 (direct)")
     syncs = phase3_mg(launches, sor)
     stamp("phase 3 (multigrid paths)")
     torch.set_default_dtype(torch.float32)

@@ -1,9 +1,10 @@
 # -*- coding: utf-8 -*-
 """The CUDA kernels of the PyTorch port (xinvert_tpu_torch/csrc/sor2d.cu and
 csrc/sor3d.cu) on the card: bit-equal to their plain PyTorch versions (the
-2-D tiled kernels, the first version's pair and in-place kernel, and the
+2-D tiled kernels, the first version's pair and in-place kernel, the 3-D
+pair with the extend pre-pass folded in and its first version, and the
 Chebyshev factor argument included), counted, and refusing what they do not
-take.  Every test here needs an NVIDIA GPU (marker
+take; the direct engine on the card against the CPU.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -325,6 +326,10 @@ def _case3d(case, dtype, device):
 @pytest.mark.parametrize("case", ["omega_batch", "ocean", "ocean_fixed_x",
                                   "per_slice", "many_slices", "odd"])
 def test_kernel3d_bit_equal_to_plain(cuda, dtype, case):
+    """The folded sweeps (two launches a sweep, no extend launch) and the
+    first version's (sor3d_sweeps_pair: the extend launch too) bit-equal
+    to the plain version; each kernel alone, the red color sweep with the
+    extend flag too."""
     spec, S0 = _case3d(case, dtype, cuda)
     before = S0.clone()
     extend = spec.bcs[-2] == "extend"
@@ -333,12 +338,17 @@ def test_kernel3d_bit_equal_to_plain(cuda, dtype, case):
     out_p = sor3d.sor3d_sweeps_reference(spec, S0, 1.3, 15)
     torch.cuda.synchronize()
     assert sor3d.LAUNCHES == l0 + 30
-    assert sor3d.EXTEND_LAUNCHES == e0 + (15 if extend else 0)
+    assert sor3d.EXTEND_LAUNCHES == e0
     assert torch.equal(out_k, out_p)
     assert torch.equal(S0, before)
     ref = out_p.double().abs().sum(dim=(-3, -2, -1))
     rtol = 1e-5 if dtype == torch.float32 else 1e-12
     torch.testing.assert_close(sumabs.double(), ref, rtol=rtol, atol=0)
+    out_y = sor3d.sor3d_sweeps_pair(spec, S0, 1.3, 15)
+    torch.cuda.synchronize()
+    assert sor3d.LAUNCHES == l0 + 60
+    assert sor3d.EXTEND_LAUNCHES == e0 + (15 if extend else 0)
+    assert torch.equal(out_y, out_p)
     # each kernel alone
     ext_k = sor3d.sor3d_extend(spec, S0)
     assert torch.equal(ext_k, sor3d.sor3d_extend_reference(spec, S0))
@@ -347,6 +357,71 @@ def test_kernel3d_bit_equal_to_plain(cuda, dtype, case):
         assert torch.equal(
             sor3d.sor3d_color_sweep(spec, ext_k, rel, color),
             sor3d.sor3d_color_sweep_reference(spec, ext_k, rel, color))
+        assert torch.equal(
+            sor3d.sor3d_color_sweep(spec, S0, rel, color, extend=True),
+            sor3d.sor3d_color_sweep_reference(spec, S0, rel, color,
+                                              extend=True))
+
+
+def _nan_equal(a, b):
+    """torch.equal, NaN matching NaN in place."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a),
+                                               torch.where(nb, 0.0, b))
+
+
+def _shared3d(dtype, device, shape, batch, bcs, seed=7):
+    """Random 6-offset planes shared by a batch (batch stride 0), a
+    batched forcing."""
+    spec, _ = _random3d(dtype, device, shape, 0, bcs, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    g = torch.as_tensor(rng.normal(0, 1, (batch,) + shape), dtype=dtype,
+                        device=device) * spec.active
+    spec = dataclasses.replace(spec, g=g.contiguous())
+    return spec, torch.as_tensor(rng.normal(0, 1e-3, (batch,) + shape),
+                                 dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bcs", [("fixed", "extend", "periodic"),
+                                 ("fixed", "extend", "fixed")])
+@pytest.mark.parametrize("nz,batch,shared", [(3, 0, False), (3, 2, True),
+                                             (6, 2, False), (6, 3, True)])
+def test_folded_pair_bit_equal_nan_and_factors(cuda, dtype, bcs, nz, batch,
+                                               shared):
+    """The folded pair at nz 3 (one interior level) and 6, per-slice and
+    shared (batch stride 0) planes, n in {1, 2, 37} at omega and with
+    Chebyshev factors, the |S| partials, and NaN/Inf seeded in the
+    boundary rows of the interior levels: torch.equal to the plain
+    version, with no extend launch."""
+    shape = (nz, 11, 13)
+    if shared:
+        spec, S0 = _shared3d(dtype, cuda, shape, batch, bcs)
+    else:
+        spec, S0 = _random3d(dtype, cuda, shape, batch, bcs, seed=8 + nz)
+    S0[..., 1:-1, 0, :] = float("nan")
+    S0[..., 1:-1, -1, :] = float("inf")
+    for n in (1, 2, 37):
+        facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dtype))
+                for k in range(2 * n)]
+        for om, fac in ((1.3, None), (1.0, facs)):
+            e0 = sor3d.EXTEND_LAUNCHES
+            out, sumabs = sor3d.sor3d_sweeps(spec, S0, om, n, with_norm=True,
+                                             fac=fac)
+            ref = sor3d.sor3d_sweeps_reference(spec, S0, om, n, fac)
+            torch.cuda.synchronize()
+            assert sor3d.EXTEND_LAUNCHES == e0
+            assert bool(torch.isfinite(ref).all())
+            assert torch.equal(out, ref)
+            tot = ref.double().abs().sum(dim=(-3, -2, -1))
+            rtol = 1e-5 if dtype == torch.float32 else 1e-12
+            torch.testing.assert_close(sumabs.double(), tot, rtol=rtol,
+                                       atol=0)
+    # NaN on the z-edge levels' rows too: it spreads alike
+    S1 = S0.clone()
+    S1[..., :, 0, :] = float("nan")
+    out = sor3d.sor3d_sweeps(spec, S1, 1.3, 3)
+    assert _nan_equal(out, sor3d.sor3d_sweeps_reference(spec, S1, 1.3, 3))
 
 
 def test_solve3d_on_card_matches_cpu(cuda):
@@ -386,6 +461,85 @@ def test_solve3d_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(w_k.values[ocean], w_c.values[ocean],
                                rtol=1e-10, atol=1e-12 * np.abs(
                                    w_c.values[ocean]).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_folded_pair_on_the_entry_point(cuda, dtype):
+    """invert_3DOcean on the card sweeps through the folded pair alone (two
+    launches a sweep, no extend launch) and gives the iters and the state
+    of the first version's three launches a sweep."""
+    from xinvert_tpu_torch.models import api
+    rng = np.random.default_rng(9)
+    nz, ny, nx = 6, 20, 30
+    lev = np.linspace(0.0, 750.0, nz)
+    F = rng.normal(0.0, 1e-11, (nz, ny, nx))
+    F[:, 8:12, 10:16] = np.nan
+    f = xt.Field(F, ("LEV", "lat", "lon"), {
+        "LEV": lev, "lat": np.linspace(-60.0, 60.0, ny),
+        "lon": np.linspace(0.0, 348.0, nx)})
+    kw = dict(dims=["LEV", "lat", "lon"], mParams={"N2": 1e-5},
+              iParams={"BCs": ["fixed", "extend", "periodic"],
+                       "tolerance": 1e-8, "mxLoop": 200, "checkEvery": 1,
+                       "printInfo": False})
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    folded = sor3d.sor3d_sweeps
+    try:
+        l0, e0 = sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES
+        xt.invert_3DOcean(f, **kw)
+        r_f = api.LAST_SOLVE
+        assert sor3d.EXTEND_LAUNCHES == e0
+        assert sor3d.LAUNCHES - l0 == 2 * int(r_f.iters)
+        sor3d.sor3d_sweeps = sor3d.sor3d_sweeps_pair
+        xt.invert_3DOcean(f, **kw)
+        r_y = api.LAST_SOLVE
+        assert sor3d.EXTEND_LAUNCHES - e0 == int(r_y.iters)
+    finally:
+        sor3d.sor3d_sweeps = folded
+        torch.set_default_dtype(default)
+    assert torch.equal(r_f.iters, r_y.iters)
+    assert torch.equal(r_f.S, r_y.S)
+
+
+@pytest.mark.parametrize("case", ["extend_periodic", "fixed_periodic",
+                                  "symmetric", "masked"])
+def test_direct_on_card_matches_cpu(cuda, case):
+    """solve(scheme='direct') and the masked capacitance path on the card
+    against the same call on the CPU, float64: the same engine in torch
+    ops on two devices (cuFFT and the CPU FFT round differently), within
+    1e-10 of max|S|."""
+    from xinvert_tpu_torch.ops import direct
+    ny, nx = 33, 64
+    rng = np.random.default_rng(10)
+    F = rng.normal(0.0, 1e-5, (2, ny, nx))
+    bcs = {"extend_periodic": ("extend", "periodic"),
+           "fixed_periodic": ("fixed", "periodic"),
+           "symmetric": ("extend", "fixed"),
+           "masked": ("extend", "periodic")}[case]
+    holes = np.zeros((ny, nx), bool)
+    if case == "masked":
+        holes[10:14, 20:30] = True
+        holes[20, 5] = True
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        grid = Grid.make(("lat", "lon"), (np.linspace(-80, 80, ny),
+                                          np.linspace(0, 354.375, nx)),
+                         "lat-lon", bcs=bcs)
+        spec = problems.build_poisson(
+            torch.as_tensor(F, device=dev),
+            torch.ones((ny, nx), dtype=torch.bool, device=dev), grid,
+            default_mParams)
+        S0 = torch.zeros((2, ny, nx), dtype=torch.float64, device=dev)
+        if case == "masked":
+            outs.append(direct.solve_direct_masked(spec, holes, S0))
+        else:
+            res = xt.solve(spec, S0, scheme="direct")
+            assert res.iters.tolist() == [1, 1]
+            outs.append(res.S)
+    card, cpu = outs
+    assert card.is_cuda
+    scale = float(cpu.abs().max())
+    assert float((card.cpu() - cpu).abs().max()) <= 1e-10 * scale
 
 
 def test_kernels3d_refuse_what_they_do_not_take(cuda):

@@ -157,7 +157,7 @@ def test_inv_standard2D_matches_jax(f64_cpu, with_icbc):
 
 @pytest.mark.parametrize("iParams", [
     {"scheme": "lexico", "checkEvery": 1},
-    {"scheme": "direct"},
+    {"scheme": "direct", "tolType": "refined"},
     {"scheme": "lexico"},
     {"tolType": "refined"},
     {"streamChunk": 2},

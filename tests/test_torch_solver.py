@@ -145,9 +145,11 @@ def test_solve_prunes_zero_planes_like_jax():
 def test_solve_rejects_unported_and_mismatched():
     ts = _port(_poisson(_forcing()))
     S0 = torch.zeros(37, 72, dtype=torch.float64)
-    for scheme in ("direct", "lexico"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            xt.solve(ts, S0, scheme=scheme)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        xt.solve(ts, S0, scheme="lexico")
+    # direct is ported: a spec it does not take raises as in the JAX package
+    with pytest.raises(ValueError, match="does not qualify"):
+        xt.solve(ts, S0, scheme="direct")
     with pytest.raises(ValueError):
         xt.solve(ts, S0, scheme="nope")
     with pytest.raises(ValueError):

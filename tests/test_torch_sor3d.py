@@ -13,8 +13,13 @@ run in Pallas interpret mode on identical planes (StencilSpec.from_arrays):
   does), and its checked-solve norm (make_window3d_stepper(...).step_full).
 
 float64; S within atol 1e-12 * max|S_jax| (XLA on the CPU may contract an
-FMA, so exact equality is not asked for), sumabs at rtol 1e-12.  The CUDA
-kernels themselves run only on the card (tests/test_torch_cuda.py)."""
+FMA, so exact equality is not asked for), sumabs at rtol 1e-12.  The red
+launch with the extend pre-pass folded in is replayed by index on the CPU
+(sor3d_color_sweep_emulated) and held torch.equal to the plain pre-pass
+followed by the plain red half-sweep.  The CUDA kernels themselves run
+only on the card (tests/test_torch_cuda.py)."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -223,3 +228,71 @@ def test_wrapper_raises_off_cpu_without_cuda():
         sor3d.sor3d_extend(ts, meta)
     with pytest.raises(ValueError, match="meta"):
         tsolver.solve_fixed(ts, meta, 1.3, 2)
+
+
+# -------------------------------------- the extend pre-pass folded in (CPU)
+
+
+def _nan_equal(a, b):
+    """torch.equal, NaN matching NaN in place."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(torch.where(na, 0.0, a),
+                                               torch.where(nb, 0.0, b))
+
+
+@pytest.mark.parametrize("bcs", [("fixed", "extend", "periodic"),
+                                 ("fixed", "extend", "fixed")])
+@pytest.mark.parametrize("nz", [3, 6])
+@pytest.mark.parametrize("batch,per_slice", [(0, False), (2, False),
+                                             (2, True)])
+def test_folded_red_replay_equals_extend_then_red(bcs, nz, batch, per_slice):
+    """The folded red launch's reads replayed by index
+    (sor3d_color_sweep_emulated: each value through extend_source after
+    the wrap, the kernel's arithmetic in its order) against the plain
+    extend pre-pass followed by the plain red half-sweep: torch.equal, at
+    omega and with a Chebyshev factor; with the boundary rows NaN-seeded
+    on interior levels (the pre-pass overwrites them, so the result is
+    finite) and on every level (NaN spreads alike from the z edges)."""
+    js, S0 = _standard((nz, 7, 9), bcs, batch=batch, per_slice=per_slice,
+                       seed=10 + nz)
+    ts = _port(js)
+    S0 = torch.as_tensor(S0)
+    rel = sor3d.relax_plane(ts, 1.3)
+    for levels, finite in ((slice(1, -1), True), (slice(None), False)):
+        S = S0.clone()
+        S[..., levels, 0, :] = float("nan")
+        S[..., levels, -1, :] = float("inf")
+        for fac in (1.0, 1.37):
+            replay = sor3d.sor3d_color_sweep_emulated(ts, S, rel, 0, fac)
+            plain = sor3d.sor3d_color_sweep_reference(
+                ts, sor3d.sor3d_extend_reference(ts, S), rel, 0, fac)
+            assert bool(torch.isfinite(plain).all()) == finite
+            assert _nan_equal(replay, plain)
+            # the wrapper's plain path with the flag is the same function
+            assert _nan_equal(sor3d.sor3d_color_sweep(ts, S, rel, 0, fac,
+                                                      extend=True), plain)
+
+
+def test_extend_source_is_the_prepass_map():
+    """extend_source moves exactly the cells the pre-pass writes: rows 0
+    and ny-1 of interior levels (their end columns clamped when x is not
+    periodic), and no cell when y is not 'extend'."""
+    core = (4, 5, 6)
+    ts, _ = _cpu_case()
+    S = torch.arange(float(np.prod(core))).reshape(core)
+    for bcs in (("fixed", "extend", "periodic"), ("fixed", "extend", "fixed"),
+                ("fixed", "fixed", "periodic")):
+        spec = dataclasses.replace(ts, bcs=bcs)
+        src = sor3d.extend_source(spec, core)
+        assert torch.equal(S.flatten()[src], tsolver._apply_extend(spec, S))
+
+
+def test_sweeps_pair_is_the_unfolded_yardstick_on_cpu():
+    """sor3d_sweeps_pair (three launches a sweep on the card) and the
+    folded sor3d_sweeps share one plain version on the CPU."""
+    ts, S0 = _cpu_case()
+    fac = [1.0 + 0.1 * k for k in range(6)]
+    out = sor3d.sor3d_sweeps_pair(ts, S0, 1.0, 3, fac=fac)
+    assert torch.equal(out, sor3d.sor3d_sweeps(ts, S0, 1.0, 3, fac=fac))
+    assert torch.equal(out, sor3d.sor3d_sweeps_reference(ts, S0, 1.0, 3,
+                                                         fac))

@@ -5,7 +5,9 @@
 dense system, float64 on the CPU: ``tridiag_solve``, ``trace``,
 ``traceCyclic`` and the log-depth ``tridiag_solve_pscan`` /
 ``tridiag_cyclic_pscan`` on diagonally dominant random lines, N in
-{5, 33, 128}, batched bands with a stacked rhs.  Tolerance: rtol 1e-10
+{5, 33, 128}, batched bands with a stacked rhs; ``tridiag_solve_pscan``
+on complex bands too (complex128 at rtol 1e-10, complex64 at 1e-4 of its
+largest value, for the direct engine).  Tolerance: rtol 1e-10
 (the doubling scans combine in another order than JAX's associative scan,
 so the two agree to roundoff, not bit for bit)."""
 import numpy as np
@@ -107,3 +109,25 @@ def test_cyclic_pscan(n):
                                           (a, b, c, d2, a0, cn)))
     for m in range(2):
         _close(got2[m], jtri.tridiag_cyclic_pscan(a, b, c, d2[m], a0, cn))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("dtype,rtol", [(np.complex128, RTOL),
+                                        (np.complex64, 1e-4)])
+def test_pscan_complex_bands(n, dtype, rtol):
+    """Complex bands and rhs (the direct engine's one system per zonal
+    mode), batched over 4 lines: against the JAX package's solve and the
+    dense one, in the dtype given (complex64 at its own precision)."""
+    rng = np.random.default_rng(6 + n)
+    a, b, c, d = (x + 1j * y for x, y in zip(_lines(n, (4,), seed=7),
+                                             _lines(n, (4,), seed=8)))
+    a, b, c, d = (x.astype(dtype) for x in (a, b, c, d))
+    b = b + (4.0 + rng.uniform(0.0, 1.0, b.shape)).astype(dtype)
+    got = ttri.tridiag_solve_pscan(*map(torch.tensor, (a, b, c, d)))
+    assert got.dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+    want = np.stack([np.linalg.solve(_dense(a[i], b[i], c[i]).astype(
+        np.complex128), d[i].astype(np.complex128)) for i in range(4)])
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=rtol * scale)
+    ref = np.asarray(jtri.tridiag_solve_pscan(a, b, c, d))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=rtol * scale)

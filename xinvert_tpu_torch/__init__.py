@@ -15,7 +15,11 @@ red-black SOR engine (or its cyclic-Chebyshev variant, ``scheme="cheby"``)
 iterates it under the reference's stopping rule.  Their 15 multigrid twins
 (``invert_*_mg``, module :mod:`~xinvert_tpu_torch.mg`) solve the same
 equations with V-cycles to a residual tolerance, smoothing through the
-same kernels; ``invert_MultiGrid`` runs any inverter coarse to fine.  The sweeps run on the
+same kernels; ``invert_MultiGrid`` runs any inverter coarse to fine.
+``scheme="direct"`` (module :mod:`~xinvert_tpu_torch.ops.direct`) solves
+the x-invariant problems exactly in one shot: an rFFT along x (or a
+symmetric eigenbasis), tridiagonal solves in y, and a capacitance-matrix
+correction for small masks.  The sweeps run on the
 NVIDIA GPU in hand-written CUDA kernels (``csrc/sor2d.cu``,
 ``csrc/sor3d.cu``, built with nvcc on first use; ``XINVERT_INPLACE=1``
 selects the in-place 2-D kernel for radius-1 stencils without cross terms);
@@ -53,3 +57,9 @@ from .models.api import (invert_Poisson, invert_RefState,       # noqa: F401
                          invert_StommelArons_mg, invert_3DOcean_mg,
                          invert_MultiGrid)
 from . import mg                                                # noqa: F401
+from .mg import (                                               # noqa: F401
+    build_pyramid_standard2d, build_pyramid_standard3d, build_pyramid_bih2d,
+    build_pyramid_general2d, build_pyramid_general3d, solve_mg,
+)
+from .ops.tridiag import trace, traceCyclic, tridiag_solve      # noqa: F401
+from .ops.direct import solve_direct, direct_applicable         # noqa: F401

@@ -67,8 +67,12 @@ def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None,
 
     S0 = _init_state(vals, Fdef, icbc, grid, ft)
     omega = iP["optArg"] if iP["optArg"] is not None else grid.omega_opt
+    # iParams['scheme'] reaches the engine here (the JAX package's core
+    # drops it and always runs SOR): 'direct' solves a qualifying spec in
+    # one shot and raises ValueError for the rest
     res = solve(spec, torch.as_tensor(S0, device=device), omega=omega,
-                tol=iP["tolerance"], max_iters=iP["mxLoop"])
+                tol=iP["tolerance"], max_iters=iP["mxLoop"],
+                scheme=iP.get("scheme", "sor"))
     S = res.S.cpu().numpy()
     if icbc is None:
         S = np.where(Fdef, S, iP["undef"])

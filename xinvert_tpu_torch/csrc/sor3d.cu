@@ -13,12 +13,29 @@
 // here: B5's sharded-block variants (pad_row, pad_col, parity_off,
 // clamp_w/e, pad_lo), which serve the multi-device executor.
 //
-// One full sweep is three launches on the caller's stream:
-//   sor3d_extend_rows   (when the y boundary is 'extend'), in place on A;
-//   sor3d_color_sweep   color 0 (red),   A -> B;
+// One full sweep is two launches on the caller's stream:
+//   sor3d_color_sweep   color 0 (red),   A -> B, with the extend flag when
+//                       the y boundary is 'extend';
 //   sor3d_color_sweep   color 1 (black), B -> A.
 // A half-sweep reads only the pre-half-sweep state (ping-pong buffers), as
 // the reference sweep computes every term from the old state.
+//
+// The extend pre-pass is folded into the red launch, as B4 runs
+// _extend_rows3d inside its sweep loop and B5 its extend_mode pre-pass
+// inside the kernel: with the flag set, every state value the half-sweep
+// reads (its own cell's and each neighbour's, after the wrap) goes through
+// the pre-pass's map.  On interior levels 1..nz-2 row 0 reads row 1 and row
+// ny-1 reads row ny-2, and with non-periodic x those rows' two end columns
+// read the nearest interior column; z-edge levels read as they are.  The
+// launch writes every cell, the extended rows included, so the black
+// half-sweep and the next sweep see the pre-pass's values there.  It
+// computes the plain version's extend-then-half-sweep from the same values
+// in the same order, so it stays bit-equal.  The first version's extra
+// launch, sor3d_extend_rows (in place on A before the unflagged red
+// launch), stays as the yardstick.  The map costs the few rows that need
+// it: a flagged launch takes it only for rows within the offsets' y reach
+// of rows 0 and ny-1, in a loop of their own, and the flag is a template
+// argument, so unflagged launches carry no trace of it.
 //
 // Arithmetic, per cell and in this order, for every cell (not only cells of
 // the active color, so NaN/Inf propagate through 0*(...) exactly as in the
@@ -36,10 +53,13 @@
 //
 // Bound: HBM bytes.  A half-sweep reads K+4 volumes (S, w_k, w0, g, rel) and
 // writes one, about 2*(K+5)*nz*ny*nx*itemsize bytes per full sweep, at a few
-// flops per byte.  This first version does nothing about that bound: no
+// flops per byte.  The kernel does little about that bound: no
 // shared-memory tiling, no temporal blocking, no FMA contraction.  x is the
 // fastest thread index, so every plane is read coalesced; the z and y
 // neighbours of a block hit the L2 cache that the neighbouring blocks fill.
+// __launch_bounds__(256, 8) keeps 8 blocks (2048 threads) on each SM, at 32
+// registers, which the flagged launch reaches only by spilling a few bytes
+// (measured faster than 40 registers at 6 blocks).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,6 +72,8 @@
 
 struct Sor3dArgs {
   int B, nz, ny, nx, K, color;
+  int periodic_x;          // x wraps (the extend map's corner clamps)
+  int ry;                  // the offsets' reach in y, max |dy|
   int dz[SOR3D_MAX_K];
   int dy[SOR3D_MAX_K];
   int dx[SOR3D_MAX_K];
@@ -64,6 +86,17 @@ __device__ __forceinline__ int wrap(int v, int n) {
   return v < 0 ? v + n : (v >= n ? v - n : v);
 }
 
+// The extend pre-pass's map (sor3d_extend_rows_kernel below) as a read:
+// (l, j, i) -> the cell whose value the pre-pass leaves at (l, j, i).
+__device__ __forceinline__ void extend_src(int l, int& j, int& i,
+                                           const Sor3dArgs& a) {
+  const int jc = min(max(j, 1), a.ny - 2);
+  const bool moved = jc != j && (unsigned)(l - 1) < (unsigned)(a.nz - 2);
+  const int ic = min(max(i, 1), a.nx - 2);
+  j = moved ? jc : j;
+  i = (moved && !a.periodic_x) ? ic : i;
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -72,16 +105,13 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 // blockIdx.z walks the (batch slice, level) pairs in steps of gridDim.z,
-// so B*nz may exceed the grid's z limit.
-template <typename T>
-__global__ void sor3d_color_sweep_kernel(const T* __restrict__ s_in,
-                                         T* __restrict__ s_out,
-                                         const T* __restrict__ w,
-                                         const T* __restrict__ w0,
-                                         const T* __restrict__ g,
-                                         const T* __restrict__ rel,
-                                         T* __restrict__ partials,
-                                         Sor3dArgs a, T fac) {
+// so B*nz may exceed the grid's z limit.  EXT: the extend flag.
+template <typename T, bool EXT>
+__global__ void __launch_bounds__(SWEEP_BX * SWEEP_BY, 8)
+sor3d_color_sweep_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
+                         const T* __restrict__ w, const T* __restrict__ w0,
+                         const T* __restrict__ g, const T* __restrict__ rel,
+                         T* __restrict__ partials, Sor3dArgs a, T fac) {
   const int i = blockIdx.x * SWEEP_BX + threadIdx.x;
   const int j = blockIdx.y * SWEEP_BY + threadIdx.y;
   const long long plane = (long long)a.ny * a.nx;
@@ -95,15 +125,32 @@ __global__ void sor3d_color_sweep_kernel(const T* __restrict__ s_in,
     if (i < a.nx && j < a.ny) {
       const long long idx = l * plane + (long long)j * a.nx + i;
       const T* sb = s_in + b * vol;
-      const T s = sb[idx];
-      T acc = g[b * a.g_bstride + idx];
       const T* wb = w + b * a.w_bstride + idx;
-      for (int k = 0; k < a.K; ++k) {
-        const int ll = wrap(l + a.dz[k], a.nz);
-        const int jj = wrap(j + a.dy[k], a.ny);
-        const int ii = wrap(i + a.dx[k], a.nx);
-        acc = acc + wb[k * a.w_kstride] *
-                        sb[ll * plane + (long long)jj * a.nx + ii];
+      T s, acc = g[b * a.g_bstride + idx];
+      // only rows within the y reach of rows 0 and ny-1 (directly or
+      // through the y wrap) read a row the pre-pass writes: they alone
+      // take the extend map, in a loop of their own
+      if (EXT && (j <= a.ry || j >= a.ny - 1 - a.ry)) {
+        int sj = j, si = i;
+        extend_src(l, sj, si, a);
+        s = sb[l * plane + (long long)sj * a.nx + si];
+        for (int k = 0; k < a.K; ++k) {
+          const int ll = wrap(l + a.dz[k], a.nz);
+          int jj = wrap(j + a.dy[k], a.ny);
+          int ii = wrap(i + a.dx[k], a.nx);
+          extend_src(ll, jj, ii, a);
+          acc = acc + wb[k * a.w_kstride] *
+                          sb[ll * plane + (long long)jj * a.nx + ii];
+        }
+      } else {
+        s = sb[idx];
+        for (int k = 0; k < a.K; ++k) {
+          const int ll = wrap(l + a.dz[k], a.nz);
+          const int jj = wrap(j + a.dy[k], a.ny);
+          const int ii = wrap(i + a.dx[k], a.nx);
+          acc = acc + wb[k * a.w_kstride] *
+                          sb[ll * plane + (long long)jj * a.nx + ii];
+        }
       }
       const T sel = (((l + j + i) & 1) == a.color) ? T(1) : T(0);
       const T r = (rel[b * a.rel_bstride + idx] * sel) * fac;
@@ -158,18 +205,23 @@ static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
                               const int* dx, long long w_kstride,
                               long long w_bstride, long long w0_bstride,
                               long long g_bstride, long long rel_bstride,
-                              int color, double fac, void* stream) {
+                              int color, int extend, int periodic_x,
+                              double fac, void* stream) {
   if (K < 0 || K > SOR3D_MAX_K || B < 1 || nz < 1 || ny < 1 || nx < 1 ||
-      (color != 0 && color != 1))
+      (color != 0 && color != 1) || (extend && (nz < 3 || ny < 3 || nx < 3)))
     return (int)cudaErrorInvalidValue;
   const long long gy = (ny + SWEEP_BY - 1) / SWEEP_BY;
   if (gy > MAX_GRID_YZ) return (int)cudaErrorInvalidValue;
   Sor3dArgs a;
   a.B = B; a.nz = nz; a.ny = ny; a.nx = nx; a.K = K; a.color = color;
+  a.periodic_x = periodic_x != 0;
+  a.ry = 0;
   for (int k = 0; k < SOR3D_MAX_K; ++k) {
     a.dz[k] = k < K ? dz[k] : 0;
     a.dy[k] = k < K ? dy[k] : 0;
     a.dx[k] = k < K ? dx[k] : 0;
+    const int r = a.dy[k] < 0 ? -a.dy[k] : a.dy[k];
+    if (r > a.ry) a.ry = r;
   }
   a.w_kstride = w_kstride; a.w_bstride = w_bstride;
   a.w0_bstride = w0_bstride; a.g_bstride = g_bstride;
@@ -179,8 +231,14 @@ static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
   dim3 grid((nx + SWEEP_BX - 1) / SWEEP_BX, (unsigned)gy,
             (unsigned)(n_bz < MAX_GRID_YZ ? n_bz : MAX_GRID_YZ));
   // the caller computed fac in T, so the conversion back is exact
-  sor3d_color_sweep_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      s_in, s_out, w, w0, g, rel, partials, a, (T)fac);
+  if (extend)
+    sor3d_color_sweep_kernel<T, true><<<grid, block, 0,
+                                        (cudaStream_t)stream>>>(
+        s_in, s_out, w, w0, g, rel, partials, a, (T)fac);
+  else
+    sor3d_color_sweep_kernel<T, false><<<grid, block, 0,
+                                         (cudaStream_t)stream>>>(
+        s_in, s_out, w, w0, g, rel, partials, a, (T)fac);
   return (int)cudaGetLastError();
 }
 
@@ -210,12 +268,13 @@ int sor3d_color_sweep_f32(const float* s_in, float* s_out, const float* w,
                           int K, const int* dz, const int* dy, const int* dx,
                           long long w_kstride, long long w_bstride,
                           long long w0_bstride, long long g_bstride,
-                          long long rel_bstride, int color, double fac,
-                          void* stream) {
+                          long long rel_bstride, int color, int extend,
+                          int periodic_x, double fac, void* stream) {
   return launch_color_sweep<float>(s_in, s_out, w, w0, g, rel, partials, B,
                                    nz, ny, nx, K, dz, dy, dx, w_kstride,
                                    w_bstride, w0_bstride, g_bstride,
-                                   rel_bstride, color, fac, stream);
+                                   rel_bstride, color, extend, periodic_x,
+                                   fac, stream);
 }
 
 int sor3d_color_sweep_f64(const double* s_in, double* s_out, const double* w,
@@ -225,11 +284,13 @@ int sor3d_color_sweep_f64(const double* s_in, double* s_out, const double* w,
                           const int* dx, long long w_kstride,
                           long long w_bstride, long long w0_bstride,
                           long long g_bstride, long long rel_bstride,
-                          int color, double fac, void* stream) {
+                          int color, int extend, int periodic_x, double fac,
+                          void* stream) {
   return launch_color_sweep<double>(s_in, s_out, w, w0, g, rel, partials, B,
                                     nz, ny, nx, K, dz, dy, dx, w_kstride,
                                     w_bstride, w0_bstride, g_bstride,
-                                    rel_bstride, color, fac, stream);
+                                    rel_bstride, color, extend, periodic_x,
+                                    fac, stream);
 }
 
 int sor3d_extend_rows_f32(float* S, int B, int nz, int ny, int nx,

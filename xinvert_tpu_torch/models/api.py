@@ -31,7 +31,8 @@ import torch
 
 from ..field import Field, as_field
 from ..grid import Grid
-from ..solver import NOT_PORTED_SCHEMES, SolveResult, solve
+from ..solver import NOT_PORTED_SCHEMES, SolveResult, direct_result, solve
+from ..stencil import _interior_mask
 from . import problems
 from .params import default_iParams, default_mParams, merge_params
 
@@ -221,6 +222,34 @@ _AUTO_OMEGA = {
 }
 
 
+def _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr, spec, S0):
+    """scheme='direct' on a masked domain: the capacitance-matrix
+    one-shot solve (ops/direct.solve_direct_masked) when the UNMASKED
+    operator qualifies and the hole count fits the dense budget; None
+    otherwise (the caller falls through to solve(), which handles the
+    fully active direct case and raises a clear error for the rest)."""
+    from ..ops.direct import masked_direct_applicable, solve_direct_masked
+
+    if grid.ndim != 2:
+        return None
+    Fdef_np = np.asarray(Fdef_c)
+    interior = _interior_mask(grid.shape, grid.bcs, False)
+    holes = interior & ~Fdef_np
+    if not holes.any():
+        return None
+    # undefined cells may be NaN in the forcing; the active-cell answer is
+    # independent of g at the holes (they are pinned), so zero-fill there
+    vals_f = np.where(Fdef_np, np.nan_to_num(vals), 0.0).astype(vals.dtype)
+    device = S0.device
+    spec_full = problems.BUILDERS[problem_key](
+        torch.as_tensor(vals_f, device=device),
+        torch.ones(grid.shape, dtype=torch.bool, device=device), grid, mPr)
+    if not masked_direct_applicable(spec_full, holes,
+                                    S_shape=tuple(S0.shape)):
+        return None
+    return direct_result(spec, solve_direct_masked(spec_full, holes, S0))
+
+
 def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
             ndim, device=None):
     dims = [dims] if isinstance(dims, str) else list(dims)
@@ -256,11 +285,32 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
               f"optArg     : {omega}\nmax loops  : {iP['mxLoop']}\n"
               f"tolerance  : {iP['tolerance']}\nboundaries : {grid.bcs}")
 
-    res = solve(spec, torch.as_tensor(S0, device=device), omega=omega,
-                tol=iP["tolerance"], max_iters=iP["mxLoop"],
-                check_every=_auto_check_every(iParams, iP, device, dtype),
-                scheme=iP.get("scheme", "sor"),
-                tol_type=iP.get("tolType", "change"))
+    S0_t = torch.as_tensor(S0, device=device)
+    res = None
+    if iP.get("scheme", "sor") == "direct":
+        res = _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr, spec,
+                                 S0_t)
+        if res is None and grid.ndim == 2 \
+                and not bool(np.all(np.asarray(Fdef_c))):
+            # a masked domain the capacitance-matrix path declined (hole
+            # count past the dense budget, as a realistic land/sea mask
+            # has, or a non-separable operator): the iterative solve, with
+            # a warning, under the requested tolerance semantics
+            warnings.warn(
+                "scheme='direct' declined for this masked domain (hole "
+                "count exceeds the dense capacitance budget or the "
+                "operator is not x-invariant); falling back to the "
+                "iterative SOR solve.  Use an *_mg entry point for "
+                "residual-certified convergence on large masked grids.")
+            iP = dict(iP)
+            iP["scheme"] = "sor"
+    if res is None:
+        res = solve(spec, S0_t, omega=omega, tol=iP["tolerance"],
+                    max_iters=iP["mxLoop"],
+                    check_every=_auto_check_every(iParams, iP, device,
+                                                  dtype),
+                    scheme=iP.get("scheme", "sor"),
+                    tol_type=iP.get("tolType", "change"))
     global LAST_SOLVE
     LAST_SOLVE = res
     S = res.S.cpu().numpy()

@@ -29,8 +29,9 @@ default_iParams = {
     "warmStart": False,  # extension: use icbc EVERYWHERE as the initial
                          # guess (the reference keeps icbc only on domain
                          # edges and undef cells, apps.py:2144-2156)
-    "scheme": "sor",     # 'sor' only in this package; 'cheby', 'direct'
-                         # and 'lexico' raise NotImplementedError
+    "scheme": "sor",     # 'sor', 'cheby' (cyclic Chebyshev) or 'direct'
+                         # (one-shot spectral solve); 'lexico' raises
+                         # NotImplementedError
     "tolType": "change", # 'change' (the reference's solution-change rule)
                          # or 'residual' (true relative discrete residual
                          # mean|r|/mean|g|); 'refined' raises

@@ -62,7 +62,7 @@ for _t in ("f32", "f64"):
         [_P, _I, _I, _I, _I, _I, _P], _I)
     _SIGNATURES["sor3d"][f"sor3d_color_sweep_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
-         _L, _L, _L, _L, _L, _I, _D, _P], _I)
+         _L, _L, _L, _L, _L, _I, _I, _I, _D, _P], _I)
 
 
 def _nvcc():

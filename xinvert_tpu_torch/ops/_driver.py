@@ -4,9 +4,11 @@
 :mod:`.sor2d` and :mod:`.sor3d` differ only in their layout (the number of
 core axes, their limits, the launch arguments), in their launch calls, and
 in that :mod:`.sor2d` also has an in-place color sweep and the tiled
-kernels (k sweeps per launch).  Everything else is here, once: the checks
+kernels (k sweeps per launch), while :mod:`.sor3d`'s color sweep can fold
+the extend pre-pass in.  Everything else is here, once: the checks
 on the state and the planes, the two sweep loops (ceil(n / k) tiled
-launches; or three launches a sweep, on ping-pong buffers or on one buffer
+launches; or three launches a sweep, two with the pre-pass folded, on
+ping-pong buffers or on one buffer
 where the family's ``use_inplace`` lets it) with the fused |S| partials on
 the last launch and the per-half-sweep Chebyshev factors, and the dispatch
 of CPU tensors to the plain versions.  Each module describes itself with a :class:`Family`; its
@@ -27,7 +29,7 @@ class Family(NamedTuple):
     layout: Callable                 # (spec, S, rel=None) -> layout dict
     launch_extend: Callable          # (spec, lay, A): extend A in place
     launch_color_sweep: Callable     # (spec, lay, rel, S_in, S_out, color,
-                                     #  fac=1.0, partials=None)
+                                     #  fac=1.0, partials=None[, extend])
     sweeps_reference: Callable       # (spec, S, omega, n, fac=None)
     sweeps_reference_norm: Callable  # (spec, S, omega, n, fac=None)
                                      #  -> (S, sumabs)
@@ -174,19 +176,22 @@ def sweeps_tiled(fam, spec, S, omega, n, with_norm=False, fac=None,
     return out
 
 
-def sweeps_pair(fam, spec, S, omega, n, with_norm=False, fac=None):
+def sweeps_pair(fam, spec, S, omega, n, with_norm=False, fac=None,
+                fold_extend=False):
     """:func:`sweeps` through three launches a sweep: the extend kernel,
     then the red and black color sweeps, which ping-pong between two
     buffers or update one buffer in place where the family's
     ``use_inplace`` takes (spec, core); the last black half-sweep sums the
-    |S| partials per block."""
+    |S| partials per block.  ``fold_extend`` (a family whose color sweep
+    takes the extend flag): two launches a sweep, the extend pre-pass
+    folded into the red launch, which ping-pongs."""
     n = _check_sweeps(n, with_norm, fac)
     if S.device.type == "cpu":
         return _plain(fam, spec, S, omega, n, with_norm, fac)
     rel = relax_plane(spec, omega)
     lay = fam.layout(spec, S, rel)
     A = _buffer(S, lay)
-    inplace = (fam.use_inplace is not None
+    inplace = (not fold_extend and fam.use_inplace is not None
                and fam.use_inplace(spec, lay["core"]))
     Bf = None if inplace else torch.empty_like(A)
     partials = None
@@ -194,19 +199,21 @@ def sweeps_pair(fam, spec, S, omega, n, with_norm=False, fac=None):
         partials = torch.empty((lay["B"], lay["n_partials"]), dtype=S.dtype,
                                device=S.device)
     extend = spec.bcs[-2] == "extend"
+    red_kw = {"extend": True} if extend and fold_extend else {}
     with torch.cuda.device(S.device):
         for it in range(n):
             f_red, f_black = (1.0, 1.0) if fac is None else fac[2 * it:
                                                                  2 * it + 2]
             last = partials if it == n - 1 else None
-            if extend:
+            if extend and not fold_extend:
                 fam.launch_extend(spec, lay, A)
             if inplace:
                 fam.launch_color_sweep_inplace(spec, lay, rel, A, 0, f_red)
                 fam.launch_color_sweep_inplace(spec, lay, rel, A, 1, f_black,
                                                last)
             else:
-                fam.launch_color_sweep(spec, lay, rel, A, Bf, 0, f_red)
+                fam.launch_color_sweep(spec, lay, rel, A, Bf, 0, f_red,
+                                       **red_kw)
                 fam.launch_color_sweep(spec, lay, rel, Bf, A, 1, f_black,
                                        last)
     out = A.reshape(S.shape)
@@ -228,11 +235,14 @@ def extend(fam, spec, S):
     return A.reshape(S.shape)
 
 
-def color_sweep(fam, spec, S, rel, color, fac=1.0):
+def color_sweep(fam, spec, S, rel, color, fac=1.0, extend=False):
     """One half-sweep of ``color`` (0 red, 1 black), its relaxation plane
-    scaled by ``fac``, into a new tensor (one launch)."""
+    scaled by ``fac``, into a new tensor (one launch); ``extend`` (a family
+    whose color sweep takes the flag): of S after the extend pre-pass,
+    folded into the launch."""
+    kw = {"extend": True} if extend else {}
     if S.device.type == "cpu":
-        return fam.color_sweep_reference(spec, S, rel, color, fac)
+        return fam.color_sweep_reference(spec, S, rel, color, fac, **kw)
     if color not in (0, 1):
         raise ValueError(f"color must be 0 or 1, got {color}")
     lay = fam.layout(spec, S, rel)
@@ -240,5 +250,5 @@ def color_sweep(fam, spec, S, rel, color, fac=1.0):
     out = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype,
                       device=S.device)
     with torch.cuda.device(S.device):
-        fam.launch_color_sweep(spec, lay, rel, S_in, out, color, fac)
+        fam.launch_color_sweep(spec, lay, rel, S_in, out, color, fac, **kw)
     return out.reshape(S.shape)

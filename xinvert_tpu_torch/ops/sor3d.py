@@ -13,9 +13,16 @@ kernel                 wrapper                     plain version
 =====================  ==========================  ==============================
 ``sor3d_extend_rows``  :func:`sor3d_extend`        :func:`sor3d_extend_reference`
 ``sor3d_color_sweep``  :func:`sor3d_color_sweep`   :func:`sor3d_color_sweep_reference`
-both, n sweeps         :func:`sor3d_sweeps`        :func:`sor3d_sweeps_reference`,
-                                                   :func:`sor3d_sweeps_reference_norm`
+n sweeps               :func:`sor3d_sweeps`,       :func:`sor3d_sweeps_reference`,
+                       :func:`sor3d_sweeps_pair`   :func:`sor3d_sweeps_reference_norm`
 =====================  ==========================  ==============================
+
+A sweep is two launches of ``sor3d_color_sweep``, the red one with the
+extend pre-pass folded in (:func:`sor3d_sweeps`, the solver's executor).
+The first version, three launches a sweep with ``sor3d_extend_rows`` before
+an unfolded red launch, stays as :func:`sor3d_sweeps_pair`, the yardstick
+no entry point calls.  :func:`sor3d_color_sweep_emulated` replays the
+folded launch's reads with torch ops on the CPU (tests only).
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; any other input raises.  ``LAUNCHES`` and
@@ -33,10 +40,11 @@ from .. import solver
 from . import _driver
 from ._driver import relax_plane
 
-__all__ = ["sor3d_sweeps", "sor3d_sweeps_reference",
+__all__ = ["sor3d_sweeps", "sor3d_sweeps_pair", "sor3d_sweeps_reference",
            "sor3d_sweeps_reference_norm", "sor3d_extend",
            "sor3d_extend_reference", "sor3d_color_sweep",
-           "sor3d_color_sweep_reference", "relax_plane", "MAX_K"]
+           "sor3d_color_sweep_reference", "sor3d_color_sweep_emulated",
+           "relax_plane", "MAX_K"]
 
 MAX_K = 8            # offsets the color-sweep kernel takes (csrc SOR3D_MAX_K)
 _MAX_GRID = 65535    # batch slices and interior levels per launch (grid dims)
@@ -76,14 +84,59 @@ def sor3d_extend_reference(spec, S):
     return solver._apply_extend(spec, S)
 
 
-def sor3d_color_sweep_reference(spec, S, rel, color, fac=1.0):
+def sor3d_color_sweep_reference(spec, S, rel, color, fac=1.0, extend=False):
     """One half-sweep of ``color`` (0 red, 1 black) with PyTorch ops;
-    ``rel`` is :func:`relax_plane`, scaled by ``fac``."""
+    ``rel`` is :func:`relax_plane`, scaled by ``fac``; ``extend``: the
+    extend pre-pass first."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
+    if extend:
+        S = solver._apply_extend(spec, S)
     red = solver._checkerboard(S.shape[-3:], S.dtype, S.device)
     sel = red if color == 0 else 1.0 - red
     return solver._half_sweep(spec, S, fac * (rel * sel))
+
+
+def extend_source(spec, core, device=None):
+    """The folded launch's read map over a core volume, as the kernel
+    computes it (``extend_src`` in csrc/sor3d.cu): for each cell (l, j, i),
+    the flat index of the cell whose value the extend pre-pass leaves
+    there.  The identity unless the y boundary is 'extend'."""
+    nz, ny, nx = core
+    l = torch.arange(nz, device=device)[:, None, None]
+    j = torch.arange(ny, device=device)[None, :, None]
+    i = torch.arange(nx, device=device)[None, None, :]
+    l, j, i = torch.broadcast_tensors(l, j, i)
+    if spec.bcs[-2] == "extend":
+        hit = (l >= 1) & (l <= nz - 2) & ((j == 0) | (j == ny - 1))
+        if spec.bcs[-1] != "periodic":
+            i = torch.where(hit, i.clamp(1, nx - 2), i)
+        j = torch.where(hit & (j == 0), 1, torch.where(hit, ny - 2, j))
+    return (l * ny + j) * nx + i
+
+
+def sor3d_color_sweep_emulated(spec, S, rel, color, fac=1.0):
+    """The flagged launch's half-sweep replayed with torch ops on the CPU:
+    each state value read by index, its own cell's and each neighbour's
+    after the wrap, through :func:`extend_source`, and the kernel's
+    arithmetic in its order.  Tests hold it against
+    :func:`sor3d_color_sweep_reference` with ``extend`` (tests only)."""
+    core = tuple(S.shape[-3:])
+    src = extend_source(spec, core, S.device)
+    flat = S.reshape(S.shape[:-3] + (-1,))
+
+    def at(index):
+        return flat[..., index.reshape(-1)].reshape(S.shape)
+
+    acc = spec.g
+    for k, off in enumerate(spec.offsets):
+        # the cell (l, j, i) reads src[wrap(l + dz), wrap(j + dy), wrap(i + dx)]
+        acc = acc + spec.w[k] * at(torch.roll(src, tuple(-o for o in off),
+                                              (0, 1, 2)))
+    s = at(src)
+    red = solver._checkerboard(core, S.dtype, S.device)
+    sel = red if color == 0 else 1.0 - red
+    return s + ((rel * sel) * fac) * (acc + spec.w0 * s)
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +183,9 @@ def _launch_extend(spec, lay, A):
 
 
 def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
-                        partials=None):
-    """sor3d_color_sweep: S_out = half-sweep ``color`` of S_in."""
+                        partials=None, extend=False):
+    """sor3d_color_sweep: S_out = half-sweep ``color`` of S_in (with
+    ``extend``, of S_in after the extend pre-pass, read through it)."""
     global LAUNCHES
     err = lay["sweep_fn"](
         S_in.data_ptr(), S_out.data_ptr(), spec.w.data_ptr(),
@@ -141,8 +195,9 @@ def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
         ctypes.addressof(lay["dz"]), ctypes.addressof(lay["dy"]),
         ctypes.addressof(lay["dx"]),
         lay["w_kstride"], lay["w_bstride"], lay["w0_bstride"],
-        lay["g_bstride"], lay["relax_bstride"], int(color), float(fac),
-        lay["stream"])
+        lay["g_bstride"], lay["relax_bstride"], int(color),
+        int(extend and spec.bcs[-2] == "extend"),
+        int(spec.bcs[-1] == "periodic"), float(fac), lay["stream"])
     LAUNCHES += 1
     if err:
         raise RuntimeError(f"sor3d_color_sweep launch failed: CUDA error "
@@ -151,7 +206,8 @@ def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
 
 def sor3d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     """n full red-black sweeps (extend pre-pass when the y boundary is
-    'extend', then red, then black) of ``spec`` on ``S``.
+    'extend', then red, then black) of ``spec`` on ``S``: two launches a
+    sweep, the pre-pass folded into the red one.
 
     With ``with_norm`` returns ``(S', sumabs)``, sumabs being the per-slice
     total |S'| over the core cells, which the last black half-sweep sums
@@ -159,7 +215,15 @@ def sor3d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     holds 2n factors in the state's dtype, one per half-sweep, each scaling
     ``omega * relax``.  CPU tensors take the plain version.
     """
-    return _driver.sweeps(_FAMILY, spec, S, omega, n, with_norm, fac)
+    return _driver.sweeps_pair(_FAMILY, spec, S, omega, n, with_norm, fac,
+                               fold_extend=True)
+
+
+def sor3d_sweeps_pair(spec, S, omega, n, with_norm=False, fac=None):
+    """:func:`sor3d_sweeps` through the first version's three launches a
+    sweep: ``sor3d_extend_rows``, then the unfolded red and the black
+    launch.  The yardstick of the folded sweeps; no entry point calls it."""
+    return _driver.sweeps_pair(_FAMILY, spec, S, omega, n, with_norm, fac)
 
 
 def sor3d_extend(spec, S):
@@ -169,11 +233,12 @@ def sor3d_extend(spec, S):
     return _driver.extend(_FAMILY, spec, S)
 
 
-def sor3d_color_sweep(spec, S, rel, color, fac=1.0):
+def sor3d_color_sweep(spec, S, rel, color, fac=1.0, extend=False):
     """One half-sweep of ``color`` (0 red, 1 black) into a new tensor
     (one kernel launch); ``rel`` is :func:`relax_plane`, scaled by
-    ``fac``.  CPU tensors take the plain version."""
-    return _driver.color_sweep(_FAMILY, spec, S, rel, color, fac)
+    ``fac``; ``extend``: of S after the extend pre-pass, folded into the
+    launch.  CPU tensors take the plain version."""
+    return _driver.color_sweep(_FAMILY, spec, S, rel, color, fac, extend)
 
 
 _FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,

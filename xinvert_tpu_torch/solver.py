@@ -383,8 +383,28 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
 
 
 #: schemes of the JAX package not ported yet, with their ROADMAP item
-NOT_PORTED_SCHEMES = {"direct": "ROADMAP queue A item 10",
-                      "lexico": "ROADMAP queue A item 11"}
+NOT_PORTED_SCHEMES = {"lexico": "ROADMAP queue A item 11"}
+
+
+def _norm(spec: StencilSpec, S):
+    """Mean |S| over the core dims, per slice (absNorm*,
+    numbas.py:1690-1747)."""
+    return torch.mean(torch.abs(S), dim=tuple(range(-spec.ndim, 0)))
+
+
+def direct_result(spec: StencilSpec, S) -> SolveResult:
+    """The telemetry of a one-shot direct solution ``S``: iters 1,
+    ``rel_change`` the true relative residual of ``S``, and whether its
+    norm is non-finite."""
+    batch_shape = S.shape[: S.dim() - spec.ndim]
+    rel = torch.broadcast_to(
+        _residual_norm(spec, S) / _residual_scale(spec), batch_shape)
+    return SolveResult(
+        S=S, iters=torch.ones(batch_shape, dtype=torch.int32,
+                              device=S.device),
+        rel_change=rel.to(S.dtype),
+        overflow=~torch.isfinite(_norm(spec, S))
+        & torch.ones(batch_shape, dtype=torch.bool, device=S.device))
 
 
 def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
@@ -410,15 +430,26 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
     Jacobi spectral radius that ``omega`` implies (:func:`rho2_from_omega`),
     carried across check windows.
 
+    ``scheme="direct"`` is the one-shot spectral solve
+    (:mod:`xinvert_tpu_torch.ops.direct`), exact, with no iteration:
+    ``iters`` reports 1 and ``rel_change`` the true relative discrete
+    residual of the returned solution.  Specs it does not take raise
+    ``ValueError``.
+
     Runs on the device of ``spec`` and ``S0`` (which must agree): the CUDA
     kernels on a CUDA device, their plain PyTorch versions on the CPU.
-    2-D and 3-D specs; 1-D specs raise ``NotImplementedError``.
+    The iterative schemes take 2-D and 3-D specs; 1-D specs raise
+    ``NotImplementedError`` there.
     """
     if scheme in NOT_PORTED_SCHEMES:
         raise NotImplementedError(f"scheme={scheme!r} is not ported yet "
                                   f"({NOT_PORTED_SCHEMES[scheme]})")
-    if scheme not in ("sor", "cheby"):
-        raise ValueError(f"unknown scheme {scheme!r}; use 'sor' or 'cheby'")
+    if scheme not in ("sor", "cheby", "direct"):
+        raise ValueError(f"unknown scheme {scheme!r}; "
+                         "use 'sor', 'cheby' or 'direct'")
+    if scheme == "direct":
+        from .ops.direct import solve_direct
+        return direct_result(spec, solve_direct(spec, S0))
     if tol_type not in ("change", "residual"):
         raise ValueError(f"unknown tol_type {tol_type!r}; "
                          "use 'change' or 'residual'")
