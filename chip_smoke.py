@@ -63,7 +63,29 @@ seed, and runs these phases, each printing its lines:
      syncs, the idle share (of the whole 2048x2048 solve; of one V-cycle
      of the others), and the field beside the SOR one; smaller runs
      against float64 on the CPU (256x256, 2x55x120, the cartesian Munk
-     gyre 65x129, 37x36x72, 20x55x120), within 1e-4 of max|S|;
+     gyre 65x129, 37x36x72, 20x55x120), within 1e-4 of max|S|.  Then
+     the trajectories, float32, no device argument, each with the counts
+     set to 0 just before it: animate_iteration("poisson") on the
+     2048x2048 masked field, 30 frames of 5 sweeps, scheme "sor" and
+     "cheby", through the tiled kernel alone, every frame equal
+     (torch.equal) to the same trajectory through the plain sweeps on the
+     card and the last to 150 sweeps of solve_fixed / solve_fixed_cheby;
+     animate_iteration("omega") at 37x72x288, 6 frames, through the 3-D
+     pair, checked the same way.  Then scheme="lexico" on the card in
+     float64 (torch ops, no kernel launch) against the repository's
+     notebook records (tests/notebook_truth.json), the fixtures rebuilt
+     from their recipes (tools/make_fixtures.py): notebook 05's nonlinear
+     invert_RefStateSWM chain (round 5 within 2 sweeps, mean|M| within
+     1e-10), notebook 11's invert_omega on Data/atmos3d_like.nc, with and
+     without icbc (31 sweeps, the tolerance within 1e-6), notebook 03's
+     72x144 invert_Poisson: 50 sweeps against the CPU (within 1e-10 of
+     max|S|, ms a sweep), then its 2001-sweep record when that fits 25 s.
+     Then the 1-D inverters on the card (torch ops, chosen by the spec's
+     rank), float64 and float32, 64 slices, scheme "sor" and "direct":
+     invert_RefStateSWM on notebook 05's 121 latitudes,
+     invert_GeoAdjustment on its 60 southern ones, the same iters as the
+     CPU run, within 1e-12 of max|S| of it in float64, 1e-4 in float32.  Then cal_flow of the 2048x2048
+     invert_Poisson field, on the host;
   4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
      calls timed with CUDA events, for the kernels and the plain version,
      beside a device-to-device copy of the bytes a sweep of the kernels
@@ -810,6 +832,12 @@ def _zero_counts():
     sor2d.PLAIN_CALLS = sor3d.PLAIN_CALLS = 0
 
 
+def _counts():
+    """Every kernel's launch count, and the plain versions' calls."""
+    return ({k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()},
+            sor2d.PLAIN_CALLS + sor3d.PLAIN_CALLS)
+
+
 def _check_field(out, field, name):
     land = np.isnan(field.values)
     vals = out.values
@@ -833,8 +861,7 @@ def _drive(name, kernels, call, field, launches=None):
     out = call()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
-    plain = sor2d.PLAIN_CALLS + sor3d.PLAIN_CALLS
+    counts, plain = _counts()
     res = api.LAST_SOLVE
     ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
     log(f"[3] {name} float32: iters {res.iters.cpu().tolist()} rel_change "
@@ -1303,8 +1330,7 @@ def _drive_mg(name, kernels, call, launches=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     setup = _SETUP.get("t", t0) - t0
-    counts = {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
-    plain = sor2d.PLAIN_CALLS + sor3d.PLAIN_CALLS
+    counts, plain = _counts()
     ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
     log(f"[3] {name} float32: cycles {cycles} residual {res:.4e} converged "
         f"{conv} wall {wall:.3f} s (set-up {setup:.3f} s, solve "
@@ -1476,6 +1502,368 @@ def phase3_mg(launches, sor):
         mg.solve_mg = _SOLVE_MG
         torch.set_default_dtype(torch.float32)
     return syncs
+
+
+# ------------------------------- phase 3, trajectories, lexico, 1-D, flow
+
+TRAJ_N = 2048         # the 2048x2048 masked Poisson of phase 3
+NB_TRUTH = os.path.join("tests", "notebook_truth.json")
+NB03_SWEEPS = 50      # lexico sweeps held against the CPU at NB03's grid
+NB03_BUDGET_S = 25.0  # the full 2001-sweep NB03 record runs within this
+
+
+def _plain_frames(spec, S0, omega, lpf, frames, scheme):
+    """The trajectory of ``scheme`` through the plain sweeps
+    (solver.sweeps) on the card, frame by frame."""
+    from xinvert_tpu_torch import solver
+    rho2 = solver.rho2_from_omega(omega, S0.dtype)
+    m, w, S, out = 0, rho2.dtype.type(1.0), S0, []
+    for _ in range(frames):
+        if scheme == "cheby":
+            fac, m, w = solver._cheby_factors(m, w, rho2, 2 * lpf)
+            S = solver.sweeps(spec, S, 1.0, lpf, fac)
+        else:
+            S = solver.sweeps(spec, S, omega, lpf)
+        out.append(S)
+    return out
+
+
+def _trajectory(name, key, field, dims, iP, mP, lpf, frames, kernels,
+                launches):
+    """animate_iteration with no device argument, every count set to 0
+    just before it and read just after: it must run through ``kernels``
+    alone.  Every frame must equal (torch.equal, the undef mask applied
+    the same way) the same trajectory through the plain sweeps on the
+    card, and the last one solve_fixed / solve_fixed_cheby of all its
+    sweeps."""
+    from xinvert_tpu_torch import solver
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = xt.animate_iteration(key, field, dims, mParams=mP, iParams=iP,
+                               loop_per_frame=lpf, max_frames=frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = _counts()
+    ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+    log(f"[3] animate_iteration {name} float32: {frames} frames of {lpf} "
+        f"sweeps in {wall:.3f} s; launches: {ran}; plain calls {plain}")
+    if {k for k, v in counts.items() if v} != set(kernels) or plain:
+        raise RuntimeError(f"animate_iteration {name}: the trajectory did "
+                           f"not run through {sorted(kernels)} alone")
+    for k, v in counts.items():
+        launches[k] += v
+    spec, S0, omega, scheme, Fdef, _, iP_m = api._animate_problem(
+        key, field, dims, "lat-lon", None, mP, iP, None)
+    t0 = time.perf_counter()
+    ref = _plain_frames(spec, S0, omega, lpf, frames, scheme)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    fixed = (solver.solve_fixed if scheme == "sor"
+             else solver.solve_fixed_cheby)(spec, S0, omega, lpf * frames)
+
+    def masked(S):
+        return np.where(Fdef, S.cpu().numpy(), iP_m["undef"])
+
+    same = [np.array_equal(out.values[k], masked(ref[k]), equal_nan=True)
+            for k in range(frames)]
+    last = (torch.equal(ref[-1], fixed)
+            and np.array_equal(out.values[-1], masked(fixed),
+                               equal_nan=True))
+    log(f"[3] animate_iteration {name}: frames equal to the plain "
+        f"sweeps on the card {sum(same)}/{frames} (plain trajectory "
+        f"{plain_s:.3f} s); last frame equal to {lpf * frames} sweeps of "
+        f"solve_fixed{'_cheby' if scheme == 'cheby' else ''}: {last}; "
+        f"iter {out.coords['iter'][0]}..{out.coords['iter'][-1]}")
+    if not all(same) or not last:
+        raise RuntimeError(f"animate_iteration {name}: the trajectory "
+                           "differs from the plain sweeps")
+    return out
+
+
+def phase3_traj(launches):
+    """Solution trajectories in float32 through the kernels."""
+    torch.set_default_dtype(torch.float32)
+    big = poisson_field(TRAJ_N, TRAJ_N)
+    iP = {"BCs": ["extend", "periodic"], "undef": np.nan,
+          "printInfo": False}
+    for scheme in ("sor", "cheby"):
+        _trajectory(f"poisson {TRAJ_N}x{TRAJ_N} {scheme}", "poisson", big,
+                    ["lat", "lon"], dict(iP, scheme=scheme), None, 5, 30,
+                    ("sor2d_sweeps_tiled",), launches)
+    F_om, N2_om = atmos3d(37, 72, 288)
+    iP_om = {"BCs": ["fixed", "fixed", "periodic"], "printInfo": False}
+    _trajectory("omega 37x72x288 sor", "omega", F_om, DIMS_3D, iP_om,
+                {"N2": N2_om}, 5, 6, ("sor3d_color_sweep",), launches)
+
+
+def barotropic2d(ny=121, nc=181):
+    """The latitudes and the contour tabulations (PV, Mass, Circ) of
+    Data/barotropic2d_like.nc, rebuilt from its recipe
+    (tools/make_fixtures.py::make_barotropic2d, bit-equal to the file, so
+    the run needs no HDF5 reader): an exactly balanced zonally symmetric
+    shallow-water state, tabulated M(Q) and C(Q)."""
+    R, Om, g = 6371200.0, 7.292e-5, 9.80665
+    lat = np.linspace(-90.0, 90.0, ny)
+    phif = np.deg2rad(np.linspace(-90.0, 90.0, 4 * (ny - 1) + 1))
+    uf = 8.0 * np.sin(2 * phif) * np.cos(phif) ** 2
+    f = 2 * Om * np.sin(phif)
+    dh = -R * (f + uf * np.tan(np.clip(phif, -1.55, 1.55)) / R) * uf / g
+    hf = 5000.0 + np.concatenate(
+        [[0.0], np.cumsum(0.5 * (dh[1:] + dh[:-1]) * np.diff(phif))])
+    ucos = uf * np.cos(phif)
+    cosf = np.cos(phif)
+    zetaf = -np.gradient(ucos, phif) / (R * np.where(cosf > 1e-6, cosf, 1.0))
+    zetaf[0], zetaf[-1] = zetaf[1], zetaf[-2]
+    Qf = (f + zetaf) / hf
+    Cf = 2 * np.pi * R * np.cos(phif) * (uf + Om * R * np.cos(phif))
+    dM = 2 * np.pi * R ** 2 * np.cos(phif) * hf
+    Mf = np.concatenate(
+        [[0.0], np.cumsum(0.5 * (dM[1:] + dM[:-1]) * np.diff(phif))])
+    Q, C, M = Qf[::4], Cf[::4], Mf[::4]
+    qs = np.linspace(Q.min(), Q.max(), nc)
+    return lat, qs, np.interp(qs, Q, M), np.interp(qs, Q, C)
+
+
+def nb11_fields():
+    """The forcing, the 3-D N2 field and the lower-boundary icbc of
+    Data/atmos3d_like.nc (37x72x144), rebuilt from its recipe
+    (tools/make_fixtures.py::make_atmos3d, the same as :func:`atmos3d`'s)."""
+    F, N2 = atmos3d(37, 72, 144)
+    lev, lat, lon = (F.coords[d] for d in DIMS_3D)
+    N2v = np.broadcast_to(N2.values[:, None, None], F.shape).copy()
+    W = np.zeros(F.shape)
+    W[-1] = 0.1 * np.sin(2 * np.deg2rad(lon))[None, :] * \
+        np.cos(np.deg2rad(lat))[:, None]
+    return (F, xt.Field(N2v, tuple(DIMS_3D), dict(F.coords)),
+            xt.Field(W, tuple(DIMS_3D), dict(F.coords)))
+
+
+def _nb05_chain():
+    """Notebook 05's nonlinear RefStateSWM chain (five outer rounds on
+    Data/barotropic2d_like.nc's tabulations,
+    tests/notebook_workloads.py::run_nb05), scheme="lexico", no device
+    argument.  Returns mean|M| of the last round's M."""
+    lat, ctr, Mass, Circ = barotropic2d()
+    iP = {"BCs": ["fixed"], "mxLoop": 5001, "tolerance": 1e-15,
+          "undef": np.nan, "scheme": "lexico", "printInfo": False}
+    Mref = Mass.max() * (np.sin(np.deg2rad(lat)) + 1.0) / 2.0
+    for _ in range(5):
+        Q = np.interp(Mref, Mass, ctr)
+        Q[lat == 90] = ctr.max()
+        C = np.interp(Q, ctr, Circ)
+        mP = {"M0": xt.Field(Mref, ("lat",), {"lat": lat}),
+              "C0": xt.Field(C, ("lat",), {"lat": lat})}
+        dM = xt.invert_RefStateSWM(xt.Field(Q, ("lat",), {"lat": lat}),
+                                   dims=["lat"], iParams=iP, mParams=mP)
+        Mref = Mref + dM.values
+    return float(np.mean(np.abs(Mref)))
+
+
+def _nb03_fields():
+    """Notebook 03's balanced-mass workload (tests/notebook_workloads.py::
+    nb03_fields): the Laplacian of a synthetic 500-hPa geopotential on the
+    72x144 2.5-degree grid, and the geopotential itself (the icbc)."""
+    from xinvert_tpu_torch.fd import FiniteDiff
+    lat = np.linspace(-87.5, 87.5, 72)
+    lon = np.arange(144) * 2.5
+    latr, lonr = np.deg2rad(lat)[:, None], np.deg2rad(lon)[None, :]
+    h = (5600.0 - 380.0 * np.sin(latr) ** 2
+         + 90.0 * np.cos(latr) ** 2 * np.sin(3 * lonr + 2.0 * np.sin(latr))
+         + 40.0 * np.cos(latr) ** 4 * np.cos(5 * lonr - 1.0)) * 9.81
+    fd = FiniteDiff({"Y": "lat", "X": "lon"},
+                    BCs={"Y": "extend", "X": "periodic"}, coords="lat-lon")
+    hbc = xt.Field(h, ("lat", "lon"), {"lat": lat, "lon": lon})
+    return fd.Laplacian(hbc, ["Y", "X"]), hbc
+
+
+def _lexico_run(name, call):
+    """One lexico call with no device argument: no kernel launch and no
+    plain call of the kernel wrappers (torch ops); its wall time."""
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = _counts()
+    if any(counts.values()) or plain:
+        raise RuntimeError(f"{name}: lexico launched a sweep kernel")
+    res = api.LAST_SOLVE
+    if not res.S.is_cuda:
+        raise RuntimeError(f"{name}: lexico did not run on the card")
+    return out, res, wall
+
+
+def _record(name, res, rec, wall, sweeps_slack=0, rtol=1e-6):
+    it, rel = int(res.iters.reshape(-1)[0]), float(
+        res.rel_change.reshape(-1)[0])
+    ok = (abs(it - rec["sweeps"]) <= sweeps_slack
+          and abs(rel - rec["tolerance"]) <= rtol * abs(rec["tolerance"]))
+    log(f"[3] {name} lexico float64: sweeps {it} (record {rec['sweeps']}), "
+        f"rel_change {rel:.10e} (record {rec['tolerance']:.10e}, rtol "
+        f"{rtol:g}) in {wall:.3f} s, {1e3 * wall / max(it, 1):.3f} ms a "
+        f"sweep: {'held' if ok else 'MISSED'}")
+    if not ok:
+        raise RuntimeError(f"{name}: lexico misses the notebook record")
+
+
+def phase3_lexico():
+    """scheme="lexico" on the card in float64 against the repository's
+    notebook records, with no device argument."""
+    torch.set_default_dtype(torch.float64)
+    with open(NB_TRUTH) as fh:
+        truth = json.load(fh)
+    # NB05: the nonlinear RefStateSWM chain (1-D)
+    _zero_counts()
+    t0 = time.perf_counter()
+    mean_M = _nb05_chain()
+    wall = time.perf_counter() - t0
+    rec = truth["nb05_swm_round5"]
+    it = int(api.LAST_SOLVE.iters)
+    ok = (abs(it - rec["sweeps"]) <= 2
+          and abs(mean_M - rec["mean_abs_M"]) <= 1e-10 * rec["mean_abs_M"])
+    counts, plain = _counts()
+    log(f"[3] NB05 RefStateSWM chain lexico float64: round 5 sweeps {it} "
+        f"(record {rec['sweeps']}, slack 2), mean|M| {mean_M:.16e} (record "
+        f"{rec['mean_abs_M']:.16e}, rel 1e-10) in {wall:.3f} s for five "
+        f"rounds: {'held' if ok else 'MISSED'}")
+    if not ok or any(counts.values()) or plain:
+        raise RuntimeError("NB05: lexico misses the notebook record")
+    # NB11: invert_omega on the atmosphere fixture, 31 sweeps (3-D)
+    F, N2, WBC = nb11_fields()
+    iP = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 31,
+          "tolerance": 1e-16, "scheme": "lexico", "printInfo": False}
+    for key, icbc in (("nb11_omega", None), ("nb11_omega_icbc", WBC)):
+        _, res, wall = _lexico_run(key, lambda ic=icbc: xt.invert_omega(
+            F, dims=DIMS_3D, mParams={"N2": N2}, iParams=iP, icbc=ic))
+        _record(f"NB11 invert_omega {'x'.join(map(str, F.shape))} "
+                f"({key})", res, truth[key], wall)
+    # NB03: invert_Poisson at 72x144 (2-D rows), a fixed count against
+    # the CPU, then the full record when it fits the budget
+    force, hbc = _nb03_fields()
+    iP3 = {"BCs": ["fixed", "periodic"], "mxLoop": NB03_SWEEPS,
+           "tolerance": 0.0, "scheme": "lexico", "printInfo": False}
+    out, res, wall = _lexico_run("NB03", lambda: xt.invert_Poisson(
+        force, dims=["lat", "lon"], icbc=hbc, iParams=iP3))
+    t0 = time.perf_counter()
+    ref = xt.invert_Poisson(force, dims=["lat", "lon"], icbc=hbc,
+                            iParams=iP3, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    gap = (np.abs(out.values - ref.values).max()
+           / np.abs(ref.values).max())
+    ms = 1e3 * wall / NB03_SWEEPS
+    log(f"[3] NB03 invert_Poisson 72x144 lexico float64: {NB03_SWEEPS} "
+        f"sweeps on the card in {wall:.3f} s ({ms:.3f} ms a sweep, a check "
+        f"each), on the CPU {cpu_s:.3f} s; max|diff|/max|S| {gap:.3e} "
+        f"(limit 1e-10)")
+    if not gap <= 1e-10:
+        raise RuntimeError("NB03: lexico on the card disagrees with the CPU")
+    rec = truth["nb03_poisson_icbc"]
+    if rec["sweeps"] * ms / 1e3 <= NB03_BUDGET_S:
+        iPr = dict(iP3, mxLoop=2001, tolerance=1e-12)
+        _, res, wall = _lexico_run("NB03 record", lambda: xt.invert_Poisson(
+            force, dims=["lat", "lon"], icbc=hbc, iParams=iPr))
+        _record("NB03 invert_Poisson 72x144 (nb03_poisson_icbc)", res, rec,
+                wall)
+    else:
+        log(f"[3] NB03 record (2001 sweeps) not run: "
+            f"{rec['sweeps'] * ms / 1e3:.1f} s projected, above the "
+            f"{NB03_BUDGET_S} s budget")
+
+
+def _geo_field(lat, batch=64, seed=11):
+    rng = np.random.default_rng(seed)
+    h = (1500.0 + 20.0 * (lat > lat.mean())
+         + rng.standard_normal((batch, lat.size)))
+    return xt.Field(h, ("time", "lat"), {"time": np.arange(batch),
+                                         "lat": lat})
+
+
+def _swm_field(lat, ctr, Mass, Circ, batch=64, seed=12):
+    M = Mass.max() * (np.sin(np.deg2rad(lat)) + 1.0) / 2.0
+    Q = np.interp(M, Mass, ctr)
+    Q[lat == 90] = ctr.max()
+    C = np.interp(Q, ctr, Circ)
+    rng = np.random.default_rng(seed)
+    Qb = Q * (1.0 + 1e-3 * rng.standard_normal((batch, lat.size)))
+    return (xt.Field(Qb, ("time", "lat"), {"time": np.arange(batch),
+                                           "lat": lat}),
+            {"M0": xt.Field(M, ("lat",), {"lat": lat}),
+             "C0": xt.Field(C, ("lat",), {"lat": lat})})
+
+
+def phase3_1d():
+    """The 1-D inverters on the card (plain torch ops, chosen by the spec's
+    rank), float64 and float32, 64 slices, against the same calls on the
+    CPU."""
+    lat, ctr, Mass, Circ = barotropic2d()
+    Fs, mPs = _swm_field(lat, ctr, Mass, Circ)
+    # the geostrophic adjustment needs one hemisphere (f changes sign at
+    # the equator and the global grid overflows in both packages): the
+    # NB05 grid's 60 southern latitudes
+    Fg = _geo_field(lat[lat < 0])
+    calls = {
+        "invert_GeoAdjustment 64x60": lambda iP, **kw:
+            xt.invert_GeoAdjustment(Fg, ["lat"], iParams=dict(iP, optArg=1.8),
+                                    **kw),
+        "invert_RefStateSWM 64x121": lambda iP, **kw:
+            xt.invert_RefStateSWM(Fs, ["lat"], iParams=iP, mParams=mPs,
+                                  **kw)}
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+        torch.set_default_dtype(dtype)
+        for name, call in calls.items():
+            for scheme in ("sor", "direct"):
+                iP = {"BCs": ["fixed"], "mxLoop": 5000, "tolerance": tol,
+                      "checkEvery": 1, "scheme": scheme, "printInfo": False}
+                _zero_counts()
+                t0 = time.perf_counter()
+                out = call(iP)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                r_k = api.LAST_SOLVE
+                counts, plain = _counts()
+                t0 = time.perf_counter()
+                ref = call(iP, device="cpu")
+                cpu_s = time.perf_counter() - t0
+                r_c = api.LAST_SOLVE
+                same = torch.equal(r_k.iters.cpu(), r_c.iters)
+                gap = (np.abs(out.values - ref.values).max()
+                       / np.abs(ref.values).max())
+                # float32: phase 3's limit for the card against the CPU
+                limit = 1e-12 if dtype == torch.float64 else 1e-4
+                log(f"[3] {name} {scheme} {str(dtype)[6:]}: card iters "
+                    f"{r_k.iters.min().item()}..{r_k.iters.max().item()} in "
+                    f"{wall:.3f} s, CPU in {cpu_s:.3f} s, iters equal "
+                    f"{same}; max|diff|/max|S| {gap:.3e} (limit {limit:g});"
+                    f" kernel launches {sum(counts.values())}, plain calls "
+                    f"{plain}")
+                if (not same or not gap <= limit or any(counts.values())
+                        or plain or bool(r_k.overflow.any())
+                        or not r_k.S.is_cuda):
+                    raise RuntimeError(f"{name} {scheme}: the card's 1-D "
+                                       "solve disagrees with the CPU")
+    torch.set_default_dtype(torch.float32)
+
+
+def phase3_calflow(sor):
+    """cal_flow of phase 3's 2048x2048 Poisson field (a host Field, numpy
+    finite differences as in the JAX package): equal to the same call on
+    a copy of its values held on the host."""
+    sf = sor["poisson"][0]
+    t0 = time.perf_counter()
+    u, v = xt.cal_flow(sf, ["lat", "lon"], BCs=("extend", "periodic"))
+    wall = time.perf_counter() - t0
+    copy = xt.Field(np.array(sf.values), sf.dims, dict(sf.coords))
+    u2, v2 = xt.cal_flow(copy, ["lat", "lon"], BCs=("extend", "periodic"))
+    same = (np.array_equal(u.values, u2.values, equal_nan=True)
+            and np.array_equal(v.values, v2.values, equal_nan=True))
+    finite = float(np.mean(np.isfinite(u.values) & np.isfinite(v.values)))
+    ocean = float(np.mean(~np.isnan(sf.values)))
+    log(f"[3] cal_flow of invert_Poisson {TRAJ_N}x{TRAJ_N}: {wall:.3f} s "
+        f"on the host, (u, v) {u.shape}, finite share {finite:.4f} (ocean "
+        f"{ocean:.4f}), max|u| {np.nanmax(np.abs(u.values)):.4e}, equal to "
+        f"the call on the host copy: {same}")
+    if not same or not finite > 0.9 * ocean or u.shape != sf.shape:
+        raise RuntimeError("cal_flow: wrong (u, v)")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1980,6 +2368,13 @@ def main():
     stamp("phase 3 (direct)")
     syncs = phase3_mg(launches, sor)
     stamp("phase 3 (multigrid paths)")
+    phase3_traj(launches)
+    stamp("phase 3 (trajectories)")
+    phase3_lexico()
+    stamp("phase 3 (lexico)")
+    phase3_1d()
+    phase3_calflow(sor)
+    stamp("phase 3 (1-D, cal_flow)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
     phase4_mg(card, dev, syncs)

@@ -4,7 +4,10 @@ csrc/sor3d.cu) on the card: bit-equal to their plain PyTorch versions (the
 2-D tiled kernels, the first version's pair and in-place kernel, the 3-D
 pair with the extend pre-pass folded in and its first version, and the
 Chebyshev factor argument included), counted, and refusing what they do not
-take; the direct engine on the card against the CPU.  Every test here needs an NVIDIA GPU (marker
+take; the direct engine on the card against the CPU; solution trajectories
+through the kernels frame by frame against the plain version; the
+lexicographic executor and the 1-D entry points on the card against the
+CPU.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -238,11 +241,18 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                         bcs=("fixed",) + spec.bcs)
     with pytest.raises(ValueError, match="3x3x3"):
         xt.solve_fixed(spec3, S0[None], 1.3, 2)
-    spec1 = StencilSpec(w=spec.w[:, 0], w0=spec.w0[0], g=spec.g[0],
+    spec1 = StencilSpec(w=spec.w[:2, 0], w0=spec.w0[0], g=spec.g[0],
                         relax=spec.relax[0], active=spec.active[0],
                         offsets=((1,), (-1,)), bcs=("fixed",))
-    with pytest.raises(NotImplementedError):                # 1-D: not ported
-        xt.solve_fixed(spec1, S0[0], 1.3, 2)
+    with pytest.raises(NotImplementedError):        # the 2-D kernels: 1-D
+        sor2d.sor2d_sweeps(spec1, S0[0], 1.3, 2)
+    # the engine routes 1-D specs to the plain sweeps (no kernel takes 1-D)
+    from xinvert_tpu_torch import solver
+    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    out = xt.solve_fixed(spec1, S0[0], 1.3, 2)
+    assert (sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS) == (t0, p0)
+    assert out.is_cuda and torch.equal(out,
+                                       solver.sweeps(spec1, S0[0], 1.3, 2))
 
 
 # ---------------------------------------------------------------- 3-D
@@ -852,3 +862,102 @@ def test_invert_poisson_mg_defaults_to_the_card(cuda):
     np.testing.assert_array_equal(np.isnan(out.values), ~ok)
     assert (np.abs(out.values[ok] - ref.values[ok]).max()
             <= 1e-4 * np.abs(ref.values[ok]).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("scheme", ["sor", "cheby"])
+def test_trajectory_frames_through_the_kernels(cuda, dtype, scheme):
+    """solve_trajectory on the card: the tiled 2-D kernel (and the folded
+    3-D pair) launch for every frame, and every frame is torch.equal to
+    the same trajectory through the plain sweeps on the card."""
+    from xinvert_tpu_torch import solver
+    spec, S0 = _poisson(dtype, cuda, batch=2)
+    omega = 1.7
+    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    frames = solver.solve_trajectory(spec, S0, omega, loop_per_frame=5,
+                                     max_frames=6, scheme=scheme)
+    assert sor2d.TILED_LAUNCHES - t0 >= 6 and sor2d.PLAIN_CALLS == p0
+    rho2 = solver.rho2_from_omega(omega, dtype)
+    S, m, w = S0, 0, rho2.dtype.type(1.0)
+    for k in range(6):
+        if scheme == "sor":
+            S = solver.sweeps(spec, S, omega, 5)
+        else:
+            fac, m, w = solver._cheby_factors(m, w, rho2, 10)
+            S = solver.sweeps(spec, S, 1.0, 5, fac)
+        assert torch.equal(frames[k], S), k
+    fixed = solver.solve_fixed if scheme == "sor" else \
+        solver.solve_fixed_cheby
+    assert torch.equal(frames[-1], fixed(spec, S0, omega, 30))
+
+    spec3, S3 = _random3d(dtype, cuda, (6, 12, 20), 2,
+                          ("fixed", "extend", "periodic"))
+    l0 = sor3d.LAUNCHES
+    frames3 = solver.solve_trajectory(spec3, S3, 1.4, loop_per_frame=2,
+                                      max_frames=3, scheme=scheme)
+    assert sor3d.LAUNCHES - l0 == 12
+    S = S3
+    rho2_3 = solver.rho2_from_omega(1.4, dtype)
+    m, w = 0, rho2_3.dtype.type(1.0)
+    for k in range(3):
+        if scheme == "sor":
+            S = solver.sweeps(spec3, S, 1.4, 2)
+        else:
+            fac, m, w = solver._cheby_factors(m, w, rho2_3, 4)
+            S = solver.sweeps(spec3, S, 1.0, 2, fac)
+        assert _nan_equal(frames3[k], S), k
+
+
+def test_lexico_on_card_matches_cpu(cuda):
+    """scheme="lexico" on the card, float64, against the same calls on the
+    CPU: invert_Poisson (2-D rows, periodic x, two slices), invert_omega
+    (3-D hyperplanes) and invert_GeoAdjustment (1-D): equal iters, S within
+    1e-10 of max|S|, and no kernel launch."""
+    rng = np.random.default_rng(9)
+    lat = np.linspace(-80.0, 80.0, 25)
+    lon = np.arange(48) * 7.5
+    F2 = xt.Field(rng.standard_normal((2, 25, 48)) * 1e-5,
+                  ("t", "lat", "lon"),
+                  {"t": np.arange(2), "lat": lat, "lon": lon})
+    lev = np.linspace(100000.0, 20000.0, 7)
+    F3 = xt.Field(rng.standard_normal((7, 25, 48)) * 1e-16,
+                  ("lev", "lat", "lon"), {"lev": lev, "lat": lat, "lon": lon})
+    glat = np.linspace(-75.0, -25.0, 41)
+    F1 = xt.Field(1500.0 + 20.0 * (glat > -50) + rng.standard_normal(
+        (3, 41)), ("t", "lat"), {"t": np.arange(3), "lat": glat})
+    calls = [
+        lambda **kw: xt.invert_Poisson(
+            F2, ["lat", "lon"], iParams={
+                "BCs": ["fixed", "periodic"], "mxLoop": 300,
+                "tolerance": 1e-6, "scheme": "lexico", "printInfo": False},
+            **kw),
+        lambda **kw: xt.invert_omega(
+            F3, ["lev", "lat", "lon"], iParams={
+                "BCs": ["fixed", "extend", "periodic"], "mxLoop": 40,
+                "tolerance": 1e-5, "scheme": "lexico", "printInfo": False},
+            **kw),
+        lambda **kw: xt.invert_GeoAdjustment(
+            F1, ["lat"], iParams={
+                "BCs": ["extend"], "mxLoop": 3000, "tolerance": 1e-9,
+                "optArg": 1.8, "scheme": "lexico", "printInfo": False},
+            **kw)]
+    from xinvert_tpu_torch.models import api
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        for call in calls:
+            n0 = (sor2d.TILED_LAUNCHES, sor3d.LAUNCHES, sor2d.PLAIN_CALLS,
+                  sor3d.PLAIN_CALLS)
+            out_k = call()
+            r_k = api.LAST_SOLVE
+            assert r_k.S.is_cuda
+            assert n0 == (sor2d.TILED_LAUNCHES, sor3d.LAUNCHES,
+                          sor2d.PLAIN_CALLS, sor3d.PLAIN_CALLS)
+            out_c = call(device="cpu")
+            assert torch.equal(r_k.iters.cpu(), api.LAST_SOLVE.iters)
+            scale = np.abs(out_c.values).max()
+            assert scale > 0
+            np.testing.assert_allclose(out_k.values, out_c.values, rtol=0,
+                                       atol=1e-10 * scale)
+    finally:
+        torch.set_default_dtype(dtype)

@@ -14,12 +14,6 @@ import xinvert_tpu as xi  # noqa: E402
 import xinvert_tpu_torch as xt  # noqa: E402
 
 NOT_PORTED = {
-    # queue A item 7: the 1-D families, trajectories, cal_flow, fd.py
-    "inv_standard1D", "invert_GeoAdjustment", "invert_RefStateSWM",
-    "solve_trajectory", "animate_iteration", "cal_flow", "loop_noncore",
-    "FiniteDiff", "padBCs", "deriv", "deriv2",
-    # item 11: lexico.py
-    "solve_fixed_lexicographic",
     # item 13: refine.py
     "solve_refined", "RefineResult",
     # item 14: stream.py

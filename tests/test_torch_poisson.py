@@ -156,9 +156,9 @@ def test_inv_standard2D_matches_jax(f64_cpu, with_icbc):
 
 
 @pytest.mark.parametrize("iParams", [
-    {"scheme": "lexico", "checkEvery": 1},
+    {"scheme": "lexico", "tolType": "refined"},
     {"scheme": "direct", "tolType": "refined"},
-    {"scheme": "lexico"},
+    {"scheme": "lexico", "streamChunk": 2},
     {"tolType": "refined"},
     {"streamChunk": 2},
     {"mesh": object()},

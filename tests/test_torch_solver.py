@@ -145,8 +145,9 @@ def test_solve_prunes_zero_planes_like_jax():
 def test_solve_rejects_unported_and_mismatched():
     ts = _port(_poisson(_forcing()))
     S0 = torch.zeros(37, 72, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        xt.solve(ts, S0, scheme="lexico")
+    # lexico is ported: it refuses a state of another dtype
+    with pytest.raises(TypeError):
+        xt.solve(ts, S0.float(), scheme="lexico")
     # direct is ported: a spec it does not take raises as in the JAX package
     with pytest.raises(ValueError, match="does not qualify"):
         xt.solve(ts, S0, scheme="direct")

@@ -7,12 +7,18 @@ inversion ``invert_Poisson``; ``invert_RefState``, ``invert_PV2D``,
 ``invert_Eliassen``, ``invert_GillMatsuno[_test]``,
 ``invert_Stommel[_test]``, ``invert_StommelMunk``, ``invert_StommelArons``,
 ``invert_geostrophic``, ``invert_BrethertonHaidvogel``,
-``invert_Fofonoff``; ``inv_standard2D[_test]``, ``inv_general2D[_bih]``)
-and the 3-D ones (``invert_omega``, the QG omega equation;
-``invert_3DOcean``, the 3-D damped ocean; ``inv_standard3D``,
+``invert_Fofonoff``; ``inv_standard2D[_test]``, ``inv_general2D[_bih]``),
+the 1-D ones (``invert_GeoAdjustment``, ``invert_RefStateSWM``,
+``inv_standard1D``) and the 3-D ones (``invert_omega``, the QG omega
+equation; ``invert_3DOcean``, the 3-D damped ocean; ``inv_standard3D``,
 ``inv_general3D``) end to end: each builds a stencil program and a
-red-black SOR engine (or its cyclic-Chebyshev variant, ``scheme="cheby"``)
-iterates it under the reference's stopping rule.  Their 15 multigrid twins
+red-black SOR engine (or its cyclic-Chebyshev variant, ``scheme="cheby"``,
+or the reference's own lexicographic sweep, ``scheme="lexico"``, module
+:mod:`~xinvert_tpu_torch.lexico`) iterates it under the reference's
+stopping rule.  ``animate_iteration`` (``solve_trajectory``) snapshots the
+iterates; ``cal_flow`` and the finite differences of
+:mod:`~xinvert_tpu_torch.fd` (``FiniteDiff``, ``padBCs``, ``deriv``,
+``deriv2``) run on the host in numpy, as in the JAX package.  Their 15 multigrid twins
 (``invert_*_mg``, module :mod:`~xinvert_tpu_torch.mg`) solve the same
 equations with V-cycles to a residual tolerance, smoothing through the
 same kernels; ``invert_MultiGrid`` runs any inverter coarse to fine.
@@ -36,10 +42,12 @@ from .io import open_dataset, save_dataset, Dataset             # noqa: F401
 from .grid import Grid, optimal_omega                           # noqa: F401
 from .stencil import StencilSpec                                # noqa: F401
 from .solver import (solve, solve_fixed, solve_fixed_cheby,     # noqa: F401
-                     SolveResult)
-from .core import (inv_standard2D, inv_standard2D_test,         # noqa: F401
-                   inv_general2D, inv_general2D_bih, inv_standard3D,
-                   inv_general3D)
+                     solve_trajectory, SolveResult)
+from .fd import FiniteDiff, padBCs, deriv, deriv2               # noqa: F401
+from .lexico import solve_fixed_lexicographic                   # noqa: F401
+from .core import (inv_standard1D, inv_standard2D,              # noqa: F401
+                   inv_standard2D_test, inv_general2D, inv_general2D_bih,
+                   inv_standard3D, inv_general3D)
 from .models.params import default_iParams, default_mParams     # noqa: F401
 from .models.api import (invert_Poisson, invert_RefState,       # noqa: F401
                          invert_PV2D, invert_Eliassen, invert_GillMatsuno,
@@ -55,7 +63,9 @@ from .models.api import (invert_Poisson, invert_RefState,       # noqa: F401
                          invert_GillMatsuno_test_mg, invert_Stommel_test_mg,
                          invert_GillMatsuno_mg, invert_Stommel_mg,
                          invert_StommelArons_mg, invert_3DOcean_mg,
-                         invert_MultiGrid)
+                         invert_MultiGrid, invert_GeoAdjustment,
+                         invert_RefStateSWM, animate_iteration, cal_flow,
+                         loop_noncore)
 from . import mg                                                # noqa: F401
 from .mg import (                                               # noqa: F401
     build_pyramid_standard2d, build_pyramid_standard3d, build_pyramid_bih2d,

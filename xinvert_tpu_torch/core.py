@@ -1,8 +1,8 @@
 # -*- coding: utf-8 -*-
-"""Dispatch-level API: ``inv_standard2D``, ``inv_standard2D_test``,
-``inv_general2D``, ``inv_general2D_bih``, ``inv_standard3D`` and
-``inv_general3D``, taking coefficient fields directly (mirrors
-xinvert/core.py:20-532, without the 1-D ``inv_standard1D``).
+"""Dispatch-level API: ``inv_standard1D``, ``inv_standard2D``,
+``inv_standard2D_test``, ``inv_general2D``, ``inv_general2D_bih``,
+``inv_standard3D`` and ``inv_general3D``, taking coefficient fields directly
+(mirrors xinvert/core.py:20-532).
 
 Counterpart of ``xinvert_tpu/core.py``.  The application layer builds
 coefficients and solves through the same engine; power users call these
@@ -24,8 +24,9 @@ from .models.api import (_collapse_mask, _init_state, _prepare,
                          _resolve_device, _validate_bcs)
 from .models.params import default_iParams, merge_params
 
-__all__ = ["inv_standard2D", "inv_standard2D_test", "inv_general2D",
-           "inv_general2D_bih", "inv_standard3D", "inv_general3D"]
+__all__ = ["inv_standard1D", "inv_standard2D", "inv_standard2D_test",
+           "inv_general2D", "inv_general2D_bih", "inv_standard3D",
+           "inv_general3D"]
 
 
 def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None,
@@ -117,6 +118,14 @@ def inv_general2D_bih(A, B, C, D, E, F, G, H, I, J, dims, coords="lat-lon",
                                       Fdef, deltas, bcs)
     return _run(fam, (A, B, C, D, E, F, G, H, I), J, dims, coords, iParams,
                 2, icbc, device)
+
+
+def inv_standard1D(A, B, F, dims, coords="lat", icbc=None, iParams=None,
+                   device=None):
+    """d/dx(A Sx) + B S = F (core.py:234-290)."""
+    def fam(A_, B_, Fm, Fdef, deltas, bcs):
+        return stencil.standard_1d(A_, B_, Fm, Fdef, deltas, bcs)
+    return _run(fam, (A, B), F, dims, coords, iParams, 1, icbc, device)
 
 
 def inv_standard3D(A, B, C, F, dims, coords="lat-lon", icbc=None,

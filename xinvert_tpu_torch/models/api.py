@@ -3,9 +3,12 @@
 (``invert_RefState``, ``invert_PV2D``, ``invert_Eliassen``,
 ``invert_GillMatsuno[_test]``, ``invert_Stommel[_test]``,
 ``invert_StommelMunk``, ``invert_StommelArons``, ``invert_geostrophic``,
-``invert_BrethertonHaidvogel``, ``invert_Fofonoff``), ``invert_omega``,
-``invert_3DOcean``, their 15 multigrid twins ``invert_*_mg`` and the
-coarse-to-fine cascade ``invert_MultiGrid``.
+``invert_BrethertonHaidvogel``, ``invert_Fofonoff``), the 1-D ones
+(``invert_GeoAdjustment``, ``invert_RefStateSWM``), ``invert_omega``,
+``invert_3DOcean``, their 15 multigrid twins ``invert_*_mg``, the
+coarse-to-fine cascade ``invert_MultiGrid``, the solution trajectory
+``animate_iteration``, the flow diagnostics ``cal_flow`` and
+``loop_noncore``.
 
 Counterpart of ``xinvert_tpu/models/api.py``, mirroring the reference
 application layer (xinvert/apps.py): the forcing's non-core dims become one
@@ -31,7 +34,7 @@ import torch
 
 from ..field import Field, as_field
 from ..grid import Grid
-from ..solver import NOT_PORTED_SCHEMES, SolveResult, direct_result, solve
+from ..solver import SolveResult, direct_result, solve, solve_trajectory
 from ..stencil import _interior_mask
 from . import problems
 from .params import default_iParams, default_mParams, merge_params
@@ -48,7 +51,8 @@ __all__ = ["invert_Poisson", "invert_RefState", "invert_PV2D",
            "invert_GillMatsuno_test_mg", "invert_Stommel_test_mg",
            "invert_GillMatsuno_mg", "invert_Stommel_mg",
            "invert_StommelArons_mg", "invert_3DOcean_mg",
-           "invert_MultiGrid"]
+           "invert_MultiGrid", "invert_GeoAdjustment", "invert_RefStateSWM",
+           "animate_iteration", "cal_flow", "loop_noncore"]
 
 
 #: Telemetry of the most recent ``invert_*`` call: a
@@ -82,6 +86,23 @@ def _dtype():
     if dt == torch.float32:
         return np.float32
     raise TypeError(f"the default dtype {dt} is not float32/float64")
+
+
+def loop_noncore(F, dims):
+    """Yield selection dicts over all combinations of non-core dims
+    (reference utils.py:10-51).  Kept for API parity; the solver itself
+    batches these combinations in one batched solve."""
+    f = as_field(F)
+    non_core = [d for d in f.dims if d not in dims]
+    if not non_core:
+        yield {}
+        return
+    import itertools
+    ranges = [range(len(f.coords[d])) if d in f.coords
+              else range(f.shape[f.dims.index(d)]) for d in non_core]
+    for idx in itertools.product(*ranges):
+        yield {d: (f.coords[d][i] if d in f.coords else i)
+               for d, i in zip(non_core, idx)}
 
 
 def _undef_mask(vals, undef):
@@ -176,11 +197,15 @@ def _auto_check_every(user_iParams, iP, device, dtype) -> int:
     not ask for a specific cadence, CUDA float32 solves check every
     min(32, mxLoop/10) sweeps: termination can only land later than the
     per-sweep rule (never earlier), so the tolerance contract still holds.
-    CPU, float64 and any explicit ``checkEvery`` keep the given cadence.
+    CPU, float64 and any explicit ``checkEvery`` keep the given cadence;
+    so does ``scheme="lexico"``, whose point is the reference's per-sweep
+    stopping rule.
     """
     if user_iParams and "checkEvery" in user_iParams:
         return int(user_iParams["checkEvery"])
     ce = int(iP.get("checkEvery", 1))
+    if iP.get("scheme") == "lexico":
+        return ce
     if ce == 1 and device.type == "cuda" and dtype == torch.float32:
         ce = max(1, min(32, int(iP["mxLoop"]) // 10))
     return ce
@@ -197,11 +222,6 @@ def _validate_bcs(iParams, ndim):
 
 def _check_ported(iP):
     """Raise for the options this package does not have yet."""
-    scheme = iP.get("scheme", "sor")
-    if scheme in NOT_PORTED_SCHEMES:
-        raise NotImplementedError(
-            f"iParams['scheme']={scheme!r} is not ported yet "
-            f"({NOT_PORTED_SCHEMES[scheme]})")
     if iP.get("tolType", "change") == "refined":
         raise NotImplementedError("iParams['tolType']='refined' is not "
                                   "ported yet (ROADMAP queue A item 13)")
@@ -346,6 +366,21 @@ def invert_RefState(PV, dims, coords="z-lat", icbc=None,
     return _invert("refstate", PV, dims, coords, icbc,
                    ["Ang0", "ang0", "Gamma", "g", "Omega", "Rearth"],
                    mParams, iParams, 2, device)
+
+
+def invert_GeoAdjustment(h0, dims, coords="lat", icbc=None,
+                         mParams=None, iParams=None, device=None):
+    """Geostrophically adjusted free surface, 1-D (apps.py:148-191)."""
+    return _invert("geoadjustment", h0, dims, coords, icbc,
+                   ["g", "Rearth", "Omega"], mParams, iParams, 1, device)
+
+
+def invert_RefStateSWM(Q, dims, coords="lat", icbc=None,
+                       mParams=None, iParams=None, device=None):
+    """Steady shallow-water reference state, 1-D (apps.py:194-243)."""
+    return _invert("refstateswm", Q, dims, coords, icbc,
+                   ["M0", "C0", "g", "Rearth", "Omega"], mParams, iParams, 1,
+                   device)
 
 
 def invert_PV2D(PV, dims, coords="z-lat", icbc=None,
@@ -900,3 +935,164 @@ def invert_MultiGrid(invert_func, F, dims, ratios=(8, 4, 2, 1),
         if unanchored and ratio != 1:
             sol = sol - float(np.nanmean(sol.values))
     return sol
+
+
+# ---------------------------------------------------------------------------
+# the solution trajectory and the flow diagnostics
+# ---------------------------------------------------------------------------
+
+_ANIMATE = {
+    "poisson": ("poisson", 2),
+    "pv2d": ("pv2d", 2),
+    "geostrophic": ("geostrophic", 2),
+    "gillmatsuno": ("gillmatsuno", 2),
+    "eliassen": ("eliassen", 2),
+    "stommel": ("stommel", 2),
+    "stommelmunk": ("stommelmunk", 2),
+    "refstate": ("refstate", 2),
+    "brethertonhaidvogel": ("brethertonhaidvogel", 2),
+    "fofonoff": ("fofonoff", 2),
+    "omega": ("omega", 3),
+    "3docean": ("3docean", 3),
+}
+
+
+def _animate_problem(app_name, F, dims, coords, icbc, mParams, iParams,
+                     device):
+    """What :func:`animate_iteration` iterates: (spec, S0, omega, scheme,
+    Fdef, the transposed forcing Field, the merged iParams), on
+    ``device``."""
+    key = app_name.lower()
+    if key not in _ANIMATE:
+        raise ValueError(f"unsupported problem: {app_name}")
+    problem_key, ndim = _ANIMATE[key]
+    dims = [dims] if isinstance(dims, str) else list(dims)
+    if len(dims) != ndim:
+        raise ValueError(f"{ndim} dims needed for {app_name}")
+
+    iP = merge_params(default_iParams, iParams)
+    mP = merge_params(default_mParams, mParams)
+    scheme = iP.get("scheme", "sor")
+    if scheme not in ("sor", "lexico", "cheby"):
+        raise ValueError(
+            f"animate_iteration supports scheme 'sor', 'lexico' or "
+            f"'cheby', got {scheme!r} (a one-shot 'direct' solve has no "
+            "trajectory)")
+    device = _resolve_device(device)
+    ft, vals, Fdef, batch = _prepare(F, dims, iP)
+    if batch:
+        raise ValueError("only a single slice (no non-core dims) is allowed")
+    bcs = _validate_bcs(iP, ndim)
+    grid = Grid.make(dims, [ft.coords[d] for d in dims], coords, bcs,
+                     rearth=mP["Rearth"])
+    mPr = _resolve_mp(mP, dims, grid.shape)
+    spec = problems.BUILDERS[problem_key](
+        torch.as_tensor(vals, device=device),
+        torch.as_tensor(Fdef, device=device), grid, mPr)
+    S0 = torch.as_tensor(_init_state(vals, Fdef, icbc, grid, ft),
+                         device=device)
+    if iP["optArg"] is not None:
+        omega = iP["optArg"]
+    else:
+        omega = _AUTO_OMEGA.get(problem_key, grid.omega_opt)
+    return spec, S0, omega, scheme, Fdef, ft, iP
+
+
+def animate_iteration(app_name, F, dims, coords="lat-lon", icbc=None,
+                      mParams=None, iParams=None,
+                      loop_per_frame=5, max_frames=30, device=None):
+    """Snapshot the iteration every ``loop_per_frame`` sweeps along a new
+    'iter' dim (apps.py:895-1058), through
+    :func:`~xinvert_tpu_torch.solver.solve_trajectory`: ``iParams['scheme']``
+    'sor' (the sweep kernels on the card), 'cheby' or 'lexico' (the
+    reference's own iterates).  One slice only: a forcing with non-core
+    dims raises."""
+    spec, S0, omega, scheme, Fdef, ft, iP = _animate_problem(
+        app_name, F, dims, coords, icbc, mParams, iParams, device)
+    frames = solve_trajectory(spec, S0, omega,
+                              loop_per_frame=int(loop_per_frame),
+                              max_frames=int(max_frames),
+                              scheme=scheme).cpu().numpy()
+    if icbc is None:
+        frames = np.where(Fdef, frames, iP["undef"])
+    iters = np.arange(loop_per_frame, loop_per_frame * (max_frames + 1),
+                      loop_per_frame)
+    coords_out = dict(ft.coords)
+    coords_out["iter"] = iters
+    return Field(frames, ("iter",) + ft.dims, coords_out, name="inverted")
+
+
+def cal_flow(S, dims, coords="lat-lon", BCs=("fixed", "fixed"),
+             vtype="streamfunction", mParams=None):
+    """Recover (u, v) from streamfunction/velocity potential, or the
+    Gill-Matsuno winds from geopotential (apps.py:1181-1317).  Finite
+    differences on the host (numpy on Fields, :mod:`xinvert_tpu_torch.fd`),
+    as in the JAX package."""
+    from ..fd import FiniteDiff
+
+    S = as_field(S)
+    vt = vtype.lower()
+    if vt not in ("streamfunction", "velocitypotential", "gillmatsuno"):
+        raise ValueError(f"unsupported vtype: {vtype}")
+
+    if vt != "gillmatsuno":
+        sf = vt == "streamfunction"
+        ct = coords.lower()
+        if ct == "lat-lon":
+            fd = FiniteDiff({"Y": dims[0], "X": dims[1]},
+                            {"Y": (BCs[0], BCs[0]), "X": (BCs[1], BCs[1])},
+                            coords="lat-lon")
+            grdy, grdx = fd.grad(S, ["Y", "X"])
+            return (-grdy, grdx) if sf else (grdx, grdy)
+        if ct == "z-lat":
+            fd = FiniteDiff({"Z": dims[0], "Y": dims[1]},
+                            {"Z": (BCs[0], BCs[0]), "Y": (BCs[1], BCs[1])},
+                            coords="lat-lon")
+            grdz, grdy = fd.grad(S, ["Z", "Y"])
+            cosv = np.cos(np.deg2rad(S.coords[dims[1]]))
+            cos = Field(cosv, (dims[1],), {dims[1]: S.coords[dims[1]]})
+            grdz, grdy = grdz / cos, grdy / cos
+            lat = Field(S.coords[dims[1]], (dims[1],),
+                        {dims[1]: S.coords[dims[1]]})
+            grdy = grdy.where(abs(lat) != 90, other=0)
+            return (-grdz, grdy) if sf else (grdy, grdz)
+        if ct == "z-lon":
+            fd = FiniteDiff({"Z": dims[0], "X": dims[1]},
+                            {"Z": (BCs[0], BCs[0]), "X": (BCs[1], BCs[1])},
+                            coords="lat-lon")
+            grdz, grdx = fd.grad(S, ["Z", "X"])
+            return (grdz, -grdx) if sf else (grdx, grdz)
+        if ct == "cartesian":
+            fd = FiniteDiff({"Y": dims[0], "X": dims[1]},
+                            {"Y": (BCs[0], BCs[0]), "X": (BCs[1], BCs[1])},
+                            coords="cartesian")
+            grdy, grdx = fd.grad(S, ["Y", "X"])
+            return (-grdy, grdx) if sf else (grdx, grdy)
+        raise ValueError(f"unsupported coords {coords}")
+
+    mP = merge_params(default_mParams, mParams,
+                      None if mParams is None else
+                      ["f0", "beta", "epsilon", "Phi", "Omega", "Rearth"])
+    eps, f0, beta = mP["epsilon"], mP["f0"], mP["beta"]
+    if coords.lower() == "lat-lon":
+        latv = S.coords[dims[0]]
+        latr = np.deg2rad(latv)
+        f = 2.0 * mP["Omega"] * np.sin(latr)
+        deg2m = np.deg2rad(1.0) * mP["Rearth"]
+        cos = Field(np.cos(latr), (dims[0],), {dims[0]: latv})
+        coef1 = Field(eps / (eps ** 2 + f ** 2), (dims[0],), {dims[0]: latv})
+        coef2 = Field(f / (eps ** 2 + f ** 2), (dims[0],), {dims[0]: latv})
+        dSx = S.differentiate(dims[1]) / deg2m / cos
+        dSy = S.differentiate(dims[0]) / deg2m
+    elif coords.lower() == "cartesian":
+        y = S.coords[dims[0]]
+        f = f0 + beta * y
+        coef1 = Field(eps / (eps ** 2 + f ** 2), (dims[0],), {dims[0]: y})
+        coef2 = Field(f / (eps ** 2 + f ** 2), (dims[0],), {dims[0]: y})
+        dSx = S.differentiate(dims[1])
+        dSy = S.differentiate(dims[0])
+    else:
+        raise ValueError(f"unsupported coords {coords}")
+    u = -coef1 * dSx - coef2 * dSy
+    v = -coef1 * dSy + coef2 * dSx
+    return u, v

@@ -8,9 +8,9 @@ the result with the matching stencil family from
 :mod:`xinvert_tpu_torch.stencil`.  This package ports every 2-D builder
 (Poisson, RefState, PV2D, Eliassen, Gill-Matsuno in both forms, Stommel in
 both forms, Stommel-Munk, Stommel-Arons, geostrophic, Bretherton-Haidvogel,
-Fofonoff) and the omega (standard 3-D) and 3-D ocean (general 3-D)
-builders; the 1-D ones (geostrophic adjustment, the shallow-water reference
-state) are not ported yet.
+Fofonoff), the omega (standard 3-D) and 3-D ocean (general 3-D) builders
+and the two 1-D ones (geostrophic adjustment, the shallow-water reference
+state).
 
 Inputs: ``F`` the forcing tensor with arbitrary leading batch dims and the
 core grid trailing; ``Fdef`` a boolean defined-mask tensor of the same (or
@@ -39,7 +39,7 @@ __all__ = [
     "build_geostrophic", "geostrophic_std_coeffs", "build_bretherton",
     "bretherton_e_coeffs", "build_fofonoff", "fofonoff_e_coeffs",
     "build_omega", "omega_coeffs", "build_ocean3d", "ocean3d_coeffs",
-    "BUILDERS",
+    "build_geoadjustment", "build_refstate_swm", "BUILDERS",
 ]
 
 
@@ -112,6 +112,15 @@ def _deg2m(rearth):
     return rearth / 180.0 * np.pi
 
 
+def _coriolis_profiles(grid: Grid, mp, axis):
+    """(f at grid, f at half grid, cos, cosH, lat_rad) along core `axis`."""
+    lat = grid.coords[axis]
+    latr = np.deg2rad(lat)
+    f = 2.0 * mp["Omega"] * np.sin(latr)
+    fH = 2.0 * mp["Omega"] * np.sin(_half(latr))
+    return f, fH, np.cos(latr), np.cos(_half(latr)), latr
+
+
 def _gm_c1c2(grid: Grid, mp):
     """The Gill-Matsuno c1/c2 profiles and metric pieces along y (axis 0),
     all lifted to core rank so Field-valued parameters (e.g. a 2-D epsilon)
@@ -173,6 +182,45 @@ def build_poisson(F, Fdef, grid: Grid, mp):
     A, C, Fs = poisson_coeffs(F, Fdef, grid)
     return stencil.standard_2d(_like(A, F), 0.0, _like(C, F), Fs, Fdef,
                                grid.deltas, grid.bcs, include_cross=False)
+
+
+def build_geoadjustment(h0, hdef, grid: Grid, mp):
+    """Geostrophic adjustment, 1-D standard form (apps.py:1527-1552)."""
+    if grid.coord_type != "lat":
+        raise ValueError("geoadjustment supports coords='lat' only")
+    g = mp["g"]
+    f, fH, cosG, cosH, _ = _coriolis_profiles(grid, mp, 0)
+    A = _like(cosH / fH, h0)
+    B = -_like(f * cosG, h0) / g / _fill(h0, hdef, UNDEFTMP)
+    Fs = _like(-f * cosG / g, h0).expand(h0.shape)
+    return stencil.standard_1d(A, B, Fs, hdef, grid.deltas, grid.bcs)
+
+
+def build_refstate_swm(Q, Qdef, grid: Grid, mp):
+    """Shallow-water reference state, 1-D (apps.py:1470-1524)."""
+    if grid.coord_type != "lat":
+        raise ValueError("refstate_swm supports coords='lat' only")
+    g, Re, Om = mp["g"], mp["Rearth"], mp["Omega"]
+    M0 = np.asarray(mp["M0"], np.float64)
+    C0 = np.asarray(mp["C0"], np.float64)
+    latr = np.deg2rad(grid.coords[0])
+    cosG, cosH, sinG = np.cos(latr), np.cos(_half(latr)), np.sin(latr)
+    asin = Re * sinG
+    acos = Re * cosG
+    acos = np.where(acos < 0, -acos * 0.1, acos)  # positive near poles
+    delY = abs(latr[0] - latr[1]) * Re
+    # diff = d/dy((1/cosH) dM0/dy): the reference's local numba diff_2nd
+    # (apps.py:1482-1493), zero at the end points; on the host
+    diff = np.zeros_like(M0)
+    dM = np.diff(M0)  # M[j+1] - M[j]
+    diff[1:-1] = (dM[1:] / cosH[2:] - dM[:-1] / cosH[1:-1]) / delY ** 2
+    A = _like(1.0 / cosH, Q)
+    B = (-_like(C0, Q) * _fill(Q, Qdef, UNDEFTMP)
+         * _like(asin / (np.pi * g * acos ** 3), Q))
+    Fs = _like(-(asin * C0 ** 2 / (2.0 * np.pi * g * acos ** 3))
+               + (2.0 * np.pi * Om ** 2 * asin * acos) / g - diff, Q)
+    Fs = Fs.expand(Q.shape)
+    return stencil.standard_1d(A, B, Fs, Qdef, grid.deltas, grid.bcs)
 
 
 def refstate_std_coeffs(Q, Qdef, grid: Grid, mp):
@@ -616,4 +664,6 @@ BUILDERS = {
     "fofonoff": build_fofonoff,
     "omega": build_omega,
     "3docean": build_ocean3d,
+    "geoadjustment": build_geoadjustment,
+    "refstateswm": build_refstate_swm,
 }

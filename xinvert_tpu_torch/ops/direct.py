@@ -165,14 +165,15 @@ def direct_applicable(spec, S_shape) -> bool:
     (real eigenbasis of the folded tridiagonal x-operator; the standard-2D
     family qualifies).  1-D specs (the GeoAdjustment / RefStateSWM family)
     are pure tridiagonal systems and qualify with fixed or extend BCs and a
-    fully active interior, no x-invariance needed.
+    fully active interior, no x-invariance needed; their weights may carry
+    batch dims (a batched forcing enters their linear coefficient).
     """
     if spec.ndim == 1:
         if spec.bcs[0] not in ("fixed", "extend"):
             return False
         if any(abs(o[0]) > 1 for o in spec.offsets):
             return False
-        if spec.w.dim() != 2 or spec.active.dim() != 1:
+        if spec.active.dim() != 1:
             return False
         n = S_shape[-1]
         if n < 3 or tuple(spec.active.shape) != (n,):
@@ -386,49 +387,59 @@ def _solve_direct_sym(spec, S0):
 
 
 def _solve_direct_1d(spec, S0):
-    """The 1-D branch: one tridiagonal system, with the extend fold and the
-    pure-Neumann gauge as in 2-D."""
+    """The 1-D branch: one tridiagonal system per slice, with the extend
+    fold and the pure-Neumann gauge as in 2-D.  The bands keep the batch
+    dims of the spec's weights: GeoAdjustment and RefStateSWM fold the
+    forcing into their linear coefficient, so a batched forcing batches
+    w0.  (The JAX package slices the batch axis of such a w0 as if it were
+    the grid's and fails; ROADMAP §C.)"""
     n = S0.shape[-1]
-    w = _host(spec.w[:, 1:n - 1])
-    w0 = _host(spec.w0[1:n - 1])
+    w = _host(spec.w[..., 1:n - 1])
+    w0 = _host(spec.w0[..., 1:n - 1])
     by = {off[0]: k for k, off in enumerate(spec.offsets)}
     sub = w[by[-1]] if -1 in by else np.zeros_like(w0)
     sup = w[by[1]] if 1 in by else np.zeros_like(w0)
+    sub, w0, sup = (np.array(a) for a in np.broadcast_arrays(sub, w0, sup))
     extend = spec.bcs[0] == "extend"
     gauge = project = False
     if extend:
         tol = _gauge_tol(w0)
-        gauge = bool(np.max(np.abs(sub + sup + w0)) <= tol)
+        singular = np.max(np.abs(sub + sup + w0), axis=-1) <= tol
+        if bool(np.any(singular)) != bool(np.all(singular)):
+            raise ValueError("solve_direct: the slices of a batched 1-D "
+                             "spec are partly singular (pure Neumann) and "
+                             "partly not; solve them apart")
+        gauge = bool(np.all(singular))
         if gauge:
             dia0 = w0.copy()
-            dia0[0] += sub[0]
-            dia0[-1] += sup[-1]
+            dia0[..., 0] += sub[..., 0]
+            dia0[..., -1] += sup[..., -1]
             colsum = dia0.copy()
-            colsum[:-1] += sub[1:]
-            colsum[1:] += sup[:-1]
+            colsum[..., :-1] += sub[..., 1:]
+            colsum[..., 1:] += sup[..., :-1]
             project = bool(np.max(np.abs(colsum)) <= tol)
     rdtype, dev = S0.dtype, S0.device
     sub, dia, sup = (torch.tensor(a, dtype=rdtype, device=dev)
                      for a in (sub, w0, sup))
     rhs = -spec.g[..., 1:-1].to(rdtype)
-    bshape = torch.broadcast_shapes(rhs.shape[:-1], S0.shape[:-1])
+    bshape = torch.broadcast_shapes(rhs.shape[:-1], S0.shape[:-1],
+                                    dia.shape[:-1])
     rhs = rhs.expand(bshape + (n - 2,)).clone()
     if extend:
-        dia[0] += sub[0]
-        dia[-1] += sup[-1]
-        sub[0] = 0.0
-        sup[-1] = 0.0
+        dia[..., 0] += sub[..., 0]
+        dia[..., -1] += sup[..., -1]
+        sub[..., 0] = 0.0
+        sup[..., -1] = 0.0
         if gauge:
             if project:
                 rhs = rhs - torch.mean(rhs, dim=-1, keepdim=True)
-            dia[0] = torch.max(torch.abs(dia))
-            sup[0] = 0.0
+            dia[..., 0] = torch.amax(torch.abs(dia), dim=-1)
+            sup[..., 0] = 0.0
             rhs[..., 0] = 0.0
     else:
-        rhs[..., 0] += -sub[0] * S0[..., 0]
-        rhs[..., -1] += -sup[-1] * S0[..., -1]
-    x = _thomas_modes(sub[:, None], dia[:, None], sup[:, None],
-                      rhs[..., None])[..., 0]
+        rhs[..., 0] += -sub[..., 0] * S0[..., 0]
+        rhs[..., -1] += -sup[..., -1] * S0[..., -1]
+    x = tridiag_solve_pscan(sub[..., 1:], dia, sup[..., :-1], rhs)
     if extend:
         S = torch.cat([x[..., :1], x, x[..., -1:]], dim=-1)
         if gauge:

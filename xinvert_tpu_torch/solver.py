@@ -3,12 +3,16 @@
 
 Counterpart of ``xinvert_tpu/solver.py``.  A sweep is an extend pre-pass
 followed by two half-sweeps (red, then black) of the folded stencil
-``S += r_c * (g + sum_k w_k S[.+off_k] + w0 S)``, on 2-D and 3-D specs;
-``scheme="cheby"`` scales each half-sweep's ``r_c`` by the next factor of
-the cyclic Chebyshev recurrence, computed on the host.  On
-CUDA tensors the sweeps run in the hand-written kernels of
-:mod:`xinvert_tpu_torch.ops.sor2d` and :mod:`xinvert_tpu_torch.ops.sor3d`; on
-CPU tensors in their plain PyTorch versions, built from the functions below.
+``S += r_c * (g + sum_k w_k S[.+off_k] + w0 S)``, on 1-D, 2-D and 3-D
+specs; ``scheme="cheby"`` scales each half-sweep's ``r_c`` by the next
+factor of the cyclic Chebyshev recurrence, computed on the host;
+``scheme="lexico"`` runs the reference's lexicographic sweep
+(:mod:`xinvert_tpu_torch.lexico`).  On CUDA tensors the 2-D and 3-D sweeps
+run in the hand-written kernels of :mod:`xinvert_tpu_torch.ops.sor2d` and
+:mod:`xinvert_tpu_torch.ops.sor3d`; on CPU tensors in their plain PyTorch
+versions, built from the functions below.  No kernel takes 1-D specs (the
+JAX package runs them as XLA ops): they run in the plain version on both
+devices.
 
 Convergence control replicates the reference exactly: the mean-|S| norm
 (numbas.py:absNorm2D), the relative-change stopping rule, overflow detection
@@ -32,7 +36,7 @@ from .grid import optimal_omega
 from .stencil import StencilSpec, prune_zero_offsets
 
 __all__ = ["SolveResult", "solve", "solve_fixed", "solve_fixed_cheby",
-           "sweep", "sweeps", "rho2_from_omega"]
+           "solve_trajectory", "sweep", "sweeps", "rho2_from_omega"]
 
 
 @dataclasses.dataclass
@@ -47,16 +51,19 @@ class SolveResult:
 # ---------------------------------------------------------------------------
 # boundary pre-pass ('extend' rows), applied once per iteration before the
 # sweep, exactly like the reference kernels (numbas.py:284-310, :1299-1343).
-# Only the second-to-last dim honours 'extend'; 3-D specs extend on interior
-# z levels only, and ignore 'extend' on z as the reference does.
+# Only the second-to-last dim honours 'extend' (the last dim in 1-D); 3-D
+# specs extend on interior z levels only, and ignore 'extend' on z as the
+# reference does.
 # ---------------------------------------------------------------------------
 
 def _apply_extend(spec: StencilSpec, S):
-    """The extend pre-pass on a copy of S (2-D and 3-D specs)."""
-    if spec.ndim not in (2, 3):
-        raise NotImplementedError(
-            "the extend pre-pass is ported for 2-D and 3-D specs; 1-D is "
-            "ROADMAP queue A item 7")
+    """The extend pre-pass on a copy of S (S itself when nothing extends)."""
+    if spec.ndim == 1:
+        if spec.bcs[-1] == "extend":
+            S = S.clone()
+            S[..., 0] = S[..., 1]
+            S[..., -1] = S[..., -2]
+        return S
     if spec.bcs[-2] != "extend":
         return S
     S = S.clone()
@@ -254,20 +261,27 @@ def _residual_scale(spec: StencilSpec):
 # drivers
 # ---------------------------------------------------------------------------
 
-def _select_kernel(spec: StencilSpec, S):
-    """The sweep executor for (spec, S): ``ops.sor2d.sor2d_sweeps`` or
-    ``ops.sor3d.sor3d_sweeps``, which launch the hand-written kernels on
-    CUDA tensors and run their plain PyTorch versions on CPU tensors.
-    Anything else raises: there is no silent fallback."""
+def sweeps_1d(spec: StencilSpec, S, omega, n, with_norm=False, fac=None):
+    """:func:`sweeps` of a 1-D spec, on either device, with the executor
+    signature of the kernel wrappers (``with_norm`` adds the per-slice
+    total |S|).  No TPU kernel takes 1-D specs, so plain PyTorch ops are
+    the 1-D path on the card too."""
+    S = sweeps(spec, S, omega, n, fac)
+    if with_norm:
+        return S, torch.sum(torch.abs(S), dim=-1)
+    return S
+
+
+def _check_operands(spec: StencilSpec, S):
+    """Raise unless spec and state share a device and a float dtype that
+    an executor takes."""
     for name in ("w", "w0", "g", "relax", "active"):
         if getattr(spec, name).device != S.device:
             raise ValueError(
                 f"spec.{name} is on {getattr(spec, name).device} but the "
                 f"state is on {S.device}")
-    if spec.ndim not in (2, 3):
-        raise NotImplementedError(
-            f"{spec.ndim}-D specs are not ported yet (1-D: ROADMAP queue A "
-            "item 7)")
+    if spec.ndim not in (1, 2, 3):
+        raise ValueError(f"no executor for {spec.ndim}-D specs")
     if S.dtype not in (torch.float32, torch.float64):
         raise NotImplementedError(f"no sweep kernel for dtype {S.dtype}")
     if spec.w0.dtype != S.dtype:
@@ -275,6 +289,18 @@ def _select_kernel(spec: StencilSpec, S):
                         f"{S.dtype}")
     if S.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no sweep kernel for device {S.device}")
+
+
+def _select_kernel(spec: StencilSpec, S):
+    """The sweep executor for (spec, S): ``ops.sor2d.sor2d_sweeps`` for 2-D
+    specs and ``ops.sor3d.sor3d_sweeps`` for 3-D ones, which launch the
+    hand-written kernels on CUDA tensors and run their plain PyTorch
+    versions on CPU tensors; :func:`sweeps_1d` for 1-D specs, on both
+    devices, chosen by ``spec.ndim == 1`` alone.  Anything else raises:
+    there is no silent fallback."""
+    _check_operands(spec, S)
+    if spec.ndim == 1:
+        return sweeps_1d
     from .ops import sor2d, sor3d
     return sor2d.sor2d_sweeps if spec.ndim == 2 else sor3d.sor3d_sweeps
 
@@ -382,10 +408,6 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
                        overflow=c["overflow"])
 
 
-#: schemes of the JAX package not ported yet, with their ROADMAP item
-NOT_PORTED_SCHEMES = {"lexico": "ROADMAP queue A item 11"}
-
-
 def _norm(spec: StencilSpec, S):
     """Mean |S| over the core dims, per slice (absNorm*,
     numbas.py:1690-1747)."""
@@ -430,23 +452,25 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
     Jacobi spectral radius that ``omega`` implies (:func:`rho2_from_omega`),
     carried across check windows.
 
+    ``scheme="lexico"`` runs the reference's lexicographic in-place sweep
+    (:func:`xinvert_tpu_torch.lexico.lexico_sweeper`), its exact iterate
+    sequence, with torch ops on either device; keep ``check_every=1`` for
+    the reference's stopping.
+
     ``scheme="direct"`` is the one-shot spectral solve
     (:mod:`xinvert_tpu_torch.ops.direct`), exact, with no iteration:
     ``iters`` reports 1 and ``rel_change`` the true relative discrete
     residual of the returned solution.  Specs it does not take raise
     ``ValueError``.
 
-    Runs on the device of ``spec`` and ``S0`` (which must agree): the CUDA
-    kernels on a CUDA device, their plain PyTorch versions on the CPU.
-    The iterative schemes take 2-D and 3-D specs; 1-D specs raise
-    ``NotImplementedError`` there.
+    Runs on the device of ``spec`` and ``S0`` (which must agree): for
+    ``sor`` and ``cheby`` the CUDA kernels on a CUDA device and their plain
+    PyTorch versions on the CPU, for 2-D and 3-D specs; 1-D specs run the
+    plain version on both devices (:func:`sweeps_1d`).
     """
-    if scheme in NOT_PORTED_SCHEMES:
-        raise NotImplementedError(f"scheme={scheme!r} is not ported yet "
-                                  f"({NOT_PORTED_SCHEMES[scheme]})")
-    if scheme not in ("sor", "cheby", "direct"):
+    if scheme not in ("sor", "cheby", "direct", "lexico"):
         raise ValueError(f"unknown scheme {scheme!r}; "
-                         "use 'sor', 'cheby' or 'direct'")
+                         "use 'sor', 'cheby', 'direct' or 'lexico'")
     if scheme == "direct":
         from .ops.direct import solve_direct
         return direct_result(spec, solve_direct(spec, S0))
@@ -457,6 +481,13 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     if omega is None:
         omega = optimal_omega(S0.shape[-spec.ndim:])
+    if scheme == "lexico":
+        # the reference's ordering is its own executor; the JAX package
+        # leaves the spec unpruned there too
+        return _solve_impl(spec, S0, float(omega), float(tol),
+                           int(max_iters), int(check_every),
+                           _lexico_sweeps(spec, S0, float(omega)), tol_type,
+                           scheme)
     run_sweeps = _select_kernel(spec, S0)
     # drop identically-zero weight planes: the sweep's memory traffic scales
     # with the plane count (stencil.prune_zero_offsets; exact)
@@ -485,3 +516,60 @@ def solve_fixed_cheby(spec: StencilSpec, S0, omega, n_iters: int):
     fac, _, _ = _cheby_factors(0, rho2.dtype.type(1.0), rho2,
                                2 * int(n_iters))
     return run_sweeps(spec, S0, 1.0, int(n_iters), fac=fac)
+
+
+def _lexico_sweeps(spec: StencilSpec, S0, omega):
+    """The lexicographic executor for (spec, S0) with the kernel wrappers'
+    signature; its per-solve set-up runs once, here."""
+    _check_operands(spec, S0)
+    from .lexico import lexico_sweeper
+    one = lexico_sweeper(spec, omega, tuple(S0.shape))
+
+    def run(spec_, S, omega_, k, with_norm=False, fac=None):
+        for _ in range(int(k)):
+            S = one(S)
+        if with_norm:
+            return S, torch.sum(torch.abs(S),
+                                dim=tuple(range(-spec.ndim, 0)))
+        return S
+
+    return run
+
+
+def solve_trajectory(spec: StencilSpec, S0, omega, loop_per_frame: int = 5,
+                     max_frames: int = 30, scheme: str = "sor"):
+    """Solution snapshots every ``loop_per_frame`` sweeps, stacked on a
+    leading frame axis (the reference's ``animate_iteration``,
+    apps.py:895-1058): ``max_frames`` frames, each warm-started from the
+    one before.
+
+    ``scheme="sor"`` runs each frame's sweeps through the executor of
+    :func:`solve_fixed` (the hand-written kernels on the card); ``"cheby"``
+    carries the (m, w) state of the Chebyshev factor recurrence across
+    frames, so frame k equals :func:`solve_fixed_cheby` of
+    k * loop_per_frame sweeps; ``"lexico"`` snapshots the reference's own
+    iterate sequence.  A one-shot ``"direct"`` solve has no trajectory and
+    raises ``ValueError``.
+    """
+    if scheme not in ("sor", "lexico", "cheby"):
+        raise ValueError(
+            f"solve_trajectory supports scheme 'sor', 'lexico' or "
+            f"'cheby', got {scheme!r} (a one-shot 'direct' solve has no "
+            "trajectory)")
+    lpf, omega = int(loop_per_frame), float(omega)
+    if scheme == "lexico":
+        run_sweeps = _lexico_sweeps(spec, S0, omega)
+    else:
+        run_sweeps = _select_kernel(spec, S0)
+    if scheme == "cheby":
+        rho2 = rho2_from_omega(omega, S0.dtype)
+        m, w = 0, rho2.dtype.type(1.0)
+    S, frames = S0, []
+    for _ in range(int(max_frames)):
+        if scheme == "cheby":
+            fac, m, w = _cheby_factors(m, w, rho2, 2 * lpf)
+            S = run_sweeps(spec, S, 1.0, lpf, fac=fac)
+        else:
+            S = run_sweeps(spec, S, omega, lpf)
+        frames.append(S)
+    return torch.stack(frames)

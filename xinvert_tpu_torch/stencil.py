@@ -14,11 +14,11 @@ red-black engine (:mod:`xinvert_tpu_torch.solver`) executes.  Periodicity is
 folded into wrap-around neighbor access and masks, so the interior update is
 uniform.
 
-Counterpart of ``xinvert_tpu/stencil.py``; this package ports the four 2-D
-families (standard-2D, the Poisson path; standard-2D with separate cross
-coefficients and a linear term; general-2D; the biharmonic general-2D) and
-the two 3-D families (standard-3D, the omega equation; general-3D, the 3-D
-ocean).  The 1-D family is not ported yet.  The helpers (``shift_plane``,
+Counterpart of ``xinvert_tpu/stencil.py``, with all seven families: the
+four 2-D ones (standard-2D, the Poisson path; standard-2D with separate
+cross coefficients and a linear term; general-2D; the biharmonic
+general-2D), the two 3-D ones (standard-3D, the omega equation; general-3D,
+the 3-D ocean) and standard-1D.  The helpers (``shift_plane``,
 ``_interior_mask``, ``_finalize``) are rank-generic: a 3-D spec updates z on
 levels 1..nz-2 only (never periodic, never extended).  Tensors stay on the
 device they were built on.
@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 __all__ = ["StencilSpec", "standard_2d", "standard_2d_e", "general_2d",
-           "general_2d_bih", "standard_3d", "general_3d",
+           "general_2d_bih", "standard_3d", "general_3d", "standard_1d",
            "prune_zero_offsets", "shift_plane"]
 
 
@@ -457,4 +457,20 @@ def general_3d(A, B, C, D, E, F, G, H, Fdef, deltas, bcs, upwind=0.0):
         }
     g = -H * dxsq
     return _finalize(weights, w0, g, Fdef, H.shape[-3:], bcs, False, False,
+                     dtype)
+
+
+def standard_1d(A, B, F, Fdef, deltas, bcs):
+    r"""d/dx(A Sx) + B S = F  (numbas.py:633-742)."""
+    (delx,) = deltas
+    dxsq = delx ** 2
+    dtype = _result_dtype(A, F)
+    Aip = shift_plane(A, (1,))
+    weights = {
+        (1,): Aip / dxsq,
+        (-1,): A / dxsq,
+    }
+    w0 = -(Aip + A) / dxsq + B
+    g = -F
+    return _finalize(weights, w0, g, Fdef, F.shape[-1:], bcs, False, True,
                      dtype)
