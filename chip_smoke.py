@@ -1866,6 +1866,562 @@ def phase3_calflow(sor):
         raise RuntimeError("cal_flow: wrong (u, v)")
 
 
+# ---------------- phase 3, refinement, streaming and implicit gradients
+
+def _path(name, kernels, call, launches=None):
+    """``call()`` with every count set to 0 just before it and read just
+    after: it must have launched each of ``kernels`` and nothing else, with
+    no plain call.  The full-size runs add their launches to ``launches``.
+    Returns (its result, the wall seconds)."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = _counts()
+    ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
+    log(f"[3] {name}: wall {wall:.3f} s; launches: {ran}; plain calls "
+        f"{plain}")
+    if {k for k, v in counts.items() if v} != set(kernels) or plain:
+        raise RuntimeError(f"{name}: the path did not run through "
+                           f"{sorted(kernels) or 'torch ops'} alone")
+    if launches is not None:
+        for k, v in counts.items():
+            launches[k] += v
+    return out, wall
+
+
+def _to(spec, device=None, dtype=None):
+    """``spec`` with its tensors moved to ``device`` and its float planes
+    cast to ``dtype`` (an exact up-cast from float32 to float64)."""
+    out = {}
+    for n in ("w", "w0", "g", "relax", "active"):
+        t = getattr(spec, n)
+        if device is not None:
+            t = t.to(device)
+        if dtype is not None and n != "active":
+            t = t.to(dtype)
+        out[n] = t
+    return dataclasses.replace(spec, **out)
+
+
+class _Capture:
+    """While active, ``module.name`` records the arguments (``calls``) and
+    results (``results``) of its calls and runs as before: what an entry
+    point handed on and got back."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls, self.results = [], []
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self._call)
+        return self
+
+    def _call(self, *a, **k):
+        self.calls.append((a, k))
+        out = self.real(*a, **k)
+        self.results.append(out)
+        return out
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def phase3_eft(dev):
+    """TwoSum and TwoProd on the card, 1M float32 pairs with exponents
+    spread over 1e+-8 (tests/test_refine.py's recipe): s + e must equal the
+    float64 sum and product exactly."""
+    from xinvert_tpu_torch.ops.compensated import two_prod, two_sum
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    a, b = ((rng.normal(0, 1, n) * 10.0 ** rng.integers(-8, 9, n)).astype(
+        np.float32) for _ in range(2))
+    ta, tb = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    for fn, exact in ((two_sum, a64 + b64), (two_prod, a64 * b64)):
+        s, e = fn(ta, tb)
+        got = s.double().cpu().numpy() + e.double().cpu().numpy()
+        bad = int(np.count_nonzero(got != exact))
+        log(f"[3] {fn.__name__} on the card, {n} float32 pairs: s + e "
+            f"differs from the float64 value at {bad} pairs")
+        if bad:
+            raise RuntimeError(f"{fn.__name__} is not exact on the card")
+
+
+def sphere_spec(n, dtype, device):
+    """The full-sphere n x n lat-lon Poisson (extend, periodic), every
+    cell active, forcing sin(3 lon) cos(2 lat) 1e-5 (tests/test_refine.py's
+    polar-metric case)."""
+    lat = np.linspace(-88.75, 88.75, n)
+    lon = np.linspace(0.0, 360.0 - 360.0 / n, n)
+    grid = Grid.make(("lat", "lon"), (lat, lon), "lat-lon",
+                     bcs=("extend", "periodic"))
+    vor = (np.sin(3 * np.deg2rad(lon))[None, :]
+           * np.cos(2 * np.deg2rad(lat))[:, None] * 1e-5)
+    spec = problems.build_poisson(
+        torch.as_tensor(vor, dtype=dtype, device=device),
+        torch.ones((n, n), dtype=torch.bool, device=device), grid,
+        default_mParams)
+    return spec, grid.omega_opt
+
+
+def _truth(spec, r):
+    """The float64 relative residual of the pair S_hi + S_lo (exact in
+    float64) against the same operator cast to float64: evaluated with the
+    error-free transformations in float64, whose error is far below the
+    certificate's, and plainly (whose own rounding, eps64 * mean|w0 S| /
+    mean|g|, can reach the certificate on the full sphere)."""
+    from xinvert_tpu_torch.ops.compensated import residual_norm_compensated
+    from xinvert_tpu_torch.solver import _residual_norm, _residual_scale
+    s64 = _to(spec, dtype=torch.float64)
+    Sd = r.S_hi.double() + r.S_lo.double()
+    scale = _residual_scale(s64)
+    return (residual_norm_compensated(s64, Sd) / scale,
+            _residual_norm(s64, Sd) / scale)
+
+
+def _eft_bound(spec, S):
+    """The double-float32 measurement bound of a certificate, per slice:
+    eps32^2 * mean(|g| + |w0 S| + sum_k |w_k S_k|) / mean|g| over active
+    cells.  Each cell's compensated residual is exact to O(eps^2) of the
+    sum of its terms; where that sum dwarfs |g| (the polar rows of the
+    full sphere) the certificate cannot resolve residuals below it."""
+    from xinvert_tpu_torch.ops.compensated import _shift
+    from xinvert_tpu_torch.solver import _residual_scale
+    s64, S = _to(spec, dtype=torch.float64), S.double()
+    tot = s64.g.abs() + (s64.w0 * S).abs()
+    for k, off in enumerate(s64.offsets):
+        tot = tot + (s64.w[k] * _shift(S, off, s64.ndim)).abs()
+    tot = torch.where(s64.active, tot, 0.0)
+    axes = tuple(range(-s64.ndim, 0))
+    mean = tot.sum(dim=axes) / s64.active.sum()
+    return mean / _residual_scale(s64) * float(np.finfo(np.float32).eps) ** 2
+
+
+def _certified(name, r, spec, tol):
+    """The certificate of a refined solve against the float64 residual of
+    its pair: within 1e-3 of its value plus the double-float32 measurement
+    bound (:func:`_eft_bound`), and at most ``tol`` unless None."""
+    cert = r.rel_residual.double()
+    truth, plain = _truth(spec, r)
+    bound = _eft_bound(spec, r.S_hi)
+    err = (cert - truth).abs()
+    gap = float((err / truth).max())
+    ok = bool((err <= 1e-3 * truth + bound).all())
+    log(f"[3] {name}: rounds {r.rounds}, certified residual "
+        f"{float(cert.max()):.4e}, float64 residual of S_hi + S_lo "
+        f"{float(truth.max()):.4e} (evaluated plainly in float64 "
+        f"{float(plain.max()):.4e}); relative gap {gap:.2e}, |gap| "
+        f"{float(err.max()):.3e} against 1e-3 of the value plus the "
+        f"double-float32 bound {float(bound.max()):.3e}: {ok}")
+    if not (ok and (tol is None or float(cert.max()) <= tol)):
+        raise RuntimeError(f"{name}: the certificate does not hold")
+
+
+REFINE_N = 2048        # the full-sphere grid of the refined 2-D phase
+
+
+def phase3_refined(launches):
+    """Certified refinement in float32 through the kernels: solve_refined
+    on the 2048x2048 full sphere (tol 1e-8) beside the plain float32 floor
+    and the plain float64 solve to the same residual; invert_Stommel_mg
+    with tolType='refined' on the SODA curl (12x330x720, x-line smoothing:
+    torch ops); invert_omega with tolType='refined' at 37x72x288 through
+    the 3-D pair.  Returns the timings for PERF.md."""
+    from xinvert_tpu_torch.solver import _residual_scale
+    from xinvert_tpu_torch.ops.compensated import residual_norm_compensated
+    dev = torch.device("cuda", 0)
+    n = REFINE_N
+    spec, omega = sphere_spec(n, torch.float32, dev)
+    S0 = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    r, wall = _path(f"solve_refined {n}x{n} full sphere float32, tol 1e-8",
+                    TILED[False], lambda: xt.solve_refined(
+                        spec, S0, omega=omega, tol=1e-8), launches)
+    _certified(f"solve_refined {n}x{n} float32", r, spec, 1e-8)
+    plain, wall_p = _path(
+        f"solve {n}x{n} float32, residual rule, tol 1e-10, 10000 sweeps "
+        f"(the float32 floor)", TILED[False], lambda: xt.solve(
+            spec, S0, omega, tol=1e-10, max_iters=10000, check_every=32,
+            tol_type="residual"))
+    floor = float(residual_norm_compensated(spec, plain.S)
+                  / _residual_scale(spec))
+    log(f"[3] solve {n}x{n} float32 floor: iters {int(plain.iters)}, "
+        f"float32 residual {float(plain.rel_change):.4e}, its compensated "
+        f"residual {floor:.4e}, against the refined pair's "
+        f"{float(r.rel_residual):.4e}")
+    s64 = _to(spec, dtype=torch.float64)
+    r64, wall64 = _path(
+        f"solve {n}x{n} float64, residual rule, tol 1e-8", TILED[False],
+        lambda: xt.solve(s64, S0.double(), omega, tol=1e-8,
+                         max_iters=60000, check_every=32,
+                         tol_type="residual"))
+    log(f"[3] {n}x{n} to a residual of 1e-8: refined float32 {wall:.3f} s "
+        f"({r.rounds} rounds, {float(r.rel_residual):.4e}); plain float64 "
+        f"{wall64:.3f} s ({int(r64.iters)} sweeps, "
+        f"{float(r64.rel_change):.4e}); ratio f64/refined "
+        f"{wall64 / wall:.3f}")
+    if not float(r64.rel_change) <= 1e-8:
+        raise RuntimeError("the float64 solve did not reach 1e-8")
+
+    from xinvert_tpu_torch import refine
+    from xinvert_tpu_torch.solver import _residual_norm
+    soda = soda_curl()
+    iP = {"BCs": ["extend", "periodic"], "undef": np.nan}
+    with _Capture(refine, "solve_refined") as cap, \
+            _Capture(mg, "solve_mg") as inner:
+        out, wall_mg = _path(
+            "invert_Stommel_mg 12x330x720 float32, tolType='refined'", (),
+            lambda: xt.invert_Stommel_mg(
+                soda, dims=["lat", "lon"], mParams=STOMMEL_MP,
+                iParams=dict(iP, tolType="refined")), launches)
+    rr = api.LAST_REFINE
+    log("[3] invert_Stommel_mg refined, its multigrid solves (round 0 "
+        "first): " + "; ".join(
+            f"{k} cycles to {res:.3e} (max|r|/max|g|)"
+            for _, k, res, _ in inner.results))
+    _certified("invert_Stommel_mg 12x330x720 float32 refined", rr,
+               cap.calls[0][0][0], None)
+    land = np.isnan(soda.values)
+    if not (np.array_equal(np.isnan(out.values), land)
+            and np.isfinite(rr.rel_residual.cpu().numpy()).all()):
+        raise RuntimeError("invert_Stommel_mg refined: non-finite answer")
+    log(f"[3] invert_Stommel_mg 12x330x720 float32 refined: rounds "
+        f"{rr.rounds}, certified residual (mean|r|/mean|g|) per month max "
+        f"{float(rr.rel_residual.max()):.4e}, {wall_mg:.3f} s; converged "
+        f"{float(rr.rel_residual.max()) <= 1e-6} (tol 1e-6); plain "
+        f"multigrid stalls near 1.6e-3 (max|r|/max|g|, phase 3 above)")
+    # the same call in plain float64, to a max-norm residual of 1e-8
+    torch.set_default_dtype(torch.float64)
+    try:
+        with _Capture(mg, "solve_mg") as run:
+            out64, wall_mg64 = _path(
+                "invert_Stommel_mg 12x330x720 float64, tol 1e-8", (),
+                lambda: xt.invert_Stommel_mg(
+                    soda, dims=["lat", "lon"], mParams=STOMMEL_MP,
+                    iParams=iP, tol=1e-8))
+    finally:
+        torch.set_default_dtype(torch.float32)
+    (levels,), kw64 = run.calls[0]
+    S64, k64, res64, conv64 = run.results[0]
+    spec64 = dataclasses.replace(levels[0].spec, g=kw64["g0"].reshape(
+        S64.shape)) if kw64.get("g0") is not None else levels[0].spec
+    from xinvert_tpu_torch.solver import _residual_scale
+    mean64 = float(torch.max(_residual_norm(spec64, S64)
+                             / _residual_scale(spec64)))
+    log(f"[3] invert_Stommel_mg 12x330x720 float64: {k64} cycles to "
+        f"{res64:.3e} (max|r|/max|g|), mean|r|/mean|g| {mean64:.4e}, "
+        f"converged {conv64}, {wall_mg64:.3f} s; against refined float32 "
+        f"{wall_mg:.3f} s to {float(rr.rel_residual.max()):.4e}; ratio "
+        f"f64/refined {wall_mg64 / wall_mg:.3f}")
+
+    F_om, N2_om = atmos3d(37, 72, 288)
+    iP_om = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 5000,
+             "tolerance": 1e-9, "tolType": "refined", "printInfo": False}
+    with _Capture(refine, "solve_refined") as cap:
+        out, wall_om = _path(
+            "invert_omega 37x72x288 float32, tolType='refined', tol 1e-9",
+            ("sor3d_color_sweep",), lambda: xt.invert_omega(
+                F_om, DIMS_3D, mParams={"N2": N2_om}, iParams=iP_om),
+            launches)
+    if not np.isfinite(out.values).all():
+        raise RuntimeError("invert_omega refined: non-finite answer")
+    _certified("invert_omega 37x72x288 float32 refined", api.LAST_REFINE,
+               cap.calls[0][0][0], 1e-9)
+    return {"refined_s": wall, "rounds": r.rounds,
+            "cert": float(r.rel_residual), "f64_s": wall64,
+            "f64_sweeps": int(r64.iters), "floor": floor,
+            "mg_s": wall_mg, "mg_rounds": rr.rounds,
+            "mg_cert": float(rr.rel_residual.max()), "mg64_s": wall_mg64}
+
+
+def daily_fields(days=365, ny=721, nx=1440, seed=0):
+    """``days`` daily global 0.25-degree vorticity-like fields (a planetary
+    wave pattern drifting with the day plus synoptic noise), built on the
+    card in bulk and returned in host memory as a Field."""
+    dev = torch.device("cuda", 0)
+    lat = np.linspace(-90.0, 90.0, ny)
+    lon = np.arange(nx) * (360.0 / nx)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L = torch.deg2rad(torch.as_tensor(lat, device=dev))[:, None]
+    Lo = torch.deg2rad(torch.as_tensor(lon, device=dev))[None, :]
+    out = torch.empty((days, ny, nx), dtype=torch.float32)
+    for d0 in range(0, days, 73):
+        d = torch.arange(d0, min(d0 + 73, days), device=dev,
+                         dtype=torch.float64)[:, None, None]
+        ph = 2 * np.pi * d / 365.0
+        v = (torch.sin(3 * Lo + ph) * torch.cos(2 * L)
+             + 0.5 * torch.sin(5 * Lo - 2 * ph) * torch.cos(L) ** 2)
+        v = v + 0.2 * torch.randn(v.shape, generator=gen, device=dev,
+                                  dtype=torch.float64)
+        out[d0:d0 + v.shape[0]] = (v * 1e-5).float().cpu()
+    coords = {"time": np.arange(days, dtype=np.float64), "lat": lat,
+              "lon": lon}
+    return xt.Field(out.numpy(), ("time", "lat", "lon"), coords)
+
+
+def _intervals(prof):
+    """The device intervals (µs) of a profiled run: host-to-device and
+    device-to-host copies, and everything else (kernels, device copies)."""
+    h2d, d2h, compute = [], [], []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        iv = (ev.time_range.start, ev.time_range.end)
+        (h2d if "HtoD" in ev.name else d2h if "DtoH" in ev.name
+         else compute).append(iv)
+    return h2d, d2h, compute
+
+
+def _union(ivs):
+    out = []
+    for s, e in sorted(ivs):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _overlap_us(a, b):
+    """Length of the intersection of two sorted unions of intervals."""
+    i = j = 0
+    tot = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        tot += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+STREAM_DAYS = 365      # the streamed year of daily 0.25-degree fields
+STREAM_CHUNK = 32
+
+
+def phase3_stream(launches):
+    """invert_Poisson with streamChunk 32 on 365 daily 0.25-degree global
+    fields (365x721x1440 float32, 1.5 GB an array on the host): through
+    the tiled kernel alone, bit-equal to the resident solve of the same
+    spec (S, iters, rel_change, overflow), and chunks 1 and 365 at a cut
+    mxLoop the same way; the streamed and resident times, and under
+    torch.profiler the share of the host<->device copy time that overlaps
+    the solves.  Returns the numbers for PERF.md."""
+    from xinvert_tpu_torch import stream
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    F = daily_fields(STREAM_DAYS)
+    log(f"[3] streaming: {STREAM_DAYS}x721x1440 float32 fields made in "
+        f"{time.perf_counter() - t0:.1f} s ({F.values.nbytes / 1e9:.2f} GB)")
+    iP = {"BCs": ["extend", "periodic"], "undef": np.nan, "mxLoop": 300,
+          "tolerance": 1e-11, "printInfo": False,
+          "streamChunk": STREAM_CHUNK}
+    with _Capture(stream, "solve_streamed") as cap:
+        out, wall_s = _path(
+            f"invert_Poisson {STREAM_DAYS}x721x1440 float32, streamChunk "
+            f"{STREAM_CHUNK}", TILED[False],
+            lambda: xt.invert_Poisson(F, ["lat", "lon"], iParams=iP),
+            launches)
+    got = api.LAST_SOLVE
+    if not np.isfinite(out.values).all():
+        raise RuntimeError("streamed invert_Poisson: non-finite answer")
+    (spec, S0, omega), kw = cap.calls[0]
+    kw = dict(kw)
+    chunk = kw.pop("chunk")
+    kw.pop("device", None)
+    log(f"[3] streamed solve: chunk {chunk}, check_every "
+        f"{kw['check_every']}, iters {int(got.iters.min())}.."
+        f"{int(got.iters.max())}")
+    spec_d = _to(spec, dev)
+    ref, wall_r = _path(
+        f"solve {STREAM_DAYS}x721x1440 float32 resident, the same spec",
+        TILED[False], lambda: xt.solve(spec_d, S0.to(dev), omega, **kw))
+
+    def same(name, a, b):
+        eq = {f: torch.equal(getattr(a, f), getattr(b, f).cpu())
+              for f in ("S", "iters", "rel_change", "overflow")}
+        log(f"[3] {name}: bit-equal to the resident solve: {eq}")
+        if not all(eq.values()):
+            raise RuntimeError(f"{name} differs from the resident solve")
+
+    same(f"streamed chunk {chunk}", got, ref)
+    del ref
+    cut = dict(kw, max_iters=2 * kw["check_every"])
+    ref = xt.solve(spec_d, S0.to(dev), omega, **cut)
+    for c in (1, STREAM_DAYS):
+        r, _ = _path(f"solve_streamed chunk {c}, mxLoop {cut['max_iters']}",
+                     TILED[False], lambda c=c: xt.solve_streamed(
+                         spec, S0, omega, chunk=c, **cut))
+        same(f"streamed chunk {c} (mxLoop {cut['max_iters']})", r, ref)
+    del ref, spec_d
+
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        xt.solve_streamed(spec, S0, omega, chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    h2d, d2h, compute = _intervals(prof)
+    cu, ku = _union(h2d + d2h), _union(compute)
+    copy_us = sum(e - s for s, e in cu)
+    busy_us = sum(e - s for s, e in ku)
+    if copy_us > 0:
+        ov = _overlap_us(cu, ku)
+        share = ov / copy_us
+        parts = []
+        for label, ivs in (("host-to-device", h2d), ("device-to-host",
+                                                      d2h)):
+            u = _union(ivs)
+            tot = sum(e - s for s, e in u)
+            big = [iv for iv in ivs if iv[1] - iv[0] > 100.0]
+            parts.append(
+                f"{label} {len(ivs)} copies ({len(big)} over 0.1 ms) "
+                f"{tot / 1e6:.4f} s, overlapped "
+                f"{_overlap_us(u, ku) / max(tot, 1e-9):.3f}")
+        log(f"[3] streamed solve under torch.profiler ({wall_p:.3f} s "
+            f"wall): host<->device copies {copy_us / 1e6:.4f} s, kernels "
+            f"{busy_us / 1e6:.4f} s, copy time overlapping kernels "
+            f"{ov / 1e6:.4f} s, overlap share {share:.3f}; "
+            + "; ".join(parts))
+    else:
+        share = None
+        log("[3] streamed solve: copy overlap not measured (torch.profiler "
+            "recorded no host<->device copy)")
+    iP_r = {k: v for k, v in iP.items() if k != "streamChunk"}
+    out_r, wall_e = _path(
+        f"invert_Poisson {STREAM_DAYS}x721x1440 float32, resident (no "
+        f"streamChunk)", TILED[False],
+        lambda: xt.invert_Poisson(F, ["lat", "lon"], iParams=iP_r))
+    gap = float(np.abs(out_r.values - out.values).max()
+                / np.abs(out_r.values).max())
+    log(f"[3] streaming {STREAM_DAYS}x721x1440: the streamed entry "
+        f"{wall_s:.3f} s against the resident entry {wall_e:.3f} s (its "
+        f"spec built on the card: max|diff|/max|S| {gap:.3e}); the solve "
+        f"alone resident {wall_r:.3f} s, streamed under the profiler "
+        f"{wall_p:.3f} s")
+    return {"stream_s": wall_s, "resident_s": wall_r, "entry_s": wall_e,
+            "overlap": share, "copy_s": copy_us / 1e6}
+
+
+IMPLICIT_N = 2048      # bench.py's masked spherical Poisson
+IMPLICIT_SWEEPS = 1000
+
+
+def _plain_sweeps(spec, S, omega, n, with_norm=False, fac=None):
+    """The plain version with the 2-D wrapper's signature, set over
+    sor2d.sor2d_sweeps to run a solve's sweeps as torch ops on the card."""
+    if with_norm:
+        return sor2d.sor2d_sweeps_reference_norm(spec, S, omega, n, fac)
+    return sor2d.sor2d_sweeps_reference(spec, S, omega, n, fac)
+
+
+def phase3_implicit(launches):
+    """Implicit gradients of sum(c S) in g and w on bench.py's 2048x2048
+    masked spherical Poisson (the extend fold), float32 and float64, at a
+    fixed sweep count: through the tiled kernel (forward and adjoint),
+    bit-equal to the same gradient through the plain sweeps on the card;
+    forward and forward+backward times; then the fixed-count linearity
+    identity of tests/test_implicit.py in float64 at 256x256 through the
+    kernel.  Returns the timings for PERF.md."""
+    dev = torch.device("cuda", 0)
+    n, k = IMPLICIT_N, IMPLICIT_SWEEPS
+    times = {}
+    for dt in (torch.float32, torch.float64):
+        spec, omega = poisson_spec(n, n, 0, dt, dev)
+        c = torch.as_tensor(np.random.default_rng(5).standard_normal(
+            (n, n)), dtype=dt, device=dev)
+        S0 = torch.zeros((n, n), dtype=dt, device=dev)
+        kw = dict(omega=omega, tol=0.0, max_iters=k, check_every=k)
+
+        def fwd():
+            return xt.solve_implicit(spec, S0, **kw)
+
+        def grads():
+            g = spec.g.clone().requires_grad_()
+            w = spec.w.clone().requires_grad_()
+            S = xt.solve_implicit(dataclasses.replace(spec, g=g, w=w), S0,
+                                  **kw)
+            torch.sum(c * S).backward()
+            return S.detach(), g.grad, w.grad
+
+        name = f"solve_implicit {n}x{n} {str(dt)[6:]}, {k} sweeps"
+        grads()                  # warm: the autograd engine's first use
+        _, t_f = _path(f"{name}, forward", TILED[False], fwd)
+        kern, t_fb = _path(f"{name}, forward+backward", TILED[False], grads,
+                           launches)
+        tiled = sor2d.sor2d_sweeps
+        sor2d.sor2d_sweeps = _plain_sweeps
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = grads()
+            torch.cuda.synchronize()
+            t_p = time.perf_counter() - t0
+        finally:
+            sor2d.sor2d_sweeps = tiled
+        eq = [torch.equal(a, b) for a, b in zip(kern, plain)]
+        gmax = float(kern[1].abs().max())
+        log(f"[3] {name}: forward {t_f:.3f} s, forward+backward "
+            f"{t_fb:.3f} s (x{t_fb / t_f:.2f}); through the plain sweeps "
+            f"{t_p:.3f} s; S, g_bar, w_bar bit-equal to the plain path: "
+            f"{eq}; max|g_bar| {gmax:.4e}")
+        if not all(eq) or not gmax > 0:
+            raise RuntimeError(f"{name}: the gradient through the kernel "
+                               "differs from the plain version's")
+        times[str(dt)[6:]] = (t_f, t_fb, t_p)
+
+    # the linearity identity (tests/test_implicit.py), float64, 256x256,
+    # its problem: (fixed, periodic) with cross terms and a mask, unit
+    # spacing, through the kernel
+    rng = np.random.default_rng(0)
+    sh = (256, 256)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    Fdef = np.ones(sh, bool)
+    Fdef[256 // 3:256 // 2, 256 // 3:256 // 2] = False
+    spec = standard_2d(t(np.abs(rng.normal(1, .1, sh)) + .5),
+                       t(rng.normal(0, .1, sh)),
+                       t(np.abs(rng.normal(1, .1, sh)) + .5),
+                       t(rng.normal(0, 1, sh)), t(Fdef), (1.1, 1.0),
+                       ("fixed", "periodic"))
+    omega = xt.optimal_omega(sh)
+    rng = np.random.default_rng(11)
+    S0 = torch.zeros((256, 256), dtype=torch.float64, device=dev)
+    c = torch.as_tensor(rng.normal(0, 1, (256, 256)), device=dev)
+    dg = torch.where(spec.active, torch.as_tensor(
+        rng.normal(0, 1, (256, 256)), device=dev), 0.0)
+
+    def loss(g, iters):
+        s = dataclasses.replace(spec, g=g)
+        return torch.sum(xt.solve_implicit(s, S0, omega=omega, tol=0.0,
+                                           max_iters=iters,
+                                           check_every=iters) * c)
+
+    def identity():
+        r1 = float(loss(spec.g + dg, 40) - loss(spec.g, 40))
+        r2 = float(loss(spec.g + 2.0 * dg, 40) - loss(spec.g, 40))
+        g = spec.g.clone().requires_grad_()
+        L = loss(g, 6000)
+        L.backward()
+        lin = float(loss(spec.g + dg, 6000)) - L.item()
+        return r1, r2, lin, float(torch.sum(g.grad * dg))
+
+    (r1, r2, lin, an), _ = _path("linearity identity 256x256 float64",
+                                 TILED[False], identity)
+    e1 = abs(r2 - 2.0 * r1) / max(abs(r1), 1.0)
+    e2 = abs(lin - an) / max(abs(an), 1.0)
+    log(f"[3] linearity identity 256x256 float64: 40 sweeps |r2 - 2 r1| = "
+        f"{e1:.3e} (limit 1e-10); converged (6000 sweeps) step response "
+        f"{lin:.10e} against <g_bar, dg> {an:.10e}: {e2:.3e} (limit 1e-9)")
+    if not (e1 <= 1e-10 and e2 <= 1e-9):
+        raise RuntimeError("the linearity identity does not hold")
+    return times
+
+
 # ---------------------------------------------------------------- phase 4
 
 def _time_ms(fn, reps, inner=1):
@@ -2375,6 +2931,14 @@ def main():
     phase3_1d()
     phase3_calflow(sor)
     stamp("phase 3 (1-D, cal_flow)")
+    torch.set_default_dtype(torch.float32)
+    phase3_eft(dev)
+    phase3_refined(launches)
+    stamp("phase 3 (EFT, refinement)")
+    phase3_stream(launches)
+    stamp("phase 3 (streaming)")
+    phase3_implicit(launches)
+    stamp("phase 3 (implicit gradients)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
     phase4_mg(card, dev, syncs)

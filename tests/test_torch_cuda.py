@@ -7,7 +7,9 @@ Chebyshev factor argument included), counted, and refusing what they do not
 take; the direct engine on the card against the CPU; solution trajectories
 through the kernels frame by frame against the plain version; the
 lexicographic executor and the 1-D entry points on the card against the
-CPU.  Every test here needs an NVIDIA GPU (marker
+CPU; the error-free transformations exact on the card, refinement through
+the kernels, streamed solves bit-equal to the resident solve, and implicit
+gradients through the kernels equal to the plain version's.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -961,3 +963,111 @@ def test_lexico_on_card_matches_cpu(cuda):
                                        atol=1e-10 * scale)
     finally:
         torch.set_default_dtype(dtype)
+
+
+def _plain_sweeps(spec, S, omega, n, with_norm=False, fac=None):
+    """The plain version with the kernel wrapper's signature: patched over
+    ``sor2d.sor2d_sweeps`` it runs a solve's sweeps as torch ops on the
+    card."""
+    if with_norm:
+        return sor2d.sor2d_sweeps_reference_norm(spec, S, omega, n, fac)
+    return sor2d.sor2d_sweeps_reference(spec, S, omega, n, fac)
+
+
+def test_eft_exact_on_the_card(cuda):
+    """TwoSum / TwoProd on the card are error-free: s + e equals the
+    float64 sum and product exactly (exponents spread over 1e+-8)."""
+    from xinvert_tpu_torch.ops.compensated import two_prod, two_sum
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+    a, b = ((rng.normal(0, 1, n) * 10.0 ** rng.integers(-8, 9, n)).astype(
+        np.float32) for _ in range(2))
+    ta, tb = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    for fn, exact in ((two_sum, a64 + b64), (two_prod, a64 * b64)):
+        s, e = fn(ta, tb)
+        assert np.array_equal(s.double().cpu().numpy()
+                              + e.double().cpu().numpy(), exact), fn
+
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_streamed_bit_equal_to_resident_on_the_card(cuda, chunk):
+    """solve_streamed of a host spec on the card, chunk 1 and a padded
+    chunk 2, equals the resident batched solve of the same spec on the card
+    bit for bit (S, iters, rel_change, overflow), through the tiled kernel
+    alone."""
+    spec, _ = _poisson(torch.float32, "cpu", batch=5, ny=45, nx=70)
+    rng = np.random.default_rng(4)
+    spec = dataclasses.replace(spec, g=spec.g * torch.as_tensor(
+        rng.uniform(0.5, 2.0, (5, 1, 1)), dtype=torch.float32))
+    S0 = torch.zeros(spec.g.shape, dtype=torch.float32)
+    kw = dict(omega=1.7, tol=1e-5, max_iters=600, check_every=8)
+    dev = dataclasses.replace(spec, **{f: getattr(spec, f).to(cuda) for f in
+                                       ("w", "w0", "g", "relax", "active")})
+    ref = xt.solve(dev, S0.to(cuda), **kw)
+    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    got = xt.solve_streamed(spec, S0, chunk=chunk, **kw)
+    assert sor2d.TILED_LAUNCHES > t0 and sor2d.PLAIN_CALLS == p0
+    for f in ("S", "iters", "rel_change", "overflow"):
+        assert getattr(got, f).device.type == "cpu"
+        assert torch.equal(getattr(got, f), getattr(ref, f).cpu()), f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_implicit_gradient_kernel_equals_plain_on_the_card(cuda, monkeypatch,
+                                                           dtype):
+    """The gradient of sum(c * S) in g and w through solve_implicit on the
+    card (forward and adjoint through the tiled kernel, the extend fold)
+    equals the same gradient through the plain sweeps on the card, bit for
+    bit, at a fixed sweep count (tol 0: no stopping decision)."""
+    spec, _ = _poisson(dtype, cuda, ny=45, nx=70)
+    c = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        spec.g.shape), dtype=dtype, device=cuda)
+    S0 = torch.zeros(spec.g.shape, dtype=dtype, device=cuda)
+
+    def grads():
+        g = spec.g.clone().requires_grad_()
+        w = spec.w.clone().requires_grad_()
+        S = xt.solve_implicit(dataclasses.replace(spec, g=g, w=w), S0,
+                              omega=1.7, tol=0.0, max_iters=200,
+                              check_every=200)
+        torch.sum(c * S).backward()
+        return S.detach(), g.grad, w.grad
+
+    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    kern = grads()
+    assert sor2d.TILED_LAUNCHES > t0 and sor2d.PLAIN_CALLS == p0
+    monkeypatch.setattr(sor2d, "sor2d_sweeps", _plain_sweeps)
+    plain = grads()
+    assert sor2d.PLAIN_CALLS > p0
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+
+
+def test_refined_on_the_card(cuda):
+    """solve_refined on the card: round 0 and every correction through the
+    tiled kernel (no plain call), the certificate below tol and within
+    1e-3 of the float64 residual of the pair."""
+    from xinvert_tpu_torch.solver import _residual_norm, _residual_scale
+    lat = np.linspace(-88.75, 88.75, 96)
+    lon = np.linspace(0.0, 360.0 - 360.0 / 192, 192)
+    grid = Grid.make(("lat", "lon"), (lat, lon), "lat-lon",
+                     bcs=("extend", "periodic"))
+    vor = (np.sin(3 * np.deg2rad(lon))[None, :]
+           * np.cos(2 * np.deg2rad(lat))[:, None] * 1e-5)
+    spec = problems.build_poisson(
+        torch.as_tensor(vor, dtype=torch.float32, device=cuda),
+        torch.ones((96, 192), dtype=torch.bool, device=cuda), grid,
+        default_mParams)
+    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    r = xt.solve_refined(spec, torch.zeros((96, 192), device=cuda,
+                                           dtype=torch.float32),
+                         omega=grid.omega_opt, tol=1e-9, max_rounds=5)
+    assert sor2d.TILED_LAUNCHES > t0 and sor2d.PLAIN_CALLS == p0
+    cert = float(r.rel_residual)
+    assert cert <= 1e-9 and r.rounds >= 1
+    s64 = dataclasses.replace(spec, **{f: getattr(spec, f).double() for f in
+                                       ("w", "w0", "g", "relax")})
+    truth = float(_residual_norm(s64, r.S_hi.double() + r.S_lo.double())
+                  / _residual_scale(s64))
+    assert abs(cert - truth) <= 1e-3 * truth

@@ -6,7 +6,7 @@ equal cycles (``LAST_SOLVE.iters``) and the same converged verdict, at the
 sizes of tests/test_mg.py, tests/test_mg_general.py and
 tests/test_multigrid.py or smaller.  Also icbc with ``warmStart``, a
 batched forcing, the two ValueErrors (a batch-varying mask, batch-varying
-planes) and ``tolType='refined'`` raising NotImplementedError."""
+planes) and ``tolType='refined'`` on a batched forcing."""
 import warnings
 
 import numpy as np
@@ -255,7 +255,8 @@ def test_multigrid_cascade_matches_jax():
 
 def test_mg_refusals():
     """A batch-varying mask and batch-varying planes raise ValueError (use
-    the SOR inverter); tolType='refined' is not ported yet."""
+    the SOR inverter); tolType='refined' runs the multigrid-backed
+    refinement on a batched forcing and certifies the tolerance."""
     _, tf = _latlon(33, 64, -80, 80, batch=2, mask=True)
     v = tf.values.copy()
     v[1, 2, 3] = np.nan
@@ -274,10 +275,12 @@ def test_mg_refusals():
                               iParams={"BCs": ["fixed", "fixed"]},
                               mParams={"Ang0": 2e5, "Gamma": 1e-6},
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        xt.invert_Poisson_mg(tf, ["lat", "lon"],
-                             iParams=dict(iP, tolType="refined"),
-                             device="cpu")
+    out = xt.invert_Poisson_mg(tf, ["lat", "lon"], tol=1e-9,
+                               iParams=dict(iP, tolType="refined"),
+                               device="cpu")
+    assert np.array_equal(np.isnan(out.values), np.isnan(tf.values))
+    assert tapi.LAST_REFINE.rel_residual.shape == (2,)
+    assert float(tapi.LAST_REFINE.rel_residual.max()) <= 1e-9
 
 
 def test_mg_entries_default_to_the_card():

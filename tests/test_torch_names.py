@@ -14,12 +14,6 @@ import xinvert_tpu as xi  # noqa: E402
 import xinvert_tpu_torch as xt  # noqa: E402
 
 NOT_PORTED = {
-    # item 13: refine.py
-    "solve_refined", "RefineResult",
-    # item 14: stream.py
-    "solve_streamed",
-    # item 15: ops/implicit.py
-    "solve_implicit", "transpose_spec",
     # TPU-only (ROADMAP queue A, "Not to port"): the XLA compile cache
     "enable_compile_cache",
 }
@@ -42,9 +36,12 @@ def test_top_level_names_match_the_jax_package():
                                   "build_pyramid_bih2d",
                                   "build_pyramid_general2d",
                                   "build_pyramid_general3d", "solve_direct",
-                                  "direct_applicable"])
+                                  "direct_applicable", "solve_refined",
+                                  "RefineResult", "solve_streamed",
+                                  "solve_implicit", "transpose_spec"])
 def test_ported_names_are_the_modules_functions(name):
-    from xinvert_tpu_torch import mg
-    from xinvert_tpu_torch.ops import direct, tridiag
-    home = next(m for m in (mg, direct, tridiag) if hasattr(m, name))
+    from xinvert_tpu_torch import mg, refine, stream
+    from xinvert_tpu_torch.ops import direct, implicit, tridiag
+    home = next(m for m in (mg, direct, tridiag, refine, stream, implicit)
+                if hasattr(m, name))
     assert getattr(xt, name) is getattr(home, name)

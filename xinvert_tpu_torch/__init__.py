@@ -25,7 +25,13 @@ same kernels; ``invert_MultiGrid`` runs any inverter coarse to fine.
 ``scheme="direct"`` (module :mod:`~xinvert_tpu_torch.ops.direct`) solves
 the x-invariant problems exactly in one shot: an rFFT along x (or a
 symmetric eigenbasis), tridiagonal solves in y, and a capacitance-matrix
-correction for small masks.  The sweeps run on the
+correction for small masks.  ``tolType="refined"`` (``solve_refined``,
+module :mod:`~xinvert_tpu_torch.refine`) certifies residuals below the
+float32 floor with a double-float32 state and error-free transformations;
+``streamChunk`` (``solve_streamed``) passes batches larger than device
+memory through the card a chunk at a time; ``solve_implicit`` (module
+:mod:`~xinvert_tpu_torch.ops.implicit`) differentiates through a solve
+with one adjoint solve on ``transpose_spec``.  The sweeps run on the
 NVIDIA GPU in hand-written CUDA kernels (``csrc/sor2d.cu``,
 ``csrc/sor3d.cu``, built with nvcc on first use; ``XINVERT_INPLACE=1``
 selects the in-place 2-D kernel for radius-1 stencils without cross terms);
@@ -73,3 +79,6 @@ from .mg import (                                               # noqa: F401
 )
 from .ops.tridiag import trace, traceCyclic, tridiag_solve      # noqa: F401
 from .ops.direct import solve_direct, direct_applicable         # noqa: F401
+from .refine import solve_refined, RefineResult                 # noqa: F401
+from .stream import solve_streamed                              # noqa: F401
+from .ops.implicit import solve_implicit, transpose_spec        # noqa: F401

@@ -63,6 +63,9 @@ __all__ = ["invert_Poisson", "invert_RefState", "invert_PV2D",
 #: package: the solution, the cycles, the relative residual and whether it
 #: is non-finite.
 LAST_SOLVE = None
+#: The :class:`~xinvert_tpu_torch.refine.RefineResult` of the last
+#: ``tolType='refined'`` call: the (hi, lo) pair and the certified residual.
+LAST_REFINE = None
 
 
 def _resolve_device(device=None):
@@ -222,12 +225,6 @@ def _validate_bcs(iParams, ndim):
 
 def _check_ported(iP):
     """Raise for the options this package does not have yet."""
-    if iP.get("tolType", "change") == "refined":
-        raise NotImplementedError("iParams['tolType']='refined' is not "
-                                  "ported yet (ROADMAP queue A item 13)")
-    if iP.get("streamChunk"):
-        raise NotImplementedError("iParams['streamChunk'] is not ported yet "
-                                  "(ROADMAP queue A item 14)")
     if iP.get("mesh") is not None:
         raise NotImplementedError("iParams['mesh'] is not ported yet "
                                   "(ROADMAP queue A item 16)")
@@ -240,6 +237,15 @@ _AUTO_OMEGA = {
     "gillmatsuno": 1.4, "gillmatsuno_test": 1.4, "stommelarons": 1.4,
     "3docean": 1.4, "stommelmunk": 1.0,
 }
+
+
+def _spec_to(spec, device):
+    """``spec`` with its tensors on ``device`` (itself when already there)."""
+    if spec.w.device == device:
+        return spec
+    return dataclasses.replace(
+        spec, **{n: getattr(spec, n).to(device)
+                 for n in ("w", "w0", "g", "relax", "active")})
 
 
 def _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr, spec, S0):
@@ -277,6 +283,17 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
         raise ValueError(f"{ndim:2d} dimensional forcing are needed")
     iP = merge_params(default_iParams, iParams)
     _check_ported(iP)
+    refined = iP.get("tolType", "change") == "refined"
+    stream = bool(iP.get("streamChunk"))
+    if refined and stream:
+        # refinement keeps a resident double-float32 state; the streaming
+        # executor pages slices between host and device.  They do not
+        # compose: refuse instead of dropping one of them.
+        raise ValueError(
+            "tolType='refined' cannot be combined with streamChunk: "
+            "iterative refinement needs the (hi, lo) state resident on "
+            "device.  Drop streamChunk (refine in-core) or use "
+            "tolType='change'/'residual' for the streamed solve.")
     validate = mParams is not None and mParams is not default_mParams
     mP = merge_params(default_mParams, mParams,
                       valid_mp if validate else None)
@@ -290,9 +307,12 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
     mPr = _resolve_mp(mP, dims, grid.shape)
 
     Fdef_c = _collapse_mask(Fdef, ndim)
+    # a streamed batch lives on the host: its spec is built there and
+    # solve_streamed sends it to the device a chunk at a time
+    spec_dev = torch.device("cpu") if stream else device
     spec = problems.BUILDERS[problem_key](
-        torch.as_tensor(vals, device=device),
-        torch.as_tensor(Fdef_c, device=device), grid, mPr)
+        torch.as_tensor(vals, device=spec_dev),
+        torch.as_tensor(Fdef_c, device=spec_dev), grid, mPr)
     S0 = _init_state(vals, Fdef, icbc, grid, ft,
                      warm=bool(iP.get("warmStart", False)))
     if iP["optArg"] is not None:
@@ -305,11 +325,13 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
               f"optArg     : {omega}\nmax loops  : {iP['mxLoop']}\n"
               f"tolerance  : {iP['tolerance']}\nboundaries : {grid.bcs}")
 
-    S0_t = torch.as_tensor(S0, device=device)
+    S0_t = torch.as_tensor(S0, device=spec_dev)
     res = None
     if iP.get("scheme", "sor") == "direct":
-        res = _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr, spec,
-                                 S0_t)
+        # the capacitance path solves the whole batch resident on the
+        # device, streamed or not
+        res = _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr,
+                                 _spec_to(spec, device), S0_t.to(device))
         if res is None and grid.ndim == 2 \
                 and not bool(np.all(np.asarray(Fdef_c))):
             # a masked domain the capacitance-matrix path declined (hole
@@ -324,11 +346,38 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
                 "residual-certified convergence on large masked grids.")
             iP = dict(iP)
             iP["scheme"] = "sor"
+    if res is None and refined:
+        # mixed-precision iterative refinement (refine.solve_refined): a
+        # double-float32 state and EFT-certified residuals; `tolerance` is
+        # the certified relative residual, `mxLoop` bounds each inner
+        # correction solve
+        from ..refine import solve_refined
+        global LAST_REFINE
+        r = solve_refined(spec, S0_t, omega=omega, tol=iP["tolerance"],
+                          inner_iters=iP["mxLoop"])
+        LAST_REFINE = r
+        rel = r.rel_residual
+        res = SolveResult(
+            S=r.S_hi,           # the correctly rounded float32 word; the
+            # (hi, lo) pair stays in LAST_REFINE
+            iters=torch.full(rel.shape, r.rounds, dtype=torch.int32,
+                             device=rel.device),
+            rel_change=rel, overflow=~torch.isfinite(rel))
+    check_every = _auto_check_every(iParams, iP, device, dtype)
+    if res is None and stream:
+        # out-of-core batch: slices stream through the device a chunk at a
+        # time (stream.solve_streamed; bit-identical to the resident solve)
+        from ..stream import solve_streamed
+        res = solve_streamed(spec, S0_t, omega, tol=iP["tolerance"],
+                             max_iters=iP["mxLoop"],
+                             chunk=int(iP["streamChunk"]),
+                             check_every=check_every,
+                             scheme=iP.get("scheme", "sor"),
+                             tol_type=iP.get("tolType", "change"),
+                             device=device)
     if res is None:
         res = solve(spec, S0_t, omega=omega, tol=iP["tolerance"],
-                    max_iters=iP["mxLoop"],
-                    check_every=_auto_check_every(iParams, iP, device,
-                                                  dtype),
+                    max_iters=iP["mxLoop"], check_every=check_every,
                     scheme=iP.get("scheme", "sor"),
                     tol_type=iP.get("tolType", "change"))
     global LAST_SOLVE
@@ -533,9 +582,6 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
     validate = mParams is not None and mParams is not default_mParams
     mP = merge_params(default_mParams, mParams,
                       valid_mp if validate else None)
-    if iP.get("tolType") == "refined":
-        raise NotImplementedError("iParams['tolType']='refined' is not "
-                                  "ported yet (ROADMAP queue A item 13)")
     device = _resolve_device(device)
     ft, vals, Fdef, batch = _prepare(F, dims, iP)
     bcs = _validate_bcs(iP, ndim)
@@ -555,10 +601,24 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
     # fmg: full-multigrid nested iteration warm-starts the V-cycle loop;
     # disabled with an icbc warm start, which already provides the state
     warm = bool(iP.get("warmStart", False)) and icbc is not None
-    S, cycles, res, converged = solve_mg(
-        levels, S0=torch.as_tensor(S0, device=device),
-        g0=g0 if batch else None, tol=tol, max_cycles=max_cycles,
-        fmg=not warm, **mg_kw)
+    if iP.get("tolType") == "refined":
+        # multigrid-backed refinement: a certified relative residual `tol`
+        # with V-cycle correction solves (a few cycles a round)
+        from ..refine import solve_refined, mg_inner
+        global LAST_REFINE
+        spec_f = (levels[0].spec if (g0 is None or not batch)
+                  else dataclasses.replace(levels[0].spec, g=g0))
+        r = solve_refined(spec_f, torch.as_tensor(S0, device=device),
+                          tol=tol, inner=mg_inner(levels, **mg_kw))
+        LAST_REFINE = r
+        S, cycles = r.S_hi, r.rounds
+        res = float(torch.max(r.rel_residual))
+        converged = res <= tol
+    else:
+        S, cycles, res, converged = solve_mg(
+            levels, S0=torch.as_tensor(S0, device=device),
+            g0=g0 if batch else None, tol=tol, max_cycles=max_cycles,
+            fmg=not warm, **mg_kw)
     S = S.cpu().numpy().reshape(vals.shape)
     global LAST_SOLVE
     LAST_SOLVE = SolveResult(S=S, iters=np.asarray(cycles),

@@ -103,6 +103,22 @@ def check_planes(name, spec, S, rel, nd, max_k):
     return lay
 
 
+def slice_totals(partials):
+    """Per-slice totals of the (B, P) |S| partials, summed in an order set
+    by P alone: a pairwise tree of elementwise adds.  ``torch.sum`` picks
+    its reduction layout by the batch size too, so a slice's total would
+    change its last bits with the batch it rides in; this way a streamed
+    chunk and the resident batch give every slice the same total.  The
+    zero padding to a power of two adds nothing: partials are >= 0."""
+    P = partials.shape[-1]
+    x = torch.nn.functional.pad(partials, (0, (1 << (P - 1).bit_length())
+                                           - P))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def _buffer(S, lay):
     """A fresh contiguous (B, *core) copy of S."""
     A = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype, device=S.device)
@@ -172,7 +188,7 @@ def sweeps_tiled(fam, spec, S, omega, n, with_norm=False, fac=None,
             done += m
     out = A.reshape(S.shape)
     if with_norm:
-        return out, partials.sum(-1).reshape(lay["batch_shape"])
+        return out, slice_totals(partials).reshape(lay["batch_shape"])
     return out
 
 
@@ -218,7 +234,7 @@ def sweeps_pair(fam, spec, S, omega, n, with_norm=False, fac=None,
                                        last)
     out = A.reshape(S.shape)
     if with_norm:
-        return out, partials.sum(-1).reshape(lay["batch_shape"])
+        return out, slice_totals(partials).reshape(lay["batch_shape"])
     return out
 
 

@@ -42,6 +42,7 @@ allocate.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 import os
 from typing import NamedTuple
@@ -401,6 +402,45 @@ def inplace_eligible(spec, core) -> bool:
 
 def _use_inplace(spec, core) -> bool:
     return _no_cross_r1(spec) and inplace_eligible(spec, core)
+
+
+# ---------------------------------------------------------------------------
+# the extend fold (``pallas_sor_window.py:_extend_foldable``/``_fold_extend``):
+# a spec transform, used by ops/implicit.py; no sweep of the port folds
+# (the JAX package's FOLD_EXTEND is off, and is not ported)
+# ---------------------------------------------------------------------------
+
+def _extend_foldable(spec) -> bool:
+    """(extend, periodic) nearest-neighbour radius-1 specs can fold the
+    extend rows' copies into the weights (see :func:`_fold_extend`)."""
+    return (spec.bcs[-2] == "extend" and spec.bcs[-1] == "periodic"
+            and _radius1_no_cross(spec))
+
+
+def _fold_extend(spec):
+    """Fold the extend pre-pass into the stencil: the rows next to the y
+    boundary absorb their boundary-pointing weight into w0.
+
+    With periodic x and no cross couplings, the extend copy makes
+    S[0, i] == S[1, i] at the start of every iteration, and row 1's own
+    value is unchanged within the half-sweep that reads it, so reading
+    S[0, i] is reading S[1, i]: row 1's south weight belongs on its
+    diagonal (and row ny-2's north weight on its).  The boundary rows are
+    made inert (relax 0) and the folded spec's bcs drop to
+    ('fixed', 'periodic'); the fixed point is the same once the extension
+    is applied to the result.  Torch ops on clones, so gradients flow
+    through the fold."""
+    offs = {tuple(o): i for i, o in enumerate(spec.offsets)}
+    iS, iN = offs[(-1, 0)], offs[(1, 0)]
+    w, w0, relax = spec.w.clone(), spec.w0.clone(), spec.relax.clone()
+    w0[..., 1, :] = w0[..., 1, :] + spec.w[iS][..., 1, :]
+    w0[..., -2, :] = w0[..., -2, :] + spec.w[iN][..., -2, :]
+    w[iS, ..., 1, :] = 0.0
+    w[iN, ..., -2, :] = 0.0
+    relax[..., 0, :] = 0.0
+    relax[..., -1, :] = 0.0
+    return dataclasses.replace(spec, w=w, w0=w0, relax=relax,
+                               bcs=spec.bcs[:-2] + ("fixed", spec.bcs[-1]))
 
 
 # ---------------------------------------------------------------------------
