@@ -26,7 +26,15 @@ seed, and runs these phases, each printing its lines:
      (mg._smooth) on every level of three pyramids (bench.py's 2048x2048
      Poisson, the SODA Stommel-Munk biharmonic one, a Fofonoff-like
      standard_2d_e one), n in {1, 2, 3, 60}, one state and a batch under a
-     batched forcing, the in-place switch off and on;
+     batched forcing, the in-place switch off and on; the block kernels
+     (B2s sor2d_sweeps_block, B5s sor3d_color_sweep_block) on ghost-padded
+     blocks cut from the main paths' grids (row blocks at odd and even
+     origins, x splits with the extend corner clamps, the biharmonic on a
+     row mesh, batched forcings, NaN boundary lines), one launch against
+     its plain version, owned cells, partials or every buffer cell
+     torch.equal, then 37 sweeps with Chebyshev factors through the block
+     executor on a local mesh against the plain meshless sweeps, and its
+     norm on the aligned layout against the whole-grid kernels';
   3  the main paths, in float32 and with no device argument (the entry
      points default to the card): invert_Poisson at 2048x2048 and at a
      batched 8x73x144; invert_omega at 37x72x288; invert_3DOcean at
@@ -84,8 +92,18 @@ seed, and runs these phases, each printing its lines:
      rank), float64 and float32, 64 slices, scheme "sor" and "direct":
      invert_RefStateSWM on notebook 05's 121 latitudes,
      invert_GeoAdjustment on its 60 southern ones, the same iters as the
-     CPU run, within 1e-12 of max|S| of it in float64, 1e-4 in float32.  Then cal_flow of the 2048x2048
-     invert_Poisson field, on the host;
+     CPU run, within 1e-12 of max|S| of it in float64, 1e-4 in float32.
+     Then cal_flow of the 2048x2048 invert_Poisson field, on the host;
+     refinement, streaming and implicit gradients.  Then the multi-device
+     layer on local meshes whose blocks all run on the card, each path
+     beside its meshless run (the same iters, torch.equal states and
+     fields, through the block kernels alone; wall time and idle share of
+     both): invert_Poisson 2048x2048 on ('y'=2, 'x'=2) and ('y'=4,), the
+     SODA invert_Stommel on ('batch'=2, 'y'=2), invert_omega 37x72x288 on
+     ('y'=3,), invert_3DOcean 30x330x720 on ('y'=2, 'x'=2),
+     solve_fixed_halo_window3d on ('y'=8,) (9-row blocks) against
+     solve_fixed, solve_refined on the 2048x2048 sphere (rounds,
+     certificate, pair), and scaling_bench on 1, 2 and 4 blocks;
   4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
      calls timed with CUDA events, for the kernels and the plain version,
      beside a device-to-device copy of the bytes a sweep of the kernels
@@ -99,7 +117,9 @@ seed, and runs these phases, each printing its lines:
      version's, its bound (k sweeps for the tiled kernels) and a copy of
      its bytes; the folded 3-D pair per sweep in turns against the first
      version, and its red launch (folded and not) against the black one;
-     where a 2048x2048 V-cycle's device time goes (smoothing
+     the block kernels per launch on a 2x2 mesh's block of the 2048x2048
+     Poisson and of the 30x330x720 ocean, beside their plain versions and
+     bounds; where a 2048x2048 V-cycle's device time goes (smoothing
      against the rest), its wall time and host gap, host syncs per cycle.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -124,6 +144,8 @@ from xinvert_tpu_torch.grid import Grid
 from xinvert_tpu_torch.models import api, problems
 from xinvert_tpu_torch.models.params import default_mParams
 from xinvert_tpu_torch.ops import _build, sor2d, sor3d
+from xinvert_tpu_torch.parallel import halo as phalo
+from xinvert_tpu_torch.parallel.mesh import Mesh
 from xinvert_tpu_torch.stencil import (StencilSpec, _interior_mask,
                                        prune_zero_offsets, standard_2d)
 
@@ -149,6 +171,14 @@ KERNELS = {   # name: (source, replaces, also_replaces)
     "sor3d_color_sweep": ("xinvert_tpu_torch/csrc/sor3d.cu",
                           "xinvert_tpu/ops/pallas_sor3d.py:75",
                           "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
+    # B2s and B5s: the block arguments of B2 and B5, which the multi-device
+    # executors call (parallel/halo_window.py:292, halo_window3d.py:205)
+    "sor2d_sweeps_block": ("xinvert_tpu_torch/csrc/sor2d.cu",
+                           "xinvert_tpu/ops/pallas_sor_window.py:252",
+                           "xinvert_tpu/parallel/halo_window.py:292"),
+    "sor3d_color_sweep_block": ("xinvert_tpu_torch/csrc/sor3d.cu",
+                                "xinvert_tpu/ops/pallas_sor3d_window.py:174",
+                                "xinvert_tpu/parallel/halo_window3d.py:205"),
 }
 # each kernel's launch counter
 COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
@@ -157,7 +187,9 @@ COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
             "sor2d_color_sweep": (sor2d, "LAUNCHES"),
             "sor2d_color_sweep_inplace": (sor2d, "INPLACE_LAUNCHES"),
             "sor3d_extend_rows": (sor3d, "EXTEND_LAUNCHES"),
-            "sor3d_color_sweep": (sor3d, "LAUNCHES")}
+            "sor3d_color_sweep": (sor3d, "LAUNCHES"),
+            "sor2d_sweeps_block": (sor2d, "BLOCK_LAUNCHES"),
+            "sor3d_color_sweep_block": (sor3d, "BLOCK_LAUNCHES")}
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -821,7 +853,257 @@ def phase2(dev):
         _check_mg_smoothing(name, make, dev, errs)
     log(f"[t] phase 2's multigrid smoothing checks took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cases2, cases3 = block_cases(dev)
+    for case in cases2:
+        _check_block2d(*case, errs)
+    for case in cases3:
+        _check_block3d(*case, errs)
+    log(f"[t] phase 2's block-kernel checks took "
+        f"{time.perf_counter() - t0:.1f} s")
     return errs
+
+
+# ------------------------------------------------ phase 2, block kernels
+
+def local_mesh(dev, shape, names):
+    """A local mesh whose every block runs on ``dev``."""
+    arr = np.empty(int(np.prod(shape)), dtype=object)
+    arr[:] = [dev] * arr.size
+    return Mesh(arr.reshape(shape), names)
+
+
+def _nan_err(a, b):
+    """max |a - b| over the cells finite in both (0.0 when none)."""
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    if not bool(ok.any()):
+        return 0.0
+    return float((a.double() - b.double())[ok].abs().max())
+
+
+def _rand_state(shape, dt, dev, seed=7, nan_rows=False, levels=False):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    S0 = (torch.randn(shape, generator=gen, dtype=torch.float64)
+          * 1e-3).to(dt).to(dev)
+    if nan_rows:
+        rows = (slice(1, -1),) if levels else ()
+        S0[(Ellipsis,) + rows + (0, slice(None))] = float("nan")
+        S0[(Ellipsis,) + rows + (-1, slice(None))] = float("nan")
+    return S0
+
+
+def block_cases(dev):
+    """The block checks of phase 2: (name, make(dtype) -> (spec, S0,
+    omega), the blocks as ((oy, ox), (by, bx), (gy, gx)), k, the mesh of
+    the 37-sweep executor runs)."""
+    def poisson2048(dt):
+        spec, om = poisson_spec(2048, 2048, 0, dt, dev)
+        return spec, _rand_state((2048, 2048), dt, dev), om
+
+    def gallery(dt):
+        spec, om = poisson_spec(73, 144, 8, dt, dev, seed=4)
+        return spec, _rand_state((8, 73, 144), dt, dev, nan_rows=True), om
+
+    def corners(dt):
+        spec, om = random_spec((37, 53), ((1, 0), (-1, 0), (0, 1), (0, -1)),
+                               ("extend", "fixed"), False, 2, True, dt, dev,
+                               seed=5)
+        return spec, _rand_state((2, 37, 53), dt, dev), om
+
+    def soda(builder, mp):
+        def make(dt):
+            spec, om = soda_spec(builder, mp, 12, dt, dev)
+            return spec, _rand_state((12, 330, 720), dt, dev), om
+        return make
+
+    def bih16(dt):
+        spec, om = random_spec((33, 37), BIH_OFFSETS, ("extend", "periodic"),
+                               True, 2, True, dt, dev, seed=3)
+        return spec, _rand_state((2, 33, 37), dt, dev), om
+
+    def omega(dt):
+        spec, om = omega_spec(37, 72, 288, 0, dt, dev)
+        return spec, _rand_state((37, 72, 288), dt, dev), om
+
+    def omega_b(dt):
+        spec, om = omega_spec(37, 72, 144, 3, dt, dev)
+        return spec, _rand_state((3, 37, 72, 144), dt, dev), om
+
+    def ocean(dt):
+        spec, om = ocean_spec(30, dt, dev)
+        return spec, _rand_state((30, 330, 720), dt, dev), om
+
+    def corners3(dt):
+        spec, om = random_spec((9, 17, 23), OFFSETS_3D,
+                               ("fixed", "extend", "fixed"), False, 2, True,
+                               dt, dev, seed=8)
+        return spec, _rand_state((2, 9, 17, 23), dt, dev, nan_rows=True,
+                                 levels=True), om
+
+    two = local_mesh(dev, (2, 2), ("y", "x"))
+    cases2 = [
+        ("main path 2048x2048 (extend, periodic) masked, block (1, 1) of a "
+         "2x2 mesh", poisson2048, [((1024, 1024), (1024, 1024), (9, 8))], 4,
+         two),
+        ("8x73x144 (extend, periodic) masked, batched forcing, NaN boundary "
+         "lines, row blocks at an odd and an even origin", gallery,
+         [((13, 0), (30, 144), (9, 0)), ((40, 0), (33, 144), (9, 0))], 4,
+         local_mesh(dev, (3,), ("y",))),
+        ("2x37x53 (extend, fixed) per-slice planes, x splits with the "
+         "extend corner clamps", corners,
+         [((0, 0), (16, 32), (9, 9)), ((16, 32), (21, 21), (9, 9))], 4, two),
+        ("main path Stommel 12x330x720 SODA, batched forcing, pruned, "
+         "block (0, 1) of a 2x2 mesh", soda(problems.build_stommel,
+                                            STOMMEL_MP),
+         [((0, 384), (168, 336), (9, 8))], 4, two),
+        ("Stommel-Munk bih 12x330x720 SODA, pruned, a row block",
+         soda(problems.build_stommelmunk, MUNK_MP),
+         [((168, 0), (162, 720), (6, 0))], 1, local_mesh(dev, (2,), ("y",))),
+        ("bih 16-offset 2x33x37 (extend, periodic) per-slice planes, a row "
+         "block", bih16, [((8, 0), (17, 37), (6, 0))], 1,
+         local_mesh(dev, (2,), ("y",))),
+    ]
+    cases3 = [
+        ("main path omega 37x72x288 (fixed, fixed, periodic), a 9-row block "
+         "at an odd origin", omega, [((9, 0), (9, 288), (8, 0))], 4,
+         local_mesh(dev, (8,), ("y",))),
+        ("omega 3x37x72x144 batched forcing, a row block", omega_b,
+         [((24, 0), (24, 144), (8, 0))], 4, local_mesh(dev, (3,), ("y",))),
+        ("main path ocean 30x330x720 (fixed, extend, periodic) masked, block "
+         "(1, 1) of a 2x2 mesh", ocean, [((168, 384), (162, 336), (9, 8))], 4,
+         two),
+        ("2x9x17x23 (fixed, extend, fixed) per-slice planes, NaN rows, x "
+         "splits with the extend corner clamps", corners3,
+         [((0, 11), (17, 12), (0, 9)), ((8, 0), (9, 11), (9, 9))], 3, two),
+    ]
+    return cases2, cases3
+
+
+def _facs(dt, n):
+    return [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dt))
+            for k in range(2 * n)]
+
+
+def _check_block2d(name, make, blocks, k, mesh, errs):
+    """sor2d_sweeps_block on each block, one launch of n in {1, k} sweeps,
+    at omega and with Chebyshev factors, against its plain version on the
+    same padded block: the owned cells and the |S| partials (where the
+    origin is aligned) torch.equal, NaN matching NaN; then 37 sweeps with
+    factors through the executor on ``mesh`` (the ghost exchange between
+    launches) against the plain meshless sweeps, and on the aligned layout
+    the executor's norm against the whole-grid tiled kernel's."""
+    for dt in (torch.float32, torch.float64):
+        spec, S0, om = make(dt)
+        shape = tuple(S0.shape[-2:])
+        ok, err = True, 0.0
+        for origin, owned, g in blocks:
+            P = phalo.padded_block(S0, origin, owned, g)
+            bspec = phalo.padded_block_spec(spec, origin, owned, g)
+            aligned = origin[0] % 8 == 0 and origin[1] % 32 == 0
+            for n in sorted({1, k}):
+                for o, f in ((om, None), (1.0, _facs(dt, n))):
+                    b0 = sor2d.BLOCK_LAUNCHES
+                    res = sor2d.sor2d_sweeps_block(
+                        bspec, P, o, n, origin, shape, g, with_norm=aligned,
+                        fac=f)
+                    ref = sor2d.sor2d_sweeps_block_reference(
+                        bspec, P, o, n, origin, shape, g, f, aligned)
+                    torch.cuda.synchronize()
+                    ok &= sor2d.BLOCK_LAUNCHES == b0 + 1
+                    if aligned:
+                        ok &= _bit_equal(res[1], ref[1])
+                        res, ref = res[0], ref[0]
+                    ok &= _bit_equal(res, ref)
+                    err = max(err, _nan_err(res, ref))
+        facs = _facs(dt, 37)
+        ex = phalo.BlockExecutor(spec, S0, mesh, 1.0, checked=False)
+        b0 = sor2d.BLOCK_LAUNCHES
+        ex.sweeps(37, facs)
+        out = ex.gather().reshape(S0.shape)
+        ref = sor2d.sor2d_sweeps_reference(spec, S0, 1.0, 37, facs)
+        torch.cuda.synchronize()
+        ok &= (sor2d.BLOCK_LAUNCHES - b0
+               == -(-37 // ex.k) * len(ex.dec.local))
+        ok &= _bit_equal(out, ref)
+        err = max(err, _nan_err(out, ref))
+        exc = phalo.BlockExecutor(spec, S0, mesh, om, checked=True)
+        tot = exc.totals(exc.sweeps(37, with_norm=True))
+        whole = sor2d.sor2d_sweeps_tiled(spec, S0, om, 37, with_norm=True)[1]
+        ok &= _bit_equal(tot.reshape(whole.shape), whole)
+        errs["sor2d_sweeps_block"] = max(errs["sor2d_sweeps_block"], err)
+        log(f"[2] {name} {str(dt)[6:]}: sor2d_sweeps_block on "
+            f"{len(blocks)} block(s) (ghosts {[b[2] for b in blocks]}), n in "
+            f"{sorted({1, k})} with and without factors, then 37 sweeps "
+            f"through the executor on {dict(mesh.shape)} (k {ex.k}) and its "
+            f"norm on the aligned layout (k {exc.k}): bit-equal={ok} "
+            f"max|kernel-plain|={err:.3e}")
+        if not ok:
+            raise RuntimeError(f"sor2d_sweeps_block disagrees with its plain "
+                               f"version on {name} {dt}")
+
+
+def _check_block3d(name, make, blocks, k, mesh, errs):
+    """sor3d_color_sweep_block on each block: the red launch with the
+    extend pre-pass folded in and the black launch with the owned |S|
+    partials, with and without a Chebyshev factor, against the plain
+    version: every cell of the padded buffer torch.equal, NaN matching
+    NaN; then 37 sweeps with factors through the executor on ``mesh``
+    against the plain meshless sweeps, and on the aligned layout its norm
+    against the whole-grid pair's."""
+    for dt in (torch.float32, torch.float64):
+        spec, S0, om = make(dt)
+        shape = tuple(S0.shape[-2:])
+        ok, err = True, 0.0
+        for origin, owned, g in blocks:
+            P = phalo.padded_block(S0, origin, owned, g)
+            bspec = phalo.padded_block_spec(spec, origin, owned, g)
+            rel = sor3d.relax_plane(bspec, om)
+            for fac in (1.0, float(torch.tensor(1.37, dtype=dt))):
+                for color, ext, norm in ((0, True, False), (1, False, True)):
+                    b0 = sor3d.BLOCK_LAUNCHES
+                    res = sor3d.sor3d_color_sweep_block(
+                        bspec, P, rel, color, origin, shape, g, fac, ext,
+                        norm)
+                    ref = sor3d.sor3d_color_sweep_block_reference(
+                        bspec, P, rel, color, origin, shape, g, fac, ext,
+                        norm)
+                    torch.cuda.synchronize()
+                    ok &= sor3d.BLOCK_LAUNCHES == b0 + 1
+                    if norm:
+                        ok &= _bit_equal(res[1], ref[1])
+                        res, ref = res[0], ref[0]
+                    ok &= _bit_equal(res, ref)
+                    err = max(err, _nan_err(res, ref))
+        facs = _facs(dt, 37)
+        ex = phalo.BlockExecutor(spec, S0, mesh, 1.0, checked=False)
+        b0 = sor3d.BLOCK_LAUNCHES
+        ex.sweeps(37, facs)
+        out = ex.gather().reshape(S0.shape)
+        ref = sor3d.sor3d_sweeps_reference(spec, S0, 1.0, 37, facs)
+        torch.cuda.synchronize()
+        ok &= sor3d.BLOCK_LAUNCHES - b0 == 74 * len(ex.dec.local)
+        ok &= _bit_equal(out, ref)
+        err = max(err, _nan_err(out, ref))
+        try:
+            exc = phalo.BlockExecutor(spec, S0, mesh, om, checked=True)
+        except ValueError:
+            exc = None          # the aligned layout leaves a block too thin
+        if exc is not None:
+            tot = exc.totals(exc.sweeps(37, with_norm=True))
+            whole = sor3d.sor3d_sweeps(spec, S0, om, 37, with_norm=True)[1]
+            ok &= _bit_equal(tot.reshape(whole.shape), whole)
+        errs["sor3d_color_sweep_block"] = max(
+            errs["sor3d_color_sweep_block"], err)
+        log(f"[2] {name} {str(dt)[6:]}: sor3d_color_sweep_block on "
+            f"{len(blocks)} block(s) (ghosts {[b[2] for b in blocks]}), red "
+            f"(extend folded in) and black (owned partials), factors 1 and "
+            f"1.37, then 37 sweeps through the executor on "
+            f"{dict(mesh.shape)} (k {ex.k})"
+            + ("" if exc is None else " and its norm on the aligned layout")
+            + f": bit-equal={ok} max|kernel-plain|={err:.3e}")
+        if not ok:
+            raise RuntimeError(f"sor3d_color_sweep_block disagrees with its "
+                               f"plain version on {name} {dt}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2422,6 +2704,189 @@ def phase3_implicit(launches):
     return times
 
 
+# ------------------------------------------------ phase 3, multi-device
+
+def _profiled_raw(call, check=False):
+    """:func:`_profiled` with the device's busy time summed over the
+    profiler's raw device events (kernels, copies), without the parse into
+    function events that ``key_averages`` runs (which takes seconds for a
+    mesh solve's tens of thousands of launches and copies); with
+    ``check``, also that parse's sum, logged beside it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.duration_ns()
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e9
+    if check:
+        parsed = sum(ev.self_device_time_total
+                     for ev in prof.key_averages()) / 1e6
+        log(f"[3] device busy from the raw events {busy:.4f} s, from "
+            f"key_averages {parsed:.4f} s")
+    return out, wall, busy
+
+
+def _mesh_pair(name, ref_kernels, mesh_kernels, ref_call, mesh_call,
+               launches, same, profile_ref=True, check=False):
+    """The meshless call, then the same call on a local mesh over the card,
+    each with every count set to 0 just before it: the mesh run through
+    ``mesh_kernels`` alone, its result held to the meshless one by
+    ``same(ref, out)``; then one more call of the mesh run (and of the
+    meshless one, with ``profile_ref``; else phase 3 profiled it above)
+    under torch.profiler: the wall times and idle shares side by side."""
+    t0 = time.perf_counter()
+    ref, w_ref = _path(f"{name}, meshless", ref_kernels, ref_call)
+    ref_solve = api.LAST_SOLVE
+    out, w_mesh = _path(f"{name}, on the mesh", mesh_kernels, mesh_call,
+                        launches)
+    same((ref, ref_solve), (out, api.LAST_SOLVE))
+    _, wm, bm = _profiled_raw(mesh_call, check)
+    ref_idle = ("phase 3's profiled call above" if not profile_ref
+                else _idle(*_profiled_raw(ref_call)[1:]))
+    log(f"[3] {name}: wall meshless {w_ref:.3f} s, on the mesh {w_mesh:.3f} "
+        f"s ({w_mesh / w_ref:.2f}x); profiled calls: on the mesh "
+        f"{_idle(wm, bm)}; meshless {ref_idle}")
+    log(f"[t] {name} took {time.perf_counter() - t0:.1f} s")
+    return w_ref, w_mesh
+
+
+def phase3_multi(launches):
+    """The multi-device layer in float32 on local meshes whose blocks all
+    run on the card (``__graft_entry__.dryrun_multichip``'s paths): each
+    through the block kernels alone (no whole-grid launch), the meshless
+    run's iters and torch.equal states and fields."""
+    dev = torch.device("cuda", 0)
+    torch.set_default_dtype(torch.float32)
+
+    def entry_same(name):
+        def same(a, b):
+            _same(f"{name}, mesh vs meshless", a, b)
+        return same
+
+    # bench.py's 2048x2048 masked spherical Poisson through invert_Poisson
+    big = poisson_field(2048, 2048)
+    iP_big = {"BCs": ["extend", "periodic"], "undef": np.nan,
+              "mxLoop": 4000, "tolerance": 1e-8, "printInfo": False}
+    walls = {}
+    for shape, names in (((2, 2), ("y", "x")), ((4,), ("y",))):
+        mesh = local_mesh(dev, shape, names)
+        name = f"invert_Poisson 2048x2048 on {dict(mesh.shape)}"
+        walls[name] = _mesh_pair(
+            name, TILED[False], ("sor2d_sweeps_block",),
+            lambda: xt.invert_Poisson(big, dims=["lat", "lon"],
+                                      iParams=iP_big),
+            lambda m=mesh: xt.invert_Poisson(big, dims=["lat", "lon"],
+                                             iParams=dict(iP_big, mesh=m)),
+            launches, entry_same(name), profile_ref=False,
+            check=len(walls) == 0)
+    # the SODA 12x330x720 invert_Stommel on ('batch'=2, 'y'=2): 330 rows
+    # split 168 + 162
+    soda = soda_curl()
+    iP_soda = {"BCs": ["extend", "periodic"], "undef": np.nan,
+               "mxLoop": 5000, "tolerance": 1e-12, "optArg": 1,
+               "printInfo": False}
+    mesh = local_mesh(dev, (2, 2), ("batch", "y"))
+    name = "invert_Stommel 12x330x720 on {'batch': 2, 'y': 2}"
+    walls[name] = _mesh_pair(
+        name, TILED[False], ("sor2d_sweeps_block",),
+        lambda: xt.invert_Stommel(soda, dims=["lat", "lon"],
+                                  mParams=STOMMEL_MP, iParams=iP_soda),
+        lambda: xt.invert_Stommel(soda, dims=["lat", "lon"],
+                                  mParams=STOMMEL_MP,
+                                  iParams=dict(iP_soda, mesh=mesh)),
+        launches, entry_same(name), profile_ref=False)
+    # invert_omega 37x72x288 on ('y'=3,), invert_3DOcean 30x330x720 on 2x2
+    F_om, N2_om = atmos3d(37, 72, 288)
+    iP_om = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 2000,
+             "tolerance": 1e-8, "printInfo": False}
+    mesh = local_mesh(dev, (3,), ("y",))
+    name = "invert_omega 37x72x288 on {'y': 3}"
+    walls[name] = _mesh_pair(
+        name, ("sor3d_color_sweep",), ("sor3d_color_sweep_block",),
+        lambda: xt.invert_omega(F_om, dims=DIMS_3D, mParams={"N2": N2_om},
+                                iParams=iP_om),
+        lambda: xt.invert_omega(F_om, dims=DIMS_3D, mParams={"N2": N2_om},
+                                iParams=dict(iP_om, mesh=mesh)),
+        launches, entry_same(name), profile_ref=False)
+    F_oc, N2_oc = ocean3d(30)
+    iP_oc = {"BCs": ["fixed", "extend", "periodic"], "undef": np.nan,
+             "mxLoop": 2000, "tolerance": 1e-8, "printInfo": False}
+    mesh = local_mesh(dev, (2, 2), ("y", "x"))
+    name = "invert_3DOcean 30x330x720 on {'y': 2, 'x': 2}"
+    walls[name] = _mesh_pair(
+        name, ("sor3d_color_sweep",), ("sor3d_color_sweep_block",),
+        lambda: xt.invert_3DOcean(F_oc, dims=DIMS_3D,
+                                  mParams=dict(OCEAN_MP, N2=N2_oc),
+                                  iParams=iP_oc),
+        lambda: xt.invert_3DOcean(F_oc, dims=DIMS_3D,
+                                  mParams=dict(OCEAN_MP, N2=N2_oc),
+                                  iParams=dict(iP_oc, mesh=mesh)),
+        launches, entry_same(name), profile_ref=False)
+
+    # solve_fixed_halo_window3d on ('y'=8,): 9-row blocks, odd origins
+    spec, om = omega_spec(37, 72, 288, 0, torch.float32, dev)
+    S0 = _rand_state((37, 72, 288), torch.float32, dev)
+    mesh = local_mesh(dev, (8,), ("y",))
+
+    def fixed_same(a, b):
+        ok = torch.equal(a[0], b[0])
+        log(f"[3] solve_fixed_halo_window3d 37x72x288 on {{'y': 8}}, 9-row "
+            f"blocks, 40 sweeps: torch.equal to solve_fixed: {ok}")
+        if not ok:
+            raise RuntimeError("solve_fixed_halo_window3d differs from "
+                               "solve_fixed")
+    walls["solve_fixed_halo_window3d"] = _mesh_pair(
+        "solve_fixed_halo_window3d 37x72x288 on {'y': 8}",
+        ("sor3d_color_sweep",), ("sor3d_color_sweep_block",),
+        lambda: xt.solve_fixed(spec, S0, om, 40),
+        lambda: xt.parallel.solve_fixed_halo_window3d(spec, S0, om, 40,
+                                                      mesh=mesh),
+        launches, fixed_same)
+
+    # solve_refined on the 2048x2048 sphere: the rounds and the certificate
+    # of the meshless run
+    n = REFINE_N
+    spec, om = sphere_spec(n, torch.float32, dev)
+    S0 = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    mesh = local_mesh(dev, (2, 2), ("y", "x"))
+
+    def refined_same(a, b):
+        ra, rb = a[0], b[0]
+        ok = (ra.rounds == rb.rounds
+              and torch.equal(ra.rel_residual, rb.rel_residual)
+              and torch.equal(ra.S_hi, rb.S_hi)
+              and torch.equal(ra.S_lo, rb.S_lo))
+        log(f"[3] solve_refined {n}x{n} on {{'y': 2, 'x': 2}}: rounds "
+            f"{rb.rounds} (meshless {ra.rounds}), certificate "
+            f"{float(rb.rel_residual):.4e} (meshless "
+            f"{float(ra.rel_residual):.4e}); rounds, certificate and pair "
+            f"equal: {ok}")
+        if not ok:
+            raise RuntimeError("solve_refined on the mesh differs")
+    walls["solve_refined"] = _mesh_pair(
+        f"solve_refined {n}x{n} full sphere, tol 1e-8, on {{'y': 2, 'x': 2}}",
+        TILED[False], ("sor2d_sweeps_block",),
+        lambda: xt.solve_refined(spec, S0, omega=om, tol=1e-8),
+        lambda: xt.solve_refined(spec, S0, omega=om, tol=1e-8, mesh=mesh),
+        launches, refined_same)
+
+    # scaling_bench on 1, 2 and 4 blocks of the card (weak scaling, 1024^2
+    # a block): what the decomposition costs on one card
+    t0 = time.perf_counter()
+    rows = xt.parallel.scaling_bench(device_counts=[1, 2, 4], base_ny=1024,
+                                     base_nx=1024, n_iters=200,
+                                     devices=[dev] * 4,
+                                     dtype=torch.float32)
+    for line in xt.parallel.format_scaling_table(rows).splitlines():
+        log(f"[3] scaling_bench: {line}")
+    log(f"[t] scaling_bench took {time.perf_counter() - t0:.1f} s")
+    return walls
+
+
 # ---------------------------------------------------------------- phase 4
 
 def _time_ms(fn, reps, inner=1):
@@ -2763,6 +3228,83 @@ def _fold_timing(card, spec, omega, S, dev, per_color, n=200):
     return ((red_f + black) / 2,) + tuple(per_color[1:])
 
 
+def _block_bound(bspec, P, written):
+    """(bound_ms, bound_by, nbytes) of one block launch: the padded state
+    and the padded planes read once, ``written`` cells written, over the
+    HBM rate; against its float32 operations (2K+5 a cell update, over the
+    owned cells for k sweeps in 2-D, over the buffer's cells in 3-D:
+    ``written`` x its sweeps), over the peak rate."""
+    itemsize = P.element_size()
+    K = len(bspec.offsets)
+    planes = (bspec.w.numel() + bspec.w0.numel() + bspec.g.numel()
+              + bspec.relax.numel())
+    nbytes = (P.numel() + planes + written[0]) * itemsize
+    ops = (2 * K + 5) * written[0] * written[1]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def _plain_ms(plain):
+    try:
+        return _device_ms(plain, 10)
+    except RuntimeError:
+        return _time_ms(plain, 3, 10)
+
+
+def phase4_blocks(card, dev):
+    """Each block kernel's device time per launch at the main path's
+    shapes (CUDA events around 50 bare launches behind a device spin),
+    beside its plain version's (10 calls) and its bound: 2-D block (1, 1)
+    of bench.py's 2048x2048 on a 2x2 mesh, k 4; 3-D block (1, 1) of the
+    30x330x720 ocean on a 2x2 mesh, the folded red and the black launch
+    (their mean is the kernels line's time)."""
+    per = {}
+    n = 2048
+    spec, om = poisson_spec(n, n, 0, torch.float32, dev)
+    S = xt.solve_fixed(spec, torch.zeros((n, n), device=dev), om, 50)
+    origin, owned, g = (1024, 1024), (1024, 1024), (9, 8)
+    P = phalo.padded_block(S, origin, owned, g)
+    bspec = phalo.padded_block_spec(spec, origin, owned, g)
+    sweep = sor2d.make_block_sweeper(bspec, P, om, origin, (n, n), g, 4)
+    A, Bf = P.clone(), torch.empty_like(P)
+    t_k = _device_ms(lambda: sweep(A, Bf, 4), 50)
+    t_p = _plain_ms(lambda: sor2d.sor2d_sweeps_block_reference(
+        bspec, P, om, 4, origin, (n, n), g))
+    bound = _block_bound(bspec, P, (owned[0] * owned[1], 4))
+    t_w = _device_ms(lambda: xt.solve_fixed(spec, S, om, 4), 50)
+    per["sor2d_sweeps_block"] = (t_k, t_p) + bound[:2]
+    log(f"[4] {card} | sor2d_sweeps_block {n}x{n} block (1, 1) of a 2x2 "
+        f"mesh, padded {tuple(P.shape)}, 4 sweeps a launch, float32: kernel "
+        f"{t_k:.5f} ms device time per launch (50 launches), plain version "
+        f"{t_p:.4f} ms; bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]} B "
+        f"at 3.35 TB/s); the whole grid's 4 sweeps (solve_fixed) "
+        f"{t_w:.5f} ms, a quarter of it {t_w / 4:.5f} ms")
+    del spec, S, P, bspec, sweep, A, Bf
+    spec, om = ocean_spec(30, torch.float32, dev)
+    S = xt.solve_fixed(spec, torch.zeros((30, 330, 720), device=dev), om, 50)
+    origin, owned, g = (168, 384), (162, 336), (9, 8)
+    P = phalo.padded_block(S, origin, owned, g)
+    bspec = phalo.padded_block_spec(spec, origin, owned, g)
+    rel = sor3d.relax_plane(bspec, om)
+    lay = sor3d._block_layout(bspec, P, rel, origin, (330, 720), g)
+    A, Bf = P.clone(), torch.empty_like(P)
+    red = _device_ms(lambda: sor3d._launch_block(bspec, lay, rel, A, Bf, 0,
+                                                 extend=True), 50)
+    black = _device_ms(lambda: sor3d._launch_block(bspec, lay, rel, A, Bf, 1),
+                       50)
+    t_p = _plain_ms(lambda: sor3d.sor3d_color_sweep_block_reference(
+        bspec, P, rel, 1, origin, (330, 720), g))
+    bound = _block_bound(bspec, P, (P.numel(), 1))
+    per["sor3d_color_sweep_block"] = ((red + black) / 2, t_p) + bound[:2]
+    log(f"[4] {card} | sor3d_color_sweep_block ocean 30x330x720 block "
+        f"(1, 1) of a 2x2 mesh, padded {tuple(P.shape)}, float32: red "
+        f"(extend folded in) {red:.5f} ms, black {black:.5f} ms device time "
+        f"per launch (50 launches), plain version {t_p:.4f} ms; bound "
+        f"{bound[0]:.5f} ms ({bound[1]}, {bound[2]} B at 3.35 TB/s)")
+    return per
+
+
 def phase4_mg(card, dev, syncs):
     """Where a V-cycle's time goes on bench.py's 2048x2048 FMG problem,
     float32: ten chained V-cycles under torch.profiler, their device time
@@ -2939,8 +3481,11 @@ def main():
     stamp("phase 3 (streaming)")
     phase3_implicit(launches)
     stamp("phase 3 (implicit gradients)")
+    phase3_multi(launches)
+    stamp("phase 3 (multi-device)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
+    per.update(phase4_blocks(card, dev))
     phase4_mg(card, dev, syncs)
     stamp("phase 4")
     kernels = [{"name": name, "route": "cuda", "source": src,

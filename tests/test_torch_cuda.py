@@ -8,8 +8,11 @@ take; the direct engine on the card against the CPU; solution trajectories
 through the kernels frame by frame against the plain version; the
 lexicographic executor and the 1-D entry points on the card against the
 CPU; the error-free transformations exact on the card, refinement through
-the kernels, streamed solves bit-equal to the resident solve, and implicit
-gradients through the kernels equal to the plain version's.  Every test here needs an NVIDIA GPU (marker
+the kernels, streamed solves bit-equal to the resident solve, implicit
+gradients through the kernels equal to the plain version's; the block
+kernels (sor2d_sweeps_block, sor3d_color_sweep_block) bit-equal to their
+plain versions and, on local meshes that repeat the card, to the meshless
+sweeps and solves.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -1071,3 +1074,301 @@ def test_refined_on_the_card(cuda):
     truth = float(_residual_norm(s64, r.S_hi.double() + r.S_lo.double())
                   / _residual_scale(s64))
     assert abs(cert - truth) <= 1e-3 * truth
+
+
+# ------------------------------------------- B2s, B5s and the local meshes
+
+def _card_mesh(device, shape, names):
+    from xinvert_tpu_torch.parallel.mesh import Mesh
+    arr = np.empty(int(np.prod(shape)), dtype=object)
+    arr[:] = [device] * arr.size
+    return Mesh(arr.reshape(shape), names)
+
+
+def _block_case2d(case, dtype, device):
+    """(spec, S0, origin, owned, ghosts, k) of one block of a 2-D grid."""
+    if case == "y_odd_origin":
+        spec, S0 = _poisson(dtype, device)
+        return spec, S0, (13, 0), (17, 70), (9, 0), 4
+    if case == "x_extend_corners":
+        spec, S0 = _poisson(dtype, device, bcs=("extend", "fixed"))
+        return spec, S0, (8, 32), (16, 38), (9, 9), 4
+    if case == "bih_rows":
+        spec, S0 = _bih(dtype, device, ("extend", "periodic"))
+        return spec, S0, (8, 0), (13, 26), (6, 0), 1
+    spec, S0 = _poisson(dtype, device, batch=3)       # batch, NaN lines
+    S0[..., 0, :] = float("nan")
+    S0[..., -1, :] = float("nan")
+    return spec, S0, (24, 0), (21, 70), (9, 0), 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["y_odd_origin", "x_extend_corners",
+                                  "bih_rows", "batch_nan"])
+def test_block2d_kernel_bit_equal_to_plain(cuda, dtype, case):
+    """One launch of sor2d_sweeps_block (n in {1, k}, with and without
+    factors) against its plain version: the owned cells, and the |S|
+    partials where the origin is aligned; then 37 sweeps with factors
+    through the executor on a 2x2 mesh of the card against the plain
+    sweeps."""
+    from xinvert_tpu_torch.parallel import halo
+    spec, S0, origin, owned, g, k = _block_case2d(case, dtype, cuda)
+    shape = tuple(S0.shape[-2:])
+    P = halo.padded_block(S0, origin, owned, g)
+    bspec = halo.padded_block_spec(spec, origin, owned, g)
+    aligned = origin[0] % 8 == 0 and origin[1] % 32 == 0
+    fac = [float(torch.tensor(1.0 + 0.01 * i, dtype=dtype))
+           for i in range(74)]
+    for n in sorted({1, k}):
+        for f, om in ((None, 1.3), (fac[:2 * n], 1.0)):
+            b0, p0 = sor2d.BLOCK_LAUNCHES, sor2d.PLAIN_CALLS
+            res = sor2d.sor2d_sweeps_block(bspec, P, om, n, origin, shape, g,
+                                           with_norm=aligned, fac=f)
+            assert (sor2d.BLOCK_LAUNCHES, sor2d.PLAIN_CALLS) == (b0 + 1, p0)
+            ref = sor2d.sor2d_sweeps_block_reference(
+                bspec, P, om, n, origin, shape, g, f, aligned)
+            torch.cuda.synchronize()
+            if aligned:
+                assert _nan_equal(res[1], ref[1])
+                res, ref = res[0], ref[0]
+            assert _nan_equal(res, ref)
+    mesh = _card_mesh(cuda, (2, 2), ("y", "x"))
+    ex = halo.BlockExecutor(spec, S0, mesh, 1.0, checked=False)
+    ex.sweeps(37, fac)
+    assert _nan_equal(ex.gather().reshape(S0.shape),
+                      sor2d.sor2d_sweeps_reference(spec, S0, 1.0, 37, fac))
+
+
+def _block_case3d(case, dtype, device):
+    if case == "omega_odd_origin":
+        spec, S0 = _omega3d(dtype, device, shape=(7, 36, 24))
+        return spec, S0, (9, 0), (9, 24), (8, 0), 4
+    if case == "ocean_x_corners":
+        spec, S0 = _ocean3d(dtype, device, shape=(6, 24, 64),
+                            bcs=("fixed", "extend", "fixed"))
+        return spec, S0, (8, 32), (16, 32), (9, 9), 4
+    spec, S0 = _random3d(dtype, device, (9, 17, 40), 2,
+                         ("fixed", "extend", "periodic"), seed=8)
+    S0[..., 1:-1, 0, :] = float("nan")
+    S0[..., 1:-1, -1, :] = float("nan")
+    return spec, S0, (0, 0), (8, 40), (9, 0), 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["omega_odd_origin", "ocean_x_corners",
+                                  "per_slice_nan"])
+def test_block3d_kernel_bit_equal_to_plain(cuda, dtype, case):
+    """sor3d_color_sweep_block's red launch (the extend folded in) and
+    black launch (with the owned |S| partials) against the plain version,
+    every cell of the padded buffer; then 37 sweeps through the executor
+    on a 2x2 mesh of the card against the plain sweeps."""
+    from xinvert_tpu_torch.parallel import halo
+    spec, S0, origin, owned, g, k = _block_case3d(case, dtype, cuda)
+    shape = tuple(S0.shape[-2:])
+    P = halo.padded_block(S0, origin, owned, g)
+    bspec = halo.padded_block_spec(spec, origin, owned, g)
+    rel = sor3d.relax_plane(bspec, 1.3)
+    for color, ext, norm in ((0, True, False), (1, False, True)):
+        b0 = sor3d.BLOCK_LAUNCHES
+        res = sor3d.sor3d_color_sweep_block(bspec, P, rel, color, origin,
+                                            shape, g, 1.07, ext, norm)
+        assert sor3d.BLOCK_LAUNCHES == b0 + 1
+        ref = sor3d.sor3d_color_sweep_block_reference(
+            bspec, P, rel, color, origin, shape, g, 1.07, ext, norm)
+        torch.cuda.synchronize()
+        if norm:
+            assert _nan_equal(res[1], ref[1])
+            res, ref = res[0], ref[0]
+        assert _nan_equal(res, ref)
+    fac = [float(torch.tensor(1.0 + 0.01 * i, dtype=dtype))
+           for i in range(74)]
+    mesh = _card_mesh(cuda, (2, 2), ("y", "x"))
+    ex = halo.BlockExecutor(spec, S0, mesh, 1.0, checked=False)
+    ex.sweeps(37, fac)
+    assert _nan_equal(ex.gather().reshape(S0.shape),
+                      sor3d.sor3d_sweeps_reference(spec, S0, 1.0, 37, fac))
+
+
+def test_mesh_solve_on_the_card_equals_meshless(cuda):
+    """solve_halo_window on a 2x2 mesh over the card: the meshless solve's
+    iters and state, torch.equal, through sor2d_sweeps_block alone."""
+    from xinvert_tpu_torch.parallel import solve_halo_window
+    spec, _ = _poisson(torch.float32, cuda, batch=2, ny=96, nx=160,
+                       bcs=("fixed", "periodic"))
+    S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
+    ref = xt.solve(spec, S0, 1.8, tol=1e-4, max_iters=3000, check_every=32)
+    t0, b0, p0 = (sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES,
+                  sor2d.PLAIN_CALLS)
+    out = solve_halo_window(spec, S0, 1.8, 1e-4, 3000, check_every=32,
+                            mesh=_card_mesh(cuda, (2, 2), ("y", "x")))
+    assert sor2d.TILED_LAUNCHES == t0 and sor2d.PLAIN_CALLS == p0
+    assert sor2d.BLOCK_LAUNCHES > b0
+    assert torch.equal(out.iters, ref.iters) and int(ref.iters.max()) < 3000
+    assert torch.equal(out.S, ref.S)
+    assert torch.equal(out.rel_change, ref.rel_change)
+
+
+def test_mesh_over_several_cards_equals_meshless(cuda):
+    """A local mesh whose blocks sit on different cards (``make_grid_mesh()``
+    with no world: the visible CUDA devices, up to 4): each block's launches
+    go to its own card.  solve_halo_window (a batch of 2) gives the
+    meshless solve's iters and field on cuda:0, torch.equal; under the
+    residual rule, solve_halo_window3d and solve_refined give the same
+    mesh's result with every block on cuda:0; the fixed 3-D count equals
+    solve_fixed; all through the block kernels alone.  scaling_bench's
+    default devices are those cards.  Needs two or more GPUs."""
+    from xinvert_tpu_torch import parallel as tpar
+    from xinvert_tpu_torch.parallel.scaling import _omega_problem3
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more GPUs")
+    mesh = tpar.make_grid_mesh(n)
+    devs = {d.index for d in mesh.devices.reshape(-1)}
+    assert devs == set(range(n))
+    one = _card_mesh(cuda, tuple(mesh.shape.values()), mesh.axis_names)
+    spec, _ = _poisson(torch.float32, cuda, batch=2, ny=96, nx=160,
+                       bcs=("fixed", "periodic"))
+    S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
+    ref = xt.solve(spec, S0, 1.8, tol=1e-4, max_iters=3000, check_every=32)
+    t0, b0 = sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES
+    out = tpar.solve_halo_window(spec, S0, 1.8, 1e-4, 3000, check_every=32,
+                                 mesh=mesh)
+    assert torch.equal(out.iters, ref.iters) and int(ref.iters.max()) < 3000
+    assert torch.equal(out.S, ref.S) and out.S.device == cuda
+    res = [tpar.solve_halo_window(spec, S0, 1.8, 1e-2, 3000, check_every=32,
+                                  mesh=m, tol_type="residual")
+           for m in (mesh, one)]
+    assert torch.equal(res[0].iters, res[1].iters)
+    assert int(res[0].iters.max()) < 3000
+    assert torch.equal(res[0].S, res[1].S)
+    assert sor2d.TILED_LAUNCHES == t0 and sor2d.BLOCK_LAUNCHES > b0
+    spec3, S3 = _omega_problem3(12, 72, 96, torch.float32, cuda)
+    b3 = sor3d.BLOCK_LAUNCHES
+    r3 = [tpar.solve_halo_window3d(spec3, S3 + 1e-3, 1.2, 5e-3, 400,
+                                   check_every=16, mesh=m)
+          for m in (mesh, one)]
+    assert torch.equal(r3[0].iters, r3[1].iters) and int(r3[0].iters) < 400
+    assert torch.equal(r3[0].S, r3[1].S)
+    f3 = tpar.solve_fixed_halo_window3d(spec3, S3 + 1e-3, 1.2, 40, mesh=mesh)
+    assert _nan_equal(f3, xt.solve_fixed(spec3, S3 + 1e-3, 1.2, 40))
+    assert sor3d.BLOCK_LAUNCHES > b3
+    lat = np.linspace(-88.75, 88.75, 96)
+    lon = np.linspace(0.0, 360.0 - 360.0 / 192, 192)
+    grid = Grid.make(("lat", "lon"), (lat, lon), "lat-lon",
+                     bcs=("extend", "periodic"))
+    vor = (np.sin(3 * np.deg2rad(lon))[None, :]
+           * np.cos(2 * np.deg2rad(lat))[:, None] * 1e-5)
+    specr = problems.build_poisson(
+        torch.as_tensor(vor, dtype=torch.float32, device=cuda),
+        torch.ones((96, 192), dtype=torch.bool, device=cuda), grid,
+        default_mParams)
+    rr = [xt.solve_refined(specr, torch.zeros((96, 192), device=cuda),
+                           omega=grid.omega_opt, tol=1e-9, max_rounds=5,
+                           mesh=m) for m in (mesh, one)]
+    assert rr[0].rounds == rr[1].rounds
+    assert float(rr[0].rel_residual) == float(rr[1].rel_residual) <= 1e-9
+    assert torch.equal(rr[0].S_hi, rr[1].S_hi)
+    assert torch.equal(rr[0].S_lo, rr[1].S_lo)
+    rows = tpar.scaling_bench([1, n], 128, 128, n_iters=8,
+                              executor="halo_window_xy",
+                              dtype=torch.float32)
+    assert [r["devices"] for r in rows] == [1, n]
+    assert not any(r["emulated"] for r in rows)
+    assert all(np.isfinite(r["pts_per_s"]) for r in rows)
+
+
+_DIST_WORKER = """
+import dataclasses, sys, numpy as np, torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from xinvert_tpu_torch import parallel as tpar
+from xinvert_tpu_torch.parallel.scaling import (_omega_problem3,
+                                                _poisson_problem)
+rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+dev = torch.device("cuda", rank) if torch.cuda.is_available() \\
+    else torch.device("cpu")
+if dev.type == "cuda":
+    torch.cuda.set_device(dev)
+up = tpar.initialize_distributed("tcp://localhost:" + port, world, rank)
+mesh = tpar.make_grid_mesh()
+spec, S0, grid = _poisson_problem(192, 320, torch.float32, dev)
+spec = dataclasses.replace(spec, bcs=("fixed", "periodic"))
+r2 = tpar.solve_halo_window(spec, S0, grid.omega_opt, 1e-5, 2000,
+                            check_every=32, mesh=mesh)
+spec3, S3 = _omega_problem3(12, 72, 96, torch.float32, dev)
+r3 = tpar.solve_halo_window3d(spec3, S3 + 1e-3, 1.2, 5e-3, 400,
+                              check_every=16, mesh=mesh)
+np.savez(out, up=up, mesh=str(dict(mesh.shape)), S2=r2.S.cpu().numpy(),
+         it2=r2.iters.cpu().numpy(), rel2=r2.rel_change.cpu().numpy(),
+         S3=r3.S.cpu().numpy(), it3=r3.iters.cpu().numpy())
+dist.destroy_process_group()
+"""
+
+
+def run_distributed(world, tmp_path, timeout=240):
+    """``world`` processes of _DIST_WORKER (one a GPU with NCCL where the
+    machine has CUDA, else gloo on the CPU); their saved results."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import time
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    outs = [str(tmp_path / f"rank{r}.npz") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, "-c", _DIST_WORKER, str(r),
+                               str(world), str(port), outs[r]], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    logs = [p.stdout.read().decode()[-3000:] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs
+    return [np.load(o) for o in outs]
+
+
+def test_nccl_mesh_equals_the_local_mesh(cuda, tmp_path):
+    """One process a GPU under NCCL (up to 4), a distributed mesh over
+    their ranks: solve_halo_window (192x320 masked Poisson, fixed y) and
+    solve_halo_window3d (12x72x96) give every rank the local mesh's field
+    and iters on one card, torch.equal, both stopping by their rule before
+    the cap.  Needs two or more GPUs (NCCL refuses two ranks on one card);
+    the same workers run under gloo on the CPU (``run_distributed``)."""
+    from xinvert_tpu_torch import parallel as tpar
+    from xinvert_tpu_torch.parallel.scaling import (_omega_problem3,
+                                                    _poisson_problem)
+    from xinvert_tpu_torch.ops import _build
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs two or more GPUs")
+    _build.build_all()              # once, before the workers load it
+    got = run_distributed(world, tmp_path)
+    mesh = tpar.make_grid_mesh(devices=[cuda] * world)
+    spec, S0, grid = _poisson_problem(192, 320, torch.float32, cuda)
+    spec = dataclasses.replace(spec, bcs=("fixed", "periodic"))
+    r2 = tpar.solve_halo_window(spec, S0, grid.omega_opt, 1e-5, 2000,
+                                check_every=32, mesh=mesh)
+    spec3, S3 = _omega_problem3(12, 72, 96, torch.float32, cuda)
+    r3 = tpar.solve_halo_window3d(spec3, S3 + 1e-3, 1.2, 5e-3, 400,
+                                  check_every=16, mesh=mesh)
+    assert int(r2.iters) < 2000 and int(r3.iters) < 400
+    for g in got:
+        assert bool(g["up"]) and str(g["mesh"]) == str(dict(mesh.shape))
+        assert np.array_equal(g["S2"], r2.S.cpu().numpy())
+        assert np.array_equal(g["it2"], r2.iters.cpu().numpy())
+        assert np.array_equal(g["rel2"], r2.rel_change.cpu().numpy())
+        assert np.array_equal(g["S3"], r3.S.cpu().numpy())
+        assert np.array_equal(g["it3"], r3.iters.cpu().numpy())

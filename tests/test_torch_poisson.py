@@ -155,20 +155,27 @@ def test_inv_standard2D_matches_jax(f64_cpu, with_icbc):
         assert np.array_equal(sf_t.values[0], ic[0])
 
 
+def _cpu_mesh():
+    from xinvert_tpu_torch.parallel import make_grid_mesh
+    return make_grid_mesh(devices=[torch.device("cpu")] * 2)
+
+
 @pytest.mark.parametrize("iParams", [
-    {"scheme": "lexico", "tolType": "refined", "mesh": object()},
-    {"scheme": "direct", "tolType": "refined", "mesh": object()},
-    {"scheme": "lexico", "streamChunk": 2, "mesh": object()},
-    {"tolType": "refined", "mesh": object()},
-    {"streamChunk": 2, "mesh": object()},
-    {"mesh": object()},
+    {"scheme": "lexico", "tolType": "refined"},
+    {"scheme": "lexico", "tolType": "residual"},
+    {"scheme": "lexico", "streamChunk": 2},
+    {"scheme": "lexico", "checkEvery": 4},
+    {"scheme": "lexico", "optArg": 1.2},
+    {"scheme": "lexico"},
 ])
 def test_unported_options_raise(f64_cpu, iParams):
-    """``mesh`` (queue A item 16) is the one option not ported: it raises
-    whatever it is combined with (refinement and streaming are ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``scheme='lexico'`` on ``iParams['mesh']`` (queue A item 17) is the
+    option not ported: it raises whatever it is combined with (the mesh
+    itself, refinement and streaming are ported)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 17"):
         xt.invert_Poisson(_synthetic(xt.Field, nb=1), dims=["lat", "lon"],
-                          iParams=dict(iParams, printInfo=False), **CPU)
+                          iParams=dict(iParams, printInfo=False,
+                                       mesh=_cpu_mesh()), **CPU)
 
 
 def test_default_dtype_float32(f64_cpu):

@@ -302,12 +302,17 @@ def test_divergence_restores_the_best(sphere96):
 
 
 def test_refined_mesh_and_streamchunk_refused():
+    """Refinement keeps a resident (hi, lo) state: with streamChunk it is
+    refused, with or without a mesh (a mesh alone is taken:
+    tests/test_torch_parallel.py)."""
+    from xinvert_tpu_torch.parallel import make_grid_mesh
     _, tf = _vor_fields(24, 48)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        refine.solve_refined(_sphere(24, 48)[1], torch.zeros(24, 48),
-                             mesh=object())
     iP = {"BCs": ["extend", "periodic"], "undef": np.nan, "mxLoop": 50,
           "tolerance": 1e-6, "printInfo": False, "tolType": "refined",
           "streamChunk": 1}
+    mesh = make_grid_mesh(devices=[torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="refined.*streamChunk"):
+        xt.invert_Poisson(tf, dims=["lat", "lon"], device="cpu",
+                          iParams=dict(iP, mesh=mesh))
     with pytest.raises(ValueError, match="refined.*streamChunk"):
         xt.invert_Poisson(tf, dims=["lat", "lon"], iParams=iP, device="cpu")

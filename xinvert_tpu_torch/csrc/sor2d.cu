@@ -11,8 +11,9 @@
 //     for radius-1 stencils without cross terms, updating one buffer in
 //     place (sor2d_color_sweep_inplace below).
 // On Hopper the VMEM split between the first two has no meaning, so one
-// design serves every 2-D shape.  Not ported here: B2's sharded-block
-// variants (pad_x, clamp_w/e, ext_bot, pad_lo).
+// design serves every 2-D shape.  B2's sharded-block variants (pad_lo,
+// has_top/has_bot, pad_x, clamp_w/clamp_e, ext_bot; B2s) are the block mode
+// of the tiled kernel (sor2d_sweeps_block, after the tiled kernel below).
 //
 // The sweeps run in the two tiled kernels at the end of this file
 // (sor2d_sweeps_tiled, and sor2d_sweeps_tiled_inplace for B3's specs):
@@ -338,6 +339,29 @@ static int launch_extend_rows(T* S, int B, int ny, int nx, int periodic_x,
 // block fills an SM.
 // ---------------------------------------------------------------------------
 
+// The block mode (B2s, sor2d_sweeps_block; xinvert_tpu/parallel/
+// halo_window.py:292 _device_step drives B2 with its block arguments).  The
+// state and the planes are one block of a decomposition, padded with gy
+// ghost rows and gx ghost columns on each side that a ring exchange filled
+// (wrapping on every axis, as torch.roll does); the tiles cover the owned
+// by x bx cells only, and the launch writes those only, into the owned
+// region of s_out's buffer.  What the TPU kernel encodes in pad_lo,
+// has_top/has_bot, pad_x, clamp_w/clamp_e and ext_bot comes from global
+// coordinates here: a window cell's global (R, C) is its buffer position
+// plus the buffer's origin (oy - gy, ox - gx), wrapped, and the parity, the
+// extend pre-pass and its corner clamps read (R, C) alone, so they fire at
+// the true domain edges in whichever block holds them, ghosts included.
+// Buffer and global coordinates part only where a window is loaded (the
+// buffer row, the plane index) and where the owned tile is written back.
+// With g >= h (the halo of k sweeps, extend included) every window lies in
+// the buffer and the owned cells come out as the whole grid's, bit for bit.
+// The |S| partials cover the owned cells in the block's own (by/8, bx/32)
+// layout; from an origin on a multiple of (8, 32) that is the whole grid's
+// layout cut at the block.  An axis with no ghosts is the whole axis
+// (oy = 0, by = ny): its windows wrap inside the buffer.  The mode is a
+// template flag (BLOCK), so the whole-grid instantiations carry none of
+// its address arithmetic.
+
 #define TILED_MAX_SWEEPS 8
 
 // Mirrored field by field by ops/sor2d.py::_TiledParams (ctypes).
@@ -347,6 +371,12 @@ struct TiledParams {
   int tiles_y, tiles_x, spb;            // spb: slices each block walks
   int extend, periodic_x, bih;
   int kmax, cpt, nt, inplace, wsmem;    // the instantiation
+  // the block mode (sor2d_sweeps_block): the owned region's global origin
+  // (oy, ox) and extent (by, bx), its ghost widths (gy, gx) and the buffer
+  // (buf_y, buf_x) = (by + 2gy, bx + 2gx) the state and planes live in.
+  // The whole grid is oy = ox = gy = gx = 0, (by, bx) = (buf_y, buf_x) =
+  // (ny, nx), which sor2d_sweeps_tiled sets whatever it is given.
+  int oy, ox, by, bx, gy, gx, buf_y, buf_x;
   int dy[SOR2D_MAX_K];
   int dx[SOR2D_MAX_K];
   long long w_kstride, w_bstride, w0_bstride, g_bstride, rel_bstride;
@@ -387,7 +417,8 @@ __device__ __forceinline__ bool extend_source(int R, int C, int ny, int nx,
   return true;
 }
 
-template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS>
+template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS,
+          bool BLOCK>
 __global__ void __launch_bounds__(NT, 1)
 sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
                           const T* __restrict__ w, const T* __restrict__ w0,
@@ -404,11 +435,20 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
   const int cells = p.winy * p.winx;
   T* const wsm = sm + (INPLACE ? 1 : 2) * buf_cells;
   T* const rowsum = wsm + (WS ? p.K * cells : 0);   // 8 per 32 x 8 block
+  // the tile's origin in the owned region, its window's global origin (not
+  // wrapped: it may lie before row 0 or run past ny - 1)
   const int ty0 = blockIdx.y * p.ty, tx0 = blockIdx.x * p.tx;
-  const int wy0 = ty0 - p.hy, wx0 = tx0 - p.hx;
-  const long long plane = (long long)p.ny * p.nx;
+  const int wy0 = (BLOCK ? p.oy : 0) + ty0 - p.hy;
+  const int wx0 = (BLOCK ? p.ox : 0) + tx0 - p.hx;
+  const long long plane = BLOCK ? (long long)p.buf_y * p.buf_x
+                                : (long long)p.ny * p.nx;
 
-  // the thread's cells: shared index, global index in the plane, parity
+  // the thread's cells: shared index, index in the buffer (the plane),
+  // global parity.  A window cell at global (wy0 + l, wx0 + m) is the
+  // global cell (R, C), wrapped on both axes; in the block mode it sits at
+  // buffer row wy0 + l - (oy - gy), which the ghosts keep inside the
+  // buffer (gy >= hy), or, on an axis without ghosts (the buffer is the
+  // whole axis), at R itself.
   int sidx[CPT], gidx[CPT];
   unsigned live = 0u, par = 0u;
 #pragma unroll
@@ -420,7 +460,9 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
       const int l = c / p.winx, m = c - l * p.winx;
       const int R = pos_mod(wy0 + l, p.ny), C = pos_mod(wx0 + m, p.nx);
       sidx[j] = (l + p.pad) * a.stride + m + p.pad;
-      gidx[j] = R * p.nx + C;
+      gidx[j] = BLOCK ? pos_mod(wy0 + l - p.oy + p.gy, p.buf_y) * p.buf_x +
+                            pos_mod(wx0 + m - p.ox + p.gx, p.buf_x)
+                      : R * p.nx + C;
       live |= 1u << j;
       par |= (unsigned)((R + C) & 1) << j;
     }
@@ -476,11 +518,20 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
 #pragma unroll
         for (int j = 0; j < CPT; ++j) {
           if (!((live >> j) & 1u)) continue;
-          const int R = gidx[j] / p.nx, C = gidx[j] - R * p.nx;
+          // the cell's global (R, C): its plane index, or in the block
+          // mode its window position
+          const int c = tid + j * NT;
+          int R, C;
+          if (BLOCK) {
+            R = pos_mod(wy0 + c / p.winx, p.ny);
+            C = pos_mod(wx0 + c % p.winx, p.nx);
+          } else {
+            R = gidx[j] / p.nx;
+            C = gidx[j] - R * p.nx;
+          }
           int dr, dc;
           if (!extend_source(R, C, p.ny, p.nx, p.periodic_x, p.bih, &dr, &dc))
             continue;
-          const int c = tid + j * NT;
           const int l = c / p.winx + dr, m = c % p.winx + dc;
           if (l < 0 || l >= p.winy || m < 0 || m >= p.winx) continue;
           ev[j] = sm[cur + sidx[j] + dr * a.stride + dc];
@@ -522,17 +573,20 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
     // block of the grid the tile holds, in sor2d_color_sweep's order (the
     // warp's shuffle tree over a row, then the 8 row sums in turn), so the
     // norms of a checked solve are those of the first version bit for bit
-    const int oy = min(p.ty, p.ny - ty0), ox = min(p.tx, p.nx - tx0);
-    const int nby = (oy + 7) / 8, nbx = (ox + 31) / 32;
+    const int by = BLOCK ? p.by : p.ny, bx = BLOCK ? p.bx : p.nx;
+    const int ry = min(p.ty, by - ty0), rx = min(p.tx, bx - tx0);
+    const int nby = (ry + 7) / 8, nbx = (rx + 31) / 32;
     const int lane = tid & 31;
     for (int q = tid >> 5; q < nby * nbx * 8; q += NT / 32) {
       const int blk = q >> 3;
       const int i = (blk / nbx) * 8 + (q & 7);
       const int jx = (blk % nbx) * 32 + lane;
       T v = T(0);
-      if (i < oy && jx < ox) {
+      if (i < ry && jx < rx) {
         v = sm[(p.hy + i + p.pad) * a.stride + p.hx + jx + p.pad];
-        s_out[b * plane + (long long)(ty0 + i) * p.nx + tx0 + jx] = v;
+        s_out[b * plane +
+              (BLOCK ? (long long)(p.gy + ty0 + i) * p.buf_x + p.gx
+                     : (long long)(ty0 + i) * p.nx) + tx0 + jx] = v;
       }
       if (partials != nullptr) {
         v = warp_sum(v < T(0) ? -v : v);
@@ -541,7 +595,9 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
     }
     if (partials != nullptr) {
       __syncthreads();
-      const int pby = (p.ny + 7) / 8, pbx = (p.nx + 31) / 32;
+      // the owned region's 32 x 8 blocks; a block whose origin is a multiple
+      // of (8, 32) has the whole grid's blocks, in its own layout
+      const int pby = (by + 7) / 8, pbx = (bx + 31) / 32;
       for (int blk = tid; blk < nby * nbx; blk += NT) {
         T t = rowsum[blk * 8];
         for (int r = 1; r < 8; ++r) t = t + rowsum[blk * 8 + r];
@@ -552,13 +608,14 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
   }
 }
 
-template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS>
+template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS,
+          bool BLOCK>
 static int launch_tiled_inst(const T* s_in, T* s_out, const T* w,
                              const T* w0, const T* g, const T* rel,
                              T* partials, const TiledArgs& a, dim3 grid,
                              size_t smem, cudaStream_t stream) {
   auto kern =
-      sor2d_sweeps_tiled_kernel<T, KMAX, CPT, NT, INPLACE, WS>;
+      sor2d_sweeps_tiled_kernel<T, KMAX, CPT, NT, INPLACE, WS, BLOCK>;
   // raise the instantiation's shared-memory limit only when a launch needs
   // more than before, on each device: set on every launch, it kept the host
   // from queueing launches ahead of the device (measured on the H100)
@@ -577,25 +634,48 @@ static int launch_tiled_inst(const T* s_in, T* s_out, const T* w,
   return (int)cudaGetLastError();
 }
 
+// One axis of a block (sor2d_sweeps_block): its owned rows [o, o + b) of
+// the global n, g ghosts on each side, a buffer of b + 2g.  An axis without
+// ghosts is the whole axis, and its windows wrap inside the buffer as the
+// whole-grid kernel's do; one with ghosts must hold every window (g >= h).
+static bool block_axis_ok(int o, int b, int g, int buf, int n, int h) {
+  if (buf != b + 2 * g || b < 1 || o < 0 || o + b > n || g < 0) return false;
+  return g == 0 ? (o == 0 && b == n) : (g >= h && g < n);
+}
+
 // Checks the parameters and launches the instantiation they name (the
 // table in ops/sor2d.py::_CONFIGS); cudaErrorInvalidValue on anything else.
+// Without `block` the launch covers the whole grid (sor2d_sweeps_tiled),
+// whatever the block fields say.
 template <typename T>
 static int launch_tiled(const T* s_in, T* s_out, const T* w, const T* w0,
                         const T* g, const T* rel, T* partials,
-                        const TiledParams* pp, void* stream) {
-  const TiledParams& p = *pp;
+                        const TiledParams* pp, void* stream, bool block) {
+  TiledParams p = *pp;
+  if (!block) {
+    p.oy = p.ox = p.gy = p.gx = 0;
+    p.by = p.buf_y = p.ny;
+    p.bx = p.buf_x = p.nx;
+  } else if (p.inplace || !block_axis_ok(p.oy, p.by, p.gy, p.buf_y, p.ny,
+                                         p.hy) ||
+             !block_axis_ok(p.ox, p.bx, p.gx, p.buf_x, p.nx, p.hx)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (p.K < 0 || p.K > p.kmax || p.B < 1 || p.ny < 1 || p.nx < 1 ||
-      (long long)p.ny * p.nx >= (1LL << 31) || p.nsweeps < 1 ||
+      (long long)p.ny * p.nx >= (1LL << 31) ||
+      (long long)p.buf_y * p.buf_x >= (1LL << 31) || p.nsweeps < 1 ||
       p.nsweeps > TILED_MAX_SWEEPS || p.ty < 1 || p.tx < 1 ||
       p.winy != p.ty + 2 * p.hy || p.winx != p.tx + 2 * p.hx ||
       p.winy * p.winx > p.nt * p.cpt || p.spb < 1 ||
-      p.tiles_y != (p.ny + p.ty - 1) / p.ty ||
-      p.tiles_x != (p.nx + p.tx - 1) / p.tx ||
+      p.tiles_y != (p.by + p.ty - 1) / p.ty ||
+      p.tiles_x != (p.bx + p.tx - 1) / p.tx ||
       (p.B + p.spb - 1) / p.spb > 65535 || p.tiles_y > 65535)
     return (int)cudaErrorInvalidValue;
-  // the partials of 32 x 8 blocks need tiles that hold whole blocks
+  // the partials of 32 x 8 blocks need tiles that hold whole blocks, and a
+  // block's partials are the whole grid's only from an origin on a block
   if (partials != nullptr && ((p.tiles_y > 1 && p.ty % 8) ||
-                              (p.tiles_x > 1 && p.tx % 32)))
+                              (p.tiles_x > 1 && p.tx % 32) || p.oy % 8 ||
+                              p.ox % 32))
     return (int)cudaErrorInvalidValue;
   // the halo must cover k sweeps' dependence cone (header)
   int r = 0;
@@ -621,11 +701,17 @@ static int launch_tiled(const T* s_in, T* s_out, const T* w, const T* w0,
        (size_t)((p.ty + 7) / 8) * 8 * ((p.tx + 31) / 32)) * sizeof(T);
   dim3 grid(p.tiles_x, p.tiles_y, (p.B + p.spb - 1) / p.spb);
   cudaStream_t st = (cudaStream_t)stream;
+  // the block mode takes the ping-pong kernel only (IP 0): an in-place
+  // instantiation's block branch names its whole-grid twin, never taken
 #define TILED_CASE(KM, CP, N, IP, WSM)                                      \
   if (p.kmax == KM && p.cpt == CP && p.nt == N && p.inplace == IP &&        \
       p.wsmem == WSM)                                                       \
-    return launch_tiled_inst<T, KM, CP, N, IP, WSM>(                        \
-        s_in, s_out, w, w0, g, rel, partials, a, grid, smem, st);
+    return block ? launch_tiled_inst<T, KM, CP, N, IP, WSM, !IP>(           \
+                       s_in, s_out, w, w0, g, rel, partials, a, grid, smem, \
+                       st)                                                  \
+                 : launch_tiled_inst<T, KM, CP, N, IP, WSM, false>(         \
+                       s_in, s_out, w, w0, g, rel, partials, a, grid, smem, \
+                       st);
   if constexpr (sizeof(T) == 4) {
     TILED_CASE(4, 4, 1024, 0, 0)
     TILED_CASE(4, 4, 1024, 1, 0)
@@ -648,7 +734,8 @@ int sor2d_sweeps_tiled_f32(const float* s_in, float* s_out, const float* w,
                            const float* w0, const float* g, const float* rel,
                            float* partials, const TiledParams* p,
                            void* stream) {
-  return launch_tiled<float>(s_in, s_out, w, w0, g, rel, partials, p, stream);
+  return launch_tiled<float>(s_in, s_out, w, w0, g, rel, partials, p, stream,
+                             false);
 }
 
 int sor2d_sweeps_tiled_f64(const double* s_in, double* s_out,
@@ -656,7 +743,25 @@ int sor2d_sweeps_tiled_f64(const double* s_in, double* s_out,
                            const double* rel, double* partials,
                            const TiledParams* p, void* stream) {
   return launch_tiled<double>(s_in, s_out, w, w0, g, rel, partials, p,
-                              stream);
+                              stream, false);
+}
+
+// B2s: the ping-pong tiled kernel on one ghost-padded block (see the block
+// mode below the tiled kernel's header).
+int sor2d_sweeps_block_f32(const float* s_in, float* s_out, const float* w,
+                           const float* w0, const float* g, const float* rel,
+                           float* partials, const TiledParams* p,
+                           void* stream) {
+  return launch_tiled<float>(s_in, s_out, w, w0, g, rel, partials, p, stream,
+                             true);
+}
+
+int sor2d_sweeps_block_f64(const double* s_in, double* s_out,
+                           const double* w, const double* w0, const double* g,
+                           const double* rel, double* partials,
+                           const TiledParams* p, void* stream) {
+  return launch_tiled<double>(s_in, s_out, w, w0, g, rel, partials, p,
+                              stream, true);
 }
 
 // Number of |S| partials a color sweep writes per batch slice.

@@ -225,9 +225,29 @@ def _validate_bcs(iParams, ndim):
 
 def _check_ported(iP):
     """Raise for the options this package does not have yet."""
-    if iP.get("mesh") is not None:
-        raise NotImplementedError("iParams['mesh'] is not ported yet "
-                                  "(ROADMAP queue A item 16)")
+    if iP.get("mesh") is not None and iP.get("scheme") == "lexico":
+        raise NotImplementedError("scheme='lexico' with iParams['mesh'] is "
+                                  "not ported yet (ROADMAP queue A item 17)")
+
+
+def _solve_on_mesh(spec, S0, omega, iP, check_every):
+    """The mesh route of ``_invert``.  The JAX package picks its windowed
+    2-D executor, then the 3-D one (scheme 'sor' under 'change' or
+    'residual'), else GSPMD ``solve_sharded`` on a mesh lifted to all three
+    axes; here all three are one block executor, which takes any subset of
+    the axes in any order, so the route is ``solve_sharded``."""
+    from ..parallel.mesh import solve_sharded
+    mesh = iP["mesh"]
+    if not set(mesh.shape) <= {"batch", "y", "x"}:
+        raise ValueError(
+            "iParams['mesh'] axes must be named 'batch'/'y'/'x' "
+            f"(got {tuple(mesh.shape)}): non-core dims shard over "
+            "'batch', the core grid over ('y', 'x')")
+    return solve_sharded(spec, S0, mesh=mesh, omega=omega,
+                         tol=iP["tolerance"], max_iters=iP["mxLoop"],
+                         check_every=check_every,
+                         scheme=iP.get("scheme", "sor"),
+                         tol_type=iP.get("tolType", "change"))
 
 
 # auto over-relaxation overrides for problems where the grid-optimal
@@ -354,7 +374,7 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
         from ..refine import solve_refined
         global LAST_REFINE
         r = solve_refined(spec, S0_t, omega=omega, tol=iP["tolerance"],
-                          inner_iters=iP["mxLoop"])
+                          inner_iters=iP["mxLoop"], mesh=iP.get("mesh"))
         LAST_REFINE = r
         rel = r.rel_residual
         res = SolveResult(
@@ -375,6 +395,10 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
                              scheme=iP.get("scheme", "sor"),
                              tol_type=iP.get("tolType", "change"),
                              device=device)
+    if res is None and iP.get("mesh") is not None:
+        # multi-device: the block executor (parallel/); every rank passes
+        # the whole forcing, takes its blocks and returns the whole field
+        res = _solve_on_mesh(spec, S0_t, omega, iP, check_every)
     if res is None:
         res = solve(spec, S0_t, omega=omega, tol=iP["tolerance"],
                     max_iters=iP["mxLoop"], check_every=check_every,
@@ -579,6 +603,10 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
     if len(dims) != ndim:
         raise ValueError(f"{ndim:2d} dimensional forcing are needed")
     iP = merge_params(default_iParams, iParams)
+    if iP.get("mesh") is not None:
+        raise NotImplementedError("multigrid on iParams['mesh'] (a sharded "
+                                  "pyramid) is not ported yet (ROADMAP "
+                                  "queue A item 17)")
     validate = mParams is not None and mParams is not default_mParams
     mP = merge_params(default_mParams, mParams,
                       valid_mp if validate else None)

@@ -33,14 +33,15 @@ default_iParams = {
                          # (one-shot spectral solve) or 'lexico' (the
                          # reference's exact lexicographic iterates, with
                          # the per-sweep stopping rule)
-    "tolType": "change", # 'change' (the reference's solution-change rule)
-                         # or 'residual' (true relative discrete residual
-                         # mean|r|/mean|g|); 'refined' raises
-                         # NotImplementedError
-    "streamChunk": None, # out-of-core batch streaming: not in this
-                         # package, a value raises NotImplementedError
-    "mesh": None,        # multi-device solve: not in this package, a
-                         # value raises NotImplementedError
+    "tolType": "change", # 'change' (the reference's solution-change rule),
+                         # 'residual' (true relative discrete residual
+                         # mean|r|/mean|g|) or 'refined' (certified
+                         # double-float32 refinement, refine.py)
+    "streamChunk": None, # out-of-core batch: slices streamed through the
+                         # device this many at a time (stream.py)
+    "mesh": None,        # multi-device solve over a parallel.Mesh (the
+                         # block executor, parallel/); with scheme='lexico'
+                         # or an *_mg entry it raises NotImplementedError
 }
 
 default_mParams = {

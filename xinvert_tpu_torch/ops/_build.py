@@ -55,6 +55,7 @@ for _t in ("f32", "f64"):
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
          _L, _L, _L, _L, _L, _I, _D, _P], _I)
     _SIGNATURES["sor2d"][f"sor2d_sweeps_tiled_{_t}"] = ([_P] * 9, _I)
+    _SIGNATURES["sor2d"][f"sor2d_sweeps_block_{_t}"] = ([_P] * 9, _I)
     _SIGNATURES["sor2d"][f"sor2d_color_sweep_inplace_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
          _L, _L, _L, _L, _L, _I, _D, _P], _I)
@@ -63,6 +64,9 @@ for _t in ("f32", "f64"):
     _SIGNATURES["sor3d"][f"sor3d_color_sweep_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
          _L, _L, _L, _L, _L, _I, _I, _I, _D, _P], _I)
+    _SIGNATURES["sor3d"][f"sor3d_color_sweep_block_{_t}"] = (
+        [_P] * 7 + [_I] * 11 + [_P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _I,
+                                _D, _P], _I)
 
 
 def _nvcc():

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 __all__ = ["two_sum", "two_prod", "residual_compensated",
-           "residual_norm_compensated"]
+           "residual_norm_compensated", "masked_mean_abs"]
 
 
 def two_sum(a, b):
@@ -73,7 +73,7 @@ def _shift(S, off, nd):
     return torch.roll(S, shifts=shifts, dims=axes) if shifts else S
 
 
-def residual_compensated(spec, S, S_lo=None):
+def residual_compensated(spec, S, S_lo=None, shift=None):
     """Per-cell residual ``sum_k w_k S[.+off_k] + w0 S + g`` with
     compensated (Sum2/TwoProd) accumulation of the ``S`` contributions.
 
@@ -81,24 +81,40 @@ def residual_compensated(spec, S, S_lo=None):
     contribution ``sum_k w_k S_lo[.+off_k] + w0 S_lo`` is O(eps) of the
     leading terms, so plain evaluation of it keeps the total at O(eps^2)
     accuracy.  Every offset wraps (boundaries are the caller's to mask with
-    ``spec.active``): this is the unmasked residual.
+    ``spec.active``): this is the unmasked residual.  ``shift(X, off)``
+    gives X[. + off] over the cells of the planes (default: a roll; a block
+    with ghost rings passes a slice of them, and shift(X, 0) its own
+    cells).
     """
     nd = spec.ndim
+    if shift is None:
+        def shift(X, off):
+            return _shift(X, off, nd)
     s = spec.g.to(S.dtype)
     e = torch.zeros((), dtype=S.dtype, device=S.device)
     for k, off in enumerate(spec.offsets):
-        p, pe = two_prod(spec.w[k], _shift(S, off, nd))
+        p, pe = two_prod(spec.w[k], shift(S, off))
         s, se = two_sum(s, p)
         e = e + (se + pe)
-    p, pe = two_prod(spec.w0, S)
+    zero = (0,) * nd
+    p, pe = two_prod(spec.w0, shift(S, zero))
     s, se = two_sum(s, p)
     e = e + (se + pe)
     if S_lo is not None:
-        c = spec.w0 * S_lo
+        c = spec.w0 * shift(S_lo, zero)
         for k, off in enumerate(spec.offsets):
-            c = c + spec.w[k] * _shift(S_lo, off, nd)
+            c = c + spec.w[k] * shift(S_lo, off)
         e = e + c
     return s + e
+
+
+def masked_mean_abs(spec, r):
+    """Mean |r| over the active cells, per batch slice (the active count
+    stays on the device: no host sync)."""
+    axes = tuple(range(-spec.ndim, 0))
+    r = torch.where(spec.active, r, 0.0)
+    n_active = torch.clamp(spec.active.sum(), min=1)
+    return torch.sum(torch.abs(r), dim=axes) / n_active
 
 
 def residual_norm_compensated(spec, S, S_lo=None):
@@ -109,7 +125,4 @@ def residual_norm_compensated(spec, S, S_lo=None):
     mean itself: the certified norm is accurate to ~1e-6 of its own value
     in float32.  No host sync: the active count stays on the device.
     """
-    axes = tuple(range(-spec.ndim, 0))
-    r = torch.where(spec.active, residual_compensated(spec, S, S_lo), 0.0)
-    n_active = torch.clamp(spec.active.sum(), min=1)
-    return torch.sum(torch.abs(r), dim=axes) / n_active
+    return masked_mean_abs(spec, residual_compensated(spec, S, S_lo))

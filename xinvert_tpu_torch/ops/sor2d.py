@@ -14,6 +14,11 @@ how.  Each kernel has a wrapper here and a plain PyTorch version built from
   :func:`sor2d_sweeps_reference` and :func:`sor2d_sweeps_reference_norm`;
 - ``sor2d_sweeps_tiled_inplace`` (the same with one buffer, B3's design):
   :func:`sor2d_sweeps_tiled_inplace`, the same plain versions;
+- ``sor2d_sweeps_block`` (B2s: the ping-pong tiled kernel on one
+  ghost-padded block of a decomposition, the pallas ``_kernel``'s block
+  arguments): :func:`sor2d_sweeps_block` and :func:`make_block_sweeper`
+  (the multi-device executor's), plain
+  :func:`sor2d_sweeps_block_reference` with :func:`block_partials`;
 - the first version, one half-sweep per launch, kept as the yardstick the
   tiled kernels are timed against and reached by no entry point:
   ``sor2d_extend_rows`` (:func:`sor2d_extend`, plain
@@ -33,9 +38,10 @@ with torch ops, so the tiling's semantics are testable on the CPU.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; any other input raises.  ``TILED_LAUNCHES``,
-``TILED_INPLACE_LAUNCHES``, ``LAUNCHES``, ``INPLACE_LAUNCHES`` and
-``EXTEND_LAUNCHES`` count kernel launches, ``PLAIN_CALLS`` calls of the
-plain versions, so a run can show which path it took.  No function here
+``TILED_INPLACE_LAUNCHES``, ``BLOCK_LAUNCHES``, ``LAUNCHES``,
+``INPLACE_LAUNCHES`` and ``EXTEND_LAUNCHES`` count kernel launches,
+``PLAIN_CALLS`` calls of the plain versions, so a run can show which path
+it took.  No function here
 changes the caller's tensors: the kernels work on buffers the wrappers
 allocate.
 """
@@ -60,7 +66,8 @@ __all__ = ["sor2d_sweeps", "sor2d_sweeps_tiled",
            "sor2d_extend", "sor2d_extend_reference", "sor2d_color_sweep",
            "sor2d_color_sweep_reference", "sor2d_color_sweep_inplace",
            "sor2d_color_sweep_inplace_reference", "inplace_eligible",
-           "relax_plane", "MAX_K"]
+           "sor2d_sweeps_block", "sor2d_sweeps_block_reference",
+           "make_block_sweeper", "block_partials", "relax_plane", "MAX_K"]
 
 MAX_K = 16          # offsets the color-sweep kernel takes (csrc SOR2D_MAX_K)
 _MAX_BATCH = 65535  # batch slices per launch (a grid dimension)
@@ -72,6 +79,7 @@ INPLACE_KERNEL = os.environ.get("XINVERT_INPLACE") == "1"
 
 TILED_LAUNCHES = 0          # sor2d_sweeps_tiled kernel launches
 TILED_INPLACE_LAUNCHES = 0  # sor2d_sweeps_tiled_inplace kernel launches
+BLOCK_LAUNCHES = 0          # sor2d_sweeps_block kernel launches
 LAUNCHES = 0          # sor2d_color_sweep kernel launches
 INPLACE_LAUNCHES = 0  # sor2d_color_sweep_inplace kernel launches
 EXTEND_LAUNCHES = 0   # sor2d_extend_rows kernel launches
@@ -177,11 +185,12 @@ def make_plan(spec, core, dtype, inplace, k, ty, tx):
                     smem)
 
 
-def tile_plan(spec, core, dtype, inplace=False):
+def tile_plan(spec, core, dtype, inplace=False, k=None):
     """The tiled kernels' plan for ``spec`` on a ``core`` = (ny, nx) grid
     in ``dtype``: ``_SWEEPS`` sweeps per launch by radius (fewer where no
-    window fits); tiles ``_WIDTH`` columns wide (32 where that leaves no
-    rows), or the whole x axis where its window fits; as many rows as the
+    window fits; exactly ``k`` when given, for a block); tiles ``_WIDTH``
+    columns wide (32 where that leaves no rows), or the whole x axis where
+    its window fits; as many rows as the
     instantiation's cells allow, a multiple of 8, or the whole y axis.
     The tiles thus hold whole 32 x 8 blocks, whose |S| sums the kernels
     add in the first version's order.  Raises where even one sweep per
@@ -194,7 +203,9 @@ def tile_plan(spec, core, dtype, inplace=False):
     nt, cpt = _CONFIGS[(itemsize, kmax, bool(inplace))][:2]
     r = _radius(spec)
     ey, ex = _extend_reach(spec)
-    for k in range(min(_SWEEPS.get(r, 1), MAX_TILED_SWEEPS), 0, -1):
+    ks = (range(min(_SWEEPS.get(r, 1), MAX_TILED_SWEEPS), 0, -1)
+          if k is None else (int(k),))
+    for k in ks:
         hy, hx = 2 * r * k + ey, 2 * r * k + ex
         for tx in (nx, _WIDTH, 32):
             if tx > nx or (tx < nx and tx % 32):
@@ -234,8 +245,8 @@ def _extend_window(spec, win, R, C, ny, nx):
         dc = zero if periodic_x else torch.where(
             C < 2, 2 - C, torch.where(C >= nx - 2, nx - 3 - C, 0))
     winy, winx = R.shape
-    ll = torch.arange(winy)[:, None] + dr
-    mm = torch.arange(winx)[None, :] + dc
+    ll = torch.arange(winy, device=R.device)[:, None] + dr
+    mm = torch.arange(winx, device=R.device)[None, :] + dc
     ok = tgt & (ll >= 0) & (ll < winy) & (mm >= 0) & (mm < winx)
     src = win[..., ll.clamp(0, winy - 1), mm.clamp(0, winx - 1)]
     return torch.where(ok, src, win)
@@ -251,6 +262,33 @@ def _window_planes(spec, rel, B, rows, cols):
     w = spec.w.reshape((K, -1) + tuple(spec.w.shape[-2:]))
     w = w[:, :, rows][:, :, :, cols]
     return w, cut(spec.w0), cut(spec.g), cut(rel)
+
+
+def _window_sweeps(spec, win, planes, R, C, ny, nx, n, fac, inplace=False):
+    """n sweeps of a window (or a ghost-padded block) ``win`` whose cells
+    are the global (R, C), as the tiled kernels run them in shared memory:
+    the extend pre-pass where it writes a row (sources outside the window
+    skipped), then red, then black, every neighbour read wrapping inside the
+    window (cells near its edge hold what their cone lets them); the parity
+    is the global (R + C) & 1.  ``planes`` = (w, w0, g, rel) over the window;
+    ``fac`` the 2n factors or None; ``inplace`` updates the active color
+    only, as the in-place kernel."""
+    w, w0, g, rl = planes
+    red = (R + C) % 2 == 0
+    for s in range(n):
+        if spec.bcs[-2] == "extend":
+            win = _extend_window(spec, win, R, C, ny, nx)
+        for color in (0, 1):
+            f = 1.0 if fac is None else fac[2 * s + color]
+            sel = red if color == 0 else ~red
+            r = (rl * sel.to(win.dtype)) * f
+            acc = g
+            for k, (dy, dx) in enumerate(spec.offsets):
+                acc = acc + w[k] * torch.roll(win, shifts=(-dy, -dx),
+                                              dims=(-2, -1))
+            new = win + r * (acc + w0 * win)
+            win = torch.where(sel, new, win) if inplace else new
+    return win
 
 
 def sor2d_sweeps_tiled_emulated(spec, S, omega, n, with_norm=False,
@@ -286,23 +324,11 @@ def sor2d_sweeps_tiled_emulated(spec, S, omega, n, with_norm=False,
                     torch.arange(plan.winx) + tx0 - plan.hx, nx)
                 R = rows[:, None].expand(plan.winy, plan.winx)
                 C = cols[None, :].expand(plan.winy, plan.winx)
-                red = (R + C) % 2 == 0
-                w, w0, g, rl = _window_planes(spec, rel, B, rows, cols)
-                win = A[:, rows][:, :, cols]
-                for s in range(m):
-                    if spec.bcs[-2] == "extend":
-                        win = _extend_window(spec, win, R, C, ny, nx)
-                    for color in (0, 1):
-                        f = 1.0 if fac is None else fac[2 * (done + s)
-                                                        + color]
-                        sel = red if color == 0 else ~red
-                        r = (rl * sel.to(S.dtype)) * f
-                        acc = g
-                        for k, (dy, dx) in enumerate(spec.offsets):
-                            acc = acc + w[k] * torch.roll(
-                                win, shifts=(-dy, -dx), dims=(-2, -1))
-                        new = win + r * (acc + w0 * win)
-                        win = torch.where(sel, new, win) if inplace else new
+                win = _window_sweeps(
+                    spec, A[:, rows][:, :, cols],
+                    _window_planes(spec, rel, B, rows, cols), R, C, ny, nx,
+                    m, None if fac is None else fac[2 * done:2 * (done + m)],
+                    inplace)
                 oy, ox = min(plan.ty, ny - ty0), min(plan.tx, nx - tx0)
                 own = win[:, plan.hy:plan.hy + oy, plan.hx:plan.hx + ox]
                 out[:, ty0:ty0 + oy, tx0:tx0 + ox] = own
@@ -469,7 +495,8 @@ def _layout(spec, S, rel=None):
                extend_fn=getattr(lib, f"sor2d_extend_rows_{sfx}"),
                sweep_fn=getattr(lib, f"sor2d_color_sweep_{sfx}"),
                inplace_fn=getattr(lib, f"sor2d_color_sweep_inplace_{sfx}"),
-               tiled_fn=getattr(lib, f"sor2d_sweeps_tiled_{sfx}"))
+               tiled_fn=getattr(lib, f"sor2d_sweeps_tiled_{sfx}"),
+               block_fn=getattr(lib, f"sor2d_sweeps_block_{sfx}"))
     return lay
 
 
@@ -478,7 +505,8 @@ class _TiledParams(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in (
         "B", "ny", "nx", "K", "nsweeps", "ty", "tx", "hy", "hx", "winy",
         "winx", "pad", "tiles_y", "tiles_x", "spb", "extend", "periodic_x",
-        "bih", "kmax", "cpt", "nt", "inplace", "wsmem")]
+        "bih", "kmax", "cpt", "nt", "inplace", "wsmem", "oy", "ox", "by",
+        "bx", "gy", "gx", "buf_y", "buf_x")]
                 + [("dy", ctypes.c_int * MAX_K), ("dx", ctypes.c_int * MAX_K)]
                 + [(f, ctypes.c_longlong) for f in (
                     "w_kstride", "w_bstride", "w0_bstride", "g_bstride",
@@ -486,17 +514,18 @@ class _TiledParams(ctypes.Structure):
                 + [("fac", ctypes.c_double * (2 * MAX_TILED_SWEEPS))])
 
 
-def _slices_per_block(lay, plan, S):
+def _slices_per_block(lay, plan, S, core=None):
     """Batch slices each block walks: one where no plane is shared; where
     the batch shares a plane (its coefficients then stay in registers from
-    slice to slice), as many as leave two blocks per SM to go round."""
+    slice to slice), as many as leave two blocks per SM to go round.
+    ``core``: the cells the tiles cover (the owned region of a block)."""
     B = lay["B"]
     if B == 1 or all(lay[f"{p}_bstride"] for p in ("w", "w0", "g", "relax")):
         return max(1, -(-B // _MAX_BATCH))
     if "sms" not in lay:
         lay["sms"] = torch.cuda.get_device_properties(
             S.device).multi_processor_count
-    tiles = math.prod(plan.tiles(lay["core"]))
+    tiles = math.prod(plan.tiles(core or lay["core"]))
     groups = min(B, max(1, -(-2 * lay["sms"] // tiles)))
     return -(-B // groups)
 
@@ -518,7 +547,7 @@ def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
         inplace=int(plan.inplace), dy=lay["dy"], dx=lay["dx"],
         w_kstride=lay["w_kstride"], w_bstride=lay["w_bstride"],
         w0_bstride=lay["w0_bstride"], g_bstride=lay["g_bstride"],
-        rel_bstride=lay["relax_bstride"])
+        rel_bstride=lay["relax_bstride"], by=ny, bx=nx, buf_y=ny, buf_x=nx)
     p.fac[:2 * int(n)] = [float(f) for f in fac]
     err = lay["tiled_fn"](S_in.data_ptr(), S_out.data_ptr(),
                           spec.w.data_ptr(), spec.w0.data_ptr(),
@@ -663,6 +692,182 @@ def sor2d_color_sweep_inplace(spec, S, rel, color, fac=1.0):
     with torch.cuda.device(S.device):
         _launch_color_sweep_inplace(spec, lay, rel, A, color, fac)
     return A.reshape(S.shape)
+
+
+# ---------------------------------------------------------------------------
+# B2s: the tiled kernel on one ghost-padded block of a decomposition
+# (xinvert_tpu/ops/pallas_sor_window.py::_kernel with its block arguments,
+# called by xinvert_tpu/parallel/halo_window.py:292 _device_step); the
+# executor is xinvert_tpu_torch.parallel.halo
+# ---------------------------------------------------------------------------
+
+def block_geometry(padded, origin, shape, ghosts):
+    """The owned extents (by, bx) of a block whose padded core is
+    ``padded`` = (by + 2gy, bx + 2gx), owned origin ``origin`` = (oy, ox)
+    in a global ``shape`` = (ny, nx), ``ghosts`` = (gy, gx); raises on a
+    geometry the kernel does not take.  An axis without ghosts is the whole
+    axis (origin 0); one with ghosts holds at most the axis, and fewer than
+    the axis's cells on each side."""
+    owned = []
+    for b2, o, n, g in zip(padded, origin, shape, ghosts):
+        b = b2 - 2 * g
+        ok = (b >= 1 and o >= 0 and o + b <= n and 0 <= g < n
+              and (g > 0 or (o == 0 and b == n)))
+        if not ok:
+            raise ValueError(
+                f"block of {b2} padded cells with {g} ghosts at origin {o} "
+                f"does not fit an axis of {n} (an axis without ghosts must "
+                "be the whole axis)")
+        owned.append(b)
+    return tuple(owned)
+
+
+def _block_coords(padded, origin, shape, ghosts, device=None):
+    """Each buffer cell's global (R, C), wrapped, as (py, px) tensors."""
+    R = torch.remainder(torch.arange(padded[0], device=device)
+                        + origin[0] - ghosts[0], shape[0])
+    C = torch.remainder(torch.arange(padded[1], device=device)
+                        + origin[1] - ghosts[1], shape[1])
+    return (R[:, None].expand(padded), C[None, :].expand(padded))
+
+
+def block_partials(own):
+    """|S| sums over the 32 x 8 blocks of ``own`` (..., by, bx), as
+    (B, ceil(by/8), ceil(bx/32)), in the kernels' order: each row of 32
+    cells by the warp's shuffle tree (halves added pairwise), then the 8 row
+    sums in turn; cells past the edge add +0.  For a block whose origin is a
+    multiple of (8, 32) these are the whole grid's partials at the block."""
+    by, bx = own.shape[-2:]
+    a = own.reshape((-1, by, bx))
+    a = torch.where(a < 0, -a, a)
+    a = torch.nn.functional.pad(a, (0, -bx % 32, 0, -by % 8))
+    a = a.reshape(a.shape[0], a.shape[1] // 8, 8, a.shape[2] // 32, 32)
+    for h in (16, 8, 4, 2, 1):
+        a = a[..., :h] + a[..., h:2 * h]
+    rows = a[..., 0]
+    t = rows[:, :, 0]
+    for r in range(1, 8):
+        t = t + rows[:, :, r]
+    return t
+
+
+def sor2d_sweeps_block_reference(spec, P, omega, n, origin, shape, ghosts,
+                                 fac=None, with_norm=False):
+    """The block kernel's plain version: n sweeps of the ghost-padded block
+    ``P`` (..., by + 2gy, bx + 2gx) with torch ops, the spec's planes cut to
+    the same padded block; parity, the extend pre-pass and its corner
+    clamps from each cell's global (R, C) (:func:`_window_sweeps`).
+    Returns the owned cells (..., by, bx), and with ``with_norm`` also
+    their :func:`block_partials`."""
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    padded = tuple(P.shape[-2:])
+    by, bx = block_geometry(padded, origin, shape, ghosts)
+    gy, gx = ghosts
+    R, C = _block_coords(padded, origin, shape, ghosts, P.device)
+    rel = relax_plane(spec, omega)
+    win = _window_sweeps(spec, P, (spec.w, spec.w0, spec.g, rel), R, C,
+                         shape[0], shape[1], int(n), fac)
+    own = win[..., gy:gy + by, gx:gx + bx]
+    if with_norm:
+        return own, block_partials(own)
+    return own
+
+
+def make_block_sweeper(spec, P, omega, origin, shape, ghosts, k):
+    """A function ``sweep(A, out, n, fac=None, with_norm=False)`` for
+    blocks shaped like ``P`` with ``spec``'s padded planes: n <= k sweeps
+    of the padded state A, whose owned cells it writes into the owned
+    region of the padded buffer ``out`` (ghosts untouched), returning
+    (out, partials or None).  On CUDA tensors one launch of
+    ``sor2d_sweeps_block`` (the layout, the tile plan of k sweeps on the
+    owned cells and the launch parameters built here, once); on CPU tensors
+    the plain version.  The ghosts must cover k sweeps' cone on every axis
+    that has them."""
+    padded = tuple(P.shape[-2:])
+    by, bx = block_geometry(padded, origin, shape, ghosts)
+    gy, gx = ghosts
+    k = int(k)
+    if P.device.type == "cpu":
+        def sweep(A, out, n, fac=None, with_norm=False):
+            res = sor2d_sweeps_block_reference(spec, A, omega, n, origin,
+                                               shape, ghosts, fac, with_norm)
+            own, part = res if with_norm else (res, None)
+            out[..., gy:gy + by, gx:gx + bx] = own
+            return out, part
+        return sweep
+    rel = relax_plane(spec, omega)
+    lay = _layout(spec, P, rel)
+    plan = tile_plan(spec, (by, bx), P.dtype, k=k)
+    if (gy and plan.hy > gy) or (gx and plan.hx > gx):
+        raise ValueError(f"ghosts {ghosts} do not cover {k} sweeps (halo "
+                         f"{plan.hy}x{plan.hx})")
+    tiles_y, tiles_x = plan.tiles((by, bx))
+    params = _TiledParams(
+        B=lay["B"], ny=shape[0], nx=shape[1], K=lay["K"], ty=plan.ty,
+        tx=plan.tx, hy=plan.hy, hx=plan.hx, winy=plan.winy, winx=plan.winx,
+        pad=plan.pad, tiles_y=tiles_y, tiles_x=tiles_x,
+        spb=_slices_per_block(lay, plan, P, (by, bx)),
+        extend=int(spec.bcs[-2] == "extend"),
+        periodic_x=int(spec.bcs[-1] == "periodic"), bih=int(spec.bih),
+        kmax=plan.kmax, cpt=plan.cpt, nt=plan.threads, wsmem=plan.wsmem,
+        inplace=0, dy=lay["dy"], dx=lay["dx"], w_kstride=lay["w_kstride"],
+        w_bstride=lay["w_bstride"], w0_bstride=lay["w0_bstride"],
+        g_bstride=lay["g_bstride"], rel_bstride=lay["relax_bstride"],
+        oy=origin[0], ox=origin[1], by=by, bx=bx, gy=gy, gx=gx,
+        buf_y=padded[0], buf_x=padded[1])
+    ptrs = (spec.w.data_ptr(), spec.w0.data_ptr(), spec.g.data_ptr(),
+            rel.data_ptr())
+    pshape = (lay["B"], -(-by // 8), -(-bx // 32))
+
+    def sweep(A, out, n, fac=None, with_norm=False):
+        global BLOCK_LAUNCHES
+        n = int(n)
+        if not 1 <= n <= k:
+            raise ValueError(f"{n} sweeps; this block takes 1..{k}")
+        params.nsweeps = n
+        params.fac[:2 * n] = ([1.0] * (2 * n) if fac is None
+                              else [float(f) for f in fac])
+        part = (torch.empty(pshape, dtype=A.dtype, device=A.device)
+                if with_norm else None)
+        # the launch goes to the block's device stream: that device must be
+        # current (a mesh's blocks may sit on several cards)
+        with torch.cuda.device(A.device):
+            err = lay["block_fn"](A.data_ptr(), out.data_ptr(), *ptrs,
+                                  None if part is None else part.data_ptr(),
+                                  ctypes.byref(params), lay["stream"])
+        BLOCK_LAUNCHES += 1
+        if err:
+            raise RuntimeError(f"sor2d_sweeps_block launch failed: CUDA "
+                               f"error {err}")
+        return out, part
+    sweep.rel = rel        # the launch reads it: keep it alive
+    return sweep
+
+
+def sor2d_sweeps_block(spec, P, omega, n, origin, shape, ghosts,
+                       with_norm=False, fac=None):
+    """n (<= 8) sweeps of one ghost-padded block ``P`` (..., by + 2gy,
+    bx + 2gx), in one launch of the block kernel (B2s): ``spec``'s planes
+    are the block's padded planes, ``origin`` = (oy, ox) the global origin
+    of its owned cells, ``shape`` = (ny, nx) the whole grid, ``ghosts`` =
+    (gy, gx) the ghost widths (0 on an axis the block spans whole), which
+    must cover n sweeps' cone.  Returns the owned cells (..., by, bx), and
+    with ``with_norm`` also their |S| partials (B, ceil(by/8), ceil(bx/32)),
+    the whole grid's where the origin is a multiple of (8, 32).  ``fac``:
+    2n Chebyshev factors.  CPU tensors take the plain version."""
+    if P.device.type == "cpu":
+        return sor2d_sweeps_block_reference(spec, P, omega, n, origin, shape,
+                                            ghosts, fac, with_norm)
+    sweep = make_block_sweeper(spec, P, omega, origin, shape, ghosts, n)
+    A = _driver._buffer(P, {"B": math.prod(P.shape[:-2]),
+                            "core": tuple(P.shape[-2:])})
+    out = torch.empty_like(A)
+    _, part = sweep(A, out, n, fac, with_norm)
+    gy, gx = ghosts
+    py, px = P.shape[-2:]
+    own = out.reshape(P.shape)[..., gy:py - gy, gx:px - gx]
+    return (own, part) if with_norm else own
 
 
 _FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,

@@ -24,10 +24,18 @@ an unfolded red launch, stays as :func:`sor3d_sweeps_pair`, the yardstick
 no entry point calls.  :func:`sor3d_color_sweep_emulated` replays the
 folded launch's reads with torch ops on the CPU (tests only).
 
+``sor3d_color_sweep_block``, the color sweep's block mode (B5s: the pallas
+``_kernel``'s block arguments), sweeps one ghost-padded block of a
+decomposition for the multi-device executor
+(:mod:`xinvert_tpu_torch.parallel.halo`): wrapper
+:func:`sor3d_color_sweep_block`, n sweeps :func:`make_block_sweeper`, plain
+version :func:`sor3d_color_sweep_block_reference`.
+
 A wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; any other input raises.  ``LAUNCHES`` and
-``EXTEND_LAUNCHES`` count kernel launches, ``PLAIN_CALLS`` calls of the plain
-versions, so a run can show which path it took.  No function here changes
+only for CPU tensors; any other input raises.  ``LAUNCHES``,
+``BLOCK_LAUNCHES`` and ``EXTEND_LAUNCHES`` count kernel launches,
+``PLAIN_CALLS`` calls of the plain versions, so a run can show which path
+it took.  No function here changes
 the caller's tensors: the kernels work on buffers the wrappers allocate.
 """
 from __future__ import annotations
@@ -44,12 +52,14 @@ __all__ = ["sor3d_sweeps", "sor3d_sweeps_pair", "sor3d_sweeps_reference",
            "sor3d_sweeps_reference_norm", "sor3d_extend",
            "sor3d_extend_reference", "sor3d_color_sweep",
            "sor3d_color_sweep_reference", "sor3d_color_sweep_emulated",
-           "relax_plane", "MAX_K"]
+           "sor3d_color_sweep_block", "sor3d_color_sweep_block_reference",
+           "make_block_sweeper", "relax_plane", "MAX_K"]
 
 MAX_K = 8            # offsets the color-sweep kernel takes (csrc SOR3D_MAX_K)
 _MAX_GRID = 65535    # batch slices and interior levels per launch (grid dims)
 
 LAUNCHES = 0         # sor3d_color_sweep kernel launches
+BLOCK_LAUNCHES = 0   # sor3d_color_sweep_block kernel launches
 EXTEND_LAUNCHES = 0  # sor3d_extend_rows kernel launches
 PLAIN_CALLS = 0      # calls of the plain versions
 
@@ -166,7 +176,8 @@ def _layout(spec, S, rel=None):
     lay.update(nz=nz, ny=ny, nx=nx, dz=offs[0], dy=offs[1], dx=offs[2],
                n_partials=lib.sor3d_partials_per_slice(nz, ny, nx),
                extend_fn=getattr(lib, f"sor3d_extend_rows_{sfx}"),
-               sweep_fn=getattr(lib, f"sor3d_color_sweep_{sfx}"))
+               sweep_fn=getattr(lib, f"sor3d_color_sweep_{sfx}"),
+               block_fn=getattr(lib, f"sor3d_color_sweep_block_{sfx}"))
     return lay
 
 
@@ -239,6 +250,188 @@ def sor3d_color_sweep(spec, S, rel, color, fac=1.0, extend=False):
     ``fac``; ``extend``: of S after the extend pre-pass, folded into the
     launch.  CPU tensors take the plain version."""
     return _driver.color_sweep(_FAMILY, spec, S, rel, color, fac, extend)
+
+
+# ---------------------------------------------------------------------------
+# B5s: the color sweep on one ghost-padded block of a (y, x) decomposition
+# (xinvert_tpu/ops/pallas_sor3d_window.py::_kernel with its block
+# arguments, called by xinvert_tpu/parallel/halo_window3d.py:205
+# _device_step3); the executor is xinvert_tpu_torch.parallel.halo
+# ---------------------------------------------------------------------------
+
+def _ry(spec):
+    return max((abs(o[1]) for o in spec.offsets), default=0)
+
+
+def sor3d_color_sweep_block_reference(spec, P, rel, color, origin, shape,
+                                      ghosts, fac=1.0, extend=False,
+                                      with_norm=False):
+    """The block kernel's plain version: one half-sweep of ``color`` of the
+    ghost-padded block ``P`` (..., nz, by + 2gy, bx + 2gx) with torch ops,
+    every cell of the buffer, each read as the kernel makes it: wrapped
+    inside the buffer, and, with ``extend`` and a cell whose global row is
+    within the offsets' y reach of row 0 or ny - 1, through the extend map
+    on global coordinates (moving inside the buffer only); parity
+    (l + R + C) & 1 on the global (R, C).  ``spec``'s planes are the
+    block's padded planes, ``rel`` the padded :func:`relax_plane`.  Returns
+    the new buffer, and with ``with_norm`` also the |S| partials of its
+    owned cells (B, nz, ceil(by/8), ceil(bx/32))."""
+    from .sor2d import _block_coords, block_geometry, block_partials
+    global PLAIN_CALLS
+    PLAIN_CALLS += 1
+    nz, py, px = P.shape[-3:]
+    ny, nx = shape
+    by, bx = block_geometry((py, px), origin, shape, ghosts)
+    gy, gx = ghosts
+    dev = P.device
+    R, C = (t[None] for t in _block_coords((py, px), origin, shape, ghosts,
+                                            dev))
+    lv = torch.arange(nz, device=dev)[:, None, None]
+    idx = torch.arange(nz * py * px, device=dev).reshape(nz, py, px)
+    flat = P.reshape(P.shape[:-3] + (-1,))
+
+    def at(index):
+        return flat[..., index.reshape(-1)].reshape(P.shape)
+
+    mapped = extend and spec.bcs[-2] == "extend"
+    if mapped:
+        # the extend map as a read over the buffer (csrc extend_src)
+        hit = ((lv >= 1) & (lv <= nz - 2) & ((R == 0) | (R == ny - 1))
+               ).expand(nz, py, px)
+        jj = torch.arange(py, device=dev)[None, :, None] + torch.where(
+            R == 0, 1, -1)
+        ii = torch.arange(px, device=dev)[None, None, :].expand(nz, py, px)
+        if spec.bcs[-1] != "periodic":
+            ii = ii + torch.where(C == 0, 1, torch.where(C == nx - 1, -1, 0))
+        ok = hit & (jj >= 0) & (jj < py) & (ii >= 0) & (ii < px)
+        src = torch.where(ok, (lv * py + jj.clamp(0, py - 1)) * px
+                          + ii.clamp(0, px - 1), idx)
+        ry = _ry(spec)
+        near = ((R <= ry) | (R >= ny - 1 - ry)).expand(nz, py, px)
+    acc = spec.g
+    for k, off in enumerate(spec.offsets):
+        nb = torch.roll(idx, tuple(-o for o in off), (0, 1, 2))
+        if mapped:
+            nb = torch.where(near, src.reshape(-1)[nb], nb)
+        acc = acc + spec.w[k] * at(nb)
+    s = at(torch.where(near, src, idx)) if mapped else P
+    sel = ((lv + R + C) % 2 == color).to(P.dtype)
+    out = s + ((rel * sel) * fac) * (acc + spec.w0 * s)
+    if with_norm:
+        part = block_partials(out[..., gy:gy + by, gx:gx + bx])
+        return out, part.reshape((-1, nz) + tuple(part.shape[-2:]))
+    return out
+
+
+def _block_layout(spec, P, rel, origin, shape, ghosts):
+    """:func:`_layout` of a padded block, with its block arguments."""
+    from .sor2d import block_geometry
+    by, bx = block_geometry(tuple(P.shape[-2:]), origin, shape, ghosts)
+    lay = _layout(spec, P, rel)
+    lay["blk"] = (shape[0], shape[1], origin[0], origin[1], by, bx,
+                  ghosts[0], ghosts[1])
+    lay["pshape"] = (lay["B"], lay["nz"], -(-by // 8), -(-bx // 32))
+    return lay
+
+
+def _launch_block(spec, lay, rel, S_in, S_out, color, fac=1.0,
+                  partials=None, extend=False):
+    """sor3d_color_sweep_block: S_out = half-sweep ``color`` of the padded
+    block S_in (every cell; with ``extend``, read through the extend map)."""
+    global BLOCK_LAUNCHES
+    # the launch goes to the block's device stream: that device must be
+    # current (a mesh's blocks may sit on several cards)
+    with torch.cuda.device(S_in.device):
+        err = lay["block_fn"](
+            S_in.data_ptr(), S_out.data_ptr(), spec.w.data_ptr(),
+            spec.w0.data_ptr(), spec.g.data_ptr(), rel.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            lay["B"], lay["nz"], *lay["blk"], lay["K"],
+            ctypes.addressof(lay["dz"]), ctypes.addressof(lay["dy"]),
+            ctypes.addressof(lay["dx"]),
+            lay["w_kstride"], lay["w_bstride"], lay["w0_bstride"],
+            lay["g_bstride"], lay["relax_bstride"], int(color),
+            int(extend and spec.bcs[-2] == "extend"),
+            int(spec.bcs[-1] == "periodic"), float(fac), lay["stream"])
+    BLOCK_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"sor3d_color_sweep_block launch failed: CUDA "
+                           f"error {err}")
+
+
+def sor3d_color_sweep_block(spec, P, rel, color, origin, shape, ghosts,
+                            fac=1.0, extend=False, with_norm=False):
+    """One half-sweep of ``color`` of one ghost-padded block ``P`` (...,
+    nz, by + 2gy, bx + 2gx) into a new buffer, every cell (one launch of
+    the block kernel, B5s): ``spec``'s planes are the block's padded
+    planes, ``rel`` the padded :func:`relax_plane` (scaled by ``fac``),
+    ``origin`` = (oy, ox) the global origin of the owned cells, ``shape`` =
+    (ny, nx) the whole grid's rows and columns, ``ghosts`` = (gy, gx) (0 on
+    an axis the block spans whole); ``extend``: read through the extend
+    pre-pass, folded in.  With ``with_norm`` also the owned cells' |S|
+    partials (B, nz, ceil(by/8), ceil(bx/32)).  CPU tensors take the plain
+    version."""
+    if P.device.type == "cpu":
+        return sor3d_color_sweep_block_reference(
+            spec, P, rel, color, origin, shape, ghosts, fac, extend,
+            with_norm)
+    if color not in (0, 1):
+        raise ValueError(f"color must be 0 or 1, got {color}")
+    lay = _block_layout(spec, P, rel, origin, shape, ghosts)
+    A = _driver._buffer(P, lay)
+    out = torch.empty_like(A)
+    part = (torch.empty(lay["pshape"], dtype=P.dtype, device=P.device)
+            if with_norm else None)
+    _launch_block(spec, lay, rel, A, out, color, fac, part, extend)
+    out = out.reshape(P.shape)
+    return (out, part) if with_norm else out
+
+
+def make_block_sweeper(spec, P, omega, origin, shape, ghosts, k):
+    """A function ``sweep(A, Bf, n, fac=None, with_norm=False)`` for
+    blocks shaped like ``P`` with ``spec``'s padded planes: n <= k full
+    sweeps of the padded state A, two half-sweep launches each (the extend
+    pre-pass folded into the red one), ping-ponging through the spare
+    buffer Bf and ending in A; returns (A, owned partials of the last black
+    launch or None).  The ghosts must cover k sweeps' cone.  On CUDA
+    tensors the block kernel, its layout built here once; on CPU tensors
+    the plain version."""
+    from .sor2d import block_geometry
+    block_geometry(tuple(P.shape[-2:]), origin, shape, ghosts)
+    k = int(k)
+    rel = relax_plane(spec, omega)
+    extend = spec.bcs[-2] == "extend"
+    cpu = P.device.type == "cpu"
+    lay = None if cpu else _block_layout(spec, P, rel, origin, shape,
+                                         ghosts)
+
+    def half(S_in, S_out, color, f, last):
+        if cpu:
+            res = sor3d_color_sweep_block_reference(
+                spec, S_in, rel, color, origin, shape, ghosts, f,
+                extend and color == 0, last)
+            out, part = res if last else (res, None)
+            S_out.copy_(out)
+            return part
+        part = (torch.empty(lay["pshape"], dtype=S_in.dtype,
+                            device=S_in.device) if last else None)
+        _launch_block(spec, lay, rel, S_in, S_out, color, f, part,
+                      extend and color == 0)
+        return part
+
+    def sweep(A, Bf, n, fac=None, with_norm=False):
+        n = int(n)
+        if not 1 <= n <= k:
+            raise ValueError(f"{n} sweeps; this block takes 1..{k}")
+        part = None
+        for it in range(n):
+            f_red, f_black = ((1.0, 1.0) if fac is None
+                              else (fac[2 * it], fac[2 * it + 1]))
+            half(A, Bf, 0, f_red, False)
+            part = half(Bf, A, 1, f_black, with_norm and it == n - 1)
+        return A, part
+    sweep.rel = rel        # the launches read it: keep it alive
+    return sweep
 
 
 _FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,

@@ -32,17 +32,27 @@ import torch
 
 from .grid import optimal_omega
 from .ops.compensated import (two_sum, residual_compensated,
-                              residual_norm_compensated)
+                              masked_mean_abs)
 from .solver import solve, _residual_scale
 from .stencil import StencilSpec
 
 __all__ = ["solve_refined", "RefineResult", "mg_inner"]
 
 
-def _correction_rhs(spec, S_hi, S_lo):
+def _residual(spec, S_hi, S_lo, mesh=None):
+    """The compensated residual of hi + lo, per cell (unmasked); with a
+    mesh computed block by block and gathered
+    (``parallel.halo.residual_compensated_blocks``): the same cells, bit
+    for bit."""
+    if mesh is None:
+        return residual_compensated(spec, S_hi, S_lo)
+    from .parallel.halo import residual_compensated_blocks
+    return residual_compensated_blocks(spec, S_hi, S_lo, mesh)
+
+
+def _correction_rhs(spec, r):
     """The masked compensated residual: the correction system's forcing."""
-    return torch.where(spec.active, residual_compensated(spec, S_hi, S_lo),
-                       0.0).to(S_hi.dtype)
+    return torch.where(spec.active, r, 0.0).to(r.dtype)
 
 
 def _absorb(S_hi, S_lo, e):
@@ -77,6 +87,21 @@ def _default_inner(omega, inner_tol: float, inner_iters: int) -> Callable:
     def inner(cspec, S0):
         return solve(cspec, S0, omega=omega, tol=tol, max_iters=inner_iters,
                      check_every=32, tol_type="change").S
+    return inner
+
+
+def _mesh_inner(mesh, omega, inner_tol: float, inner_iters: int) -> Callable:
+    """The correction solver on a mesh (the JAX package's ``refine.py``
+    mesh inner): :func:`_default_inner`'s solve through the checked block
+    executor (``solve_sharded``; the JAX package's windowed executors and
+    its GSPMD solve are one executor here)."""
+    from .parallel.mesh import solve_sharded
+    tol = inner_tol * 1e-3
+
+    def inner(cspec, S0):
+        return solve_sharded(cspec, S0, mesh=mesh, omega=omega, tol=tol,
+                             max_iters=inner_iters, check_every=32,
+                             tol_type="change").S
     return inner
 
 
@@ -115,15 +140,22 @@ def solve_refined(spec: StencilSpec, S0, omega: Optional[float] = None,
     than doubles the best residual (nullspace drift), and stops when the
     certified residual reaches ``tol`` or after ``max_rounds`` corrections.
     ``rounds`` counts the corrections run.  Runs on the device of ``spec``
-    and ``S0``.  ``mesh`` (the multi-device executors) is not ported.
+    and ``S0``.
+
+    ``mesh`` (a :class:`~xinvert_tpu_torch.parallel.mesh.Mesh`) splits the
+    inner solves over its blocks (the checked block executor, whose
+    iterates and stopping are the meshless solve's) and runs the
+    compensated residual block by block, gathered in a fixed block order:
+    the rounds and the certificate are those without the mesh.  Every rank
+    of a distributed mesh passes the whole problem and gets the whole
+    result.
     """
-    if mesh is not None:
-        raise NotImplementedError("solve_refined(mesh=...) is not ported yet "
-                                  "(ROADMAP queue A item 16)")
     if omega is None:
         omega = optimal_omega(S0.shape[-spec.ndim:])
     if inner is None:
-        inner = _default_inner(omega, inner_tol, inner_iters)
+        inner = (_default_inner(omega, inner_tol, inner_iters)
+                 if mesh is None
+                 else _mesh_inner(mesh, omega, inner_tol, inner_iters))
     scale = _residual_scale(spec)
     # the stopping tests compare in the state's dtype, as the JAX
     # package's traced loop does
@@ -132,17 +164,19 @@ def solve_refined(spec: StencilSpec, S0, omega: Optional[float] = None,
     # round 0: the plain solve
     S_hi = inner(spec, S0)
     S_lo = torch.zeros_like(S_hi)
-    rel = residual_norm_compensated(spec, S_hi, S_lo) / scale
+    r = _residual(spec, S_hi, S_lo, mesh)
+    rel = masked_mean_abs(spec, r) / scale
     best = (S_hi, S_lo, rel)
     best_max = m = float(torch.max(rel))         # one host sync a round
     rounds = 0
     while not m <= tol_d and rounds < max_rounds:
         # correction system A e = -r: the engine solves
         # sum w e + w0 e + g_c = 0, so g_c = r (per cell, compensated)
-        r = _correction_rhs(spec, S_hi, S_lo)
-        e = inner(dataclasses.replace(spec, g=r), torch.zeros_like(S_hi))
+        e = inner(dataclasses.replace(spec, g=_correction_rhs(spec, r)),
+                  torch.zeros_like(S_hi))
         S_hi, S_lo = _absorb(S_hi, S_lo, e)
-        rel = residual_norm_compensated(spec, S_hi, S_lo) / scale
+        r = _residual(spec, S_hi, S_lo, mesh)
+        rel = masked_mean_abs(spec, r) / scale
         m = float(torch.max(rel))
         rounds += 1
         if m <= best_max:

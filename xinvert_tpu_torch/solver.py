@@ -306,12 +306,22 @@ def _select_kernel(spec: StencilSpec, S):
 
 
 def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
-                run_sweeps, tol_type, scheme):
+                run_sweeps, tol_type, scheme, residual_norm=_residual_norm,
+                freeze_state=None):
+    """The check-window loop of :func:`solve` over ``run_sweeps`` (the
+    kernel wrappers' signature).  An executor that holds the state itself
+    (``parallel.halo``) passes its residual norm, ``residual_norm(spec,
+    S)``, and the freeze of finished slices, ``freeze_state(old, new,
+    done)``; by default both act on the state tensor."""
     dtype, device = S0.dtype, S0.device
     batch_shape = S0.shape[: S0.ndim - spec.ndim]
     ncells = math.prod(S0.shape[-spec.ndim:])
     r_scale = _residual_scale(spec) if tol_type == "residual" else None
     tol_t = torch.tensor(tol, dtype=dtype, device=device)
+    if freeze_state is None:
+        def freeze_state(old, new, done):
+            return torch.where(done.reshape(batch_shape + (1,) * spec.ndim),
+                               old, new)
 
     if scheme == "cheby":
         # the (m, w) recurrence state rides the loop carry across check
@@ -348,7 +358,7 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
         # one check window: k sweeps, then the convergence/telemetry update
         if tol_type == "residual":
             S_new, aux = step(c["S"], c["aux"], k, False)
-            norm = torch.broadcast_to(_residual_norm(spec, S_new),
+            norm = torch.broadcast_to(residual_norm(spec, S_new),
                                       batch_shape)
             rel = norm / r_scale
         else:
@@ -376,16 +386,15 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
         if single:
             # the loop exits the moment `done` flips, so it never advances
             # a finished slice: the freeze would be the identity
-            def frz(old, new, d=None):
+            def frz(old, new):
                 return new
         else:
             done = c["done"]
 
-            def frz(old, new, d=done):
-                return torch.where(d, old, new)
-        d_state = c["done"].reshape(batch_shape + (1,) * spec.ndim)
+            def frz(old, new):
+                return torch.where(done, old, new)
         return dict(
-            S=frz(c["S"], S_new, d_state),
+            S=S_new if single else freeze_state(c["S"], S_new, c["done"]),
             it=c["it"] + k,
             loop=frz(c["loop"], new_loop),
             norm_prev=frz(c["norm_prev"], norm),
