@@ -11,8 +11,8 @@ seed, and runs these phases, each printing its lines:
      (nvidia-smi), torch and CUDA versions;
   1  build: nvcc compiles xinvert_tpu_torch/csrc/sor2d.cu and csrc/sor3d.cu,
      one process per source started together (first use), with the seconds
-     each took and ptxas's registers and spills of the tiled kernels and
-     the 3-D color sweep;
+     each took and ptxas's registers and spills of the tiled kernels, the
+     3-D color sweep and the 3-D block sweep (B5s);
   2  each kernel against its plain PyTorch version on the card: bit-equal
      (torch.equal) in float32 and float64 on several 2-D grids and 3-D
      volumes (every shape the main paths below drive): the two tiled 2-D
@@ -27,12 +27,14 @@ seed, and runs these phases, each printing its lines:
      Poisson, the SODA Stommel-Munk biharmonic one, a Fofonoff-like
      standard_2d_e one), n in {1, 2, 3, 60}, one state and a batch under a
      batched forcing, the in-place switch off and on; the block kernels
-     (B2s sor2d_sweeps_block, B5s sor3d_color_sweep_block) on ghost-padded
-     blocks cut from the main paths' grids (row blocks at odd and even
-     origins, x splits with the extend corner clamps, the biharmonic on a
-     row mesh, batched forcings, NaN boundary lines), one launch against
-     its plain version, owned cells, partials or every buffer cell
-     torch.equal, then 37 sweeps with Chebyshev factors through the block
+     (B2s sor2d_sweeps_block; B5s sor3d_color_sweep_block, through the
+     block sweep kernel with three z chunkings and through its first
+     version, the color sweep's block mode) on ghost-padded blocks cut
+     from the main paths' grids (row blocks at odd and even origins, x
+     splits with the extend corner clamps, the biharmonic on a row mesh,
+     batched forcings, NaN boundary lines), one launch against its plain
+     version, owned cells, partials or every buffer cell torch.equal, then
+     37 sweeps with Chebyshev factors through the block
      executor on a local mesh against the plain meshless sweeps, and its
      norm on the aligned layout against the whole-grid kernels';
   3  the main paths, in float32 and with no device argument (the entry
@@ -103,7 +105,11 @@ seed, and runs these phases, each printing its lines:
      ('y'=3,), invert_3DOcean 30x330x720 on ('y'=2, 'x'=2),
      solve_fixed_halo_window3d on ('y'=8,) (9-row blocks) against
      solve_fixed, solve_refined on the 2048x2048 sphere (rounds,
-     certificate, pair), and scaling_bench on 1, 2 and 4 blocks;
+     certificate, pair), and scaling_bench on 1, 2 and 4 blocks; then
+     scheme="lexico" (notebook 03's 72x144 invert_Poisson, 50 sweeps) and
+     invert_Poisson_mg on the same forcing with iParams["mesh"] on ('y'=2,):
+     both solve whole, so each equals its meshless run (the same launches,
+     iters, states and fields);
   4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
      calls timed with CUDA events, for the kernels and the plain version,
      beside a device-to-device copy of the bytes a sweep of the kernels
@@ -119,8 +125,14 @@ seed, and runs these phases, each printing its lines:
      version, and its red launch (folded and not) against the black one;
      the block kernels per launch on a 2x2 mesh's block of the 2048x2048
      Poisson and of the 30x330x720 ocean, beside their plain versions and
-     bounds; where a 2048x2048 V-cycle's device time goes (smoothing
-     against the rest), its wall time and host gap, host syncs per cycle.
+     bounds (B5s's block sweep in turns against its first version, red and
+     black, and a scan of the levels a CTA walks); where a 2048x2048
+     V-cycle's device time goes (smoothing against the rest), its wall
+     time and host gap, host syncs per cycle.  With --parent-sor3d PATH
+     (another tree's csrc/sor3d.cu), also the whole-grid 3-D color sweep
+     of this tree against that one's build, in turns.  --blocks runs only
+     phases 0 and 1, phase 2's 3-D block checks and phase 4's block
+     timings (and prints no result line).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Any failed phase raises, and the
@@ -132,6 +144,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import time
 import warnings
 
@@ -176,9 +189,15 @@ KERNELS = {   # name: (source, replaces, also_replaces)
     "sor2d_sweeps_block": ("xinvert_tpu_torch/csrc/sor2d.cu",
                            "xinvert_tpu/ops/pallas_sor_window.py:252",
                            "xinvert_tpu/parallel/halo_window.py:292"),
+    # B5s's wrapper launches the block sweep kernel (sor3d_block_sweep);
+    # its first version, the color sweep's block mode, is the yardstick
     "sor3d_color_sweep_block": ("xinvert_tpu_torch/csrc/sor3d.cu",
                                 "xinvert_tpu/ops/pallas_sor3d_window.py:174",
                                 "xinvert_tpu/parallel/halo_window3d.py:205"),
+    "sor3d_color_sweep_block_first": (
+        "xinvert_tpu_torch/csrc/sor3d.cu",
+        "xinvert_tpu/ops/pallas_sor3d_window.py:174",
+        "xinvert_tpu/parallel/halo_window3d.py:205"),
 }
 # each kernel's launch counter
 COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
@@ -189,7 +208,11 @@ COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
             "sor3d_extend_rows": (sor3d, "EXTEND_LAUNCHES"),
             "sor3d_color_sweep": (sor3d, "LAUNCHES"),
             "sor2d_sweeps_block": (sor2d, "BLOCK_LAUNCHES"),
-            "sor3d_color_sweep_block": (sor3d, "BLOCK_LAUNCHES")}
+            "sor3d_color_sweep_block": (sor3d, "BLOCK_LAUNCHES"),
+            "sor3d_color_sweep_block_first": (sor3d, "BLOCK_FIRST_LAUNCHES")}
+# another tree's csrc/sor3d.cu to time the whole-grid color sweep against
+# (--parent-sor3d; phase 4)
+PARENT_SOR3D = None
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -520,9 +543,12 @@ def phase1():
                      for name in _build.SOURCES)
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.3f} s "
         f"(nvcc in parallel: {nvcc}; flags {' '.join(_build.NVCC_FLAGS)})")
-    # ptxas -v on the tiled kernels and the 3-D color sweep (the extend
-    # read-through's registers): registers, spills, shared memory
-    for src, key in (("sor2d", "tiled"), ("sor3d", "color_sweep")):
+    # ptxas -v on the tiled kernels, the 3-D color sweep (the extend
+    # read-through's registers) and the block sweep: registers, spills,
+    # shared memory
+    spills = []
+    for src, key in (("sor2d", "tiled"), ("sor3d", "color_sweep"),
+                     ("sor3d", "block_sweep")):
         lines = _build.BUILD_LOG.get(src, "").splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and key in line:
@@ -530,6 +556,13 @@ def phase1():
                 info = " | ".join(x.split(":", 1)[-1].strip()
                                   for x in lines[i + 2:i + 4])
                 log(f"[1] ptxas {inst}: {info}")
+                if key == "block_sweep":
+                    spills += [int(w) for w, u in zip(info.split(),
+                                                      info.split()[1:])
+                               if u == "bytes" and w.isdigit()][1:3]
+    if spills:
+        log(f"[1] the block sweep's instantiations spill {sum(spills)} B "
+            f"(stores and loads, ptxas)")
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1043,37 +1076,51 @@ def _check_block2d(name, make, blocks, k, mesh, errs):
 
 
 def _check_block3d(name, make, blocks, k, mesh, errs):
-    """sor3d_color_sweep_block on each block: the red launch with the
-    extend pre-pass folded in and the black launch with the owned |S|
-    partials, with and without a Chebyshev factor, against the plain
-    version: every cell of the padded buffer torch.equal, NaN matching
-    NaN; then 37 sweeps with factors through the executor on ``mesh``
-    against the plain meshless sweeps, and on the aligned layout its norm
-    against the whole-grid pair's."""
+    """B5s on each block, through the block sweep kernel (three z chunkings:
+    the plan's, one level and five levels a CTA) and through its first
+    version (the color sweep's block mode): the red launch with the extend
+    pre-pass folded in and the black launch with the owned |S| partials,
+    with and without a Chebyshev factor, against the plain version: every
+    cell of the padded buffer torch.equal, NaN matching NaN; then 37 sweeps
+    with factors through the executor on ``mesh`` against the plain
+    meshless sweeps, and on the aligned layout its norm against the
+    whole-grid pair's."""
+    def block_sweep(zc):
+        """The block sweep's one launch walking zc levels a CTA (0: the
+        launcher's choice)."""
+        def launch(spec, lay, *args):
+            sor3d._launch_block(spec, dict(lay, zc=zc), *args)
+        return lambda *args: sor3d._block_once(launch, *args)
+    wrappers = [("sor3d_color_sweep_block", block_sweep(zc), "BLOCK_LAUNCHES")
+                for zc in (0, 1, 5)]
+    wrappers.append(("sor3d_color_sweep_block_first",
+                     sor3d.sor3d_color_sweep_block_first,
+                     "BLOCK_FIRST_LAUNCHES"))
     for dt in (torch.float32, torch.float64):
         spec, S0, om = make(dt)
         shape = tuple(S0.shape[-2:])
-        ok, err = True, 0.0
+        ok, err = True, {kname: 0.0 for kname, *_ in wrappers}
         for origin, owned, g in blocks:
             P = phalo.padded_block(S0, origin, owned, g)
             bspec = phalo.padded_block_spec(spec, origin, owned, g)
             rel = sor3d.relax_plane(bspec, om)
             for fac in (1.0, float(torch.tensor(1.37, dtype=dt))):
                 for color, ext, norm in ((0, True, False), (1, False, True)):
-                    b0 = sor3d.BLOCK_LAUNCHES
-                    res = sor3d.sor3d_color_sweep_block(
-                        bspec, P, rel, color, origin, shape, g, fac, ext,
-                        norm)
                     ref = sor3d.sor3d_color_sweep_block_reference(
                         bspec, P, rel, color, origin, shape, g, fac, ext,
                         norm)
-                    torch.cuda.synchronize()
-                    ok &= sor3d.BLOCK_LAUNCHES == b0 + 1
-                    if norm:
-                        ok &= _bit_equal(res[1], ref[1])
-                        res, ref = res[0], ref[0]
-                    ok &= _bit_equal(res, ref)
-                    err = max(err, _nan_err(res, ref))
+                    for kname, fn, counter in wrappers:
+                        b0 = getattr(sor3d, counter)
+                        res = fn(bspec, P, rel, color, origin, shape, g, fac,
+                                 ext, norm)
+                        torch.cuda.synchronize()
+                        ok &= getattr(sor3d, counter) == b0 + 1
+                        if norm:
+                            ok &= _bit_equal(res[1], ref[1])
+                            res = res[0]
+                        r = ref[0] if norm else ref
+                        ok &= _bit_equal(res, r)
+                        err[kname] = max(err[kname], _nan_err(res, r))
         facs = _facs(dt, 37)
         ex = phalo.BlockExecutor(spec, S0, mesh, 1.0, checked=False)
         b0 = sor3d.BLOCK_LAUNCHES
@@ -1083,7 +1130,8 @@ def _check_block3d(name, make, blocks, k, mesh, errs):
         torch.cuda.synchronize()
         ok &= sor3d.BLOCK_LAUNCHES - b0 == 74 * len(ex.dec.local)
         ok &= _bit_equal(out, ref)
-        err = max(err, _nan_err(out, ref))
+        err["sor3d_color_sweep_block"] = max(err["sor3d_color_sweep_block"],
+                                             _nan_err(out, ref))
         try:
             exc = phalo.BlockExecutor(spec, S0, mesh, om, checked=True)
         except ValueError:
@@ -1092,18 +1140,20 @@ def _check_block3d(name, make, blocks, k, mesh, errs):
             tot = exc.totals(exc.sweeps(37, with_norm=True))
             whole = sor3d.sor3d_sweeps(spec, S0, om, 37, with_norm=True)[1]
             ok &= _bit_equal(tot.reshape(whole.shape), whole)
-        errs["sor3d_color_sweep_block"] = max(
-            errs["sor3d_color_sweep_block"], err)
-        log(f"[2] {name} {str(dt)[6:]}: sor3d_color_sweep_block on "
-            f"{len(blocks)} block(s) (ghosts {[b[2] for b in blocks]}), red "
-            f"(extend folded in) and black (owned partials), factors 1 and "
-            f"1.37, then 37 sweeps through the executor on "
+        for kname in err:
+            errs[kname] = max(errs[kname], err[kname])
+        log(f"[2] {name} {str(dt)[6:]}: B5s on {len(blocks)} block(s) "
+            f"(ghosts {[b[2] for b in blocks]}), red (extend folded in) and "
+            f"black (owned partials), factors 1 and 1.37, through the block "
+            f"sweep kernel (z chunks: the launcher's, 1, 5) and its first "
+            f"version, then 37 sweeps through the executor on "
             f"{dict(mesh.shape)} (k {ex.k})"
             + ("" if exc is None else " and its norm on the aligned layout")
-            + f": bit-equal={ok} max|kernel-plain|={err:.3e}")
+            + f": bit-equal={ok} max|kernel-plain|="
+            f"{max(err.values()):.3e}")
         if not ok:
-            raise RuntimeError(f"sor3d_color_sweep_block disagrees with its "
-                               f"plain version on {name} {dt}")
+            raise RuntimeError(f"B5s disagrees with its plain version on "
+                               f"{name} {dt}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -2887,6 +2937,59 @@ def phase3_multi(launches):
     return walls
 
 
+def _whole_on_mesh(name, call, mesh):
+    """``call(iParams_extra)`` without and then with ``{"mesh": mesh}``,
+    each with every count set to 0 just before it: the mesh run solves
+    whole, so it launches what the meshless run launches, no plain call,
+    and gives its iters and an equal state and field."""
+    runs = []
+    for extra in ({}, {"mesh": mesh}):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(extra)
+        torch.cuda.synchronize()
+        runs.append((out, api.LAST_SOLVE, time.perf_counter() - t0,
+                     _counts()))
+    (fa, ra, wa, (ca, pa)), (fb, rb, wb, (cb, pb)) = runs
+    ran = ", ".join(f"{k} {v}" for k, v in cb.items() if v) or "none"
+    as_t = (lambda x: x if torch.is_tensor(x) else torch.as_tensor(x))
+    same = (ca == cb and pa == pb == 0
+            and torch.equal(as_t(ra.iters), as_t(rb.iters))
+            and torch.equal(as_t(ra.S), as_t(rb.S))
+            and np.array_equal(fa.values, fb.values, equal_nan=True))
+    log(f"[3] {name} on {dict(mesh.shape)} against meshless: iters "
+        f"{as_t(rb.iters).reshape(-1).tolist()} and "
+        f"{as_t(ra.iters).reshape(-1).tolist()}, walls {wb:.3f} s and "
+        f"{wa:.3f} s; launches on the mesh: {ran} (the meshless run's: "
+        f"{ca == cb}); states and fields equal: {same}")
+    if not same:
+        raise RuntimeError(f"{name} on a mesh differs from the meshless run")
+
+
+def phase3_whole_on_mesh():
+    """scheme="lexico" and an ``_mg`` entry with ``iParams["mesh"]`` (a
+    ('y'=2,) local mesh of the card): both solve whole, as the JAX package
+    does, equal to their meshless runs; the NB03 forcing (72x144), float64,
+    lexico cut to NB03_SWEEPS sweeps as in phase 3's lexico lines."""
+    torch.set_default_dtype(torch.float64)
+    dev = torch.device("cuda", 0)
+    mesh = local_mesh(dev, (2,), ("y",))
+    force, hbc = _nb03_fields()
+    iP3 = {"BCs": ["fixed", "periodic"], "mxLoop": NB03_SWEEPS,
+           "tolerance": 0.0, "scheme": "lexico", "printInfo": False}
+    _whole_on_mesh(
+        f"NB03 invert_Poisson 72x144 lexico float64, {NB03_SWEEPS} sweeps",
+        lambda extra: xt.invert_Poisson(force, dims=["lat", "lon"], icbc=hbc,
+                                        iParams=dict(iP3, **extra)), mesh)
+    iPm = {"BCs": ["fixed", "periodic"], "printInfo": False}
+    _whole_on_mesh(
+        "NB03 invert_Poisson_mg 72x144 float64 (fixed, periodic), tol 1e-6",
+        lambda extra: xt.invert_Poisson_mg(force, dims=["lat", "lon"],
+                                           icbc=hbc, tol=1e-6,
+                                           iParams=dict(iPm, **extra)), mesh)
+
+
 # ---------------------------------------------------------------- phase 4
 
 def _time_ms(fn, reps, inner=1):
@@ -3258,7 +3361,9 @@ def phase4_blocks(card, dev):
     beside its plain version's (10 calls) and its bound: 2-D block (1, 1)
     of bench.py's 2048x2048 on a 2x2 mesh, k 4; 3-D block (1, 1) of the
     30x330x720 ocean on a 2x2 mesh, the folded red and the black launch
-    (their mean is the kernels line's time)."""
+    (their mean is the kernels line's time) of the block sweep kernel in
+    turns against its first version (first, block sweep, block sweep,
+    first), then the block sweep at several z chunks."""
     per = {}
     n = 2048
     spec, om = poisson_spec(n, n, 0, torch.float32, dev)
@@ -3289,20 +3394,102 @@ def phase4_blocks(card, dev):
     rel = sor3d.relax_plane(bspec, om)
     lay = sor3d._block_layout(bspec, P, rel, origin, (330, 720), g)
     A, Bf = P.clone(), torch.empty_like(P)
-    red = _device_ms(lambda: sor3d._launch_block(bspec, lay, rel, A, Bf, 0,
-                                                 extend=True), 50)
-    black = _device_ms(lambda: sor3d._launch_block(bspec, lay, rel, A, Bf, 1),
-                       50)
+    launch = {"block sweep": sor3d._launch_block,
+              "first version": sor3d._launch_block_first}
+
+    def red_black(label):
+        return (_device_ms(lambda: launch[label](bspec, lay, rel, A, Bf, 0,
+                                                 extend=True), 50),
+                _device_ms(lambda: launch[label](bspec, lay, rel, A, Bf, 1),
+                           50))
+    times = {}
+    for label in ("first version", "block sweep", "block sweep",
+                  "first version"):
+        times.setdefault(label, []).append(red_black(label))
     t_p = _plain_ms(lambda: sor3d.sor3d_color_sweep_block_reference(
         bspec, P, rel, 1, origin, (330, 720), g))
     bound = _block_bound(bspec, P, (P.numel(), 1))
-    per["sor3d_color_sweep_block"] = ((red + black) / 2, t_p) + bound[:2]
-    log(f"[4] {card} | sor3d_color_sweep_block ocean 30x330x720 block "
-        f"(1, 1) of a 2x2 mesh, padded {tuple(P.shape)}, float32: red "
-        f"(extend folded in) {red:.5f} ms, black {black:.5f} ms device time "
-        f"per launch (50 launches), plain version {t_p:.4f} ms; bound "
-        f"{bound[0]:.5f} ms ({bound[1]}, {bound[2]} B at 3.35 TB/s)")
+    for label, kname in (("block sweep", "sor3d_color_sweep_block"),
+                         ("first version", "sor3d_color_sweep_block_first")):
+        red = float(np.mean([t[0] for t in times[label]]))
+        black = float(np.mean([t[1] for t in times[label]]))
+        per[kname] = ((red + black) / 2, t_p) + bound[:2]
+        log(f"[4] {card} | B5s {label} ({kname}) ocean 30x330x720 block "
+            f"(1, 1) of a 2x2 mesh, padded {tuple(P.shape)}, float32, in "
+            f"turns (first, block sweep, block sweep, first): red (extend "
+            f"folded in) " + " / ".join(f"{t[0]:.5f}" for t in times[label])
+            + " ms, black " + " / ".join(f"{t[1]:.5f}" for t in times[label])
+            + f" ms device time per launch (50 launches); mean "
+            f"{(red + black) / 2:.5f} ms, red/black {red / black:.3f}; "
+            f"bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]} B at 3.35 "
+            f"TB/s), {100 * bound[0] / ((red + black) / 2):.1f}% of it; "
+            f"plain version {t_p:.4f} ms")
+    # what the flag costs: the flagged launch with no edge tiles (a wrong
+    # field, timed only) and the red launch unflagged, beside black
+    no_edge = dict(lay, n_edge=0)
+    flag = [_device_ms(fn, 50) for fn in (
+        lambda: sor3d._launch_block(bspec, no_edge, rel, A, Bf, 0,
+                                    extend=True),
+        lambda: sor3d._launch_block(bspec, lay, rel, A, Bf, 0),
+        lambda: sor3d._launch_block(bspec, lay, rel, A, Bf, 1))]
+    log(f"[4] {card} | B5s block sweep, the flag's cost: red flagged with "
+        f"no edge tiles {flag[0]:.5f} ms, red unflagged {flag[1]:.5f} ms, "
+        f"black {flag[2]:.5f} ms a launch")
+    # the block sweep's z chunk: levels a CTA walks (the plan's choice
+    # first)
+    scan = []
+    for zc in (0, 30, 15, 10, 6, 4, 2):
+        lay_z = dict(lay, zc=zc)
+        r, b = (_device_ms(lambda c=c: sor3d._launch_block(
+            bspec, lay_z, rel, A, Bf, c, extend=c == 0), 50) for c in (0, 1))
+        scan.append(f"{zc or 'the launcher'} {r:.5f} / {b:.5f}")
+    log(f"[4] {card} | B5s block sweep, levels a CTA walks: red / black ms "
+        f"a launch: " + "; ".join(scan))
     return per
+
+
+def phase4_parent(card, dev, parent_src):
+    """The whole-grid ``sor3d_color_sweep`` of this tree against the one
+    built from ``parent_src`` (another tree's csrc/sor3d.cu, same flags),
+    in turns (parent, this tree, this tree, parent), twice: the folded red
+    and the black launch at 30x330x720 float32, device time per launch."""
+    import ctypes
+    import tempfile
+    nvcc = _build._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "libsor3d_parent.so")
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", so, parent_src],
+                       check=True, capture_output=True, text=True)
+        lib = ctypes.CDLL(so)
+    args, res = _build._SIGNATURES["sor3d"]["sor3d_color_sweep_f32"]
+    fn = lib.sor3d_color_sweep_f32
+    fn.argtypes, fn.restype = args, res
+    spec, om = ocean_spec(30, torch.float32, dev)
+    S = xt.solve_fixed(spec, torch.zeros((30, 330, 720), device=dev), om, 50)
+    fam = sor3d._FAMILY
+    rel = sor3d.relax_plane(spec, om)
+    lays = {"this tree": fam.layout(spec, S, rel)}
+    lays["parent"] = dict(lays["this tree"], sweep_fn=fn)
+    A = S.reshape((1,) + tuple(S.shape)).clone()
+    A2 = torch.empty_like(A)
+    times = {}
+    for label in ("parent", "this tree", "this tree", "parent") * 2:
+        lay = lays[label]
+        times.setdefault(label, []).append(tuple(
+            _device_ms(lambda c=c: fam.launch_color_sweep(
+                spec, lay, rel, A, A2, c, extend=c == 0), 50)
+            for c in (0, 1)))
+    mean = {k: [float(np.mean([t[c] for t in v])) for c in (0, 1)]
+            for k, v in times.items()}
+    log(f"[4] {card} | sor3d_color_sweep 30x330x720 float32, this tree "
+        f"against the parent's build, in turns (parent, this, this, parent, "
+        f"twice), device time per launch (50 launches): " + "; ".join(
+            f"{k}: red (folded) " + " / ".join(f"{t[0]:.5f}" for t in v)
+            + ", black " + " / ".join(f"{t[1]:.5f}" for t in v)
+            for k, v in times.items())
+        + f"; this tree / parent: red "
+        f"{mean['this tree'][0] / mean['parent'][0]:.4f}, black "
+        f"{mean['this tree'][1] / mean['parent'][1]:.4f}")
 
 
 def phase4_mg(card, dev, syncs):
@@ -3446,6 +3633,23 @@ def _device_ms(fn, calls):
                        "the device")
 
 
+def main_blocks():
+    """--blocks: phases 0 and 1, phase 2's 3-D block checks and phase 4's
+    block timings alone (and --parent-sor3d's turns): B5s's loop."""
+    card = phase0()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase1()
+    errs = {name: 0.0 for name in KERNELS}
+    for case in block_cases(dev)[1]:
+        _check_block3d(*case, errs)
+    torch.set_default_dtype(torch.float32)
+    phase4_blocks(card, dev)
+    if PARENT_SOR3D:
+        phase4_parent(card, dev, PARENT_SOR3D)
+    log("[5] the block phases passed (no result line: --blocks)")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -3482,10 +3686,13 @@ def main():
     phase3_implicit(launches)
     stamp("phase 3 (implicit gradients)")
     phase3_multi(launches)
+    phase3_whole_on_mesh()
     stamp("phase 3 (multi-device)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
     per.update(phase4_blocks(card, dev))
+    if PARENT_SOR3D:
+        phase4_parent(card, dev, PARENT_SOR3D)
     phase4_mg(card, dev, syncs)
     stamp("phase 4")
     kernels = [{"name": name, "route": "cuda", "source": src,
@@ -3504,4 +3711,19 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    # --parent-sor3d PATH: also time the whole-grid 3-D color sweep against
+    # another tree's csrc/sor3d.cu in turns (phase 4); --blocks: only the
+    # 3-D block kernels' phases
+    args = sys.argv[1:]
+    blocks = "--blocks" in args
+    if blocks:
+        args.remove("--blocks")
+    if len(args) == 2 and args[0] == "--parent-sor3d":
+        PARENT_SOR3D = os.path.abspath(args[1])
+    elif args:
+        raise SystemExit("usage: chip_smoke.py [--blocks] "
+                         "[--parent-sor3d PATH]")
+    if blocks:
+        main_blocks()
+    else:
+        main()

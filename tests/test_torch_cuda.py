@@ -1160,8 +1160,10 @@ def _block_case3d(case, dtype, device):
 def test_block3d_kernel_bit_equal_to_plain(cuda, dtype, case):
     """sor3d_color_sweep_block's red launch (the extend folded in) and
     black launch (with the owned |S| partials) against the plain version,
-    every cell of the padded buffer; then 37 sweeps through the executor
-    on a 2x2 mesh of the card against the plain sweeps."""
+    every cell of the padded buffer, through the block sweep kernel and
+    through its first version (the color sweep's block mode); then 37
+    sweeps through the executor on a 2x2 mesh of the card against the
+    plain sweeps."""
     from xinvert_tpu_torch.parallel import halo
     spec, S0, origin, owned, g, k = _block_case3d(case, dtype, cuda)
     shape = tuple(S0.shape[-2:])
@@ -1169,17 +1171,20 @@ def test_block3d_kernel_bit_equal_to_plain(cuda, dtype, case):
     bspec = halo.padded_block_spec(spec, origin, owned, g)
     rel = sor3d.relax_plane(bspec, 1.3)
     for color, ext, norm in ((0, True, False), (1, False, True)):
-        b0 = sor3d.BLOCK_LAUNCHES
-        res = sor3d.sor3d_color_sweep_block(bspec, P, rel, color, origin,
-                                            shape, g, 1.07, ext, norm)
-        assert sor3d.BLOCK_LAUNCHES == b0 + 1
         ref = sor3d.sor3d_color_sweep_block_reference(
             bspec, P, rel, color, origin, shape, g, 1.07, ext, norm)
-        torch.cuda.synchronize()
-        if norm:
-            assert _nan_equal(res[1], ref[1])
-            res, ref = res[0], ref[0]
-        assert _nan_equal(res, ref)
+        for fn, counter in ((sor3d.sor3d_color_sweep_block,
+                             "BLOCK_LAUNCHES"),
+                            (sor3d.sor3d_color_sweep_block_first,
+                             "BLOCK_FIRST_LAUNCHES")):
+            b0 = getattr(sor3d, counter)
+            res = fn(bspec, P, rel, color, origin, shape, g, 1.07, ext, norm)
+            assert getattr(sor3d, counter) == b0 + 1
+            torch.cuda.synchronize()
+            if norm:
+                assert _nan_equal(res[1], ref[1])
+                res = res[0]
+            assert _nan_equal(res, ref[0] if norm else ref)
     fac = [float(torch.tensor(1.0 + 0.01 * i, dtype=dtype))
            for i in range(74)]
     mesh = _card_mesh(cuda, (2, 2), ("y", "x"))
@@ -1215,7 +1220,8 @@ def test_mesh_over_several_cards_equals_meshless(cuda):
     meshless solve's iters and field on cuda:0, torch.equal; under the
     residual rule, solve_halo_window3d and solve_refined give the same
     mesh's result with every block on cuda:0; the fixed 3-D count equals
-    solve_fixed; all through the block kernels alone.  scaling_bench's
+    solve_fixed, in float and double; all through the block kernels
+    alone.  scaling_bench's
     default devices are those cards.  Needs two or more GPUs."""
     from xinvert_tpu_torch import parallel as tpar
     from xinvert_tpu_torch.parallel.scaling import _omega_problem3
@@ -1251,6 +1257,11 @@ def test_mesh_over_several_cards_equals_meshless(cuda):
     assert torch.equal(r3[0].S, r3[1].S)
     f3 = tpar.solve_fixed_halo_window3d(spec3, S3 + 1e-3, 1.2, 40, mesh=mesh)
     assert _nan_equal(f3, xt.solve_fixed(spec3, S3 + 1e-3, 1.2, 40))
+    # in double the block sweep takes more than 48 KB of shared memory,
+    # which each card must allow
+    spec6, S6 = _omega_problem3(12, 72, 96, torch.float64, cuda)
+    f6 = tpar.solve_fixed_halo_window3d(spec6, S6 + 1e-3, 1.2, 40, mesh=mesh)
+    assert _nan_equal(f6, xt.solve_fixed(spec6, S6 + 1e-3, 1.2, 40))
     assert sor3d.BLOCK_LAUNCHES > b3
     lat = np.linspace(-88.75, 88.75, 96)
     lon = np.linspace(0.0, 360.0 - 360.0 / 192, 192)

@@ -21,8 +21,9 @@ float64 at small sizes, inputs made from a numpy seed:
   on a 2x2 mesh under the residual rule, and ``invert_Poisson`` with
   ``iParams['mesh']`` on 2x2 meshes (the change rule, through the same
   executor), equal iters and overflow, fields within rtol 1e-11;
-- the API: the mesh route, ``solve_refined(mesh=...)``, what stays
-  unported (lexico and multigrid on a mesh, ROADMAP item 17);
+- the API: the mesh route, ``solve_refined(mesh=...)``; ``scheme='lexico'``
+  and ``invert_Poisson_mg`` with a mesh solve whole, held to the JAX
+  package's runs on a 2-device mesh;
 - two gloo processes: ``solve_halo_window`` on a distributed mesh equal
   to the local mesh's, torch.equal (60 s limit);
 - ``scaling_bench``'s schema and ``initialize_distributed`` in one process.
@@ -489,20 +490,68 @@ def test_1d_specs_solve_whole_on_a_mesh():
     assert torch.equal(out.S, ref.S) and torch.equal(out.iters, ref.iters)
 
 
-def test_lexico_and_multigrid_on_a_mesh_raise(f64):
-    f = _vor(xt, 24, 48, 1)
-    iP = {"BCs": ["extend", "periodic"], "mxLoop": 10, "printInfo": False,
-          "mesh": cpu_mesh((2,), ("y",))}
-    with pytest.raises(NotImplementedError, match="item 17"):
-        xt.invert_Poisson(f, dims=["lat", "lon"], device="cpu",
-                          iParams=dict(iP, scheme="lexico"))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        xt.invert_Poisson_mg(f, dims=["lat", "lon"], device="cpu",
-                             iParams=iP)
-    spec, S0 = rand_spec((16, 32), P4, ("extend", "periodic"))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tpar.solve_sharded(spec, S0, cpu_mesh((2,), ("y",)),
-                           scheme="lexico")
+def _nan_close(got, want, tol):
+    """NaN where ``want`` has NaN, elsewhere within tol of max|want|."""
+    ok = ~np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), ~ok)
+    scale = np.abs(want[ok]).max()
+    assert scale > 0
+    np.testing.assert_allclose(got[ok], want[ok], rtol=0, atol=tol * scale)
+
+
+_MESH_WHOLE_IP = {"BCs": ["extend", "periodic"], "undef": np.nan,
+                  "mxLoop": 10, "printInfo": False}
+
+
+def test_lexico_on_a_mesh_matches_jax(f64):
+    """``scheme='lexico'`` with ``iParams['mesh']``: the JAX package's
+    GSPMD run on a 2-device ('y',) mesh and the port's on a ('y'=2,) CPU
+    mesh (solved whole), equal iters, fields within 1e-10 of max|S| (the
+    doubling scans combine in another order, as tests/test_torch_lexico.py
+    holds them)."""
+    iP = dict(_MESH_WHOLE_IP, scheme="lexico")
+    sj = xv.invert_Poisson(_vor(xv, 24, 48, 1), dims=["lat", "lon"],
+                           iParams=dict(iP, mesh=jax_mesh((2,), ("y",))))
+    jit = np.asarray(japi.LAST_SOLVE.iters)
+    st = xt.invert_Poisson(_vor(xt, 24, 48, 1), dims=["lat", "lon"],
+                           iParams=dict(iP, mesh=cpu_mesh((2,), ("y",))),
+                           device="cpu")
+    np.testing.assert_array_equal(tapi.LAST_SOLVE.iters.numpy(), jit)
+    _nan_close(st.values, np.asarray(sj.values), 1e-10)
+
+
+def test_multigrid_on_a_mesh_matches_jax(f64):
+    """``invert_Poisson_mg`` with ``iParams['mesh']`` solves the pyramid
+    whole, as the JAX package's ``_invert_mg`` does: equal cycles, the
+    field within 1e-8 of max|S| (tests/test_torch_mg_api.py's tolerance)
+    of the JAX package's on a 2-device ('y',) mesh."""
+    sj = xv.invert_Poisson_mg(_vor(xv, 24, 48, 1), dims=["lat", "lon"],
+                              iParams=dict(_MESH_WHOLE_IP,
+                                           mesh=jax_mesh((2,), ("y",))))
+    jcyc = int(np.max(japi.LAST_SOLVE.iters))
+    st = xt.invert_Poisson_mg(_vor(xt, 24, 48, 1), dims=["lat", "lon"],
+                              iParams=dict(_MESH_WHOLE_IP,
+                                           mesh=cpu_mesh((2,), ("y",))),
+                              device="cpu")
+    assert int(np.max(tapi.LAST_SOLVE.iters)) == jcyc >= 1
+    _nan_close(st.values, np.asarray(sj.values), 1e-8)
+
+
+@pytest.mark.parametrize("batch", [0, 2])
+def test_solve_sharded_lexico_solves_whole(batch):
+    """``solve_sharded(scheme='lexico')`` is the meshless lexico solve,
+    torch.equal, a batch included, on meshes over 'y' and ('batch', 'y',
+    'x')."""
+    spec, S0 = rand_spec((16, 32), P4, ("extend", "periodic"), batch=batch)
+    ref = tsolver.solve(spec, S0, 1.4, tol=1e-6, max_iters=15,
+                        scheme="lexico")
+    for mesh in (cpu_mesh((2,), ("y",)),
+                 cpu_mesh((1, 2, 2), ("batch", "y", "x"))):
+        out = tpar.solve_sharded(spec, S0, mesh, 1.4, tol=1e-6,
+                                 max_iters=15, scheme="lexico")
+        assert out.S.device == S0.device
+        assert torch.equal(out.S, ref.S) and torch.equal(out.iters, ref.iters)
+        assert torch.equal(out.rel_change, ref.rel_change)
 
 
 # ------------------------------------------------------------ distributed

@@ -20,6 +20,8 @@ sizes, inputs from a numpy seed:
 
 The CUDA block kernel runs only on the card (tests/test_torch_cuda.py).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -149,6 +151,92 @@ def test_whole_grid_block_is_the_folded_half_sweep():
         ref = sor3d.sor3d_color_sweep_reference(spec, S0, rel, color, 1.1,
                                                 ext)
         assert torch.equal(out, ref)
+
+
+# the block sweep kernel's tile classes, replayed on the CPU: (core, bcs,
+# batch, per-slice planes, origin, owned, ghosts)
+EMU_CASES = {
+    # the ('y'=8,) case: 9-row blocks at an odd origin, whole x, no extend
+    "nine_rows_odd_origin": ((5, 72, 40), ("fixed", "fixed", "periodic"), 0,
+                             False, (9, 0), (9, 40), (8, 0)),
+    # a 9-row block at the bottom: the extend rows and the y wrap
+    "nine_rows_extend_bottom": ((5, 72, 40), ("fixed", "extend", "periodic"),
+                                0, False, (63, 0), (9, 40), (9, 0)),
+    # x split with one ghost column, the extend corner clamps, odd origin
+    "x_split_one_col": ((6, 33, 70), ("fixed", "extend", "fixed"), 0, False,
+                        (11, 35), (11, 35), (5, 1)),
+    # two ghost columns, periodic x, the top block, per-slice planes
+    "top_two_cols_batch": ((6, 40, 72), ("fixed", "extend", "periodic"), 2,
+                           True, (0, 32), (16, 32), (7, 2)),
+    # even origin, non-periodic x, a batch sharing the planes
+    "even_origin_batch": ((5, 48, 96), ("fixed", "extend", "fixed"), 2,
+                          False, (16, 0), (24, 64), (5, 2)),
+}
+
+
+def _emu_inputs(case, dtype):
+    core, bcs, batch, ps, origin, owned, g = EMU_CASES[case]
+    spec, S0 = rand3(core, bcs, batch, ps, seed=len(case))
+    S0[..., 1:-1, 0, :] = float("nan")       # the extend rows
+    S0[..., 2, 5, :] = float("nan")          # a NaN row inside
+    spec = dataclasses.replace(spec, **{
+        n: getattr(spec, n).to(dtype) for n in ("w", "w0", "g", "relax")})
+    P = halo.padded_block(S0.to(dtype), origin, owned, g)
+    bspec = halo.padded_block_spec(spec, origin, owned, g)
+    return bspec, P, sor3d.relax_plane(bspec, 1.3), origin, core[1:], g
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", sorted(EMU_CASES))
+def test_block_sweep_tile_classes_equal_the_plain_block(case, dtype):
+    """sor3d_color_sweep_block_emulated (each tile of the block sweep's
+    plan by its class: lean tiles from the ring, no map; edge tiles by the
+    full rule) torch.equal to the plain block version, NaN matching NaN,
+    both colors, with and without the folded extend, the owned partials
+    too."""
+    bspec, P, rel, origin, shape, g = _emu_inputs(case, dtype)
+    for color, ext, fac in ((0, True, 1.0), (0, False, 1.0), (1, False, 1.1),
+                            (1, True, 1.0)):
+        got = sor3d.sor3d_color_sweep_block_emulated(
+            bspec, P, rel, color, origin, shape, g, fac, ext, True)
+        want = sor3d.sor3d_color_sweep_block_reference(
+            bspec, P, rel, color, origin, shape, g, fac, ext, True)
+        assert _nan_equal(got[0], want[0]), (color, ext)
+        assert _nan_equal(got[1], want[1]), (color, ext)
+
+
+def test_block_plan_tiles():
+    """The plan of the ocean's block (1, 1) on a 2x2 mesh (30x330x720,
+    origin (168, 384), owned 162x336, ghosts (9, 8)): the owned region's
+    tiles, 7 rows and 24 columns before the buffer, and one edge tile row
+    (global rows 328..335 wrapped: 328, 329, 0, 1 are within the reach);
+    a top block's edge rows sit around the y wrap; without extend, none."""
+    spec, _ = rand3((4, 20, 40), ("fixed", "extend", "periodic"))
+    plan = sor3d.block_plan(spec, (180, 352), (168, 384), (330, 720), (9, 8))
+    assert plan == {"lead": (7, 24), "tiles": (24, 12), "edge": ((22, 23),)}
+    top = sor3d.block_plan(spec, (184, 356), (0, 0), (330, 720), (9, 10))
+    # tile rows 1 and 2: buffer rows 1..16, global rows 322..329 and 0..7
+    assert top["edge"] == ((1, 3),)
+    flat, _ = rand3((4, 20, 40), ("fixed", "fixed", "periodic"))
+    assert sor3d.block_plan(flat, (180, 352), (168, 384), (330, 720),
+                            (9, 8))["edge"] == ()
+
+
+def test_block_plan_misfiled_tile_fails(monkeypatch):
+    """A plan that files the extend band's tiles as lean gives another
+    field than the plain version: the emulation's check has teeth."""
+    bspec, P, rel, origin, shape, g = _emu_inputs("nine_rows_extend_bottom",
+                                                  torch.float64)
+    plan = sor3d.block_plan
+
+    def no_edges(*args):
+        return dict(plan(*args), edge=())
+    monkeypatch.setattr(sor3d, "block_plan", no_edges)
+    got = sor3d.sor3d_color_sweep_block_emulated(bspec, P, rel, 0, origin,
+                                                 shape, g, 1.0, True)
+    want = sor3d.sor3d_color_sweep_block_reference(bspec, P, rel, 0, origin,
+                                                   shape, g, 1.0, True)
+    assert not _nan_equal(got, want)
 
 
 @pytest.mark.parametrize("shape,names", [((8,), ("y",)), ((2, 2), ("y", "x")),

@@ -1,8 +1,8 @@
 # -*- coding: utf-8 -*-
 """The slice end to end: xinvert_tpu_torch.invert_Poisson and inv_standard2D
 against xinvert_tpu's, float64 on the CPU.  Same NaN pattern, values at
-rtol 1e-10, equal LAST_SOLVE.iters / .overflow; options the port does not
-have raise NotImplementedError.  The port's entry points run on the GPU
+rtol 1e-10, equal LAST_SOLVE.iters / .overflow; ``scheme='lexico'`` with a
+mesh equal to the meshless call under every option.  The port's entry points run on the GPU
 unless asked for the CPU: every call here passes device="cpu", and one test
 checks that a call without it raises on a machine without CUDA."""
 import numpy as np
@@ -169,13 +169,19 @@ def _cpu_mesh():
     {"scheme": "lexico"},
 ])
 def test_unported_options_raise(f64_cpu, iParams):
-    """``scheme='lexico'`` on ``iParams['mesh']`` (queue A item 17) is the
-    option not ported: it raises whatever it is combined with (the mesh
-    itself, refinement and streaming are ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 17"):
-        xt.invert_Poisson(_synthetic(xt.Field, nb=1), dims=["lat", "lon"],
-                          iParams=dict(iParams, printInfo=False,
-                                       mesh=_cpu_mesh()), **CPU)
+    """``scheme='lexico'`` on ``iParams['mesh']`` was the last option not
+    ported (ROADMAP queue C fault 7).  It now solves whole, as the JAX
+    package's GSPMD run does, whatever it is combined with: the call with
+    a mesh gives the meshless call's field and iters exactly, and nothing
+    raises."""
+    f = _synthetic(xt.Field, nb=1)
+    iP = dict(iParams, printInfo=False)
+    ref = xt.invert_Poisson(f, dims=["lat", "lon"], iParams=iP, **CPU)
+    iters = tapi.LAST_SOLVE.iters.clone()
+    out = xt.invert_Poisson(f, dims=["lat", "lon"],
+                            iParams=dict(iP, mesh=_cpu_mesh()), **CPU)
+    assert torch.equal(tapi.LAST_SOLVE.iters, iters)
+    np.testing.assert_array_equal(out.values, ref.values)
 
 
 def test_default_dtype_float32(f64_cpu):

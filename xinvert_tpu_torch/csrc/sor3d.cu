@@ -12,8 +12,10 @@
 // function, so one pair of kernels serves every 3-D shape.  B5's
 // sharded-block variants (pad_row, has_ytop/has_ybot, parity_off, pad_col,
 // clamp_w/clamp_e, pad_lo with goff_ref; B5s), which serve the multi-device
-// executor, are the block mode of the color sweep (sor3d_color_sweep_block,
-// at the end of this header).
+// executor, run in a kernel of their own, sor3d_block_sweep (its header is
+// below the color sweep's); their first version, the block mode of the
+// color sweep (sor3d_color_sweep_block, at the end of this header), stays
+// as its yardstick and defines the function they compute.
 //
 // One full sweep is two launches on the caller's stream:
 //   sor3d_color_sweep   color 0 (red),   A -> B, with the extend flag when
@@ -63,12 +65,12 @@
 // registers, which the flagged launch reaches only by spilling a few bytes
 // (measured faster than 40 registers at 6 blocks).
 //
-// The block mode (B5s, sor3d_color_sweep_block; the TPU kernel's block
-// arguments, driven by xinvert_tpu/parallel/halo_window3d.py:205
-// _device_step3): one half-sweep of one block of a decomposition over
-// (y, x), held with gy ghost rows and gx ghost columns on each side in a
-// (B, nz, by + 2gy, bx + 2gx) buffer that a ring exchange filled (wrapping
-// on every axis, as torch.roll does).  z is never split.  Every cell of the
+// The block mode (B5s's first version, sor3d_color_sweep_block; the TPU
+// kernel's block arguments, driven by xinvert_tpu/parallel/
+// halo_window3d.py:205 _device_step3): one half-sweep of one block of a
+// decomposition over (y, x), held with gy ghost rows and gx ghost columns
+// on each side in a (B, nz, by + 2gy, bx + 2gx) buffer that a ring
+// exchange filled (wrapping on every axis, as torch.roll does).  z is never split.  Every cell of the
 // buffer is computed and written, ghosts included: the executor runs k
 // sweeps (2k launches) between exchanges, and the ghosts carry the owned
 // cells' dependence cone through them (g >= 2rk, plus 1 for the extend).
@@ -274,6 +276,369 @@ __global__ void sor3d_extend_rows_kernel(T* __restrict__ S, int nz, int ny,
 #undef AT
 }
 
+// ---------------------------------------------------------------------------
+// B5s for Hopper: sor3d_block_sweep (a kernel of its own; the block mode
+// of sor3d_color_sweep_kernel above stays as its yardstick).
+//
+// The same function as the block mode: one half-sweep of one ghost-padded
+// block, every buffer cell written, the owned cells' |S| partials in the
+// block's (B*nz, ceil(by/8), ceil(bx/32)) layout with the same 32-lane
+// shuffle and then 8-row order, the per-cell arithmetic in the same order.
+// The launch grid's 32 x 8 tiles are the block mode's (the owned region's
+// tiles, so the partials stay whole); what changes is how a CTA gets
+// through them.
+//   - A z-march: a CTA walks a chunk of zc levels of one tile.  The state
+//     planes l-1, l, l+1 of the tile plus a ring sit in shared memory, so
+//     each state value leaves L2 about once a half-sweep instead of once
+//     per neighbour; the K+3 weight planes of a level (w_k, g, w0, rel)
+//     stream into shared memory too, each read once, coalesced.  Both go
+//     by cp.async, LOOKAHEAD levels ahead of the one computed, so the
+//     loads stay in flight across the level's barrier without holding
+//     registers.  The launcher takes zc from the occupancy it measures:
+//     about three waves of CTAs, so the scheduler balances them.
+//   - Wraps once per CTA, not per read: the ring's load offsets carry the
+//     buffer wrap (tiles overhanging the buffer, rings crossing its edge)
+//     and each thread takes the parity of its global (R, C) once; a level
+//     then reads its neighbours from the ring at fixed offsets.
+//   - Tile classes, chosen on the host (ops/sor3d.py::block_plan).  In the
+//     flagged (extend) launch, the tile rows that hold a cell within the
+//     offsets' y reach of global rows 0 or ny-1 are edge tiles: their
+//     near rows (one warp each) read through the extend map, which moves a
+//     read by at most one row and column, so the flagged launch stages a
+//     two-cell ring and the map is index arithmetic on it.  Every other
+//     tile is lean: no map.  The unflagged instantiation has neither the
+//     map nor the wider ring.
+// The ring reaches one cell past a neighbour, so the launch takes offsets
+// in {-1, 0, 1}^3 (every 3-D family's).  Bound and arithmetic as for the
+// color sweep.
+// ---------------------------------------------------------------------------
+
+#define TILE_N (SWEEP_BX * SWEEP_BY)
+#define LOOKAHEAD 3            // levels in flight while one is computed
+#define W_STAGES (LOOKAHEAD + 1)
+#define RING_SLOTS (LOOKAHEAD + 3)
+#define MAX_EDGE_BANDS 8
+#define WAVES 3                // z chunks: about this many waves of CTAs
+#define MIN_ZC 4               // and at least this many levels a CTA
+
+struct BlockPlan {
+  int zc;                        // levels a CTA walks
+  int tiles_x;                   // tiles a row of the launch grid
+  int tile_rows;                 // tile rows of the launch grid
+  int edge_rows;                 // edge tile rows (flagged launch)
+  int n_edge;                    // their [lo, hi) intervals, in order
+  int edge_lo[MAX_EDGE_BANDS];   // [lo, hi), in launch-grid tile rows
+  int edge_hi[MAX_EDGE_BANDS];
+};
+
+__device__ __forceinline__ int pos_mod(int v, int n) {
+  v %= n;
+  return v < 0 ? v + n : v;
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Shared memory of one CTA: RING_SLOTS ring planes (the flagged launch's
+// edge tiles take a two-cell ring), W_STAGES stages of K+3 planes of
+// TILE_N, the warp sums.
+template <typename T, bool EXT>
+__host__ __device__ constexpr int ring_n() {
+  return (SWEEP_BX + (EXT ? 4 : 2)) * (SWEEP_BY + (EXT ? 4 : 2));
+}
+
+template <typename T, bool EXT>
+static size_t block_sweep_smem(int K) {
+  return ((size_t)RING_SLOTS * ring_n<T, EXT>() +
+          (size_t)W_STAGES * (K + 3) * TILE_N + TILE_N / 32) *
+         sizeof(T);
+}
+
+// The tile's |S| partial of one level, in the block mode's order; the
+// caller's next barrier guards warp_sums' reuse.
+template <typename T>
+__device__ __forceinline__ void tile_partial(T out, bool owned, int tid,
+                                             T* warp_sums, T* dst) {
+  T v = owned ? out : T(0);
+  v = warp_sum(v < T(0) ? -v : v);
+  if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
+  __syncthreads();
+  if (tid == 0) {
+    T t = warp_sums[0];
+    for (int q = 1; q < TILE_N / 32; ++q) t = t + warp_sums[q];
+    *dst = t;
+  }
+}
+
+template <typename T>
+struct NearReads {
+  T s, acc;
+};
+
+// A near row's reads (edge tiles of the flagged launch): its own value and
+// the neighbour sum from acc = g on, each read through the extend map
+// (extend_src) moved onto the ring: a read that moves (one row, and
+// column, inside the buffer) lands on the ring's neighbouring cell.  Out
+// of line, so that the lean loop keeps its registers; the offsets come
+// from shared memory (dzyx: dz, dy, dx of SOR3D_MAX_K each).
+template <typename T, int RING_W>
+__device__ __noinline__ NearReads<T> near_reads(
+    const T* rlm, const T* rl0, const T* rlp, const T* ws, T acc,
+    const int* dzyx, int K, int l, int j, int i, int nz, int py, int px,
+    int ny, int nx, int oyb, int oxb, int periodic_x) {
+  Sor3dArgs m;  // the fields extend_src reads
+  m.nz = nz; m.py = py; m.px = px; m.ny = ny; m.nx = nx;
+  m.oyb = oyb; m.oxb = oxb; m.periodic_x = periodic_x;
+  int sj = j, si = i;
+  extend_src<true>(l, sj, si, m);
+  const T s = rl0[(sj - j) * RING_W + (si - i)];
+  for (int k = 0; k < K; ++k) {
+    const int dz = dzyx[k], dy = dzyx[SOR3D_MAX_K + k];
+    const int dx = dzyx[2 * SOR3D_MAX_K + k];
+    const int ll = wrap(l + dz, nz);
+    const int jj = wrap(j + dy, py);
+    const int ii = wrap(i + dx, px);
+    int mj = jj, mi = ii;
+    extend_src<true>(ll, mj, mi, m);
+    acc = acc + ws[k * TILE_N] *
+                    (dz < 0 ? rlm : dz > 0 ? rlp : rl0)[(dy + mj - jj) *
+                                                             RING_W +
+                                                         dx + mi - ii];
+  }
+  return {s, acc};
+}
+
+// Stage m of a CTA's z-march (nothing past its chunk's end z1): ring
+// plane m + 1 (wrapped) into its ring slot, and level m's K+3 weight
+// planes at this thread's cell into its stage; one cp.async group.
+template <typename T, int RING_N>
+__device__ __forceinline__ void block_stage(
+    int m, int z1, const Sor3dArgs& a, int plane, int cell, bool in,
+    bool has1, int o0, int o1, int tid, int nw, T* ring, T* wst,
+    const T* sb, const T* wb, const T* gb, const T* w0b, const T* relb) {
+  if (m < z1) {
+    const T* pn = sb + (m + 1 == a.nz ? 0 : m + 1) * plane;
+    T* rs = ring + ((m + 1) % RING_SLOTS) * RING_N;
+    cp_async(rs + tid, pn + o0);
+    if (has1) cp_async(rs + tid + TILE_N, pn + o1);
+    if (in) {
+      const int idx = m * plane + cell;
+      T* ws = wst + (m % W_STAGES) * nw * TILE_N + tid;
+      for (int k = 0; k < a.K; ++k)
+        cp_async(ws + k * TILE_N, wb + idx + k * a.w_kstride);
+      cp_async(ws + a.K * TILE_N, gb + idx);
+      cp_async(ws + (a.K + 1) * TILE_N, w0b + idx);
+      cp_async(ws + (a.K + 2) * TILE_N, relb + idx);
+    }
+  }
+  cp_async_commit();
+}
+
+// One CTA's z-march: levels [z0, z1) of the tile whose first buffer row
+// and column are (r0, c0), for every batch slice.  EDGE: an edge tile of
+// the flagged launch (a two-cell ring; its near rows read through the
+// extend map, out of line); else a lean tile (a one-cell ring, no map),
+// the same code in both launches.
+template <typename T, int RING_N, bool EDGE>
+__device__ __forceinline__ void z_march(
+    const T* __restrict__ s_in, T* __restrict__ s_out,
+    const T* __restrict__ w, const T* __restrict__ w0,
+    const T* __restrict__ g, const T* __restrict__ rel,
+    T* __restrict__ partials, const Sor3dArgs& a, T fac, T* ring, T* wst,
+    T* warp_sums, const int* dzyx, int r0, int c0, int z0, int z1, int pyb,
+    int pxb) {
+  constexpr int RW = EDGE ? 2 : 1;             // the ring's width
+  constexpr int RING_W = SWEEP_BX + 2 * RW;
+  const int nw = a.K + 3;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * SWEEP_BX + tx;
+  const int j = r0 + ty, i = c0 + tx;
+  const bool in = (unsigned)j < (unsigned)a.py && (unsigned)i < (unsigned)a.px;
+  const bool owned = (unsigned)(j - a.gy) < (unsigned)a.by &&
+                     (unsigned)(i - a.gx) < (unsigned)a.bx;
+  const int nby = (a.by + SWEEP_BY - 1) / SWEEP_BY;
+  const int nbx = (a.bx + SWEEP_BX - 1) / SWEEP_BX;
+  const bool part_tile = partials != nullptr && (unsigned)pyb < (unsigned)nby &&
+                         (unsigned)pxb < (unsigned)nbx;
+  // a slice holds fewer than 2^31 cells (the launcher checks)
+  const int plane = a.py * a.px;
+  const long long vol = (long long)plane * a.nz;
+  const int cell = j * a.px + i;
+  // per CTA, once: the parity of the cell's global (R, C); in an edge
+  // tile, whether its row is within the y reach of row 0 or ny - 1; the
+  // ring cells this thread loads (tid, and tid + TILE_N while inside the
+  // ring), wrapped into the buffer
+  const int R = pos_mod(a.oyb + j, a.ny);
+  const int par = (R + pos_mod(a.oxb + i, a.nx)) & 1;
+  const bool near = EDGE && (R <= a.ry || R >= a.ny - 1 - a.ry);
+  const bool has1 = tid + TILE_N < RING_W * (SWEEP_BY + 2 * RW);
+  const int o0 = pos_mod(r0 - RW + tid / RING_W, a.py) * a.px +
+                 pos_mod(c0 - RW + tid % RING_W, a.px);
+  const int o1 =
+      has1 ? pos_mod(r0 - RW + (tid + TILE_N) / RING_W, a.py) * a.px +
+                 pos_mod(c0 - RW + (tid + TILE_N) % RING_W, a.px)
+           : 0;
+  const int center = (ty + RW) * RING_W + tx + RW;
+  for (long long b = blockIdx.y; b < a.B; b += gridDim.y) {
+    const T* sb = s_in + b * vol;
+    T* ob = s_out + b * vol;
+    const T* wb = w + b * a.w_bstride;
+    const T* w0b = w0 + b * a.w0_bstride;
+    const T* gb = g + b * a.g_bstride;
+    const T* relb = rel + b * a.rel_bstride;
+    T* pdst = part_tile ? partials + (b * a.nz * nby + pyb) * nbx + pxb
+                        : nullptr;
+#define STAGE(m)                                                            \
+  block_stage<T, RING_N>(m, z1, a, plane, cell, in, has1, o0, o1, tid, nw,  \
+                         ring, wst, sb, wb, gb, w0b, relb)
+    {  // the prologue: planes z0 - 1 (wrapped) and z0, then the stages
+      const T* pm = sb + (z0 == 0 ? a.nz - 1 : z0 - 1) * plane;
+      const T* p0 = sb + z0 * plane;
+      T* sm = ring + ((z0 + RING_SLOTS - 1) % RING_SLOTS) * RING_N;
+      T* s0 = ring + (z0 % RING_SLOTS) * RING_N;
+      cp_async(sm + tid, pm + o0);
+      cp_async(s0 + tid, p0 + o0);
+      if (has1) {
+        cp_async(sm + tid + TILE_N, pm + o1);
+        cp_async(s0 + tid + TILE_N, p0 + o1);
+      }
+      cp_async_commit();
+#pragma unroll
+      for (int m = 0; m < LOOKAHEAD; ++m) STAGE(z0 + m);
+    }
+    for (int l = z0; l < z1; ++l) {
+      cp_async_wait<LOOKAHEAD - 1>();  // this thread's stage l has landed
+      __syncthreads();  // everyone's has, and level l - 1 is done
+      STAGE(l + LOOKAHEAD);  // into the buffers level l - 1 used
+      T out = T(0);
+      if (in) {
+        const T* ws = wst + (l % W_STAGES) * nw * TILE_N + tid;
+        // planes l - 1, l, l + 1 at this thread's cell
+        const T* rlm =
+            ring + ((l + RING_SLOTS - 1) % RING_SLOTS) * RING_N + center;
+        const T* rl0 = ring + (l % RING_SLOTS) * RING_N + center;
+        const T* rlp = ring + ((l + 1) % RING_SLOTS) * RING_N + center;
+        T s, acc = ws[a.K * TILE_N];
+        if (!near) {
+          s = rl0[0];
+#pragma unroll
+          for (int k = 0; k < SOR3D_MAX_K; ++k)
+            if (k < a.K)
+              acc = acc + ws[k * TILE_N] *
+                              (a.dz[k] < 0 ? rlm : a.dz[k] > 0 ? rlp : rl0)
+                                  [a.dy[k] * RING_W + a.dx[k]];
+        } else {
+          const NearReads<T> v = near_reads<T, RING_W>(
+              rlm, rl0, rlp, ws, acc, dzyx, a.K, l, j, i, a.nz, a.py, a.px,
+              a.ny, a.nx, a.oyb, a.oxb, a.periodic_x);
+          s = v.s;
+          acc = v.acc;
+        }
+        const T sel = (((l + par) & 1) == a.color) ? T(1) : T(0);
+        const T r = (ws[(a.K + 2) * TILE_N] * sel) * fac;
+        out = s + r * (acc + ws[(a.K + 1) * TILE_N] * s);
+        ob[l * plane + cell] = out;
+      }
+      if (part_tile)
+        tile_partial(out, owned, tid, warp_sums,
+                     pdst + (long long)l * nby * nbx);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the ring and the stages serve the next slice
+#undef STAGE
+  }
+}
+
+// blockIdx.x: (tile, z chunk), the edge tiles' first; blockIdx.y walks the
+// batch slices in steps of gridDim.y.  Four CTAs an SM in float (64
+// registers; shared memory allows four); in double shared memory allows
+// two, so the registers may go to 128.
+template <typename T, bool EXT>
+__global__ void __launch_bounds__(TILE_N, sizeof(T) == 8 ? 2 : 4)
+sor3d_block_sweep_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
+                         const T* __restrict__ w, const T* __restrict__ w0,
+                         const T* __restrict__ g, const T* __restrict__ rel,
+                         T* __restrict__ partials, Sor3dArgs a, BlockPlan p,
+                         T fac) {
+  constexpr int RING_N = ring_n<T, EXT>();      // a ring slot's cells
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  T* wst = ring + RING_SLOTS * RING_N;
+  T* warp_sums = wst + W_STAGES * (a.K + 3) * TILE_N;
+  // which tile and chunk: the edge tiles' CTAs first (so that their
+  // slower rows are not the launch's tail), then the lean tiles'; x
+  // fastest, then the tile row, then the chunk
+  const int nzc = (a.nz + p.zc - 1) / p.zc;
+  const int edge_ctas = EXT ? p.edge_rows * p.tiles_x * nzc : 0;
+  const bool edge = EXT && (int)blockIdx.x < edge_ctas;
+  const int id = (int)blockIdx.x - (edge ? 0 : edge_ctas);
+  const int rows = edge ? p.edge_rows : p.tile_rows - (EXT ? p.edge_rows : 0);
+  const int col = id % p.tiles_x;
+  int row = id / p.tiles_x % rows;
+  const int z0 = id / p.tiles_x / rows * p.zc;
+  const int z1 = min(z0 + p.zc, a.nz);
+  if (EXT) {
+    // the row-th edge row, or the row-th row outside the edge intervals
+    // (the intervals are in order); constant indices keep p in registers
+    bool found = false;
+#pragma unroll
+    for (int e = 0; e < MAX_EDGE_BANDS; ++e) {
+      if (e < p.n_edge && !found) {
+        const int n = p.edge_hi[e] - p.edge_lo[e];
+        if (edge) {
+          found = row < n;
+          row = found ? p.edge_lo[e] + row : row - n;
+        } else if (row >= p.edge_lo[e]) {
+          row += n;
+        }
+      }
+    }
+  }
+  // the tile's first buffer row and column (the grid starts (sy, sx)
+  // before the owned region), and its place among the partials
+  const int r0 = row * SWEEP_BY - (a.sy - a.gy);
+  const int c0 = col * SWEEP_BX - (a.sx - a.gx);
+  const int pyb = row - a.sy / SWEEP_BY;
+  const int pxb = col - a.sx / SWEEP_BX;
+  // near_reads takes the offsets from shared memory: indexing the launch
+  // arguments' arrays by a run-time k would copy them to local memory for
+  // every thread (the first level's barrier orders this)
+  __shared__ int dzyx[3 * SOR3D_MAX_K];
+  if (EXT && edge && threadIdx.x == 0 && threadIdx.y == 0) {
+#pragma unroll
+    for (int k = 0; k < SOR3D_MAX_K; ++k) {
+      dzyx[k] = a.dz[k];
+      dzyx[SOR3D_MAX_K + k] = a.dy[k];
+      dzyx[2 * SOR3D_MAX_K + k] = a.dx[k];
+    }
+  }
+  if (EXT && edge)
+    z_march<T, RING_N, true>(s_in, s_out, w, w0, g, rel, partials, a, fac,
+                             ring, wst, warp_sums, dzyx, r0, c0, z0, z1,
+                             pyb, pxb);
+  else
+    z_march<T, RING_N, false>(s_in, s_out, w, w0, g, rel, partials, a, fac,
+                              ring, wst, warp_sums, dzyx, r0, c0, z0, z1,
+                              pyb, pxb);
+}
+
 // One axis of a block: owned [o, o + b) of the global n with g ghosts on
 // each side; an axis without ghosts is the whole axis.
 static bool block_axis_ok(int o, int b, int g, int n) {
@@ -344,6 +709,131 @@ static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
     if (extend) SWEEP3D(true, false); else SWEEP3D(false, false);
   }
 #undef SWEEP3D
+  return (int)cudaGetLastError();
+}
+
+// The block sweep (sor3d_block_sweep): `blk` (oy, ox, by, bx, gy, gx), zc
+// levels a CTA (<= 0: the launcher's choice), `edge` the n_edge [lo, hi)
+// tile-row intervals of the flagged launch's edge tiles.
+template <typename T>
+static int launch_block_sweep(const T* s_in, T* s_out, const T* w,
+                              const T* w0, const T* g, const T* rel,
+                              T* partials, int B, int nz, int ny, int nx,
+                              const int* blk, int K, const int* dz,
+                              const int* dy, const int* dx,
+                              long long w_kstride, long long w_bstride,
+                              long long w0_bstride, long long g_bstride,
+                              long long rel_bstride, int color, int extend,
+                              int periodic_x, double fac, int zc,
+                              const int* edge, int n_edge, void* stream) {
+  if (K < 0 || K > SOR3D_MAX_K || B < 1 || nz < 1 || ny < 1 || nx < 1 ||
+      (color != 0 && color != 1) || (extend && (nz < 3 || ny < 3 || nx < 3)) ||
+      n_edge < 0 || n_edge > MAX_EDGE_BANDS)
+    return (int)cudaErrorInvalidValue;
+  if (!block_axis_ok(blk[0], blk[2], blk[4], ny) ||
+      !block_axis_ok(blk[1], blk[3], blk[5], nx))
+    return (int)cudaErrorInvalidValue;
+  Sor3dArgs a;
+  a.by = blk[2]; a.bx = blk[3]; a.gy = blk[4]; a.gx = blk[5];
+  a.py = a.by + 2 * a.gy; a.px = a.bx + 2 * a.gx;
+  a.oyb = blk[0] - a.gy; a.oxb = blk[1] - a.gx;
+  a.sy = (a.gy + SWEEP_BY - 1) / SWEEP_BY * SWEEP_BY;
+  a.sx = (a.gx + SWEEP_BX - 1) / SWEEP_BX * SWEEP_BX;
+  if ((long long)a.py * a.px * nz >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const long long gx = (a.sx + a.bx + a.gx + SWEEP_BX - 1) / SWEEP_BX;
+  const long long gy = (a.sy + a.by + a.gy + SWEEP_BY - 1) / SWEEP_BY;
+  if (gy > MAX_GRID_YZ) return (int)cudaErrorInvalidValue;
+  a.B = B; a.nz = nz; a.ny = ny; a.nx = nx; a.K = K; a.color = color;
+  a.periodic_x = periodic_x != 0;
+  a.ry = 0;
+  for (int k = 0; k < SOR3D_MAX_K; ++k) {
+    a.dz[k] = k < K ? dz[k] : 0;
+    a.dy[k] = k < K ? dy[k] : 0;
+    a.dx[k] = k < K ? dx[k] : 0;
+    // the ring holds the neighbours one cell away
+    if (a.dz[k] < -1 || a.dz[k] > 1 || a.dy[k] < -1 || a.dy[k] > 1 ||
+        a.dx[k] < -1 || a.dx[k] > 1)
+      return (int)cudaErrorInvalidValue;
+    const int r = a.dy[k] < 0 ? -a.dy[k] : a.dy[k];
+    if (r > a.ry) a.ry = r;
+  }
+  a.w_kstride = w_kstride; a.w_bstride = w_bstride;
+  a.w0_bstride = w0_bstride; a.g_bstride = g_bstride;
+  a.rel_bstride = rel_bstride;
+  // the launch grid's tiles (the block mode's), each walked in chunks of
+  // zc levels; zc <= 0: about WAVES waves of CTAs at the occupancy this
+  // card gives the kernel (the scheduler then balances them), each CTA
+  // walking at least MIN_ZC levels (its pipeline's fill is paid once a
+  // chunk)
+  BlockPlan p;
+  p.tiles_x = (int)gx;
+  p.tile_rows = (int)gy;
+  p.n_edge = extend ? n_edge : 0;
+  p.edge_rows = 0;
+  for (int e = 0; e < MAX_EDGE_BANDS; ++e) {
+    p.edge_lo[e] = e < p.n_edge ? edge[2 * e] : 0;
+    p.edge_hi[e] = e < p.n_edge ? edge[2 * e + 1] : 0;
+    if (e < p.n_edge) {
+      if (p.edge_lo[e] < (e ? p.edge_hi[e - 1] : 0) ||
+          p.edge_hi[e] <= p.edge_lo[e] || p.edge_hi[e] > p.tile_rows)
+        return (int)cudaErrorInvalidValue;
+      p.edge_rows += p.edge_hi[e] - p.edge_lo[e];
+    }
+  }
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev > 63)
+    return (int)cudaErrorInvalidDevice;
+  const size_t smem = extend ? block_sweep_smem<T, true>(K)
+                             : block_sweep_smem<T, false>(K);
+  const long long tiles = gx * gy;
+  const int B_grid = B < MAX_GRID_YZ ? B : MAX_GRID_YZ;
+  int per_sm = 0, sms = 0;
+#define BLOCK_SWEEP_SETUP(E)                                                \
+  do {                                                                      \
+    static unsigned long long sized = 0; /* the most smem, once a card */   \
+    if (!((sized >> dev) & 1ULL)) {                                         \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          sor3d_block_sweep_kernel<T, E>,                                   \
+          cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
+          (int)block_sweep_smem<T, E>(SOR3D_MAX_K));                        \
+      if (e != cudaSuccess) return (int)e;                                  \
+      sized |= 1ULL << dev;                                                 \
+    }                                                                       \
+    static int occ[64][SOR3D_MAX_K + 1]; /* CTAs an SM, a card and K */    \
+    static int sm_count[64];                                                \
+    if (zc <= 0 && occ[dev][K] == 0) {                                      \
+      cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(        \
+          &occ[dev][K], sor3d_block_sweep_kernel<T, E>, TILE_N, smem);      \
+      if (e == cudaSuccess)                                                 \
+        e = cudaDeviceGetAttribute(&sm_count[dev],                          \
+                                   cudaDevAttrMultiProcessorCount, dev);    \
+      if (e != cudaSuccess) return (int)e;                                  \
+    }                                                                       \
+    per_sm = occ[dev][K];                                                   \
+    sms = sm_count[dev];                                                    \
+  } while (0)
+  if (extend) BLOCK_SWEEP_SETUP(true); else BLOCK_SWEEP_SETUP(false);
+#undef BLOCK_SWEEP_SETUP
+  if (zc <= 0) {
+    const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+    long long chunks = (WAVES * slots + tiles * B_grid / 2) / (tiles * B_grid);
+    chunks = chunks < 1 ? 1 : (chunks > nz ? nz : chunks);
+    zc = (int)((nz + chunks - 1) / chunks);
+    zc = zc < MIN_ZC ? (nz < MIN_ZC ? nz : MIN_ZC) : zc;
+  }
+  p.zc = zc;
+  const long long ctas = tiles * ((nz + zc - 1) / zc);
+  if (ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  dim3 block(SWEEP_BX, SWEEP_BY, 1);
+  dim3 grid((unsigned)ctas, (unsigned)B_grid, 1);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (extend)
+    sor3d_block_sweep_kernel<T, true><<<grid, block, smem, st>>>(
+        s_in, s_out, w, w0, g, rel, partials, a, p, (T)fac);
+  else
+    sor3d_block_sweep_kernel<T, false><<<grid, block, smem, st>>>(
+        s_in, s_out, w, w0, g, rel, partials, a, p, (T)fac);
   return (int)cudaGetLastError();
 }
 
@@ -437,6 +927,46 @@ int sor3d_color_sweep_block_f64(const double* s_in, double* s_out,
                                     w_bstride, w0_bstride, g_bstride,
                                     rel_bstride, color, extend, periodic_x,
                                     fac, stream, blk);
+}
+
+// B5s for Hopper: one half-sweep of one ghost-padded block through the
+// block sweep kernel (the same arguments as sor3d_color_sweep_block, then
+// zc levels a CTA and the edge tile-row intervals).
+int sor3d_block_sweep_f32(const float* s_in, float* s_out, const float* w,
+                          const float* w0, const float* g, const float* rel,
+                          float* partials, int B, int nz, int ny, int nx,
+                          int oy, int ox, int by, int bx, int gy, int gx,
+                          int K, const int* dz, const int* dy, const int* dx,
+                          long long w_kstride, long long w_bstride,
+                          long long w0_bstride, long long g_bstride,
+                          long long rel_bstride, int color, int extend,
+                          int periodic_x, double fac, int zc,
+                          const int* edge, int n_edge, void* stream) {
+  const int blk[6] = {oy, ox, by, bx, gy, gx};
+  return launch_block_sweep<float>(s_in, s_out, w, w0, g, rel, partials, B,
+                                   nz, ny, nx, blk, K, dz, dy, dx, w_kstride,
+                                   w_bstride, w0_bstride, g_bstride,
+                                   rel_bstride, color, extend, periodic_x,
+                                   fac, zc, edge, n_edge, stream);
+}
+
+int sor3d_block_sweep_f64(const double* s_in, double* s_out, const double* w,
+                          const double* w0, const double* g,
+                          const double* rel, double* partials, int B, int nz,
+                          int ny, int nx, int oy, int ox, int by, int bx,
+                          int gy, int gx, int K, const int* dz, const int* dy,
+                          const int* dx, long long w_kstride,
+                          long long w_bstride, long long w0_bstride,
+                          long long g_bstride, long long rel_bstride,
+                          int color, int extend, int periodic_x, double fac,
+                          int zc, const int* edge, int n_edge, void* stream) {
+  const int blk[6] = {oy, ox, by, bx, gy, gx};
+  return launch_block_sweep<double>(s_in, s_out, w, w0, g, rel, partials, B,
+                                    nz, ny, nx, blk, K, dz, dy, dx,
+                                    w_kstride, w_bstride, w0_bstride,
+                                    g_bstride, rel_bstride, color, extend,
+                                    periodic_x, fac, zc, edge, n_edge,
+                                    stream);
 }
 
 int sor3d_extend_rows_f32(float* S, int B, int nz, int ny, int nx,

@@ -20,8 +20,9 @@ runs the sweeps.
 Every entry point takes ``device``: ``None`` (the default) runs on the CUDA
 card and raises when there is none; ``device="cpu"`` runs the plain PyTorch
 version on the CPU.  Tensors are built in ``torch.get_default_dtype()``
-(float32 or float64).  Options of the JAX package that are not ported raise
-``NotImplementedError`` naming their ROADMAP item.
+(float32 or float64).  ``iParams["mesh"]`` splits a SOR or cheby solve over
+the mesh's blocks; ``scheme="lexico"`` and the multigrid entries solve whole,
+as the JAX package does.
 """
 from __future__ import annotations
 
@@ -223,19 +224,13 @@ def _validate_bcs(iParams, ndim):
     return tuple(bcs[:ndim])
 
 
-def _check_ported(iP):
-    """Raise for the options this package does not have yet."""
-    if iP.get("mesh") is not None and iP.get("scheme") == "lexico":
-        raise NotImplementedError("scheme='lexico' with iParams['mesh'] is "
-                                  "not ported yet (ROADMAP queue A item 17)")
-
-
 def _solve_on_mesh(spec, S0, omega, iP, check_every):
     """The mesh route of ``_invert``.  The JAX package picks its windowed
     2-D executor, then the 3-D one (scheme 'sor' under 'change' or
     'residual'), else GSPMD ``solve_sharded`` on a mesh lifted to all three
     axes; here all three are one block executor, which takes any subset of
-    the axes in any order, so the route is ``solve_sharded``."""
+    the axes in any order, so the route is ``solve_sharded`` (which solves
+    ``scheme="lexico"`` whole)."""
     from ..parallel.mesh import solve_sharded
     mesh = iP["mesh"]
     if not set(mesh.shape) <= {"batch", "y", "x"}:
@@ -302,7 +297,6 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
     if len(dims) != ndim:
         raise ValueError(f"{ndim:2d} dimensional forcing are needed")
     iP = merge_params(default_iParams, iParams)
-    _check_ported(iP)
     refined = iP.get("tolType", "change") == "refined"
     stream = bool(iP.get("streamChunk"))
     if refined and stream:
@@ -596,6 +590,11 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
     into the finest level).  Batch dims run through the V-cycle together;
     icbc provides Dirichlet values and (with ``warmStart``) a true warm
     start.
+
+    ``iParams["mesh"]`` is not read: the pyramid is solved whole on the
+    solve's device, as the JAX package's ``_invert_mg`` does.  A sharded
+    pyramid (``shard_mg_levels`` / ``solve_mg_sharded``) is ROADMAP queue A
+    item 17.
     """
     from ..mg import solve_mg
 
@@ -603,10 +602,6 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
     if len(dims) != ndim:
         raise ValueError(f"{ndim:2d} dimensional forcing are needed")
     iP = merge_params(default_iParams, iParams)
-    if iP.get("mesh") is not None:
-        raise NotImplementedError("multigrid on iParams['mesh'] (a sharded "
-                                  "pyramid) is not ported yet (ROADMAP "
-                                  "queue A item 17)")
     validate = mParams is not None and mParams is not default_mParams
     mP = merge_params(default_mParams, mParams,
                       valid_mp if validate else None)

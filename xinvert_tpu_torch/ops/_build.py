@@ -67,6 +67,9 @@ for _t in ("f32", "f64"):
     _SIGNATURES["sor3d"][f"sor3d_color_sweep_block_{_t}"] = (
         [_P] * 7 + [_I] * 11 + [_P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _I,
                                 _D, _P], _I)
+    _SIGNATURES["sor3d"][f"sor3d_block_sweep_{_t}"] = (
+        [_P] * 7 + [_I] * 11 + [_P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _I,
+                                _D, _I, _P, _I, _P], _I)
 
 
 def _nvcc():

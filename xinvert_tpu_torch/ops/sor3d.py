@@ -24,18 +24,23 @@ an unfolded red launch, stays as :func:`sor3d_sweeps_pair`, the yardstick
 no entry point calls.  :func:`sor3d_color_sweep_emulated` replays the
 folded launch's reads with torch ops on the CPU (tests only).
 
-``sor3d_color_sweep_block``, the color sweep's block mode (B5s: the pallas
-``_kernel``'s block arguments), sweeps one ghost-padded block of a
-decomposition for the multi-device executor
-(:mod:`xinvert_tpu_torch.parallel.halo`): wrapper
-:func:`sor3d_color_sweep_block`, n sweeps :func:`make_block_sweeper`, plain
-version :func:`sor3d_color_sweep_block_reference`.
+B5s (the pallas ``_kernel``'s block arguments) sweeps one ghost-padded block
+of a decomposition for the multi-device executor
+(:mod:`xinvert_tpu_torch.parallel.halo`) in a kernel of its own,
+``sor3d_block_sweep`` (a z-march over tiles classed on the host by
+:func:`block_plan`): wrapper :func:`sor3d_color_sweep_block`, n sweeps
+:func:`make_block_sweeper`, plain version
+:func:`sor3d_color_sweep_block_reference`;
+:func:`sor3d_color_sweep_block_emulated` replays the plan's tile classes
+with torch ops on the CPU (tests only).  Its first version, the color
+sweep's block mode, stays as :func:`sor3d_color_sweep_block_first`, the
+yardstick no entry point calls.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; any other input raises.  ``LAUNCHES``,
-``BLOCK_LAUNCHES`` and ``EXTEND_LAUNCHES`` count kernel launches,
-``PLAIN_CALLS`` calls of the plain versions, so a run can show which path
-it took.  No function here changes
+``BLOCK_LAUNCHES``, ``BLOCK_FIRST_LAUNCHES`` and ``EXTEND_LAUNCHES`` count
+kernel launches, ``PLAIN_CALLS`` calls of the plain versions, so a run can
+show which path it took.  No function here changes
 the caller's tensors: the kernels work on buffers the wrappers allocate.
 """
 from __future__ import annotations
@@ -53,13 +58,15 @@ __all__ = ["sor3d_sweeps", "sor3d_sweeps_pair", "sor3d_sweeps_reference",
            "sor3d_extend_reference", "sor3d_color_sweep",
            "sor3d_color_sweep_reference", "sor3d_color_sweep_emulated",
            "sor3d_color_sweep_block", "sor3d_color_sweep_block_reference",
-           "make_block_sweeper", "relax_plane", "MAX_K"]
+           "sor3d_color_sweep_block_emulated", "sor3d_color_sweep_block_first",
+           "block_plan", "make_block_sweeper", "relax_plane", "MAX_K"]
 
 MAX_K = 8            # offsets the color-sweep kernel takes (csrc SOR3D_MAX_K)
 _MAX_GRID = 65535    # batch slices and interior levels per launch (grid dims)
 
 LAUNCHES = 0         # sor3d_color_sweep kernel launches
-BLOCK_LAUNCHES = 0   # sor3d_color_sweep_block kernel launches
+BLOCK_LAUNCHES = 0   # sor3d_block_sweep kernel launches (B5s)
+BLOCK_FIRST_LAUNCHES = 0  # launches of the color sweep's block mode
 EXTEND_LAUNCHES = 0  # sor3d_extend_rows kernel launches
 PLAIN_CALLS = 0      # calls of the plain versions
 
@@ -177,7 +184,8 @@ def _layout(spec, S, rel=None):
                n_partials=lib.sor3d_partials_per_slice(nz, ny, nx),
                extend_fn=getattr(lib, f"sor3d_extend_rows_{sfx}"),
                sweep_fn=getattr(lib, f"sor3d_color_sweep_{sfx}"),
-               block_fn=getattr(lib, f"sor3d_color_sweep_block_{sfx}"))
+               block_fn=getattr(lib, f"sor3d_block_sweep_{sfx}"),
+               first_fn=getattr(lib, f"sor3d_color_sweep_block_{sfx}"))
     return lay
 
 
@@ -323,27 +331,77 @@ def sor3d_color_sweep_block_reference(spec, P, rel, color, origin, shape,
     return out
 
 
+_TILE = (8, 32)          # the kernels' tile: rows, columns (csrc SWEEP_BY/BX)
+_MAX_EDGE_BANDS = 8      # edge tile-row intervals a launch takes (csrc)
+
+
+def _one_ring(spec):
+    return all(abs(o) <= 1 for off in spec.offsets for o in off)
+
+
+def block_plan(spec, pshape, origin, shape, ghosts):
+    """The block sweep kernel's tiles for a padded block of ``pshape`` =
+    (rows, columns), as a dict: ``lead`` = (rows, columns) the launch grid
+    starts before the buffer, ``tiles`` = its (rows, columns) of 32 x 8
+    tiles (the owned region's tiles, as in the block mode: the |S|
+    partials stay whole), and ``edge``, the [lo, hi) intervals of tile rows
+    that take the full rule in a flagged (extend) launch: those holding a
+    buffer row whose global row is within the offsets' y reach of row 0 or
+    ny - 1, where the extend map moves reads (the kernel stages a two-cell
+    ring for them and reads their near rows through the map).  Every other
+    tile is lean: its reads come from the one-cell ring the kernel stages
+    in shared memory, with no extend map.  An unflagged launch has no edge
+    tiles."""
+    py, px = pshape
+    ny = shape[0]
+    gy, gx = ghosts
+    lead = tuple(-(-g // t) * t - g for g, t in zip(ghosts, _TILE))
+    tiles = (-(-(lead[0] + py) // _TILE[0]), -(-(lead[1] + px) // _TILE[1]))
+    rows = []
+    if spec.bcs[-2] == "extend":
+        ry = _ry(spec)
+        for t in range(tiles[0]):
+            R = [(origin[0] - gy + j) % ny
+                 for j in range(max(0, t * _TILE[0] - lead[0]),
+                                min(py, (t + 1) * _TILE[0] - lead[0]))]
+            if any(r <= ry or r >= ny - 1 - ry for r in R):
+                rows.append(t)
+    # a buffer spans fewer than 3 ny rows (ghosts < ny), so the near rows
+    # form at most four intervals
+    edge = []
+    for t in rows:
+        if edge and edge[-1][1] == t:
+            edge[-1][1] = t + 1
+        else:
+            edge.append([t, t + 1])
+    return {"lead": lead, "tiles": tiles,
+            "edge": tuple(tuple(e) for e in edge)}
+
+
 def _block_layout(spec, P, rel, origin, shape, ghosts):
-    """:func:`_layout` of a padded block, with its block arguments."""
+    """:func:`_layout` of a padded block, with its block arguments and the
+    block sweep's plan."""
     from .sor2d import block_geometry
     by, bx = block_geometry(tuple(P.shape[-2:]), origin, shape, ghosts)
+    if not _one_ring(spec):
+        raise ValueError("the block sweep kernel stages a one-cell ring: "
+                         f"offsets {spec.offsets} reach further")
     lay = _layout(spec, P, rel)
+    plan = block_plan(spec, tuple(P.shape[-2:]), origin, shape, ghosts)
     lay["blk"] = (shape[0], shape[1], origin[0], origin[1], by, bx,
                   ghosts[0], ghosts[1])
     lay["pshape"] = (lay["B"], lay["nz"], -(-by // 8), -(-bx // 32))
+    lay["edge"] = (ctypes.c_int * (2 * _MAX_EDGE_BANDS))(
+        *[t for e in plan["edge"] for t in e])
+    lay["n_edge"] = len(plan["edge"])
+    lay["zc"] = 0       # levels a CTA walks: the launcher's choice
     return lay
 
 
-def _launch_block(spec, lay, rel, S_in, S_out, color, fac=1.0,
-                  partials=None, extend=False):
-    """sor3d_color_sweep_block: S_out = half-sweep ``color`` of the padded
-    block S_in (every cell; with ``extend``, read through the extend map)."""
-    global BLOCK_LAUNCHES
-    # the launch goes to the block's device stream: that device must be
-    # current (a mesh's blocks may sit on several cards)
-    with torch.cuda.device(S_in.device):
-        err = lay["block_fn"](
-            S_in.data_ptr(), S_out.data_ptr(), spec.w.data_ptr(),
+def _block_args(spec, lay, rel, S_in, S_out, color, fac, partials, extend):
+    """The leading arguments both block kernels' launches share (the
+    buffers to ``fac``)."""
+    return (S_in.data_ptr(), S_out.data_ptr(), spec.w.data_ptr(),
             spec.w0.data_ptr(), spec.g.data_ptr(), rel.data_ptr(),
             None if partials is None else partials.data_ptr(),
             lay["B"], lay["nz"], *lay["blk"], lay["K"],
@@ -352,18 +410,100 @@ def _launch_block(spec, lay, rel, S_in, S_out, color, fac=1.0,
             lay["w_kstride"], lay["w_bstride"], lay["w0_bstride"],
             lay["g_bstride"], lay["relax_bstride"], int(color),
             int(extend and spec.bcs[-2] == "extend"),
-            int(spec.bcs[-1] == "periodic"), float(fac), lay["stream"])
+            int(spec.bcs[-1] == "periodic"), float(fac))
+
+
+def _launch_block(spec, lay, rel, S_in, S_out, color, fac=1.0,
+                  partials=None, extend=False):
+    """sor3d_block_sweep: S_out = half-sweep ``color`` of the padded block
+    S_in (every cell; with ``extend``, the edge tiles read through the
+    extend map)."""
+    global BLOCK_LAUNCHES
+    # the launch goes to the block's device stream: that device must be
+    # current (a mesh's blocks may sit on several cards)
+    with torch.cuda.device(S_in.device):
+        err = lay["block_fn"](
+            *_block_args(spec, lay, rel, S_in, S_out, color, fac, partials,
+                         extend),
+            lay["zc"], ctypes.addressof(lay["edge"]), lay["n_edge"],
+            lay["stream"])
     BLOCK_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"sor3d_block_sweep launch failed: CUDA error "
+                           f"{err}")
+
+
+def _launch_block_first(spec, lay, rel, S_in, S_out, color, fac=1.0,
+                        partials=None, extend=False):
+    """:func:`_launch_block`'s half-sweep through the first version, the
+    color sweep's block mode."""
+    global BLOCK_FIRST_LAUNCHES
+    with torch.cuda.device(S_in.device):
+        err = lay["first_fn"](
+            *_block_args(spec, lay, rel, S_in, S_out, color, fac, partials,
+                         extend), lay["stream"])
+    BLOCK_FIRST_LAUNCHES += 1
     if err:
         raise RuntimeError(f"sor3d_color_sweep_block launch failed: CUDA "
                            f"error {err}")
+
+
+def sor3d_color_sweep_block_emulated(spec, P, rel, color, origin, shape,
+                                     ghosts, fac=1.0, extend=False,
+                                     with_norm=False):
+    """The block sweep kernel's half-sweep replayed with torch ops on the
+    CPU, tile class by tile class of :func:`block_plan` (tests only).  A
+    lean tile reads each neighbour where the kernel's ring holds it, at
+    ((l + dz) mod nz, (j + dy) mod py, (i + dx) mod px) of the buffer, with
+    no extend map, and takes the parity (l + (oy - gy + j) mod ny +
+    (ox - gx + i) mod nx) & 1; the edge tiles of a flagged launch take
+    :func:`sor3d_color_sweep_block_reference`'s full rule.  Tests hold it
+    torch.equal to the reference, so a tile filed in the wrong class
+    fails on the CPU."""
+    from .sor2d import block_geometry, block_partials
+    if not _one_ring(spec):
+        raise ValueError("the block sweep kernel stages a one-cell ring")
+    nz, py, px = P.shape[-3:]
+    ny, nx = shape
+    gy, gx = ghosts
+    by, bx = block_geometry((py, px), origin, shape, ghosts)
+    plan = block_plan(spec, (py, px), origin, shape, ghosts)
+    dev = P.device
+    lv = torch.arange(nz, device=dev)[:, None, None]
+    jv = torch.arange(py, device=dev)[None, :, None]
+    iv = torch.arange(px, device=dev)[None, None, :]
+    flat = P.reshape(P.shape[:-3] + (-1,))
+
+    def at(index):
+        index = index.expand(nz, py, px).reshape(-1)
+        return flat[..., index].reshape(P.shape)
+
+    acc = spec.g
+    for k, (dz, dy, dx) in enumerate(spec.offsets):
+        acc = acc + spec.w[k] * at(((lv + dz) % nz * py + (jv + dy) % py)
+                                   * px + (iv + dx) % px)
+    par = (lv + (origin[0] - gy + jv) % ny + (origin[1] - gx + iv) % nx) % 2
+    sel = (par == color).to(P.dtype)
+    out = P + ((rel * sel) * fac) * (acc + spec.w0 * P)
+    if extend and spec.bcs[-2] == "extend" and plan["edge"]:
+        tile = (torch.arange(py, device=dev) + plan["lead"][0]) // _TILE[0]
+        rows = torch.zeros(py, dtype=torch.bool, device=dev)
+        for lo, hi in plan["edge"]:
+            rows |= (tile >= lo) & (tile < hi)
+        full = sor3d_color_sweep_block_reference(
+            spec, P, rel, color, origin, shape, ghosts, fac, True)
+        out = torch.where(rows[:, None], full, out)
+    if with_norm:
+        part = block_partials(out[..., gy:gy + by, gx:gx + bx])
+        return out, part.reshape((-1, nz) + tuple(part.shape[-2:]))
+    return out
 
 
 def sor3d_color_sweep_block(spec, P, rel, color, origin, shape, ghosts,
                             fac=1.0, extend=False, with_norm=False):
     """One half-sweep of ``color`` of one ghost-padded block ``P`` (...,
     nz, by + 2gy, bx + 2gx) into a new buffer, every cell (one launch of
-    the block kernel, B5s): ``spec``'s planes are the block's padded
+    the block sweep kernel, B5s): ``spec``'s planes are the block's padded
     planes, ``rel`` the padded :func:`relax_plane` (scaled by ``fac``),
     ``origin`` = (oy, ox) the global origin of the owned cells, ``shape`` =
     (ny, nx) the whole grid's rows and columns, ``ghosts`` = (gy, gx) (0 on
@@ -371,6 +511,22 @@ def sor3d_color_sweep_block(spec, P, rel, color, origin, shape, ghosts,
     pre-pass, folded in.  With ``with_norm`` also the owned cells' |S|
     partials (B, nz, ceil(by/8), ceil(bx/32)).  CPU tensors take the plain
     version."""
+    return _block_once(_launch_block, spec, P, rel, color, origin, shape,
+                       ghosts, fac, extend, with_norm)
+
+
+def sor3d_color_sweep_block_first(spec, P, rel, color, origin, shape, ghosts,
+                                  fac=1.0, extend=False, with_norm=False):
+    """:func:`sor3d_color_sweep_block` through the first version, the
+    color sweep's block mode (PR 9's B5s): the yardstick of the block
+    sweep kernel; no entry point calls it.  CPU tensors take the plain
+    version."""
+    return _block_once(_launch_block_first, spec, P, rel, color, origin,
+                       shape, ghosts, fac, extend, with_norm)
+
+
+def _block_once(launch, spec, P, rel, color, origin, shape, ghosts, fac,
+                extend, with_norm):
     if P.device.type == "cpu":
         return sor3d_color_sweep_block_reference(
             spec, P, rel, color, origin, shape, ghosts, fac, extend,
@@ -382,7 +538,7 @@ def sor3d_color_sweep_block(spec, P, rel, color, origin, shape, ghosts,
     out = torch.empty_like(A)
     part = (torch.empty(lay["pshape"], dtype=P.dtype, device=P.device)
             if with_norm else None)
-    _launch_block(spec, lay, rel, A, out, color, fac, part, extend)
+    launch(spec, lay, rel, A, out, color, fac, part, extend)
     out = out.reshape(P.shape)
     return (out, part) if with_norm else out
 

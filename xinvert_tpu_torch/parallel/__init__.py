@@ -9,8 +9,9 @@ core grid over ('y', 'x').  Every sharded solve runs one block executor
 (``sor2d_sweeps_block``, ``sor3d_color_sweep_block``) and its ghost rings
 are exchanged every k sweeps, by device copies on a local mesh or
 ``torch.distributed`` point-to-point on a distributed one; the convergence
-norm is the blocks' |S| partials, gathered.  ``shard_mg_levels`` and
-``solve_mg_sharded`` are not ported yet (ROADMAP queue A item 17).
+norm is the blocks' |S| partials, gathered.  ``scheme="lexico"`` and the
+multigrid entries solve whole, as the JAX package's do; the sharded pyramid
+(``shard_mg_levels``, ``solve_mg_sharded``) is ROADMAP queue A item 17.
 """
 from .mesh import (                                              # noqa: F401
     make_grid_mesh, shard_problem, solve_sharded, solve_fixed_sharded,

@@ -24,8 +24,11 @@ so here every sharded solve runs the explicit block executor of
 sweeps, the block kernels ``sor2d_sweeps_block`` / ``sor3d_color_sweep_block``
 on the card, their plain versions on the CPU).
 
-Not ported yet (ROADMAP queue A item 17): ``shard_mg_levels`` and
-``solve_mg_sharded``.
+``scheme="lexico"`` is solved whole: the reference's serial order has no
+block-parallel form, and the JAX package's GSPMD run computes exactly the
+meshless iterates.  The multigrid entries ignore the mesh, as the JAX
+package's do; the sharded pyramid (``shard_mg_levels``,
+``solve_mg_sharded``) is ROADMAP queue A item 17.
 """
 from __future__ import annotations
 
@@ -197,18 +200,17 @@ def solve_sharded(spec: StencilSpec, S0, mesh: Optional[Mesh] = None,
     through the block executor (:mod:`.halo`).  The change rule's norm is
     the kernels' |S| partials in the whole grid's layout, so on the card
     the iterates and the stopping decisions are the meshless solve's, bit
-    for bit.  ``scheme='lexico'`` on a mesh is not ported (ROADMAP queue A
-    item 17).  A 1-D spec (a few hundred cells; no kernel, no block
-    executor) is solved whole, on the device of ``S0``."""
+    for bit.  ``scheme='lexico'`` (the reference's serial order, which has
+    no block-parallel form) and a 1-D spec (a few hundred cells; no kernel,
+    no block executor) are solved whole, on the device of ``S0``: every
+    rank of a distributed mesh holds the whole problem, so each solves it
+    whole."""
     from ..solver import solve
-    if scheme == "lexico":
-        raise NotImplementedError("scheme='lexico' on a mesh is not ported "
-                                  "yet (ROADMAP queue A item 17)")
-    if scheme not in ("sor", "cheby"):
-        raise ValueError(f"solve_sharded takes scheme 'sor' or 'cheby', got "
-                         f"{scheme!r} (scheme='direct' is one-shot: "
-                         "solver.solve)")
-    if spec.ndim == 1:
+    if scheme not in ("sor", "cheby", "lexico"):
+        raise ValueError(f"solve_sharded takes scheme 'sor', 'cheby' or "
+                         f"'lexico', got {scheme!r} (scheme='direct' is "
+                         "one-shot: solver.solve)")
+    if spec.ndim == 1 or scheme == "lexico":
         return solve(spec, S0, omega=omega, tol=tol, max_iters=max_iters,
                      check_every=check_every, scheme=scheme,
                      tol_type=tol_type)
