@@ -36,7 +36,12 @@ seed, and runs these phases, each printing its lines:
      version, owned cells, partials or every buffer cell torch.equal, then
      37 sweeps with Chebyshev factors through the block
      executor on a local mesh against the plain meshless sweeps, and its
-     norm on the aligned layout against the whole-grid kernels';
+     norm on the aligned layout against the whole-grid kernels'; batches
+     of 65 536 slices, one past the grid's 65 535: 8x8 through solve_fixed
+     (the tiled kernel; planes shared and one a slice) and 4x8x8 through
+     sor3d_color_sweep and sor3d_sweeps, torch.equal to the plain
+     versions, the first and last slices' states and |S| totals equal to
+     a batch of one's;
   3  the main paths, in float32 and with no device argument (the entry
      points default to the card): invert_Poisson at 2048x2048 and at a
      batched 8x73x144; invert_omega at 37x72x288; invert_3DOcean at
@@ -109,7 +114,17 @@ seed, and runs these phases, each printing its lines:
      scheme="lexico" (notebook 03's 72x144 invert_Poisson, 50 sweeps) and
      invert_Poisson_mg on the same forcing with iParams["mesh"] on ('y'=2,):
      both solve whole, so each equals its meshless run (the same launches,
-     iters, states and fields);
+     iters, states and fields); then the sharded multigrid,
+     solve_mg_sharded beside solve_mg on the same pyramid and arguments:
+     bench.py's 2048x2048 full-multigrid pyramid on ('y'=2, 'x'=2) and
+     ('y'=4,), and invert_3DOcean_mg's 30x330x720 pyramid on ('y'=2,
+     'x'=2) for OCEAN_MG_CYCLES V-cycle under its stamped (line) smoother
+     and, to the end of OCEAN_POINT_CYCLES cycles and the BiCGStab rescue
+     through the split V-cycle, under the point smoother (also on
+     ('y'=4,), where its two coarsest levels go whole): the meshless
+     cycles, residual and torch.equal field, the block kernels alone on
+     the split levels and the whole-grid kernels on the whole ones, walls,
+     host syncs and idle shares (not for the line-smoothed pair);
   4  timing, float32: solve_fixed, 500 sweeps per call, median of 5 chained
      calls timed with CUDA events, for the kernels and the plain version,
      beside a device-to-device copy of the bytes a sweep of the kernels
@@ -157,7 +172,7 @@ from xinvert_tpu_torch.grid import Grid
 from xinvert_tpu_torch.models import api, problems
 from xinvert_tpu_torch.models.params import default_mParams
 from xinvert_tpu_torch.ops import _build, sor2d, sor3d
-from xinvert_tpu_torch.parallel import halo as phalo
+from xinvert_tpu_torch.parallel import halo as phalo, pyramid
 from xinvert_tpu_torch.parallel.mesh import Mesh
 from xinvert_tpu_torch.stencil import (StencilSpec, _interior_mask,
                                        prune_zero_offsets, standard_2d)
@@ -894,7 +909,93 @@ def phase2(dev):
         _check_block3d(*case, errs)
     log(f"[t] phase 2's block-kernel checks took "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _check_fault8(dev, errs)
+    log(f"[t] phase 2's batches over 65535 slices took "
+        f"{time.perf_counter() - t0:.1f} s")
     return errs
+
+
+# ------------------------------- phase 2, batches over 65 535 (fault 8)
+
+FAULT8_B = 65536      # one slice past the grid's 65 535
+
+
+def _slice_of(spec, b, nd):
+    """Slice b of a batched spec, as a batch of one."""
+    def cut(p, stacked=0):
+        if p.dim() - stacked == nd:
+            return p
+        return p.narrow(stacked, b, 1).contiguous()
+    return dataclasses.replace(spec, w=cut(spec.w, 1), w0=cut(spec.w0),
+                               g=cut(spec.g), relax=cut(spec.relax),
+                               active=cut(spec.active))
+
+
+def _check_fault8(dev, errs):
+    """Fault 8: a 65 536 x 8x8 2-D batch through solve_fixed (the tiled
+    kernel), with planes the batch shares and with planes one a slice, and
+    a 65 536 x 4x8x8 3-D batch through sor3d_color_sweep (the folded red
+    launch and the black one) and sor3d_sweeps, float32: torch.equal to
+    the plain versions, and the per-slice |S| totals of the first and last
+    slices equal to those of the same slice in a batch of one."""
+    P4 = ((1, 0), (-1, 0), (0, 1), (0, -1))
+    B = FAULT8_B
+    rng = np.random.default_rng(8)
+    for per_slice in (False, True):
+        spec, om = random_spec((8, 8), P4, ("extend", "periodic"), False, B,
+                               per_slice, torch.float32, dev, seed=11)
+        S0 = torch.as_tensor(rng.normal(0, 1e-3, (B, 8, 8)),
+                             dtype=torch.float32, device=dev)
+        _zero_counts()
+        out = xt.solve_fixed(spec, S0, om, 9)
+        tiled = sor2d.TILED_LAUNCHES
+        ref = sor2d.sor2d_sweeps_reference(spec, S0, om, 9)
+        got, tot = sor2d.sor2d_sweeps(spec, S0, om, 9, with_norm=True)
+        ok = torch.equal(out, ref) and torch.equal(got, out) and tiled > 0
+        for b in (0, B - 1):
+            one, t1 = sor2d.sor2d_sweeps(_slice_of(spec, b, 2),
+                                         S0[b:b + 1], om, 9, with_norm=True)
+            ok = ok and torch.equal(one[0], out[b]) and torch.equal(
+                t1[0], tot[b])
+        errs["sor2d_sweeps_tiled"] = max(errs["sor2d_sweeps_tiled"],
+                                         _max_err(out, ref))
+        log(f"[2] fault 8: solve_fixed {B}x8x8 float32, planes "
+            f"{'one a slice' if per_slice else 'shared'}, 9 sweeps through "
+            f"{tiled} tiled launches: torch.equal to the plain sweeps and "
+            f"slices 0 and {B - 1} (states, |S| totals) equal to a batch "
+            f"of one: {ok}")
+        if not ok:
+            raise RuntimeError("fault 8: the 2-D batch over 65535 slices "
+                               "disagrees")
+    spec, om = random_spec((4, 8, 8), OFFSETS_3D,
+                           ("fixed", "extend", "periodic"), False, 0, False,
+                           torch.float32, dev, seed=12)
+    S0 = torch.as_tensor(rng.normal(0, 1e-3, (B, 4, 8, 8)),
+                         dtype=torch.float32, device=dev)
+    rel = sor3d.relax_plane(spec, om)
+    ok = True
+    for color in (0, 1):
+        k = sor3d.sor3d_color_sweep(spec, S0, rel, color, extend=color == 0)
+        p = sor3d.sor3d_color_sweep_reference(spec, S0, rel, color,
+                                              extend=color == 0)
+        ok = ok and torch.equal(k, p)
+        errs["sor3d_color_sweep"] = max(errs["sor3d_color_sweep"],
+                                        _max_err(k, p))
+    out, tot = sor3d.sor3d_sweeps(spec, S0, om, 3, with_norm=True)
+    ok = ok and torch.equal(out, sor3d.sor3d_sweeps_reference(spec, S0, om,
+                                                              3))
+    for b in (0, B - 1):
+        one, t1 = sor3d.sor3d_sweeps(spec, S0[b:b + 1], om, 3,
+                                     with_norm=True)
+        ok = ok and torch.equal(one[0], out[b]) and torch.equal(t1[0],
+                                                                tot[b])
+    log(f"[2] fault 8: sor3d_color_sweep {B}x4x8x8 float32 (red folded, "
+        f"black) and 3 sweeps of sor3d_sweeps: torch.equal to the plain "
+        f"versions and slices 0 and {B - 1} equal to a batch of one: {ok}")
+    if not ok:
+        raise RuntimeError("fault 8: the 3-D batch over 65535 slices "
+                           "disagrees")
 
 
 # ------------------------------------------------ phase 2, block kernels
@@ -1793,6 +1894,8 @@ def phase3_mg(launches, sor):
                          mParams=dict(OCEAN_MP, N2=N2_oc), **kw_oc)
         out = _drive_mg("invert_3DOcean_mg 30x330x720", (), oc, launches)[0]
         _cycle_share("invert_3DOcean_mg 30x330x720")
+        # its pyramid and arguments, for the sharded multigrid's phase
+        OCEAN_MG.update(levels=_SETUP["levels"], kw=_SETUP["kw"])
         _vs_sor("invert_3DOcean_mg 30x330x720", out, sor["3docean"])
 
         # smaller runs against float64 on the CPU; Stommel-Munk's is the
@@ -2990,6 +3093,112 @@ def phase3_whole_on_mesh():
                                            iParams=dict(iPm, **extra)), mesh)
 
 
+# --------------------------------------- phase 3, the sharded multigrid
+
+OCEAN_MG_CYCLES = 1   # V-cycles of the 30x330x720 ocean pyramid under lines
+# its cycle budget under the point smoother, with the BiCGStab rescue: the
+# plain cycles end above the tolerance, then one chunk of 8 iterations
+OCEAN_POINT_CYCLES = 8
+# the pyramid and solve_mg arguments of phase 3's invert_3DOcean_mg call
+# (30x330x720), kept for phase3_mg_sharded rather than built again
+OCEAN_MG = {}
+
+
+def _mg_pair(name, levels, kw, mesh, ref_kernels, launches, profile=True,
+             rescue=False):
+    """solve_mg and solve_mg_sharded on ``mesh`` of the same pyramid and
+    arguments, each with every count set to 0 just before it and read just
+    after (the mesh run through the block kernels on its split levels and
+    ``ref_kernels``' whole-grid kernels on its whole ones, alone): the
+    meshless cycles, residual and torch.equal field; their walls, host
+    syncs, and with ``profile`` idle shares of one more call each under
+    torch.profiler.  ``rescue``: both runs must reach the BiCGStab
+    rescue."""
+    t0 = time.perf_counter()
+    split = [p is not None for p in pyramid.level_plan(levels, mesh)]
+    block = ("sor2d_sweeps_block" if levels[0].spec.ndim == 2
+             else "sor3d_color_sweep_block")
+    smoother = kw.get("smoother") or levels[0].smoother
+    point = smoother not in mg._SMOOTH_AXES
+    mesh_kernels = (((block,) if point else ())
+                    + (tuple(ref_kernels) if not all(split) else ()))
+    runs = {}
+    for label, call, kernels, lc in (
+            ("meshless", lambda: mg.solve_mg(levels, **kw), ref_kernels,
+             None),
+            (f"on {dict(mesh.shape)}",
+             lambda: xt.parallel.solve_mg_sharded(levels, mesh=mesh, **kw),
+             mesh_kernels, launches)):
+        mg.HOST_SYNCS = 0
+        with _Capture(mg, "_solve_mg_krylov") as krylov:
+            out, wall = _path(f"{name}, {label}", kernels, call, lc)
+        syncs = mg.HOST_SYNCS
+        if rescue and not krylov.calls:
+            raise RuntimeError(f"{name}, {label}: the rescue did not run")
+        idle = "idle share not measured (no profiled call)"
+        if profile:
+            _, pw, pb = _profiled_raw(call)
+            idle = _idle(pw, pb)
+        runs[label] = out, wall, syncs, idle
+    (Sa, ka, ra, ca), wa, sa, ia = runs["meshless"]
+    (Sb, kb, rb, cb), wb, sb, ib = runs[f"on {dict(mesh.shape)}"]
+    same = ka == kb and ra == rb and ca == cb and torch.equal(Sa, Sb)
+    gap = float((Sa - Sb).abs().max() / Sa.abs().max())
+    log(f"[3] {name} on {dict(mesh.shape)} ({smoother} smoothing; levels "
+        f"split {sum(split)} of {len(split)}: "
+        f"{['split' if s else 'whole' for s in split]}): cycles {kb} "
+        f"(meshless {ka}), residual {rb:.4e} (meshless {ra:.4e}), converged "
+        f"{cb}{', BiCGStab rescue ran' if rescue else ''}; wall {wb:.3f} "
+        f"s against {wa:.3f} s meshless "
+        f"({wb / wa:.2f}x); host syncs {sb} (meshless {sa}); profiled: on "
+        f"the mesh {ib}; meshless {ia}; field torch.equal to meshless: "
+        f"{same} (max|diff|/max|S| {gap:.3e})")
+    log(f"[t] {name} on {dict(mesh.shape)} took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise RuntimeError(f"{name}: solve_mg_sharded differs from the "
+                           "meshless solve_mg")
+
+
+def phase3_mg_sharded(launches):
+    """solve_mg_sharded on local meshes whose blocks all run on the card,
+    float32, each beside the meshless solve_mg of the same pyramid and
+    arguments: bench.py's 2048x2048 masked Poisson pyramid with full
+    multigrid (point smoothing: B2s on every split level) on ('y'=2,
+    'x'=2) and ('y'=4,), to 1e-6; the invert_3DOcean_mg pyramid of
+    30x330x720 (phase 3's, OCEAN_MG) on ('y'=2, 'x'=2), OCEAN_MG_CYCLES
+    V-cycles without the rescue under its stamped smoother (lines: torch
+    ops; not profiled, its trace of torch ops is long to read), and under
+    the point smoother with the rescue (OCEAN_POINT_CYCLES plain cycles,
+    then BiCGStab with the split V-cycle as its preconditioner) on ('y'=2,
+    'x'=2) and ('y'=4,) (B5s on the split levels, the whole-grid 3-D
+    sweep on the whole ones)."""
+    torch.set_default_dtype(torch.float32)
+    dev = torch.device("cuda", 0)
+    pyr = extra_mg_pyramid(torch.float32, dev)
+    kw = dict(tol=1e-6, max_cycles=80, fmg=True)
+    for shape, names in (((2, 2), ("y", "x")), ((4,), ("y",))):
+        _mg_pair("solve_mg 2048x2048 FMG (bench.py's problem)", pyr, kw,
+                 local_mesh(dev, shape, names), TILED[False], launches)
+    del pyr
+    levels = OCEAN_MG.pop("levels")
+    kw = dict(OCEAN_MG.pop("kw"), max_cycles=OCEAN_MG_CYCLES, accel=None)
+    mesh = local_mesh(dev, (2, 2), ("y", "x"))
+    name = (f"invert_3DOcean_mg's pyramid 30x330x720, {OCEAN_MG_CYCLES} "
+            f"V-cycles")
+    _mg_pair(name, levels, kw, mesh, (), launches, profile=False)
+    # under point smoothing on 2x2 every level splits; on ('y'=4,) the
+    # 42-row level would restrict from an odd origin (88 / 8 = 11), so it
+    # and the coarsest go whole (the whole-grid 3-D sweep)
+    kw = dict(kw, smoother="point", accel="auto",
+              max_cycles=OCEAN_POINT_CYCLES)
+    name = (f"invert_3DOcean_mg's pyramid 30x330x720, point smoother, "
+            f"{OCEAN_POINT_CYCLES} cycles and the rescue")
+    for shape, names in (((2, 2), ("y", "x")), ((4,), ("y",))):
+        _mg_pair(name, levels, kw, local_mesh(dev, shape, names),
+                 ("sor3d_color_sweep",), launches, rescue=True)
+
+
 # ---------------------------------------------------------------- phase 4
 
 def _time_ms(fn, reps, inner=1):
@@ -3688,6 +3897,8 @@ def main():
     phase3_multi(launches)
     phase3_whole_on_mesh()
     stamp("phase 3 (multi-device)")
+    phase3_mg_sharded(launches)
+    stamp("phase 3 (sharded multigrid)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
     per.update(phase4_blocks(card, dev))

@@ -12,7 +12,10 @@ the kernels, streamed solves bit-equal to the resident solve, implicit
 gradients through the kernels equal to the plain version's; the block
 kernels (sor2d_sweeps_block, sor3d_color_sweep_block) bit-equal to their
 plain versions and, on local meshes that repeat the card, to the meshless
-sweeps and solves.  Every test here needs an NVIDIA GPU (marker
+sweeps and solves; batches over 65 535 slices through the main-path
+kernels; the sharded multigrid pyramid (solve_mg_sharded) on local meshes
+of the card, over several cards and under NCCL, equal to the meshless
+solve.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -1317,9 +1320,11 @@ dist.destroy_process_group()
 """
 
 
-def run_distributed(world, tmp_path, timeout=240):
-    """``world`` processes of _DIST_WORKER (one a GPU with NCCL where the
-    machine has CUDA, else gloo on the CPU); their saved results."""
+def run_distributed(world, tmp_path, timeout=240, worker=None):
+    """``world`` processes of ``worker`` (default _DIST_WORKER; one a GPU
+    with NCCL where the machine has CUDA, else gloo on the CPU); their
+    saved results."""
+    worker = worker or _DIST_WORKER
     import os
     import socket
     import subprocess
@@ -1333,7 +1338,7 @@ def run_distributed(world, tmp_path, timeout=240):
     env = dict(os.environ, PYTHONPATH=root + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     outs = [str(tmp_path / f"rank{r}.npz") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, "-c", _DIST_WORKER, str(r),
+    procs = [subprocess.Popen([sys.executable, "-c", worker, str(r),
                                str(world), str(port), outs[r]], env=env,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT)
@@ -1383,3 +1388,256 @@ def test_nccl_mesh_equals_the_local_mesh(cuda, tmp_path):
         assert np.array_equal(g["rel2"], r2.rel_change.cpu().numpy())
         assert np.array_equal(g["S3"], r3.S.cpu().numpy())
         assert np.array_equal(g["it3"], r3.iters.cpu().numpy())
+
+
+# ------------------------------------------ fault 8: batches over 65 535
+
+def _batch_spec2d(dtype, device, B, per_slice, seed=21):
+    """A random diagonally dominant 5-point (extend, periodic) spec on 8x8
+    slices: planes the batch shares, or one a slice."""
+    rng = np.random.default_rng(seed)
+    shape = (B, 8, 8) if per_slice else (8, 8)
+    active = np.zeros(shape, bool)
+    active[..., 1:-1, :] = True
+    active &= rng.random(shape) > 0.05
+    w = rng.uniform(0.05, 0.25, (4,) + shape) * active
+    w0 = np.where(active, -1.05 * w.sum(0), 0.0)
+    relax = np.where(active, 1.0 / np.where(active, -w0, 1.0), 0.0)
+    g = rng.normal(0, 1, (B, 8, 8)) * active
+    spec = StencilSpec.from_arrays(w, w0, g, relax, active,
+                                   ((1, 0), (-1, 0), (0, 1), (0, -1)),
+                                   ("extend", "periodic"), False, False,
+                                   device=device, dtype=dtype)
+    S0 = torch.as_tensor(rng.normal(0, 1e-3, (B, 8, 8)), dtype=dtype,
+                         device=device)
+    return spec, S0
+
+
+def _slice_spec(spec, b, nd):
+    """Slice b of a batched spec, as a batch of one."""
+    def cut(p, stacked=0):
+        if p.dim() - stacked == nd:
+            return p
+        return p.narrow(stacked, b, 1).contiguous()
+    return dataclasses.replace(spec, w=cut(spec.w, 1), w0=cut(spec.w0),
+                               g=cut(spec.g), relax=cut(spec.relax),
+                               active=cut(spec.active))
+
+
+@pytest.mark.parametrize("per_slice", [False, True])
+def test_batch_over_65535_slices_2d(cuda, per_slice):
+    """Fault 8: 65 536 slices of 8x8 through solve_fixed (the tiled
+    kernel), planes shared or one a slice: torch.equal to the plain sweeps,
+    and each slice's |S| total equal to the same slice's in a batch of
+    one."""
+    B = 65536
+    spec, S0 = _batch_spec2d(torch.float32, cuda, B, per_slice)
+    t0 = sor2d.TILED_LAUNCHES
+    out = xt.solve_fixed(spec, S0, 1.3, 9)
+    assert sor2d.TILED_LAUNCHES > t0
+    assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 9))
+    got, tot = sor2d.sor2d_sweeps(spec, S0, 1.3, 9, with_norm=True)
+    assert torch.equal(got, out) and tot.shape == (B,)
+    for b in (0, 1, 65534, 65535):
+        one, t1 = sor2d.sor2d_sweeps(_slice_spec(spec, b, 2), S0[b:b + 1],
+                                     1.3, 9, with_norm=True)
+        assert torch.equal(one[0], out[b]) and torch.equal(t1[0], tot[b])
+    with pytest.raises(ValueError, match="65535"):
+        sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 1)
+
+
+def test_batch_over_65535_slices_3d(cuda):
+    """Fault 8 in 3-D: 65 536 slices of 4x8x8 through sor3d_color_sweep
+    (the extend folded into the red launch) and sor3d_sweeps:
+    torch.equal to the plain versions, each slice's |S| total equal to a
+    batch of one's."""
+    B = 65536
+    spec, _ = _random3d(torch.float32, cuda, (4, 8, 8), 0,
+                        ("fixed", "extend", "periodic"))
+    rng = np.random.default_rng(5)
+    S0 = torch.as_tensor(rng.normal(0, 1e-3, (B, 4, 8, 8)),
+                         dtype=torch.float32, device=cuda)
+    rel = sor3d.relax_plane(spec, 1.2)
+    l0 = sor3d.LAUNCHES
+    red = sor3d.sor3d_color_sweep(spec, S0, rel, 0, extend=True)
+    assert sor3d.LAUNCHES == l0 + 1
+    assert torch.equal(red, sor3d.sor3d_color_sweep_reference(
+        spec, S0, rel, 0, extend=True))
+    out, tot = sor3d.sor3d_sweeps(spec, S0, 1.2, 3, with_norm=True)
+    assert torch.equal(out, sor3d.sor3d_sweeps_reference(spec, S0, 1.2, 3))
+    for b in (0, 65535):
+        one, t1 = sor3d.sor3d_sweeps(spec, S0[b:b + 1], 1.2, 3,
+                                     with_norm=True)
+        assert torch.equal(one[0], out[b]) and torch.equal(t1[0], tot[b])
+    with pytest.raises(ValueError, match="65535"):
+        sor3d.sor3d_extend(spec, S0)
+
+
+# --------------------------------------------- the sharded multigrid
+
+def _mg_pyramids(dtype, device):
+    """A masked fixed/periodic 256x256 point pyramid (every level split on
+    2x2), a 66x64 one whose third level goes whole, and a 3-D 6x64x64
+    one; the 3-D one solved under the point smoother (B5s)."""
+    from xinvert_tpu_torch import mg
+    rng = np.random.default_rng(2)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    def two(shape, bcs, **kw):
+        A = t(np.abs(rng.normal(1, .05, shape)) + 1.0)
+        C = t(np.abs(rng.normal(1, .05, shape)) + 1.0)
+        Fdef = np.ones(shape, bool)
+        Fdef[shape[0] // 3:shape[0] // 2, shape[1] // 4:shape[1] // 2] = False
+        return mg.build_pyramid_standard2d(A, 0.0, C,
+                                           t(rng.normal(0, 1, shape)), Fdef,
+                                           (1.2e5, 1.0e5), bcs, **kw)
+    sh3 = (6, 64, 64)
+    p3 = mg.build_pyramid_standard3d(
+        t(np.full(sh3, 1e-8)), t(np.abs(rng.normal(1, .05, sh3)) + 1.0),
+        t(np.abs(rng.normal(1, .05, sh3)) + 1.0), t(rng.normal(0, 1, sh3)),
+        np.ones(sh3, bool), (7e3, 1.2e5, 1.0e5),
+        ("fixed", "fixed", "periodic"))
+    return [("256", two((256, 256), ("fixed", "periodic")),
+             dict(tol=1e-5, max_cycles=40, fmg=True)),
+            ("66", two((66, 64), ("fixed", "fixed"), min_size=5),
+             dict(tol=1e-5, max_cycles=40)),
+            ("3d", p3, dict(tol=1e-5, max_cycles=40, smoother="point"))]
+
+
+def test_solve_mg_sharded_on_the_card_equals_meshless(cuda):
+    """solve_mg_sharded on a 2x2 mesh over the card, float32: the meshless
+    solve_mg's cycles, residual and field, torch.equal; the split levels
+    through the block kernels alone (B2s, or B5s for the 3-D point
+    smoother), the whole ones through the whole-grid kernels."""
+    from xinvert_tpu_torch import mg, parallel as tpar
+    from xinvert_tpu_torch.parallel import pyramid
+    mesh = _card_mesh(cuda, (2, 2), ("y", "x"))
+    for name, pyr, kw in _mg_pyramids(torch.float32, cuda):
+        Sm, km, resm, convm = mg.solve_mg(pyr, **kw)
+        whole = any(p is None for p in pyramid.level_plan(pyr, mesh))
+        c0 = (sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES, sor3d.LAUNCHES,
+              sor3d.BLOCK_LAUNCHES, sor2d.PLAIN_CALLS)
+        S, k, res, conv = tpar.solve_mg_sharded(pyr, mesh=mesh, **kw)
+        c1 = (sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES, sor3d.LAUNCHES,
+              sor3d.BLOCK_LAUNCHES, sor2d.PLAIN_CALLS)
+        d = [b - a for a, b in zip(c0, c1)]
+        assert (k, res, conv) == (km, resm, convm) and conv, name
+        assert torch.equal(S, Sm), name
+        assert d[4] == 0
+        if name == "3d":
+            assert d[3] > 0 and d[0] == d[1] == 0 and d[2] == 0
+        else:
+            assert d[1] > 0 and (d[0] > 0) == whole and d[2] == d[3] == 0
+
+
+def test_solve_mg_sharded_rescue_on_the_card(cuda):
+    """The Krylov stage on a 2x2 mesh over the card, float32, with the
+    split V-cycle as its preconditioner: an advective general-2D pyramid
+    whose plain V-cycles end far above the tolerance ('auto': B2s in the
+    rescue, which brings the residual down without reaching it) and the 3-D
+    point pyramid under 'bicgstab' (B5s): the meshless cycles, residual and
+    field, torch.equal."""
+    from xinvert_tpu_torch import mg, parallel as tpar
+    mesh = _card_mesh(cuda, (2, 2), ("y", "x"))
+    rng = np.random.default_rng(1)
+    shape = (128, 192)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    adv = mg.build_pyramid_general2d(
+        t(np.ones(shape)), 0.0, t(np.ones(shape)), 0.0, 3.0, -0.01,
+        t(rng.normal(0, 1, shape)), np.ones(shape, bool), (1.0, 1.0),
+        ("fixed", "periodic"), min_size=8)
+    p3 = _mg_pyramids(torch.float32, cuda)[2][1]
+    for name, pyr, kw in (
+            ("advective", adv, dict(tol=1e-5, max_cycles=10,
+                                    accel="auto")),
+            ("3d", p3, dict(tol=1e-5, max_cycles=8, smoother="point",
+                            accel="bicgstab"))):
+        c0 = (sor2d.BLOCK_LAUNCHES, sor3d.BLOCK_LAUNCHES)
+        S, k, res, conv = tpar.solve_mg_sharded(pyr, mesh=mesh, **kw)
+        d = [sor2d.BLOCK_LAUNCHES - c0[0], sor3d.BLOCK_LAUNCHES - c0[1]]
+        Sm, km, resm, convm = mg.solve_mg(pyr, **kw)
+        assert (k, res, conv) == (km, resm, convm), name
+        assert torch.equal(S, Sm), name
+        assert k > kw["max_cycles"] if name == "advective" else k >= 2
+        assert d[name == "3d"] > 0 and d[name != "3d"] == 0, name
+
+
+def test_solve_mg_sharded_over_several_cards(cuda):
+    """A local mesh with a block on each card (up to 4) and its twin with
+    every block on cuda:0: solve_mg_sharded gives the meshless cycles and
+    field, torch.equal, on cuda:0.  Needs two or more GPUs."""
+    from xinvert_tpu_torch import mg, parallel as tpar
+    n = min(torch.cuda.device_count(), 4)
+    if n < 2:
+        pytest.skip("needs two or more GPUs")
+    mesh = tpar.make_grid_mesh(n)
+    one = _card_mesh(cuda, tuple(mesh.shape.values()), mesh.axis_names)
+    for name, pyr, kw in _mg_pyramids(torch.float32, cuda):
+        Sm, km, _, _ = mg.solve_mg(pyr, **kw)
+        for m in (mesh, one):
+            S, k, _, conv = tpar.solve_mg_sharded(pyr, mesh=m, **kw)
+            assert k == km and conv and S.device == cuda, name
+            assert torch.equal(S, Sm), name
+
+
+_DIST_MG_WORKER = """
+import sys, numpy as np, torch
+torch.set_num_threads(1)
+import torch.distributed as dist
+from xinvert_tpu_torch import mg, parallel as tpar
+rank, world, port, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+dev = torch.device("cuda", rank) if torch.cuda.is_available() \\
+    else torch.device("cpu")
+if dev.type == "cuda":
+    torch.cuda.set_device(dev)
+up = tpar.initialize_distributed("tcp://localhost:" + port, world, rank)
+rng = np.random.default_rng(2)
+t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+A = t(np.abs(rng.normal(1, .05, (256, 256))) + 1.0)
+C = t(np.abs(rng.normal(1, .05, (256, 256))) + 1.0)
+F = t(rng.normal(0, 1, (256, 256)))
+Fdef = np.ones((256, 256), bool)
+Fdef[85:128, 64:128] = False
+pyr = mg.build_pyramid_standard2d(A, 0.0, C, F, Fdef, (1.2e5, 1.0e5),
+                                  ("fixed", "periodic"))
+S, k, res, conv = tpar.solve_mg_sharded(pyr, mesh=tpar.make_grid_mesh(),
+                                        tol=1e-5, max_cycles=40, fmg=True)
+np.savez(out, up=up, S=S.cpu().numpy(), k=k, res=res)
+dist.destroy_process_group()
+"""
+
+
+def test_nccl_solve_mg_sharded_equals_meshless(cuda, tmp_path):
+    """One process a GPU under NCCL (up to 4), a distributed mesh over
+    their ranks: solve_mg_sharded (a masked 256x256 point pyramid, full
+    multigrid) gives every rank the meshless solve's field, cycles and
+    residual on one card, torch.equal.  Needs two or more GPUs."""
+    from xinvert_tpu_torch import mg
+    from xinvert_tpu_torch.ops import _build
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs two or more GPUs")
+    _build.build_all()
+    got = run_distributed(world, tmp_path, worker=_DIST_MG_WORKER)
+    rng = np.random.default_rng(2)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=cuda)
+    A = t(np.abs(rng.normal(1, .05, (256, 256))) + 1.0)
+    C = t(np.abs(rng.normal(1, .05, (256, 256))) + 1.0)
+    F = t(rng.normal(0, 1, (256, 256)))
+    Fdef = np.ones((256, 256), bool)
+    Fdef[85:128, 64:128] = False
+    pyr = mg.build_pyramid_standard2d(A, 0.0, C, F, Fdef, (1.2e5, 1.0e5),
+                                      ("fixed", "periodic"))
+    S, k, res, conv = mg.solve_mg(pyr, tol=1e-5, max_cycles=40, fmg=True)
+    assert conv
+    for g in got:
+        assert bool(g["up"]) and int(g["k"]) == k
+        assert float(g["res"]) == res
+        assert np.array_equal(g["S"], S.cpu().numpy())

@@ -49,9 +49,9 @@ def test_ported_names_are_the_modules_functions(name):
 
 def test_parallel_names_match_the_jax_package():
     """``xinvert_tpu_torch.parallel`` exports ``xinvert_tpu.parallel``'s
-    names, minus the sharded multigrid (ROADMAP queue A item 17)."""
+    names, the sharded multigrid (``shard_mg_levels``,
+    ``solve_mg_sharded``) included."""
     from xinvert_tpu import parallel as jpar
     from xinvert_tpu_torch import parallel as tpar
-    item17 = {"shard_mg_levels", "solve_mg_sharded"}
-    assert item17 <= _public(jpar)
-    assert _public(tpar) == _public(jpar) - item17
+    assert {"shard_mg_levels", "solve_mg_sharded"} <= _public(tpar)
+    assert _public(tpar) == _public(jpar)

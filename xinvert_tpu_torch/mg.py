@@ -561,7 +561,7 @@ def _smooth(level: MGLevel, S, n):
     return run_sweeps(level.spec, S, level.omega, n)
 
 
-def _line_system(spec, axis, S):
+def _line_system(spec, axis, S, origin=None):
     """What a zebra sweep along ``axis`` (negative, core-relative) solves
     that does not change from sweep to sweep: the line bands with ``axis``
     last (inactive cells identity rows, b=1), their log-depth factor and
@@ -569,7 +569,9 @@ def _line_system(spec, axis, S):
     (:func:`xinvert_tpu_torch.ops.tridiag._pscan_factor`,
     ``_cyclic_units``), and the cells each parity updates (the
     checkerboard of the OTHER core dims, on active cells).  The bands stay
-    at the planes' shape; a batched state's lines ride the rhs batch."""
+    at the planes' shape; a batched state's lines ride the rhs batch.
+    ``origin`` (per core dim): the global index of the planes' first cell
+    (a block of a split level), so the parity is the whole grid's."""
     from .ops.tridiag import _cyclic_units, _pscan_factor
 
     nd = spec.ndim
@@ -595,8 +597,8 @@ def _line_system(spec, axis, S):
             continue
         view = [1] * nd
         view[ax] = core_shape[ax]
-        par = par + torch.arange(core_shape[ax],
-                                 device=S.device).reshape(view)
+        par = par + (torch.arange(core_shape[ax], device=S.device)
+                     + (origin[ax] if origin else 0)).reshape(view)
     take = tuple((par % 2 == parity) & active for parity in (0, 1))
     return factor, units, take
 
@@ -764,7 +766,7 @@ def _bicgstab(A, b, x0, M, maxiter, live, nd, tol=0.0, atol=0.0):
 
 
 def _solve_mg_krylov(levels, S0, g0, tol, max_cycles, nu1, nu2,
-                     coarse_iters, alpha, smoother):
+                     coarse_iters, alpha, smoother, vcycle=None):
     """V-cycle-preconditioned BiCGStab on the folded system.
 
     Plain coarse-grid correction fails on advection-dominated operators
@@ -777,7 +779,9 @@ def _solve_mg_krylov(levels, S0, g0, tol, max_cycles, nu1, nu2,
     new best.  ``S0`` (and ``g0``) may carry one leading batch axis: each
     member runs its own loops and is held fixed once they end, as under
     JAX's ``vmap``.  Returns (S, V-cycle-equivalents (2 per iteration),
-    res), the last two per member."""
+    res), the last two per member.  ``vcycle``: the preconditioner's
+    V-cycle, :func:`_vcycle`'s signature (a sharded pyramid's)."""
+    vcycle = vcycle or _vcycle
     spec = levels[0].spec
     nd = spec.ndim
     if g0 is not None:
@@ -794,7 +798,7 @@ def _solve_mg_krylov(levels, S0, g0, tol, max_cycles, nu1, nu2,
         return torch.where(act, _neighbor_sum(spec_l, x) + spec.w0 * x, x)
 
     def precond(r):
-        return _vcycle(levels, 0, torch.zeros_like(r),
+        return vcycle(levels, 0, torch.zeros_like(r),
                        torch.where(act, -r, 0.0), nu1, nu2, coarse_iters,
                        alpha, smoother)
 
@@ -828,44 +832,73 @@ def _solve_mg_krylov(levels, S0, g0, tol, max_cycles, nu1, nu2,
         e, e_best, best, k, stall = new
 
 
-def _fmg_init(levels, spec, S0, nu1, nu2, coarse_iters, alpha, smoother):
+def _fmg_init(levels, spec, S0, nu1, nu2, coarse_iters, alpha, smoother,
+              vcycle=None):
     """Full-multigrid (nested-iteration) initial guess: the forcing
     restricts down the hierarchy (x4 per coarsening, x16 biharmonic), the
     coarsest level is smoothed to convergence, and the solution prolongs up
-    with one V-cycle per level.  Replaces S0 on active cells."""
+    with one V-cycle per level.  Replaces S0 on active cells.  ``vcycle``:
+    :func:`_vcycle` or a sharded pyramid's, with its signature."""
+    vcycle = vcycle or _vcycle
     gs = [spec.g]
     for lv, nxt in zip(levels[:-1], levels[1:]):
         scale = 16.0 if lv.spec.bih else 4.0
         gc = scale * restrict(gs[-1], lv.odd, lv.spec.bcs[-2:])
         gs.append(torch.where(nxt.spec.active, gc, 0.0))
-    e = _vcycle(levels, len(levels) - 1, torch.zeros_like(gs[-1]), gs[-1],
-                nu1, nu2, coarse_iters, alpha, smoother)
+    e = vcycle(levels, len(levels) - 1, torch.zeros_like(gs[-1]), gs[-1],
+               nu1, nu2, coarse_iters, alpha, smoother)
     for lv_i in range(len(levels) - 2, -1, -1):
         lv = levels[lv_i]
         e = prolong(e, lv.spec.w0.shape[-2:], lv.odd, lv.spec.bcs[-2:])
         e = torch.where(lv.spec.active, e, 0.0)
-        e = _vcycle(levels, lv_i, e, gs[lv_i], nu1, nu2, coarse_iters, alpha,
-                    smoother)
+        e = vcycle(levels, lv_i, e, gs[lv_i], nu1, nu2, coarse_iters, alpha,
+                   smoother)
     return torch.where(spec.active, e, S0)
 
 
+class _FinestState:
+    """The finest level's state between :func:`_solve_mg`'s V-cycles: one
+    tensor.  A sharded pyramid keeps it on its blocks instead
+    (:class:`xinvert_tpu_torch.parallel.pyramid.BlockState`), with the same
+    constructor and methods."""
+
+    def __init__(self, levels, spec, S, args):
+        self.levels, self.spec, self.S, self.args = levels, spec, S, args
+
+    def cycle(self, go):
+        """One V-cycle; the members outside ``go`` (None: every member
+        goes) keep their state.  Returns each member's max |r| over the
+        core."""
+        nd = self.spec.ndim
+        S_new = _vcycle(self.levels, 0, self.S, self.spec.g, *self.args)
+        r = torch.amax(torch.abs(_residual(self.spec, S_new)),
+                       dim=tuple(range(-nd, 0)))
+        self.S = S_new if go is None else _bwhere(go, S_new, self.S, nd)
+        return r
+
+    def field(self):
+        return self.S
+
+
 def _solve_mg(levels, S0, g0, tol, max_cycles, nu1, nu2, coarse_iters,
-              alpha, smoother, fmg=False):
+              alpha, smoother, fmg=False, vcycle=None, state=None):
     """V-cycles to the residual tolerance.  ``S0`` may carry one leading
     batch axis (then ``g0`` does too): every member runs until its own test
     ends it and is then held fixed, as under JAX's ``vmap``.  Returns (S,
-    cycles, res), the last two per member."""
+    cycles, res), the last two per member.  A sharded pyramid passes its
+    ``vcycle`` (:func:`_vcycle`'s signature, for the nested start) and
+    ``state`` (:class:`_FinestState`'s)."""
     spec = levels[0].spec
     nd = spec.ndim
     if g0 is not None:
         spec = _with_g(spec, g0)
+    args = (nu1, nu2, coarse_iters, alpha, smoother)
     if fmg and len(levels) > 1:
-        S0 = _fmg_init(levels, spec, S0, nu1, nu2, coarse_iters, alpha,
-                       smoother)
+        S0 = _fmg_init(levels, spec, S0, *args, vcycle=vcycle)
     g_scale = _g_scale(spec.g, nd)
     tol_t = torch.tensor(tol, dtype=S0.dtype, device=S0.device)
     batch = S0.shape[:S0.ndim - nd]
-    S = S0
+    S = (state or _FinestState)(levels, spec, S0, args)
     k = torch.zeros(batch, dtype=torch.int64, device=S0.device)
     stall = torch.zeros_like(k)
     res = torch.full(batch, float("inf"), dtype=S0.dtype, device=S0.device)
@@ -875,17 +908,14 @@ def _solve_mg(levels, S0, g0, tol, max_cycles, nu1, nu2, coarse_iters,
         go = (k < max_cycles) & (res >= tol_t) & (stall < 2)
         any_go, all_go = _sync(torch.stack([go.any(), go.all()]))
         if not any_go:
-            return S, k, res
-        S_new = _vcycle(levels, 0, S, spec.g, nu1, nu2, coarse_iters, alpha,
-                        smoother)
-        new_res = torch.amax(torch.abs(_residual(spec, S_new)),
-                             dim=tuple(range(-nd, 0))) / g_scale
-        new = (S_new, k + 1, new_res,
+            return S.field(), k, res
+        new_res = S.cycle(None if all_go else go) / g_scale
+        new = (k + 1, new_res,
                torch.where(new_res <= 0.9 * res, 0, stall + 1))
         if not all_go:
-            new = tuple(_bwhere(go, n, o, n.ndim - go.ndim)
-                        for n, o in zip(new, (S, k, res, stall)))
-        S, k, res, stall = new
+            new = tuple(_bwhere(go, n, o)
+                        for n, o in zip(new, (k, res, stall)))
+        k, res, stall = new
 
 
 def solve_mg(levels: List[MGLevel], S0=None, tol: float = 1e-6,
@@ -908,6 +938,17 @@ def solve_mg(levels: List[MGLevel], S0=None, tol: float = 1e-6,
     when the budget or the stagnation guard ended the solve with ``res``
     above ``tol`` (any member, for batched solves).
     """
+    return _solve_stages(levels, S0, tol, max_cycles, nu1, nu2,
+                         coarse_iters, alpha, smoother, g0, accel, fmg)
+
+
+def _solve_stages(levels, S0, tol, max_cycles, nu1, nu2, coarse_iters,
+                  alpha, smoother, g0, accel, fmg, vcycle=None, state=None):
+    """:func:`solve_mg`'s body: the defaults, the batch, and the plain and
+    Krylov stages.  A sharded pyramid passes its ``vcycle`` (the nested
+    start's and the Krylov preconditioner's) and the ``state`` that keeps
+    the plain stage's state on its blocks (:func:`_solve_mg`); None: the
+    meshless ones."""
     spec = levels[0].spec
     nd = spec.ndim
     if smoother is None:
@@ -945,10 +986,12 @@ def solve_mg(levels: List[MGLevel], S0=None, tol: float = 1e-6,
         if rescue and (res_f < tol if batched else not res_f >= tol):
             break
         if krylov:
-            S, k, res = _solve_mg_krylov(levels, S, g0, tol, max_cycles, **kw)
+            S, k, res = _solve_mg_krylov(levels, S, g0, tol, max_cycles,
+                                         vcycle=vcycle, **kw)
         else:
             S, k, res = _solve_mg(levels, S, g0, tol, max_cycles,
-                                  fmg=bool(fmg), **kw)
+                                  fmg=bool(fmg), vcycle=vcycle, state=state,
+                                  **kw)
         # a batch reports its slowest member's cycles and worst residual
         k_tot += int(torch.max(k))
         res_f = float(torch.max(res))

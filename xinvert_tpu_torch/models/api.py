@@ -592,9 +592,8 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
     start.
 
     ``iParams["mesh"]`` is not read: the pyramid is solved whole on the
-    solve's device, as the JAX package's ``_invert_mg`` does.  A sharded
-    pyramid (``shard_mg_levels`` / ``solve_mg_sharded``) is ROADMAP queue A
-    item 17.
+    solve's device, as the JAX package's ``_invert_mg`` does; a pyramid
+    runs on a mesh through ``parallel.solve_mg_sharded``.
     """
     from ..mg import solve_mg
 

@@ -70,7 +70,8 @@ __all__ = ["sor2d_sweeps", "sor2d_sweeps_tiled",
            "make_block_sweeper", "block_partials", "relax_plane", "MAX_K"]
 
 MAX_K = 16          # offsets the color-sweep kernel takes (csrc SOR2D_MAX_K)
-_MAX_BATCH = 65535  # batch slices per launch (a grid dimension)
+_MAX_BATCH = 65535  # batch slices the first version's launches take (a grid
+#                     dimension); the tiled kernels walk any batch
 MAX_TILED_SWEEPS = 8  # sweeps per tiled launch (csrc TILED_MAX_SWEEPS)
 
 #: sweeps take the in-place kernel for eligible specs (off by default, as
@@ -482,9 +483,8 @@ def _layout(spec, S, rel=None):
     if ny < nmin or nx < nmin:
         raise ValueError(f"grid {ny}x{nx} is below the {nmin}x{nmin} "
                          "the kernels take")
-    if not 1 <= lay["B"] <= _MAX_BATCH:
-        raise ValueError(f"batch of {lay['B']} slices; the kernels take 1.."
-                         f"{_MAX_BATCH}")
+    if lay["B"] < 1:
+        raise ValueError("an empty batch; the kernels take one slice or more")
     from ._build import load
     lib = load("sor2d")
     sfx = "f32" if S.dtype == torch.float32 else "f64"
@@ -518,7 +518,12 @@ def _slices_per_block(lay, plan, S, core=None):
     """Batch slices each block walks: one where no plane is shared; where
     the batch shares a plane (its coefficients then stay in registers from
     slice to slice), as many as leave two blocks per SM to go round.
-    ``core``: the cells the tiles cover (the owned region of a block)."""
+    ``core``: the cells the tiles cover (the owned region of a block).
+    The launch's grid z, ceil(B / spb), stays at or under the grid's
+    65 535 in both branches: ceil(B / 65535) slices a block bound it in
+    the first, and at most 2 x SMs groups in the second.  Slice offsets
+    are 64-bit in the kernel; a slice's plane must stay under 2^31
+    cells."""
     B = lay["B"]
     if B == 1 or all(lay[f"{p}_bstride"] for p in ("w", "w0", "g", "relax")):
         return max(1, -(-B // _MAX_BATCH))
@@ -564,9 +569,19 @@ def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def _first_version_batch(lay, name):
+    """The first version's launches map the batch onto a grid dimension:
+    they take at most ``_MAX_BATCH`` slices (the tiled kernels walk any
+    batch in steps of ``spb`` slices a block)."""
+    if lay["B"] > _MAX_BATCH:
+        raise ValueError(f"batch of {lay['B']} slices; {name} takes 1.."
+                         f"{_MAX_BATCH} (the tiled kernels take any batch)")
+
+
 def _launch_extend(spec, lay, A):
     """sor2d_extend_rows on the (B, ny, nx) buffer A, in place."""
     global EXTEND_LAUNCHES
+    _first_version_batch(lay, "sor2d_extend_rows")
     err = lay["extend_fn"](A.data_ptr(), lay["B"], lay["ny"], lay["nx"],
                            int(spec.bcs[-1] == "periodic"), int(spec.bih),
                            lay["stream"])
@@ -591,6 +606,7 @@ def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
                         partials=None):
     """sor2d_color_sweep: S_out = half-sweep ``color`` of S_in."""
     global LAUNCHES
+    _first_version_batch(lay, "sor2d_color_sweep")
     err = lay["sweep_fn"](S_in.data_ptr(), S_out.data_ptr(),
                           *_plane_args(spec, lay, rel, partials), int(color),
                           float(fac), lay["stream"])
@@ -604,6 +620,7 @@ def _launch_color_sweep_inplace(spec, lay, rel, S, color, fac=1.0,
                                 partials=None):
     """sor2d_color_sweep_inplace: half-sweep ``color`` of S, in place."""
     global INPLACE_LAUNCHES
+    _first_version_batch(lay, "sor2d_color_sweep_inplace")
     err = lay["inplace_fn"](S.data_ptr(),
                             *_plane_args(spec, lay, rel, partials),
                             int(color), float(fac), lay["stream"])

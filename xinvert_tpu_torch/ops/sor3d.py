@@ -62,7 +62,8 @@ __all__ = ["sor3d_sweeps", "sor3d_sweeps_pair", "sor3d_sweeps_reference",
            "block_plan", "make_block_sweeper", "relax_plane", "MAX_K"]
 
 MAX_K = 8            # offsets the color-sweep kernel takes (csrc SOR3D_MAX_K)
-_MAX_GRID = 65535    # batch slices and interior levels per launch (grid dims)
+_MAX_GRID = 65535    # batch slices and interior levels sor3d_extend_rows
+#                      takes (grid dims); the sweeps walk any batch
 
 LAUNCHES = 0         # sor3d_color_sweep kernel launches
 BLOCK_LAUNCHES = 0   # sor3d_block_sweep kernel launches (B5s)
@@ -171,10 +172,8 @@ def _layout(spec, S, rel=None):
     if min(lay["core"]) < 3:
         raise ValueError(f"volume {nz}x{ny}x{nx} is below the 3x3x3 the "
                          "kernels take")
-    if not 1 <= lay["B"] <= _MAX_GRID or nz - 2 > _MAX_GRID:
-        raise ValueError(f"{lay['B']} batch slices of {nz} levels; the "
-                         f"kernels take 1..{_MAX_GRID} slices of at most "
-                         f"{_MAX_GRID + 2} levels")
+    if lay["B"] < 1:
+        raise ValueError("an empty batch; the kernels take one slice or more")
     from ._build import load
     lib = load("sor3d")
     sfx = "f32" if S.dtype == torch.float32 else "f64"
@@ -190,8 +189,15 @@ def _layout(spec, S, rel=None):
 
 
 def _launch_extend(spec, lay, A):
-    """sor3d_extend_rows on the (B, nz, ny, nx) buffer A, in place."""
+    """sor3d_extend_rows on the (B, nz, ny, nx) buffer A, in place.  Its
+    grid maps the slices and the interior levels onto grid dimensions, so
+    it alone takes at most ``_MAX_GRID`` of each (the color sweeps walk
+    (slice, level) pairs in steps of the grid, the block sweep slices)."""
     global EXTEND_LAUNCHES
+    if lay["B"] > _MAX_GRID or lay["nz"] - 2 > _MAX_GRID:
+        raise ValueError(f"{lay['B']} batch slices of {lay['nz']} levels; "
+                         f"sor3d_extend_rows takes 1..{_MAX_GRID} slices of "
+                         f"at most {_MAX_GRID + 2} levels")
     err = lay["extend_fn"](A.data_ptr(), lay["B"], lay["nz"], lay["ny"],
                            lay["nx"], int(spec.bcs[-1] == "periodic"),
                            lay["stream"])

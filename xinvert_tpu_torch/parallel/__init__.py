@@ -10,12 +10,14 @@ core grid over ('y', 'x').  Every sharded solve runs one block executor
 are exchanged every k sweeps, by device copies on a local mesh or
 ``torch.distributed`` point-to-point on a distributed one; the convergence
 norm is the blocks' |S| partials, gathered.  ``scheme="lexico"`` and the
-multigrid entries solve whole, as the JAX package's do; the sharded pyramid
-(``shard_mg_levels``, ``solve_mg_sharded``) is ROADMAP queue A item 17.
+multigrid entries solve whole, as the JAX package's do;
+``solve_mg_sharded`` runs a multigrid pyramid on the mesh
+(``shard_mg_levels`` places it: its leading levels on blocks, the coarse
+ones whole; :mod:`.pyramid`).
 """
 from .mesh import (                                              # noqa: F401
     make_grid_mesh, shard_problem, solve_sharded, solve_fixed_sharded,
-    problem_pspecs,
+    problem_pspecs, shard_mg_levels, solve_mg_sharded,
 )
 from .halo import solve_fixed_halo                               # noqa: F401
 from .halo_window import (                                       # noqa: F401

@@ -116,11 +116,17 @@ def _ghosts(spec, dtype, ys, xs, nd, k):
 class Decomposition:
     """The blocks of a (spec, state shape) over ``mesh``.  ``checked``
     aligns rows to 8 and columns to 32 (the |S| partials' blocks);
-    ``device`` is where the caller's tensors live, and the device of this
-    rank's block on a distributed mesh."""
+    ``sizes`` = (rows, columns) gives the blocks' extents on the 'y' and
+    'x' axes instead (a multigrid level's plan); ``device`` is where the
+    caller's tensors live, and the device of this rank's block on a
+    distributed mesh.  ``replicate``: a 'batch' axis that does not divide
+    the slices gives every batch row of blocks all of them (each row
+    computes the same), as the JAX package's ``_fit_pspec`` replicates a
+    dim its mesh does not divide; without it such an axis raises."""
 
     def __init__(self, spec, S_shape, mesh: Mesh, k=None, checked=True,
-                 device=None, dtype=torch.float64):
+                 device=None, dtype=torch.float64, sizes=None,
+                 replicate=False):
         if not set(mesh.shape) <= set(AXES):
             raise ValueError(f"mesh axes must be named 'batch'/'y'/'x', got "
                              f"{tuple(mesh.shape)}")
@@ -132,12 +138,16 @@ class Decomposition:
         self.batch_shape = tuple(S_shape[:len(S_shape) - nd])
         self.B = math.prod(self.batch_shape)
         self.mb, self.my, self.mx = (mesh.shape.get(a, 1) for a in AXES)
-        if self.B % self.mb:
+        self.replicated = bool(self.B % self.mb)
+        if self.replicated and not replicate:
             raise ValueError(f"batch axis {self.mb} does not divide "
                              f"{self.B} slices")
         ny, nx = self.core[-2:]
-        self.ys = block_sizes(ny, self.my, 8 if checked else 1)
-        self.xs = block_sizes(nx, self.mx, 32 if checked else 1)
+        if sizes is None:
+            self.ys = block_sizes(ny, self.my, 8 if checked else 1)
+            self.xs = block_sizes(nx, self.mx, 32 if checked else 1)
+        else:
+            self.ys, self.xs = (list(s) for s in sizes)
         self.k, self.gy, self.gx = _ghosts(spec, dtype, self.ys, self.xs,
                                            nd, k)
         self.mesh = mesh
@@ -150,7 +160,7 @@ class Decomposition:
                     dist.get_world_size())):
                 raise ValueError("a distributed mesh lists every rank of "
                                  "the world once")
-        bb = self.B // self.mb
+        bb = self.B if self.replicated else self.B // self.mb
         oys = [sum(self.ys[:i]) for i in range(self.my)]
         oxs = [sum(self.xs[:i]) for i in range(self.mx)]
         self.blocks = {}
@@ -163,8 +173,9 @@ class Decomposition:
                     rank = entry if mesh.distributed else None
                     dev = (entry if not mesh.distributed
                            else (device if rank == me else None))
+                    b0 = 0 if self.replicated else ib * bb
                     self.blocks[(ib, iy, ix)] = Block(
-                        (ib, iy, ix), ib * bb, (ib + 1) * bb, oys[iy],
+                        (ib, iy, ix), b0, b0 + bb, oys[iy],
                         self.ys[iy], oxs[ix], self.xs[ix], rank, dev)
         self.local = [b for b in self.blocks.values() if b.device is not None]
 
@@ -217,23 +228,26 @@ class Decomposition:
             return self.blocks[(ib, iy, (ix + step) % self.mx)]
         return self.blocks[(ib, (iy + step) % self.my, ix)]
 
-    def exchange(self, bufs):
+    def exchange(self, bufs, widths=None):
         """Fill the ghost rings of this process's padded buffers (a dict
         block index -> tensor (..., py, px)), x first, then the rows of the
-        column-padded blocks; returns the bytes received."""
+        column-padded blocks; returns the bytes received.  ``widths`` =
+        (gy, gx): the buffers' rings, when not the executor's (a
+        multigrid transfer's ring of one)."""
+        gy, gx = (self.gy, self.gx) if widths is None else widths
         nbytes = 0
-        for axis, m, g in (("x", self.mx, self.gx), ("y", self.my, self.gy)):
+        for axis, m, g in (("x", self.mx, gx), ("y", self.my, gy)):
             if m > 1:
-                nbytes += (self._pass_dist(bufs, axis, g) if self.distributed
-                           else self._pass_local(bufs, axis, g))
+                nbytes += (self._pass_dist(bufs, axis, g, gy)
+                           if self.distributed
+                           else self._pass_local(bufs, axis, g, gy))
         return nbytes
 
-    def _edges(self, b, axis, g):
+    def _edges(self, b, axis, g, gy):
         """(lo ghost, hi ghost, first g owned lines, last g owned lines) of
         block b's buffer along ``axis``, as index tuples over the last two
-        dims (the x pass spans the owned rows, the y pass the full
-        column-padded width)."""
-        gy, gx = self.gy, self.gx
+        dims (the x pass spans the owned rows below ``gy`` ghost rows, the
+        y pass the full column-padded width)."""
         if axis == "x":
             rows = slice(gy, gy + b.by)
             n = b.bx
@@ -244,27 +258,27 @@ class Decomposition:
                 (slice(g + n, n + 2 * g), slice(None)),
                 (slice(g, 2 * g), slice(None)), (slice(n, n + g), slice(None)))
 
-    def _pass_local(self, bufs, axis, g):
+    def _pass_local(self, bufs, axis, g, gy):
         nbytes = 0
         for b in self.local:
             P = bufs[b.index]
-            lo_g, hi_g, _, _ = self._edges(b, axis, g)
+            lo_g, hi_g, _, _ = self._edges(b, axis, g, gy)
             lo_b, hi_b = self._neighbor(b, axis, -1), self._neighbor(b, axis,
                                                                      1)
             src_lo = bufs[lo_b.index][(Ellipsis,)
-                                      + self._edges(lo_b, axis, g)[3]]
+                                      + self._edges(lo_b, axis, g, gy)[3]]
             src_hi = bufs[hi_b.index][(Ellipsis,)
-                                      + self._edges(hi_b, axis, g)[2]]
+                                      + self._edges(hi_b, axis, g, gy)[2]]
             P[(Ellipsis,) + lo_g].copy_(src_lo)
             P[(Ellipsis,) + hi_g].copy_(src_hi)
             nbytes += 2 * src_lo.numel() * src_lo.element_size()
         return nbytes
 
-    def _pass_dist(self, bufs, axis, g):
+    def _pass_dist(self, bufs, axis, g, gy):
         import torch.distributed as dist
         (b,) = self.local
         P = bufs[b.index]
-        lo_g, hi_g, first, last = self._edges(b, axis, g)
+        lo_g, hi_g, first, last = self._edges(b, axis, g, gy)
         lo, hi = self._neighbor(b, axis, -1).rank, self._neighbor(b, axis,
                                                                   1).rank
         send_hi = P[(Ellipsis,) + last].contiguous()
@@ -320,13 +334,14 @@ class BlockExecutor:
     the whole grid's."""
 
     def __init__(self, spec: StencilSpec, S, mesh: Mesh, omega, k=None,
-                 checked=True):
+                 checked=True, sizes=None, replicate=False):
         from ..ops import sor2d, sor3d
         self.nd = spec.ndim
         self.home = S.device
         self.dtype = S.dtype
         self.dec = dec = Decomposition(spec, tuple(S.shape), mesh, k,
-                                       checked, S.device, S.dtype)
+                                       checked, S.device, S.dtype, sizes,
+                                       replicate)
         self.k = dec.k
         S = S.reshape((dec.B,) + dec.core)
         make = (sor2d if self.nd == 2 else sor3d).make_block_sweeper
@@ -365,10 +380,12 @@ class BlockExecutor:
 
     def _count_active(self, planes):
         """Active cells over the whole problem, summed over the blocks (a
-        plane the batch shares counted by the first batch block only)."""
+        plane the batch shares, or replicated slices, counted by the first
+        batch block only)."""
         n = 0
         for i, p in planes.items():
-            if p.active.dim() > self.nd or i[0] == 0:
+            if i[0] == 0 or (p.active.dim() > self.nd
+                             and not self.dec.replicated):
                 n += int(p.active.sum())
         if self.dec.distributed:
             import torch.distributed as dist
@@ -447,6 +464,32 @@ class BlockExecutor:
             p = block_partials(r)
             parts[i] = p.reshape((r.shape[0], -1) + tuple(p.shape[-2:]))
         return self.totals(parts) / self.n_active
+
+    def load_state(self, pieces):
+        """Put ``pieces`` (dict block index -> owned cells) into the blocks'
+        buffers and exchange their rings (None: every cell 0, rings
+        included)."""
+        for i, d in self.blocks.items():
+            if pieces is None:
+                d["A"].zero_()
+            else:
+                self.dec.own_view(d["A"], d["block"]).copy_(pieces[i])
+        if pieces is not None:
+            self._exchange_state()
+
+    def load_g(self, pieces):
+        """Replace the blocks' constant term g by ``pieces`` (dict block
+        index -> owned cells) and exchange its rings; the padded w, w0 and
+        relax stay, and the sweepers read the same buffer."""
+        bufs = {i: d["spec"].g for i, d in self.blocks.items()}
+        for i, d in self.blocks.items():
+            self.dec.own_view(bufs[i], d["block"]).copy_(pieces[i])
+        self.dec.exchange(bufs)
+
+    def own_g(self, i):
+        """Block i's current g on its owned cells."""
+        d = self.blocks[i]
+        return self.dec.own_view(d["spec"].g, d["block"])
 
     def snapshot(self):
         return {i: self.dec.own_view(d["A"], d["block"]).clone()

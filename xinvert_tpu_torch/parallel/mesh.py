@@ -27,8 +27,9 @@ on the card, their plain versions on the CPU).
 ``scheme="lexico"`` is solved whole: the reference's serial order has no
 block-parallel form, and the JAX package's GSPMD run computes exactly the
 meshless iterates.  The multigrid entries ignore the mesh, as the JAX
-package's do; the sharded pyramid (``shard_mg_levels``,
-``solve_mg_sharded``) is ROADMAP queue A item 17.
+package's do; :func:`solve_mg_sharded` runs a pyramid on the mesh, its
+leading levels on blocks (:func:`shard_mg_levels`,
+:mod:`xinvert_tpu_torch.parallel.pyramid`).
 """
 from __future__ import annotations
 
@@ -41,7 +42,8 @@ import torch
 from ..stencil import StencilSpec
 
 __all__ = ["Mesh", "make_grid_mesh", "problem_pspecs", "shard_problem",
-           "solve_sharded", "solve_fixed_sharded", "block_sizes"]
+           "solve_sharded", "solve_fixed_sharded", "block_sizes",
+           "shard_mg_levels", "solve_mg_sharded"]
 
 AXES = ("batch", "y", "x")
 
@@ -230,3 +232,45 @@ def solve_fixed_sharded(spec: StencilSpec, S0, n_iters: int,
         omega = optimal_omega(tuple(S0.shape[-spec.ndim:]))
     return solve_fixed_blocks(spec, S0, omega, n_iters, mesh, None,
                               "solve_fixed_sharded")
+
+
+def shard_mg_levels(levels, mesh: Mesh):
+    """Place a multigrid pyramid on ``mesh``: its levels as
+    :class:`~xinvert_tpu_torch.parallel.pyramid.ShardedLevel`, each with
+    its block plan (``.sizes``; ``.split``).  The leading levels are
+    *split*: rows over 'y' and columns over 'x', in blocks whose origins
+    halve from level to level.  From the first level whose origins are not
+    even where it restricts, or whose blocks are thinner than their ghost
+    ring, every level is *whole* and stays on the pyramid's device, as the
+    JAX package replicates the dims its mesh does not divide
+    (``_fit_pspec``).  :func:`solve_mg_sharded` runs the placed pyramid on
+    its mesh (the executors, built once a solve, pad each split level's
+    planes on the blocks' devices for the state's batch).  Each placed
+    level is still an ``MGLevel``, so ``mg.solve_mg`` solves them whole."""
+    from .pyramid import place
+    return place(levels, mesh)
+
+
+def solve_mg_sharded(levels, S0=None, mesh: Optional[Mesh] = None, g0=None,
+                     **kw):
+    """:func:`xinvert_tpu_torch.mg.solve_mg` with the pyramid on ``mesh``
+    (``kw``: its arguments), with its semantics: the residual test, the
+    stall guard, batch members frozen by their own tests, ``fmg``,
+    ``accel``, ``alpha`` and the stamped smoother.  ``levels``: a pyramid,
+    or one :func:`shard_mg_levels` placed (on ``mesh``, or on any mesh
+    when ``mesh`` is None).  ``S0``/``g0`` may carry a leading batch axis,
+    split over 'batch' where that axis divides it and replicated over it
+    elsewhere.  The split levels smooth on their blocks: point smoothing
+    through the block kernels (their plain versions on CPU tensors), zebra
+    lines block by block or, along a split axis, gathered; residual and
+    transfers on the blocks with rings of one cell; the whole levels run
+    the meshless V-cycle.  Returns ``(S, cycles, res, converged)`` on the
+    pyramid's device, on every rank of a distributed mesh.  ``mesh=None``
+    takes :func:`make_grid_mesh`'s, which never falls back to the CPU."""
+    from .pyramid import ShardedLevel, solve
+    placed = isinstance(levels[0], ShardedLevel)
+    if mesh is None:
+        mesh = levels[0].mesh if placed else make_grid_mesh()
+    if not placed or levels[0].mesh is not mesh:
+        levels = shard_mg_levels(levels, mesh)
+    return solve(levels, S0, g0, kw)
