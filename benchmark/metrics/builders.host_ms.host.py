@@ -1,0 +1,2 @@
+"""builders.host_ms.host: the builders' host time a call (moves fields_per_s.host)."""
+from benchmark.harness.readers import builders_host_ms as read  # noqa: F401

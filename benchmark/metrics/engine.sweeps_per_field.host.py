@@ -1,0 +1,2 @@
+"""engine.sweeps_per_field.host: sweeps the engine reports a field (moves fields_per_s.host)."""
+from benchmark.harness.readers import engine_sweeps_per_field as read  # noqa: F401
