@@ -167,7 +167,7 @@ import numpy as np
 import torch
 
 import xinvert_tpu_torch as xt
-from xinvert_tpu_torch import mg
+from xinvert_tpu_torch import mg, telemetry
 from xinvert_tpu_torch.grid import Grid
 from xinvert_tpu_torch.models import api, problems
 from xinvert_tpu_torch.models.params import default_mParams
@@ -1680,8 +1680,15 @@ def phase3_direct(sor, dev):
     for dt in (torch.float32, torch.float64):
         name = (f"direct invert_Poisson 720x1440 0.25-degree, a 2000-cell "
                 f"island, {str(dt)[6:]}")
-        out, res, wall = _direct(name, isl, iP, dt)
-        split = dict(direct.LAST_MASKED_SECONDS)
+        telemetry.drain()
+        telemetry.enable()
+        try:
+            out, res, wall = _direct(name, isl, iP, dt)
+        finally:
+            telemetry.disable()
+        split = {n[len("engine.direct."):]: (e - s) / 1e9
+                 for n, s, e, _, _ in telemetry.drain()
+                 if n.startswith("engine.direct.")}
         masked[dt] = (out.values, float(res.rel_change))
         log(f"[3] {name}: capacitance path, wall {wall:.3f} s: the unmasked "
             f"and unit solves {split['unit']:.3f} s ({-(-holes // 256)} "

@@ -15,7 +15,7 @@ plain versions and, on local meshes that repeat the card, to the meshless
 sweeps and solves; batches over 65 535 slices through the main-path
 kernels; the sharded multigrid pyramid (solve_mg_sharded) on local meshes
 of the card, over several cards and under NCCL, equal to the meshless
-solve.  Every test here needs an NVIDIA GPU (marker
+solve; the copy and sync counters of a traced call.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -1641,3 +1641,61 @@ def test_nccl_solve_mg_sharded_equals_meshless(cuda, tmp_path):
         assert bool(g["up"]) and int(g["k"]) == k
         assert float(g["res"]) == res
         assert np.array_equal(g["S"], S.cpu().numpy())
+
+
+@pytest.mark.parametrize("kind", ["poisson", "omega"])
+def test_copies_and_syncs_counted_on_the_card(cuda, kind):
+    """A traced float32 call on the card: the copy counters grow by the
+    forcing and the initial state up and the solution down, a plane each
+    a field, and the batch-invariant mask up once; one ``copy.*`` span a
+    copy; the ``engine.sync`` spans equal the growth of
+    ``solver.HOST_SYNCS``, one more than the ``engine.window`` spans."""
+    from xinvert_tpu_torch import solver, telemetry
+    from xinvert_tpu_torch.models import api
+    batch = 3
+    if kind == "poisson":
+        core = (73, 144)
+        lat = np.linspace(-90.0, 90.0, 73)
+        lon = np.arange(144) * 2.5
+        v = (np.cos(np.deg2rad(lat))[:, None] ** 2
+             * np.sin(2 * np.deg2rad(lon))[None, :])[None] \
+            * np.arange(1.0, batch + 1)[:, None, None] * 1e-5
+        v[:, 20:30, 40:60] = np.nan
+        dims, coords = ["lat", "lon"], {"lat": lat, "lon": lon}
+        iP = {"BCs": ["extend", "periodic"], "undef": np.nan}
+        entry, mP = xt.invert_Poisson, None
+    else:
+        core = (9, 24, 48)
+        lev = np.linspace(100000.0, 10000.0, 9)
+        lat = np.linspace(-86.25, 86.25, 24)
+        lon = np.arange(48) * 7.5
+        v = (np.sin(np.pi * (1e5 - lev) / 9e4)[:, None, None]
+             * np.cos(np.deg2rad(lat))[None, :, None]
+             * np.sin(4 * np.deg2rad(lon))[None, None, :])[None] \
+            * np.arange(1.0, batch + 1)[:, None, None, None] * 1e-15
+        dims = ["LEV", "lat", "lon"]
+        coords = {"LEV": lev, "lat": lat, "lon": lon}
+        iP = {"BCs": ["fixed", "fixed", "periodic"]}
+        entry = xt.invert_omega
+        mP = {"N2": xt.Field(np.full(9, 2e-5), ("LEV",), {"LEV": lev})}
+    F = xt.Field(v.astype(np.float32), ["time"] + dims,
+                 dict(coords, time=np.arange(batch)))
+    iP.update(mxLoop=5000, tolerance=1e-6, printInfo=False)
+    entry(F, dims=dims, iParams=iP, mParams=mP)          # warm
+    h2d, d2h = telemetry.H2D_BYTES, telemetry.D2H_BYTES
+    syncs = solver.HOST_SYNCS
+    telemetry.drain()
+    telemetry.enable()
+    try:
+        entry(F, dims=dims, iParams=iP, mParams=mP)
+    finally:
+        telemetry.disable()
+    spans = telemetry.drain()
+    names = [s[0] for s in spans]
+    plane = batch * int(np.prod(core)) * 4
+    assert telemetry.H2D_BYTES - h2d == 2 * plane + int(np.prod(core))
+    assert telemetry.D2H_BYTES - d2h == plane
+    assert (names.count("copy.h2d"), names.count("copy.d2h")) == (3, 1)
+    assert names.count("engine.sync") == solver.HOST_SYNCS - syncs \
+        == names.count("engine.window") + 1
+    assert int(api.LAST_SOLVE.iters.max()) < 5000

@@ -43,6 +43,7 @@ from xinvert_tpu.models import problems as jproblems  # noqa: E402
 from xinvert_tpu.models.params import default_mParams  # noqa: E402
 from xinvert_tpu.ops import direct as jdirect  # noqa: E402
 from xinvert_tpu_torch import solver as tsolver  # noqa: E402
+from xinvert_tpu_torch import telemetry  # noqa: E402
 from xinvert_tpu_torch.field import Field  # noqa: E402
 from xinvert_tpu_torch.ops import direct as tdirect  # noqa: E402
 from xinvert_tpu_torch.stencil import StencilSpec  # noqa: E402
@@ -271,14 +272,21 @@ def test_masked_matches_jax_at_machine_precision(bcs):
     tf = _port(full)
     assert tdirect.masked_direct_applicable(tf, holes)
     S0 = np.zeros((ny, nx))
-    got = tdirect.solve_direct_masked(tf, holes, torch.as_tensor(S0))
+    telemetry.drain()
+    telemetry.enable()
+    try:
+        got = tdirect.solve_direct_masked(tf, holes, torch.as_tensor(S0))
+    finally:
+        telemetry.disable()
+    spans = telemetry.drain()
     _close(got, jdirect.solve_direct_masked(full, holes, jnp.asarray(S0)))
     tm = _port(masked)
     res = torch.where(tm.active, tsolver._neighbor_sum(tm, got)
                       + tm.w0 * got, 0.0)
     assert float(res.abs().max()) < 1e-11 * float(tm.g.abs().max())
     assert float(got[torch.as_tensor(holes)].abs().max()) == 0.0
-    assert set(tdirect.LAST_MASKED_SECONDS) == {"unit", "dense"}
+    assert [s[0] for s in spans] == ["engine.direct.unit",
+                                     "engine.direct.dense"]
 
 
 def test_masked_batch_shares_capacitance():

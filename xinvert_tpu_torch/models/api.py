@@ -33,6 +33,7 @@ import warnings
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..field import Field, as_field
 from ..grid import Grid
 from ..solver import SolveResult, direct_result, solve, solve_trajectory
@@ -259,7 +260,7 @@ def _spec_to(spec, device):
     if spec.w.device == device:
         return spec
     return dataclasses.replace(
-        spec, **{n: getattr(spec, n).to(device)
+        spec, **{n: telemetry.to_device(getattr(spec, n), device)
                  for n in ("w", "w0", "g", "relax", "active")})
 
 
@@ -282,141 +283,159 @@ def _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr, spec, S0):
     # independent of g at the holes (they are pinned), so zero-fill there
     vals_f = np.where(Fdef_np, np.nan_to_num(vals), 0.0).astype(vals.dtype)
     device = S0.device
-    spec_full = problems.BUILDERS[problem_key](
-        torch.as_tensor(vals_f, device=device),
-        torch.ones(grid.shape, dtype=torch.bool, device=device), grid, mPr)
-    if not masked_direct_applicable(spec_full, holes,
-                                    S_shape=tuple(S0.shape)):
-        return None
-    return direct_result(spec, solve_direct_masked(spec_full, holes, S0))
+    with telemetry.span("engine.solve"):
+        spec_full = problems.BUILDERS[problem_key](
+            telemetry.to_device(vals_f, device),
+            torch.ones(grid.shape, dtype=torch.bool, device=device), grid,
+            mPr)
+        if not masked_direct_applicable(spec_full, holes,
+                                        S_shape=tuple(S0.shape)):
+            return None
+        return direct_result(spec, solve_direct_masked(spec_full, holes,
+                                                       S0))
 
 
 def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
             ndim, device=None):
-    dims = [dims] if isinstance(dims, str) else list(dims)
-    if len(dims) != ndim:
-        raise ValueError(f"{ndim:2d} dimensional forcing are needed")
-    iP = merge_params(default_iParams, iParams)
-    refined = iP.get("tolType", "change") == "refined"
-    stream = bool(iP.get("streamChunk"))
-    if refined and stream:
-        # refinement keeps a resident double-float32 state; the streaming
-        # executor pages slices between host and device.  They do not
-        # compose: refuse instead of dropping one of them.
-        raise ValueError(
-            "tolType='refined' cannot be combined with streamChunk: "
-            "iterative refinement needs the (hi, lo) state resident on "
-            "device.  Drop streamChunk (refine in-core) or use "
-            "tolType='change'/'residual' for the streamed solve.")
-    validate = mParams is not None and mParams is not default_mParams
-    mP = merge_params(default_mParams, mParams,
-                      valid_mp if validate else None)
-    device = _resolve_device(device)
-    dtype = torch.get_default_dtype()
+    with telemetry.span("api.invert"):
+        dims = [dims] if isinstance(dims, str) else list(dims)
+        if len(dims) != ndim:
+            raise ValueError(f"{ndim:2d} dimensional forcing are needed")
+        iP = merge_params(default_iParams, iParams)
+        refined = iP.get("tolType", "change") == "refined"
+        stream = bool(iP.get("streamChunk"))
+        if refined and stream:
+            # refinement keeps a resident double-float32 state; the
+            # streaming executor pages slices between host and device.
+            # They do not compose: refuse instead of dropping one of them.
+            raise ValueError(
+                "tolType='refined' cannot be combined with streamChunk: "
+                "iterative refinement needs the (hi, lo) state resident on "
+                "device.  Drop streamChunk (refine in-core) or use "
+                "tolType='change'/'residual' for the streamed solve.")
+        validate = mParams is not None and mParams is not default_mParams
+        mP = merge_params(default_mParams, mParams,
+                          valid_mp if validate else None)
+        device = _resolve_device(device)
+        dtype = torch.get_default_dtype()
 
-    ft, vals, Fdef, batch = _prepare(F, dims, iP)
-    bcs = _validate_bcs(iP, ndim)
-    grid = Grid.make(dims, [ft.coords[d] for d in dims], coords, bcs,
-                     rearth=mP["Rearth"])
-    mPr = _resolve_mp(mP, dims, grid.shape)
+        with telemetry.span("api.prepare"):
+            ft, vals, Fdef, batch = _prepare(F, dims, iP)
+            bcs = _validate_bcs(iP, ndim)
+            grid = Grid.make(dims, [ft.coords[d] for d in dims], coords,
+                             bcs, rearth=mP["Rearth"])
+            mPr = _resolve_mp(mP, dims, grid.shape)
+            Fdef_c = _collapse_mask(Fdef, ndim)
+        # a streamed batch lives on the host: its spec is built there and
+        # solve_streamed sends it to the device a chunk at a time
+        spec_dev = torch.device("cpu") if stream else device
+        vals_t = telemetry.to_device(vals, spec_dev)
+        Fdef_t = telemetry.to_device(Fdef_c, spec_dev)
+        with telemetry.span("builders.build"):
+            spec = problems.BUILDERS[problem_key](vals_t, Fdef_t, grid, mPr)
+        del vals_t, Fdef_t          # the spec holds what it keeps of them
+        with telemetry.span("api.init_state"):
+            S0 = _init_state(vals, Fdef, icbc, grid, ft,
+                             warm=bool(iP.get("warmStart", False)))
+        if iP["optArg"] is not None:
+            omega = iP["optArg"]
+        else:
+            omega = _AUTO_OMEGA.get(problem_key, grid.omega_opt)
 
-    Fdef_c = _collapse_mask(Fdef, ndim)
-    # a streamed batch lives on the host: its spec is built there and
-    # solve_streamed sends it to the device a chunk at a time
-    spec_dev = torch.device("cpu") if stream else device
-    spec = problems.BUILDERS[problem_key](
-        torch.as_tensor(vals, device=spec_dev),
-        torch.as_tensor(Fdef_c, device=spec_dev), grid, mPr)
-    S0 = _init_state(vals, Fdef, icbc, grid, ft,
-                     warm=bool(iP.get("warmStart", False)))
-    if iP["optArg"] is not None:
-        omega = iP["optArg"]
-    else:
-        omega = _AUTO_OMEGA.get(problem_key, grid.omega_opt)
+        if iP.get("debug"):
+            print(f"dim grids  : {grid.shape}\ndim intervs: {grid.deltas}\n"
+                  f"optArg     : {omega}\nmax loops  : {iP['mxLoop']}\n"
+                  f"tolerance  : {iP['tolerance']}\nboundaries : {grid.bcs}")
 
-    if iP.get("debug"):
-        print(f"dim grids  : {grid.shape}\ndim intervs: {grid.deltas}\n"
-              f"optArg     : {omega}\nmax loops  : {iP['mxLoop']}\n"
-              f"tolerance  : {iP['tolerance']}\nboundaries : {grid.bcs}")
+        S0_t = telemetry.to_device(S0, spec_dev)
+        res = None
+        if iP.get("scheme", "sor") == "direct":
+            # the capacitance path solves the whole batch resident on the
+            # device, streamed or not (a declined attempt leaves its
+            # engine.solve span too)
+            res = _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr,
+                                     _spec_to(spec, device),
+                                     telemetry.to_device(S0_t, device))
+            if res is None and grid.ndim == 2 \
+                    and not bool(np.all(np.asarray(Fdef_c))):
+                # a masked domain the capacitance-matrix path declined
+                # (hole count past the dense budget, as a realistic
+                # land/sea mask has, or a non-separable operator): the
+                # iterative solve, with a warning, under the requested
+                # tolerance semantics
+                warnings.warn(
+                    "scheme='direct' declined for this masked domain (hole "
+                    "count exceeds the dense capacitance budget or the "
+                    "operator is not x-invariant); falling back to the "
+                    "iterative SOR solve.  Use an *_mg entry point for "
+                    "residual-certified convergence on large masked grids.")
+                iP = dict(iP)
+                iP["scheme"] = "sor"
+        if res is None and refined:
+            # mixed-precision iterative refinement (refine.solve_refined):
+            # a double-float32 state and EFT-certified residuals;
+            # `tolerance` is the certified relative residual, `mxLoop`
+            # bounds each inner correction solve
+            from ..refine import solve_refined
+            global LAST_REFINE
+            with telemetry.span("engine.solve"):
+                r = solve_refined(spec, S0_t, omega=omega,
+                                  tol=iP["tolerance"],
+                                  inner_iters=iP["mxLoop"],
+                                  mesh=iP.get("mesh"))
+            LAST_REFINE = r
+            rel = r.rel_residual
+            res = SolveResult(
+                S=r.S_hi,       # the correctly rounded float32 word; the
+                # (hi, lo) pair stays in LAST_REFINE
+                iters=torch.full(rel.shape, r.rounds, dtype=torch.int32,
+                                 device=rel.device),
+                rel_change=rel, overflow=~torch.isfinite(rel))
+        check_every = _auto_check_every(iParams, iP, device, dtype)
+        if res is None and stream:
+            # out-of-core batch: slices stream through the device a chunk
+            # at a time (stream.solve_streamed; bit-identical to the
+            # resident solve)
+            from ..stream import solve_streamed
+            with telemetry.span("engine.solve"):
+                res = solve_streamed(spec, S0_t, omega, tol=iP["tolerance"],
+                                     max_iters=iP["mxLoop"],
+                                     chunk=int(iP["streamChunk"]),
+                                     check_every=check_every,
+                                     scheme=iP.get("scheme", "sor"),
+                                     tol_type=iP.get("tolType", "change"),
+                                     device=device)
+        if res is None and iP.get("mesh") is not None:
+            # multi-device: the block executor (parallel/); every rank
+            # passes the whole forcing, takes its blocks and returns the
+            # whole field
+            with telemetry.span("engine.solve"):
+                res = _solve_on_mesh(spec, S0_t, omega, iP, check_every)
+        if res is None:
+            res = solve(spec, S0_t, omega=omega, tol=iP["tolerance"],
+                        max_iters=iP["mxLoop"], check_every=check_every,
+                        scheme=iP.get("scheme", "sor"),
+                        tol_type=iP.get("tolType", "change"))
+        global LAST_SOLVE
+        LAST_SOLVE = res
 
-    S0_t = torch.as_tensor(S0, device=spec_dev)
-    res = None
-    if iP.get("scheme", "sor") == "direct":
-        # the capacitance path solves the whole batch resident on the
-        # device, streamed or not
-        res = _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr,
-                                 _spec_to(spec, device), S0_t.to(device))
-        if res is None and grid.ndim == 2 \
-                and not bool(np.all(np.asarray(Fdef_c))):
-            # a masked domain the capacitance-matrix path declined (hole
-            # count past the dense budget, as a realistic land/sea mask
-            # has, or a non-separable operator): the iterative solve, with
-            # a warning, under the requested tolerance semantics
-            warnings.warn(
-                "scheme='direct' declined for this masked domain (hole "
-                "count exceeds the dense capacitance budget or the "
-                "operator is not x-invariant); falling back to the "
-                "iterative SOR solve.  Use an *_mg entry point for "
-                "residual-certified convergence on large masked grids.")
-            iP = dict(iP)
-            iP["scheme"] = "sor"
-    if res is None and refined:
-        # mixed-precision iterative refinement (refine.solve_refined): a
-        # double-float32 state and EFT-certified residuals; `tolerance` is
-        # the certified relative residual, `mxLoop` bounds each inner
-        # correction solve
-        from ..refine import solve_refined
-        global LAST_REFINE
-        r = solve_refined(spec, S0_t, omega=omega, tol=iP["tolerance"],
-                          inner_iters=iP["mxLoop"], mesh=iP.get("mesh"))
-        LAST_REFINE = r
-        rel = r.rel_residual
-        res = SolveResult(
-            S=r.S_hi,           # the correctly rounded float32 word; the
-            # (hi, lo) pair stays in LAST_REFINE
-            iters=torch.full(rel.shape, r.rounds, dtype=torch.int32,
-                             device=rel.device),
-            rel_change=rel, overflow=~torch.isfinite(rel))
-    check_every = _auto_check_every(iParams, iP, device, dtype)
-    if res is None and stream:
-        # out-of-core batch: slices stream through the device a chunk at a
-        # time (stream.solve_streamed; bit-identical to the resident solve)
-        from ..stream import solve_streamed
-        res = solve_streamed(spec, S0_t, omega, tol=iP["tolerance"],
-                             max_iters=iP["mxLoop"],
-                             chunk=int(iP["streamChunk"]),
-                             check_every=check_every,
-                             scheme=iP.get("scheme", "sor"),
-                             tol_type=iP.get("tolType", "change"),
-                             device=device)
-    if res is None and iP.get("mesh") is not None:
-        # multi-device: the block executor (parallel/); every rank passes
-        # the whole forcing, takes its blocks and returns the whole field
-        res = _solve_on_mesh(spec, S0_t, omega, iP, check_every)
-    if res is None:
-        res = solve(spec, S0_t, omega=omega, tol=iP["tolerance"],
-                    max_iters=iP["mxLoop"], check_every=check_every,
-                    scheme=iP.get("scheme", "sor"),
-                    tol_type=iP.get("tolType", "change"))
-    global LAST_SOLVE
-    LAST_SOLVE = res
-    S = res.S.cpu().numpy()
+        with telemetry.span("api.finish"):
+            S = telemetry.to_host(res.S).numpy()
+            if iP.get("printInfo"):
+                iters = np.atleast_1d(telemetry.to_host(res.iters).numpy())
+                rel = np.atleast_1d(telemetry.to_host(res.rel_change).numpy())
+                ovf = np.atleast_1d(telemetry.to_host(res.overflow).numpy())
+                for i in range(iters.size):
+                    suffix = " (overflows!)" if ovf.flat[i] else ""
+                    print(f"loops {iters.flat[i]:4.0f} and tolerance is "
+                          f"{rel.flat[i]:e}{suffix}")
 
-    if iP.get("printInfo"):
-        iters = np.atleast_1d(res.iters.cpu().numpy())
-        rel = np.atleast_1d(res.rel_change.cpu().numpy())
-        ovf = np.atleast_1d(res.overflow.cpu().numpy())
-        for i in range(iters.size):
-            suffix = " (overflows!)" if ovf.flat[i] else ""
-            print(f"loops {iters.flat[i]:4.0f} and tolerance is "
-                  f"{rel.flat[i]:e}{suffix}")
-
-    if icbc is None:
-        S = np.where(Fdef, S, iP["undef"])
-    out = Field(S, ft.dims, ft.coords, name="inverted")
-    if out.dims != as_field(F).dims:
-        out = out.transpose(*as_field(F).dims)
-    return out
+            if icbc is None:
+                S = np.where(Fdef, S, iP["undef"])
+            out = Field(S, ft.dims, ft.coords, name="inverted")
+            if out.dims != as_field(F).dims:
+                out = out.transpose(*as_field(F).dims)
+            return out
 
 
 def invert_Poisson(F, dims, coords="lat-lon", icbc=None,
@@ -597,66 +616,77 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
     """
     from ..mg import solve_mg
 
-    dims = [dims] if isinstance(dims, str) else list(dims)
-    if len(dims) != ndim:
-        raise ValueError(f"{ndim:2d} dimensional forcing are needed")
-    iP = merge_params(default_iParams, iParams)
-    validate = mParams is not None and mParams is not default_mParams
-    mP = merge_params(default_mParams, mParams,
-                      valid_mp if validate else None)
-    device = _resolve_device(device)
-    ft, vals, Fdef, batch = _prepare(F, dims, iP)
-    bcs = _validate_bcs(iP, ndim)
-    grid = Grid.make(dims, [ft.coords[d] for d in dims], coords, bcs,
-                     rearth=mP["Rearth"])
-    mPr = _resolve_mp(mP, dims, grid.shape)
-    Fdef_c = _collapse_mask(Fdef, ndim)
-    if Fdef_c.ndim != ndim:
-        raise ValueError("the multigrid path needs a batch-invariant mask; "
-                         "use the SOR inverter for batch-varying masks")
+    with telemetry.span("api.invert"):
+        dims = [dims] if isinstance(dims, str) else list(dims)
+        if len(dims) != ndim:
+            raise ValueError(f"{ndim:2d} dimensional forcing are needed")
+        iP = merge_params(default_iParams, iParams)
+        validate = mParams is not None and mParams is not default_mParams
+        mP = merge_params(default_mParams, mParams,
+                          valid_mp if validate else None)
+        device = _resolve_device(device)
+        with telemetry.span("api.prepare"):
+            ft, vals, Fdef, batch = _prepare(F, dims, iP)
+            bcs = _validate_bcs(iP, ndim)
+            grid = Grid.make(dims, [ft.coords[d] for d in dims], coords,
+                             bcs, rearth=mP["Rearth"])
+            mPr = _resolve_mp(mP, dims, grid.shape)
+            Fdef_c = _collapse_mask(Fdef, ndim)
+        if Fdef_c.ndim != ndim:
+            raise ValueError("the multigrid path needs a batch-invariant "
+                             "mask; use the SOR inverter for batch-varying "
+                             "masks")
 
-    levels, g0 = build_levels(torch.as_tensor(vals, device=device),
-                              torch.as_tensor(Fdef_c, device=device),
-                              grid, mPr)
-    S0 = _init_state(vals, Fdef, icbc, grid, ft,
-                     warm=bool(iP.get("warmStart", False)))
-    # fmg: full-multigrid nested iteration warm-starts the V-cycle loop;
-    # disabled with an icbc warm start, which already provides the state
-    warm = bool(iP.get("warmStart", False)) and icbc is not None
-    if iP.get("tolType") == "refined":
-        # multigrid-backed refinement: a certified relative residual `tol`
-        # with V-cycle correction solves (a few cycles a round)
-        from ..refine import solve_refined, mg_inner
-        global LAST_REFINE
-        spec_f = (levels[0].spec if (g0 is None or not batch)
-                  else dataclasses.replace(levels[0].spec, g=g0))
-        r = solve_refined(spec_f, torch.as_tensor(S0, device=device),
-                          tol=tol, inner=mg_inner(levels, **mg_kw))
-        LAST_REFINE = r
-        S, cycles = r.S_hi, r.rounds
-        res = float(torch.max(r.rel_residual))
-        converged = res <= tol
-    else:
-        S, cycles, res, converged = solve_mg(
-            levels, S0=torch.as_tensor(S0, device=device),
-            g0=g0 if batch else None, tol=tol, max_cycles=max_cycles,
-            fmg=not warm, **mg_kw)
-    S = S.cpu().numpy().reshape(vals.shape)
-    global LAST_SOLVE
-    LAST_SOLVE = SolveResult(S=S, iters=np.asarray(cycles),
-                             rel_change=np.asarray(res),
-                             overflow=np.asarray(~np.isfinite(res)))
-    if not converged:
-        warnings.warn(f"multigrid stopped after {cycles} cycles with relative "
-                      f"residual {res:.3e} > tol {tol:.3e}")
-    if iP.get("printInfo"):
-        print(f"cycles {cycles:3d} and residual is {res:e}")
-    if icbc is None:
-        S = np.where(Fdef, S, iP["undef"])
-    out = Field(S, ft.dims, ft.coords, name="inverted")
-    if out.dims != as_field(F).dims:
-        out = out.transpose(*as_field(F).dims)
-    return out
+        vals_t = telemetry.to_device(vals, device)
+        Fdef_t = telemetry.to_device(Fdef_c, device)
+        with telemetry.span("builders.build"):
+            levels, g0 = build_levels(vals_t, Fdef_t, grid, mPr)
+        del vals_t, Fdef_t          # the pyramid holds what it keeps of them
+        with telemetry.span("api.init_state"):
+            S0 = _init_state(vals, Fdef, icbc, grid, ft,
+                             warm=bool(iP.get("warmStart", False)))
+        S0_t = telemetry.to_device(S0, device)
+        # fmg: full-multigrid nested iteration warm-starts the V-cycle
+        # loop; disabled with an icbc warm start, which already provides
+        # the state
+        warm = bool(iP.get("warmStart", False)) and icbc is not None
+        with telemetry.span("engine.solve"):
+            if iP.get("tolType") == "refined":
+                # multigrid-backed refinement: a certified relative
+                # residual `tol` with V-cycle correction solves (a few
+                # cycles a round)
+                from ..refine import solve_refined, mg_inner
+                global LAST_REFINE
+                spec_f = (levels[0].spec if (g0 is None or not batch)
+                          else dataclasses.replace(levels[0].spec, g=g0))
+                r = solve_refined(spec_f, S0_t, tol=tol,
+                                  inner=mg_inner(levels, **mg_kw))
+                LAST_REFINE = r
+                S, cycles = r.S_hi, r.rounds
+                res = float(torch.max(r.rel_residual))
+                converged = res <= tol
+            else:
+                S, cycles, res, converged = solve_mg(
+                    levels, S0=S0_t, g0=g0 if batch else None, tol=tol,
+                    max_cycles=max_cycles, fmg=not warm, **mg_kw)
+        with telemetry.span("api.finish"):
+            S = telemetry.to_host(S).numpy().reshape(vals.shape)
+            global LAST_SOLVE
+            LAST_SOLVE = SolveResult(S=S, iters=np.asarray(cycles),
+                                     rel_change=np.asarray(res),
+                                     overflow=np.asarray(~np.isfinite(res)))
+            if not converged:
+                warnings.warn(f"multigrid stopped after {cycles} cycles with "
+                              f"relative residual {res:.3e} > tol "
+                              f"{tol:.3e}")
+            if iP.get("printInfo"):
+                print(f"cycles {cycles:3d} and residual is {res:e}")
+            if icbc is None:
+                S = np.where(Fdef, S, iP["undef"])
+            out = Field(S, ft.dims, ft.coords, name="inverted")
+            if out.dims != as_field(F).dims:
+                out = out.transpose(*as_field(F).dims)
+            return out
 
 
 def _mg_with_g(level, g0):
@@ -1069,10 +1099,9 @@ def _animate_problem(app_name, F, dims, coords, icbc, mParams, iParams,
                      rearth=mP["Rearth"])
     mPr = _resolve_mp(mP, dims, grid.shape)
     spec = problems.BUILDERS[problem_key](
-        torch.as_tensor(vals, device=device),
-        torch.as_tensor(Fdef, device=device), grid, mPr)
-    S0 = torch.as_tensor(_init_state(vals, Fdef, icbc, grid, ft),
-                         device=device)
+        telemetry.to_device(vals, device),
+        telemetry.to_device(Fdef, device), grid, mPr)
+    S0 = telemetry.to_device(_init_state(vals, Fdef, icbc, grid, ft), device)
     if iP["optArg"] is not None:
         omega = iP["optArg"]
     else:
@@ -1094,7 +1123,8 @@ def animate_iteration(app_name, F, dims, coords="lat-lon", icbc=None,
     frames = solve_trajectory(spec, S0, omega,
                               loop_per_frame=int(loop_per_frame),
                               max_frames=int(max_frames),
-                              scheme=scheme).cpu().numpy()
+                              scheme=scheme)
+    frames = telemetry.to_host(frames).numpy()
     if icbc is None:
         frames = np.where(Fdef, frames, iP["undef"])
     iters = np.arange(loop_per_frame, loop_per_frame * (max_frames + 1),

@@ -53,11 +53,11 @@ capacitance solve.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from .tridiag import tridiag_solve_pscan
 
 __all__ = ["direct_applicable", "solve_direct",
@@ -463,14 +463,6 @@ def _solve_direct_1d(spec, S0):
 MAX_HOLES = 2048
 _UNIT_CHUNK = 256      # unit-response solves per batched call (memory cap)
 
-#: Host seconds of the last :func:`solve_direct_masked` call: ``unit`` from
-#: its start to the capacitance matrix on the host (the unmasked solve and
-#: the chunked unit responses, which that transfer waits for), ``dense``
-#: the dense solve.  The re-solve and the pin that follow are queued
-#: without a sync.
-LAST_MASKED_SECONDS = {}
-
-
 def masked_direct_applicable(spec_full, holes, max_holes: int = MAX_HOLES,
                              S_shape=None) -> bool:
     """True when :func:`solve_direct_masked` handles this problem exactly:
@@ -511,68 +503,71 @@ def solve_direct_masked(spec_full, holes, S0):
     ``S0`` (and ``spec_full.g``) may carry leading batch dims: the hole
     pattern, and so the capacitance matrix, is shared across the batch.
     Returns S shaped like ``S0`` with hole cells at exactly ``S0``.
+
+    Spans (:mod:`xinvert_tpu_torch.telemetry`): ``engine.direct.unit``
+    from the start to the capacitance matrix on the host (the unmasked
+    solve and the chunked unit responses, which that copy waits for),
+    ``engine.direct.dense`` the dense solve; the re-solve and the pin that
+    follow are queued without a sync.
     """
-    t0 = time.perf_counter()
-    holes_np = np.asarray(holes)
-    if not masked_direct_applicable(spec_full, holes_np,
-                                    S_shape=tuple(S0.shape)):
-        raise ValueError(
-            "solve_direct_masked needs an unmasked spec qualifying for "
-            "solve_direct and an interior hole count within MAX_HOLES; "
-            "use multigrid or SOR for this problem")
-    batch = tuple(S0.shape[:-2])
-    ny, nx = holes_np.shape
-    yj, xj = np.nonzero(holes_np)
-    p = len(yj)
-    dev, dt, gdt = S0.device, S0.dtype, spec_full.g.dtype
-    yj_t = torch.as_tensor(yj, device=dev)
-    xj_t = torch.as_tensor(xj, device=dev)
+    with telemetry.span("engine.direct.unit"):
+        holes_np = np.asarray(holes)
+        if not masked_direct_applicable(spec_full, holes_np,
+                                        S_shape=tuple(S0.shape)):
+            raise ValueError(
+                "solve_direct_masked needs an unmasked spec qualifying for "
+                "solve_direct and an interior hole count within MAX_HOLES; "
+                "use multigrid or SOR for this problem")
+        batch = tuple(S0.shape[:-2])
+        ny, nx = holes_np.shape
+        yj, xj = np.nonzero(holes_np)
+        p = len(yj)
+        dev, dt, gdt = S0.device, S0.dtype, spec_full.g.dtype
+        yj_t = torch.as_tensor(yj, device=dev)
+        xj_t = torch.as_tensor(xj, device=dev)
 
-    # gauge bookkeeping mirrors solve_direct's host-side detection
-    singular = False
-    if spec_full.bcs[-2] == "extend" and spec_full.bcs[-1] == "periodic":
-        w = _host(spec_full.w[:, 1:ny - 1, 0])
-        w0 = _host(spec_full.w0[1:ny - 1, 0])
-        tol = _gauge_tol(w0)
-        singular = bool(np.max(np.abs(w.sum(axis=0) + w0)) <= tol)
+        # gauge bookkeeping mirrors solve_direct's host-side detection
+        singular = False
+        if spec_full.bcs[-2] == "extend" and spec_full.bcs[-1] == "periodic":
+            w = _host(spec_full.w[:, 1:ny - 1, 0])
+            w0 = _host(spec_full.w0[1:ny - 1, 0])
+            tol = _gauge_tol(w0)
+            singular = bool(np.max(np.abs(w.sum(axis=0) + w0)) <= tol)
 
-    y0 = solve_direct(spec_full, S0)
+        y0 = solve_direct(spec_full, S0)
 
-    # unit responses, chunked batched solves: A r = e_k  <=>  g = -e_k
-    cols = []
-    zero_S = torch.zeros((ny, nx), dtype=dt, device=dev)
-    for c0 in range(0, p, _UNIT_CHUNK):
-        sel = slice(c0, min(c0 + _UNIT_CHUNK, p))
-        nb = sel.stop - sel.start
-        E = torch.zeros((nb, ny, nx), dtype=gdt, device=dev)
-        E[torch.arange(nb, device=dev), yj_t[sel], xj_t[sel]] = -1.0
-        spec_u = dataclasses.replace(spec_full, g=E)
-        R = solve_direct(spec_u, zero_S.expand(nb, ny, nx))
-        cols.append(R[:, yj_t, xj_t])             # (nb, p) responses
-    C = _host(torch.cat(cols, dim=0).T).astype(np.float64)  # C[j, k]
+        # unit responses, chunked batched solves: A r = e_k  <=>  g = -e_k
+        cols = []
+        zero_S = torch.zeros((ny, nx), dtype=dt, device=dev)
+        for c0 in range(0, p, _UNIT_CHUNK):
+            sel = slice(c0, min(c0 + _UNIT_CHUNK, p))
+            nb = sel.stop - sel.start
+            E = torch.zeros((nb, ny, nx), dtype=gdt, device=dev)
+            E[torch.arange(nb, device=dev), yj_t[sel], xj_t[sel]] = -1.0
+            spec_u = dataclasses.replace(spec_full, g=E)
+            R = solve_direct(spec_u, zero_S.expand(nb, ny, nx))
+            cols.append(R[:, yj_t, xj_t])             # (nb, p) responses
+        C = _host(torch.cat(cols, dim=0).T).astype(np.float64)  # C[j, k]
 
-    # multi-RHS solve over the batch: d has shape (p, *batch)
-    d = np.moveaxis(_host(S0[..., yj_t, xj_t] - y0[..., yj_t, xj_t]),
-                    -1, 0).reshape(p, -1).astype(np.float64)
-    nb_rhs = d.shape[1]
-    t1 = time.perf_counter()
-    if singular:
-        # bordered system: explicit constant DOF + the consistency row
-        # sum(b + mu) = 0 with b = -g over the interior rows
-        gsum = _host(spec_full.g.expand(batch + (ny, nx))[..., 1:-1, :]
-                     .sum(dim=(-2, -1))).reshape(1, nb_rhs)
-        M = np.zeros((p + 1, p + 1))
-        M[:p, :p] = C
-        M[:p, p] = 1.0
-        M[p, :p] = 1.0
-        sol = np.linalg.solve(M, np.concatenate([d, gsum], axis=0))
-        mu, const = sol[:p], sol[p]
-    else:
-        mu = np.linalg.solve(C, d)
-        const = np.zeros(nb_rhs)
-    t2 = time.perf_counter()
-    LAST_MASKED_SECONDS.clear()
-    LAST_MASKED_SECONDS.update(unit=t1 - t0, dense=t2 - t1)
+        # multi-RHS solve over the batch: d has shape (p, *batch)
+        d = np.moveaxis(_host(S0[..., yj_t, xj_t] - y0[..., yj_t, xj_t]),
+                        -1, 0).reshape(p, -1).astype(np.float64)
+        nb_rhs = d.shape[1]
+    with telemetry.span("engine.direct.dense"):
+        if singular:
+            # bordered system: explicit constant DOF + the consistency row
+            # sum(b + mu) = 0 with b = -g over the interior rows
+            gsum = _host(spec_full.g.expand(batch + (ny, nx))[..., 1:-1, :]
+                         .sum(dim=(-2, -1))).reshape(1, nb_rhs)
+            M = np.zeros((p + 1, p + 1))
+            M[:p, :p] = C
+            M[:p, p] = 1.0
+            M[p, :p] = 1.0
+            sol = np.linalg.solve(M, np.concatenate([d, gsum], axis=0))
+            mu, const = sol[:p], sol[p]
+        else:
+            mu = np.linalg.solve(C, d)
+            const = np.zeros(nb_rhs)
 
     # assemble: rather than a batched pass accumulating R mu, re-solve once
     # with the holes' sources folded into g

@@ -32,11 +32,26 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import telemetry
 from .grid import optimal_omega
 from .stencil import StencilSpec, prune_zero_offsets
 
 __all__ = ["SolveResult", "solve", "solve_fixed", "solve_fixed_cheby",
            "solve_trajectory", "sweep", "sweeps", "rho2_from_omega"]
+
+
+#: reads of the stop flags on the host in the check-window loop (one sync
+#: each)
+HOST_SYNCS = 0
+
+
+def _all_done(done):
+    """Whether every slice has stopped, read on the host: one counted
+    sync."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    with telemetry.span("engine.sync"):
+        return bool(torch.all(done))
 
 
 @dataclasses.dataclass
@@ -406,13 +421,19 @@ def _solve_impl(spec, S0, omega, tol, max_iters, check_every,
 
     # only FULL check windows run in the loop (one host sync per window);
     # the clamped mxLoop remainder runs once after it, so exactly mxLoop
-    # sweeps run even when check_every does not divide it
-    while (c["it"] + check_every <= max_iters
-           and not bool(torch.all(c["done"]))):
-        c = advance(c, check_every)
+    # sweeps run even when check_every does not divide it.  The read that
+    # ends the loop on `done` serves the remainder's test too.
+    finished = False
+    while c["it"] + check_every <= max_iters:
+        finished = _all_done(c["done"])
+        if finished:
+            break
+        with telemetry.span("engine.window"):
+            c = advance(c, check_every)
     rem = max_iters - c["it"]
-    if rem > 0 and not bool(torch.all(c["done"])):
-        c = advance(c, rem)
+    if rem > 0 and not finished and not _all_done(c["done"]):
+        with telemetry.span("engine.window"):
+            c = advance(c, rem)
     return SolveResult(S=c["S"], iters=c["loop"], rel_change=c["rel"],
                        overflow=c["overflow"])
 
@@ -480,29 +501,30 @@ def solve(spec: StencilSpec, S0, omega: Optional[float] = None,
     if scheme not in ("sor", "cheby", "direct", "lexico"):
         raise ValueError(f"unknown scheme {scheme!r}; "
                          "use 'sor', 'cheby', 'direct' or 'lexico'")
-    if scheme == "direct":
-        from .ops.direct import solve_direct
-        return direct_result(spec, solve_direct(spec, S0))
-    if tol_type not in ("change", "residual"):
-        raise ValueError(f"unknown tol_type {tol_type!r}; "
-                         "use 'change' or 'residual'")
-    if int(check_every) < 1:
-        raise ValueError(f"check_every must be >= 1, got {check_every}")
-    if omega is None:
-        omega = optimal_omega(S0.shape[-spec.ndim:])
-    if scheme == "lexico":
-        # the reference's ordering is its own executor; the JAX package
-        # leaves the spec unpruned there too
-        return _solve_impl(spec, S0, float(omega), float(tol),
-                           int(max_iters), int(check_every),
-                           _lexico_sweeps(spec, S0, float(omega)), tol_type,
-                           scheme)
-    run_sweeps = _select_kernel(spec, S0)
-    # drop identically-zero weight planes: the sweep's memory traffic scales
-    # with the plane count (stencil.prune_zero_offsets; exact)
-    spec = prune_zero_offsets(spec)
-    return _solve_impl(spec, S0, float(omega), float(tol), int(max_iters),
-                       int(check_every), run_sweeps, tol_type, scheme)
+    with telemetry.span("engine.solve"):
+        if scheme == "direct":
+            from .ops.direct import solve_direct
+            return direct_result(spec, solve_direct(spec, S0))
+        if tol_type not in ("change", "residual"):
+            raise ValueError(f"unknown tol_type {tol_type!r}; "
+                             "use 'change' or 'residual'")
+        if int(check_every) < 1:
+            raise ValueError(f"check_every must be >= 1, got {check_every}")
+        if omega is None:
+            omega = optimal_omega(S0.shape[-spec.ndim:])
+        if scheme == "lexico":
+            # the reference's ordering is its own executor; the JAX package
+            # leaves the spec unpruned there too
+            return _solve_impl(spec, S0, float(omega), float(tol),
+                               int(max_iters), int(check_every),
+                               _lexico_sweeps(spec, S0, float(omega)),
+                               tol_type, scheme)
+        run_sweeps = _select_kernel(spec, S0)
+        # drop identically-zero weight planes: the sweep's memory traffic
+        # scales with the plane count (stencil.prune_zero_offsets; exact)
+        spec = prune_zero_offsets(spec)
+        return _solve_impl(spec, S0, float(omega), float(tol), int(max_iters),
+                           int(check_every), run_sweeps, tol_type, scheme)
 
 
 def solve_fixed(spec: StencilSpec, S0, omega, n_iters: int):

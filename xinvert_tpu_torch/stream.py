@@ -36,6 +36,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from . import telemetry
 from .solver import SolveResult, solve
 from .stencil import StencilSpec
 
@@ -93,7 +94,10 @@ class _Mover:
     """Host <-> device transfers of one chunk shape.  On CUDA: pinned
     staging buffers, two per field (chunk k+1 is staged while chunk k's
     copy may still read the other), H2D on a side stream, D2H on another;
-    on the CPU: plain copies."""
+    on the CPU: plain copies.  The CUDA copies count their bytes in
+    ``telemetry.H2D_BYTES`` / ``D2H_BYTES``; their ``copy.h2d`` /
+    ``copy.d2h`` spans time the host's enqueue only (the staging into
+    pinned memory included), not the copy, which runs on its stream."""
 
     def __init__(self, device):
         self.device = device
@@ -121,16 +125,19 @@ class _Mover:
         if prev is not None:
             prev.synchronize()          # this slot's last copy has landed
         staged = {}
-        for n, a in parts.items():
-            buf = self._pin((slot, n), a)
-            buf.copy_(a)
-            staged[n] = buf
         out = {}
-        with torch.cuda.stream(self.h2d):
-            for n, buf in staged.items():
-                out[n] = buf.to(self.device, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(self.h2d)
+        with telemetry.span("copy.h2d"):
+            for n, a in parts.items():
+                buf = self._pin((slot, n), a)
+                buf.copy_(a)
+                staged[n] = buf
+            with torch.cuda.stream(self.h2d):
+                for n, buf in staged.items():
+                    out[n] = buf.to(self.device, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.h2d)
+        telemetry.count_h2d(sum(b.numel() * b.element_size()
+                                for b in staged.values()))
         self._h2d_done[slot] = ev
         return out, ev
 
@@ -153,7 +160,7 @@ class _Mover:
         done = torch.cuda.Event()
         done.record(self.compute)
         outs = []
-        with torch.cuda.stream(self.d2h):
+        with telemetry.span("copy.d2h"), torch.cuda.stream(self.d2h):
             self.d2h.wait_event(done)
             for i, t in enumerate(leaves):
                 buf = self._pin(("out", slot, i), t)
@@ -162,6 +169,7 @@ class _Mover:
                 outs.append(buf)
             ev = torch.cuda.Event()
             ev.record(self.d2h)
+        telemetry.count_d2h(sum(b.numel() * b.element_size() for b in outs))
         return tuple(outs), ev
 
     @staticmethod
@@ -210,13 +218,15 @@ def solve_streamed(spec: StencilSpec, S0, omega=None, tol: float = 1e-8,
         # fits in one resident chunk: the ordinary batched solve, the spec
         # untouched (no flattening)
         sp = dataclasses.replace(
-            spec, **{n: a.to(device) for n, a in fields.items()})
-        S0b = S0.broadcast_to(batch_shape + grid).to(device)
+            spec, **{n: telemetry.to_device(a, device)
+                     for n, a in fields.items()})
+        S0b = telemetry.to_device(S0.broadcast_to(batch_shape + grid), device)
         r = solve(sp, S0b, omega, tol=tol, max_iters=max_iters,
                   check_every=check_every, scheme=scheme, tol_type=tol_type)
-        return SolveResult(S=r.S.cpu(), iters=r.iters.cpu(),
-                           rel_change=r.rel_change.cpu(),
-                           overflow=r.overflow.cpu())
+        return SolveResult(S=telemetry.to_host(r.S),
+                           iters=telemetry.to_host(r.iters),
+                           rel_change=telemetry.to_host(r.rel_change),
+                           overflow=telemetry.to_host(r.overflow))
 
     fields = {n: _flat_np(fields[n], lead, core) for n, lead in _FIELDS}
     if s_batch == batch_shape and batch_shape:
@@ -226,12 +236,13 @@ def solve_streamed(spec: StencilSpec, S0, omega=None, tol: float = 1e-8,
         S0 = S0.broadcast_to(batch_shape + grid).reshape((B,) + grid)
 
     # shared (unbatched) fields go to the device once
-    shared = {n: fields[n].to(device) for n, lead in _FIELDS
+    shared = {n: telemetry.to_device(fields[n], device) for n, lead in _FIELDS
               if _chunk_np(fields[n], lead, core, B, 0, 1, 1) is None}
     S0_shared = None
     if not s_batch:
         # unbatched initial state: one (chunk, *grid) copy on the device
-        S0_shared = S0.to(device).expand((chunk,) + grid).contiguous()
+        S0_shared = telemetry.to_device(S0, device).expand(
+            (chunk,) + grid).contiguous()
 
     mover = _Mover(device)
     n_chunks = -(-B // chunk)
