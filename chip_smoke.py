@@ -11,13 +11,17 @@ seed, and runs these phases, each printing its lines:
      (nvidia-smi), torch and CUDA versions;
   1  build: nvcc compiles xinvert_tpu_torch/csrc/sor2d.cu and csrc/sor3d.cu,
      one process per source started together (first use), with the seconds
-     each took and ptxas's registers and spills of the tiled kernels, the
-     3-D color sweep and the 3-D block sweep (B5s);
+     each took and ptxas's registers and spills of the tiled and resident
+     kernels, the 3-D color sweep and the 3-D block sweep (B5s);
   2  each kernel against its plain PyTorch version on the card: bit-equal
      (torch.equal) in float32 and float64 on several 2-D grids and 3-D
      volumes (every shape the main paths below drive): the two tiled 2-D
      kernels over n in {1, k, 20, 37} sweeps, at omega and with Chebyshev
-     factors; the first version's kernels (extend, color sweep, in-place
+     factors; the resident kernel, where its plan takes the grid (the year
+     cell's 1460x73x144 among them), over n in {1, 20, 37, 70} with and
+     without factors, from a NaN/Inf-seeded state too, against the plain
+     version and the tiled kernel (states and |S| totals); the first
+     version's kernels (extend, color sweep, in-place
      color sweep) alone and over 20 sweeps; the 3-D pair, with the extend
      pre-pass folded into the red launch over n in {1, 2, 37} with factors,
      NaN/Inf-seeded boundary rows, the folded red launch alone, and the
@@ -38,7 +42,8 @@ seed, and runs these phases, each printing its lines:
      executor on a local mesh against the plain meshless sweeps, and its
      norm on the aligned layout against the whole-grid kernels'; batches
      of 65 536 slices, one past the grid's 65 535: 8x8 through solve_fixed
-     (the tiled kernel; planes shared and one a slice) and 4x8x8 through
+     (the resident kernel) and the tiled kernel, planes shared and one a
+     slice, and 4x8x8 through
      sor3d_color_sweep and sor3d_sweeps, torch.equal to the plain
      versions, the first and last slices' states and |S| totals equal to
      a batch of one's;
@@ -51,8 +56,9 @@ seed, and runs these phases, each printing its lines:
      scheme="cheby"; invert_Poisson 2048x2048 again through the in-place
      kernel (equal to the first run).  Each path runs with every launch
      count set to 0 just before it and read just after, which must show it
-     went through its kernels alone (in 2-D the tiled kernels, with no
-     launch of the first version's), most then once more under
+     went through its kernels alone (in 2-D the tiled kernels, or the
+     resident one at 8x73x144, with no launch of the first version's),
+     most then once more under
      torch.profiler for the device's busy time against the wall time.
      Each 2-D path runs again through the first version's three launches a
      sweep, which must give the same iters and bit-equal states; so does
@@ -71,7 +77,8 @@ seed, and runs these phases, each printing its lines:
      SOR); the 2048x2048 blob mask, past MAX_HOLES, which must warn and
      give phase 3's SOR field exactly.  Then the multigrid paths, float32, no
      device argument: solve_mg with full multigrid on bench.py's 2048x2048
-     masked Poisson (must converge to 1e-6 through the tiled kernel alone),
+     masked Poisson (must converge to 1e-6 through the tiled kernel on its
+     fine levels and the resident one on its coarse ones alone),
      invert_Stommel_mg on the SODA curl (12 months), invert_StommelMunk_mg
      on 2 of its months, invert_omega_mg at 37x72x288, invert_3DOcean_mg at
      30x330x720: cycles, residual, converged, wall and set-up seconds, host
@@ -143,11 +150,18 @@ seed, and runs these phases, each printing its lines:
      bounds (B5s's block sweep in turns against its first version, red and
      black, and a scan of the levels a CTA walks); where a 2048x2048
      V-cycle's device time goes (smoothing against the rest), its wall
-     time and host gap, host syncs per cycle.  With --parent-sor3d PATH
+     time and host gap, host syncs per cycle; the resident kernel at the
+     year cell's 1460x73x144: one 32-sweep window in one launch beside the
+     tiled kernel's 8 in turns, its bound, its plain version's window, a
+     scan of its instantiations (RESIDENT_SCAN), ptxas's registers and
+     spills.  With --parent-sor3d PATH
      (another tree's csrc/sor3d.cu), also the whole-grid 3-D color sweep
      of this tree against that one's build, in turns.  --blocks runs only
      phases 0 and 1, phase 2's 3-D block checks and phase 4's block
-     timings (and prints no result line).
+     timings (and prints no result line); --resident runs only phases 0
+     and 1, phase 2's resident checks (the year cell's batch, an odd
+     per-slice grid, the 2048x2048 pyramid's smoothing) and phase 4's
+     resident timings (no result line either).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Any failed phase raises, and the
@@ -184,6 +198,10 @@ KERNELS = {   # name: (source, replaces, also_replaces)
     "sor2d_sweeps_tiled_inplace": ("xinvert_tpu_torch/csrc/sor2d.cu",
                                    "xinvert_tpu/ops/pallas_sor_window.py:414",
                                    None),
+    # B1/B2's counterpart for slices that fit one SM (no new TPU kernel)
+    "sor2d_sweeps_resident": ("xinvert_tpu_torch/csrc/sor2d.cu",
+                              "xinvert_tpu/ops/pallas_sor.py:94",
+                              "xinvert_tpu/ops/pallas_sor_window.py:252"),
     "sor2d_extend_rows": ("xinvert_tpu_torch/csrc/sor2d.cu",
                           "xinvert_tpu/ops/pallas_sor.py:43",
                           "xinvert_tpu/ops/pallas_sor_window.py:67"),
@@ -217,6 +235,7 @@ KERNELS = {   # name: (source, replaces, also_replaces)
 # each kernel's launch counter
 COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
             "sor2d_sweeps_tiled_inplace": (sor2d, "TILED_INPLACE_LAUNCHES"),
+            "sor2d_sweeps_resident": (sor2d, "RESIDENT_LAUNCHES"),
             "sor2d_extend_rows": (sor2d, "EXTEND_LAUNCHES"),
             "sor2d_color_sweep": (sor2d, "LAUNCHES"),
             "sor2d_color_sweep_inplace": (sor2d, "INPLACE_LAUNCHES"),
@@ -558,12 +577,12 @@ def phase1():
                      for name in _build.SOURCES)
     log(f"[1] kernels built and loaded in {time.perf_counter() - t0:.3f} s "
         f"(nvcc in parallel: {nvcc}; flags {' '.join(_build.NVCC_FLAGS)})")
-    # ptxas -v on the tiled kernels, the 3-D color sweep (the extend
-    # read-through's registers) and the block sweep: registers, spills,
-    # shared memory
+    # ptxas -v on the tiled and resident kernels, the 3-D color sweep (the
+    # extend read-through's registers) and the block sweep: registers,
+    # spills, shared memory
     spills = []
-    for src, key in (("sor2d", "tiled"), ("sor3d", "color_sweep"),
-                     ("sor3d", "block_sweep")):
+    for src, key in (("sor2d", "tiled"), ("sor2d", "resident"),
+                     ("sor3d", "color_sweep"), ("sor3d", "block_sweep")):
         lines = _build.BUILD_LOG.get(src, "").splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry function" in line and key in line:
@@ -666,6 +685,9 @@ def _check_kernels(mod, name, make, errs, n=20):
                                f"on {name} {dt}")
         if p == "sor2d":
             _check_tiled(name, spec, omega, S0, rtol, errs)
+            if sor2d.resident_plan(spec, tuple(S0.shape[-2:]),
+                                   dt) is not None:
+                _check_resident(name, spec, omega, S0, errs)
         elif spec.bcs[-2] == "extend":
             _check_fold(name, spec, omega, S0, rtol, errs)
 
@@ -710,6 +732,46 @@ def _check_tiled(name, spec, omega, S0, rtol, errs):
         if not ok or not norm_err <= rtol:
             raise RuntimeError(f"{kname} disagrees with its plain version "
                                f"on {name} {dt}")
+
+
+def _check_resident(name, spec, omega, S0, errs):
+    """The resident kernel over n in {1, 20, 37, 70} sweeps (70: two
+    launches), at omega and as cheby, from S0 and from S0 with a NaN and an
+    Inf seeded (the exact mode), against the plain version and the
+    ping-pong tiled kernel: torch.equal, one launch per 64 sweeps, and the
+    fused |S| totals equal to the tiled kernel's."""
+    dt = S0.dtype
+    facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dt))
+            for k in range(140)]
+    seeded = S0.clone()
+    seeded[..., S0.shape[-2] // 2, 3] = float("nan")
+    seeded[..., 0, 5] = float("inf")
+    ok, err = True, 0.0
+    for n in (1, 20, 37, 70):
+        for om, fac in ((omega, None), (1.0, facs[:2 * n])):
+            for S in ((S0, seeded) if n == 37 else (S0,)):
+                c0 = sor2d.RESIDENT_LAUNCHES
+                out, tot = sor2d.sor2d_sweeps_resident(
+                    spec, S, om, n, with_norm=True, fac=fac)
+                ref = sor2d.sor2d_sweeps_reference(spec, S, om, n, fac)
+                til, tot_t = sor2d.sor2d_sweeps_tiled(spec, S, om, n,
+                                                      with_norm=True, fac=fac)
+                torch.cuda.synchronize()
+                ok &= sor2d.RESIDENT_LAUNCHES == c0 + -(-n // 64)
+                ok &= _bit_equal(out, ref) and _bit_equal(out, til)
+                ok &= _bit_equal(tot, tot_t)
+                if S is S0:
+                    ok &= bool(torch.isfinite(ref).all())
+                    err = max(err, _max_err(out, ref))
+    errs["sor2d_sweeps_resident"] = max(errs["sor2d_sweeps_resident"], err)
+    plan = sor2d.resident_plan(spec, tuple(S0.shape[-2:]), dt)
+    log(f"[2] {name} {str(dt)[6:]}: sor2d_sweeps_resident ({plan.threads} "
+        f"threads x {plan.cpt} slots, {plan.smem} B shared) n in "
+        f"[1, 20, 37, 70], with and without factors, NaN/Inf seeded at 37: "
+        f"bit-equal to plain and tiled, |S| totals equal to the tiled "
+        f"kernel's={ok} max|kernel-plain|={err:.3e}")
+    if not ok:
+        raise RuntimeError(f"sor2d_sweeps_resident disagrees on {name} {dt}")
 
 
 def _check_fold(name, spec, omega, S0, rtol, errs):
@@ -777,12 +839,13 @@ def _bit_equal(a, b):
 
 def _check_mg_smoothing(name, make, dev, errs):
     """mg._smooth on every level of a pyramid, through the solver's
-    executor (the tiled kernels), against the plain version on the same
+    executor (the resident kernel where its plan takes the level, else the
+    tiled kernels), against the plain version on the same
     CUDA tensors: torch.equal, in float32 and float64, n in {1, 2, 3, 60},
     one state and a batch of three under a batched g_override, with the
     in-place switch off and on (the in-place kernel where the gate takes
-    the level); a smoothing that launched no tiled kernel or called the
-    plain version fails.  A level whose smoothing diverges (the coarse
+    the level); a smoothing that launched another kernel than its route's
+    or called the plain version fails.  A level whose smoothing diverges (the coarse
     levels of the SODA biharmonic pyramid do, as in the JAX package) must
     grow its NaN and Inf as the plain version does."""
     gen = torch.Generator(device="cpu").manual_seed(11)
@@ -799,22 +862,20 @@ def _check_mg_smoothing(name, make, dev, errs):
                                 dtype=torch.float64).to(dtype=dt, device=dev)
                 for switch in (False, True):
                     sor2d.INPLACE_KERNEL = switch
+                    kname = _route2d(level.spec, core, dt, switch)
                     for n in (1, 2, 3, 60):
-                        t0, i0 = (sor2d.TILED_LAUNCHES,
-                                  sor2d.TILED_INPLACE_LAUNCHES)
+                        c0 = _counts()[0]
                         p0 = sor2d.PLAIN_CALLS
                         out = mg._smooth(level, S, n)
                         ok &= sor2d.PLAIN_CALLS == p0
                         ref = sor2d.sor2d_sweeps_reference(level.spec, S,
                                                            level.omega, n)
                         torch.cuda.synchronize()
-                        inplace = sor2d.TILED_INPLACE_LAUNCHES > i0
-                        ok &= inplace or sor2d.TILED_LAUNCHES > t0
-                        ok &= inplace == (switch and sor2d._use_inplace(
-                            level.spec, core))
+                        ran = {k for k, v in _counts()[0].items()
+                               if v != c0[k]}
+                        ok &= ran == {kname}
                         ok &= _bit_equal(out, ref)
                         blown += not bool(torch.isfinite(ref).all())
-                        kname = TILED[inplace][0]
                         used.add(kname)
                         errs[kname] = max(errs[kname], _max_err(out, ref))
                         checks += 1
@@ -839,6 +900,8 @@ def phase2(dev):
          lambda dt: poisson_spec(73, 144, 3, dt, dev)),
         ("main path 8x73x144 (extend, periodic) masked",
          lambda dt: poisson_spec(73, 144, 8, dt, dev, seed=4)),
+        ("the year cell 1460x73x144 (extend, periodic) masked",
+         lambda dt: poisson_spec(73, 144, 1460, dt, dev, seed=6)),
         ("201x301 (fixed, fixed) cross terms",
          lambda dt: cross_spec(201, 301, ("fixed", "fixed"), dt, dev)),
         ("main path 2048x2048 (extend, periodic) masked",
@@ -933,8 +996,9 @@ def _slice_of(spec, b, nd):
 
 
 def _check_fault8(dev, errs):
-    """Fault 8: a 65 536 x 8x8 2-D batch through solve_fixed (the tiled
-    kernel), with planes the batch shares and with planes one a slice, and
+    """Fault 8: a 65 536 x 8x8 2-D batch through solve_fixed (the resident
+    kernel) and the tiled kernel, with planes the batch shares and with
+    planes one a slice, and
     a 65 536 x 4x8x8 3-D batch through sor3d_color_sweep (the folded red
     launch and the black one) and sor3d_sweeps, float32: torch.equal to
     the plain versions, and the per-slice |S| totals of the first and last
@@ -949,22 +1013,29 @@ def _check_fault8(dev, errs):
                              dtype=torch.float32, device=dev)
         _zero_counts()
         out = xt.solve_fixed(spec, S0, om, 9)
-        tiled = sor2d.TILED_LAUNCHES
+        main = sor2d.RESIDENT_LAUNCHES
         ref = sor2d.sor2d_sweeps_reference(spec, S0, om, 9)
         got, tot = sor2d.sor2d_sweeps(spec, S0, om, 9, with_norm=True)
-        ok = torch.equal(out, ref) and torch.equal(got, out) and tiled > 0
+        til, tot_t = sor2d.sor2d_sweeps_tiled(spec, S0, om, 9,
+                                              with_norm=True)
+        tiled = sor2d.TILED_LAUNCHES
+        ok = (torch.equal(out, ref) and torch.equal(got, out) and main > 0
+              and torch.equal(til, out) and torch.equal(tot_t, tot)
+              and tiled > 0)
         for b in (0, B - 1):
             one, t1 = sor2d.sor2d_sweeps(_slice_of(spec, b, 2),
                                          S0[b:b + 1], om, 9, with_norm=True)
             ok = ok and torch.equal(one[0], out[b]) and torch.equal(
                 t1[0], tot[b])
         errs["sor2d_sweeps_tiled"] = max(errs["sor2d_sweeps_tiled"],
-                                         _max_err(out, ref))
+                                         _max_err(til, ref))
+        errs["sor2d_sweeps_resident"] = max(errs["sor2d_sweeps_resident"],
+                                            _max_err(out, ref))
         log(f"[2] fault 8: solve_fixed {B}x8x8 float32, planes "
             f"{'one a slice' if per_slice else 'shared'}, 9 sweeps through "
-            f"{tiled} tiled launches: torch.equal to the plain sweeps and "
-            f"slices 0 and {B - 1} (states, |S| totals) equal to a batch "
-            f"of one: {ok}")
+            f"{main} resident launches, and through {tiled} tiled ones: "
+            f"torch.equal to the plain sweeps and slices 0 and {B - 1} "
+            f"(states, |S| totals) equal to a batch of one: {ok}")
         if not ok:
             raise RuntimeError("fault 8: the 2-D batch over 65535 slices "
                                "disagrees")
@@ -1313,21 +1384,42 @@ def _drive(name, kernels, call, field, launches=None):
 
 TILED = {False: ("sor2d_sweeps_tiled",),
          True: ("sor2d_sweeps_tiled_inplace",)}
+
+
+def _route2d(spec, core, dtype, switch=False):
+    """The kernel the 2-D main path takes for ``spec`` on a ``core`` slice
+    in ``dtype``: the resident one where its plan takes them, else the
+    tiled one (in place with the switch where the gate takes the spec)."""
+    if sor2d.resident_plan(spec, core, dtype) is not None:
+        return "sor2d_sweeps_resident"
+    return TILED[switch and sor2d._use_inplace(spec, core)][0]
+
+
+def _levels2d(levels):
+    """The kernels a pyramid's point smoothing launches, one per level by
+    its route (a sentinel ``_drive_mg`` takes: the levels are the solve's
+    own, which ``_timed_solve_mg`` keeps)."""
+    return tuple(sorted({_route2d(lv.spec, tuple(lv.spec.w0.shape[-2:]),
+                                  lv.spec.w0.dtype) for lv in levels}))
+
+
+MG_POINT2D = "the point smoother's routes over the pyramid's levels"
 FIRST = {False: ("sor2d_extend_rows", "sor2d_color_sweep"),
          True: ("sor2d_extend_rows", "sor2d_color_sweep_inplace")}
 
 
-def _drive2d(name, call, field, inplace, launches):
+def _drive2d(name, call, field, inplace, launches, kernels=None):
     """A 2-D main path through the tiled kernels alone (the in-place one
-    with ``inplace``, the switch set), then the same call through the
+    with ``inplace``, the switch set; ``kernels`` where the route takes
+    another), then the same call through the
     first version's three launches a sweep (``sor2d_sweeps`` set to
     ``sor2d_sweeps_pair``, B3 where the switch takes the spec): the same
     iters, bit-equal states and fields.  Returns the tiled run as
     (Field, SolveResult)."""
     sor2d.INPLACE_KERNEL = inplace
     try:
-        tiled = (_drive(name, TILED[inplace], call, field, launches),
-                 api.LAST_SOLVE)
+        tiled = (_drive(name, kernels or TILED[inplace], call, field,
+                        launches), api.LAST_SOLVE)
         tiled_sweeps = sor2d.sor2d_sweeps
         sor2d.sor2d_sweeps = sor2d.sor2d_sweeps_pair
         try:
@@ -1400,12 +1492,14 @@ def phase3():
     big = poisson_field(2048, 2048)
     gal = poisson_field(73, 144, batch=8, seed=1)
     out = {}
-    for name, field, iP in (("2048x2048", big, iP_big),
-                            ("8x73x144", gal, iP_gal)):
+    # the 73x144 slices fit one SM: the resident kernel
+    for name, field, iP, kern in (
+            ("2048x2048", big, iP_big, TILED[False]),
+            ("8x73x144", gal, iP_gal, ("sor2d_sweeps_resident",))):
         call = lambda f=field, i=iP: xt.invert_Poisson(  # noqa: E731
             f, dims=["lat", "lon"], iParams=i)
         out[name] = _drive2d(f"invert_Poisson {name}", call, field, False,
-                             launches)
+                             launches, kern)
         _busy_share(f"invert_Poisson {name}", call)
 
     iP_om = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 2000,
@@ -1771,6 +1865,8 @@ def _drive_mg(name, kernels, call, launches=None):
     wall = time.perf_counter() - t0
     setup = _SETUP.get("t", t0) - t0
     counts, plain = _counts()
+    if kernels == MG_POINT2D:
+        kernels = _levels2d(_SETUP["levels"])
     ran = ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
     log(f"[3] {name} float32: cycles {cycles} residual {res:.4e} converged "
         f"{conv} wall {wall:.3f} s (set-up {setup:.3f} s, solve "
@@ -1839,14 +1935,14 @@ def phase3_mg(launches, sor):
             return call
         S, cycles, res, conv = _drive_mg(
             "solve_mg 2048x2048 FMG (bench.py's problem)",
-            TILED[False], extra(2048, dev, torch.float32), launches)
+            MG_POINT2D, extra(2048, dev, torch.float32), launches)
         syncs = mg.HOST_SYNCS / max(cycles, 1)
         if not (conv and res < 1e-6 and bool(torch.isfinite(S).all())):
             raise RuntimeError("solve_mg 2048x2048 did not converge to 1e-6")
         _busy_share("solve_mg 2048x2048 FMG", extra(2048, dev,
                                                      torch.float32))
         # the same recipe at 256x256 against float64 on the CPU
-        S_c = _drive_mg("solve_mg 256x256 FMG", TILED[False],
+        S_c = _drive_mg("solve_mg 256x256 FMG", MG_POINT2D,
                         extra(256, dev, torch.float32))[0]
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
@@ -1920,7 +2016,7 @@ def phase3_mg(launches, sor):
                 ("invert_Stommel_mg 2x55x120", (), xt.invert_Stommel_mg,
                  small, dict(kw2, mParams=STOMMEL_MP)),
                 ("invert_StommelMunk_mg cartesian gyre 65x129",
-                 TILED[False], xt.invert_StommelMunk_mg, gyre,
+                 MG_POINT2D, xt.invert_StommelMunk_mg, gyre,
                  dict(dims=["y", "x"], coords="cartesian",
                       iParams={"BCs": ["fixed", "fixed"]},
                       mParams={"beta": 1.8e-11, "R": 0.0008, "D": 200,
@@ -3127,8 +3223,12 @@ def _mg_pair(name, levels, kw, mesh, ref_kernels, launches, profile=True,
              else "sor3d_color_sweep_block")
     smoother = kw.get("smoother") or levels[0].smoother
     point = smoother not in mg._SMOOTH_AXES
-    mesh_kernels = (((block,) if point else ())
-                    + (tuple(ref_kernels) if not all(split) else ()))
+    whole = [lv for lv, sp in zip(levels, split) if not sp]
+    if whole and levels[0].spec.ndim == 2 and point:
+        whole_kernels = _levels2d(whole)
+    else:
+        whole_kernels = tuple(ref_kernels) if whole else ()
+    mesh_kernels = ((block,) if point else ()) + whole_kernels
     runs = {}
     for label, call, kernels, lc in (
             ("meshless", lambda: mg.solve_mg(levels, **kw), ref_kernels,
@@ -3186,7 +3286,7 @@ def phase3_mg_sharded(launches):
     kw = dict(tol=1e-6, max_cycles=80, fmg=True)
     for shape, names in (((2, 2), ("y", "x")), ((4,), ("y",))):
         _mg_pair("solve_mg 2048x2048 FMG (bench.py's problem)", pyr, kw,
-                 local_mesh(dev, shape, names), TILED[False], launches)
+                 local_mesh(dev, shape, names), _levels2d(pyr), launches)
     del pyr
     levels = OCEAN_MG.pop("levels")
     kw = dict(OCEAN_MG.pop("kw"), max_cycles=OCEAN_MG_CYCLES, accel=None)
@@ -3708,6 +3808,95 @@ def phase4_parent(card, dev, parent_src):
         f"{mean['this tree'][1] / mean['parent'][1]:.4f}")
 
 
+# the resident kernel's instantiations the scan tries (threads, slots per
+# thread), float32
+RESIDENT_SCAN = ((896, 6), (768, 7))
+YEAR = (1460, 73, 144)   # the year cell's batch (benchmark/)
+
+
+def phase4_resident(card, dev):
+    """The resident kernel at the year cell's shape, 1460x73x144 float32:
+    one 32-sweep check window with the fused |S| partials in one launch,
+    beside the tiled kernel's window (8 launches of 4 sweeps) in turns
+    (bare launches on prepared buffers, device time behind a spin); the
+    scan of its instantiations (``RESIDENT_SCAN``) behind
+    ``sor2d._RESIDENT_CONFIGS``; its bound (12 operations a point-sweep at
+    67 TFLOP/s against the window's bytes once at 3.35 TB/s), the plain
+    version's window, and ptxas's registers and spills."""
+    spec, omega = poisson_spec(YEAR[1], YEAR[2], YEAR[0], torch.float32,
+                               dev)
+    S = xt.solve_fixed(spec, torch.zeros(YEAR, device=dev), omega, 64)
+    fam = sor2d._FAMILY
+    rel = sor2d.relax_plane(spec, omega)
+    lay = fam.layout(spec, S, rel)
+    part = torch.empty((lay["B"], lay["n_partials"]), device=dev)
+    A = S.clone()
+    X = [S.clone(), torch.empty_like(S)]
+    tplan = sor2d.tile_plan(spec, YEAR[1:], torch.float32)
+    n = 32
+
+    def resident(plan):
+        return lambda: fam.launch_resident(spec, lay, plan, rel, A, n,
+                                           [1.0] * 2 * n, part)
+
+    def tiled():
+        for i in range(n // tplan.k):
+            fam.launch_tiled(spec, lay, tplan, rel, X[i % 2],
+                             X[(i + 1) % 2], tplan.k, [1.0] * 2 * tplan.k,
+                             part if i == n // tplan.k - 1 else None)
+    plan = sor2d.resident_plan(spec, YEAR[1:], torch.float32)
+    times = {"resident": [], "tiled": []}
+    for label in ("resident", "tiled", "tiled", "resident"):
+        fn = resident(plan) if label == "resident" else tiled
+        times[label].append(_device_ms(fn, 20))
+    table = sor2d._RESIDENT_CONFIGS[4]
+    scan = []
+    for conf in RESIDENT_SCAN:
+        sor2d._RESIDENT_CONFIGS[4] = conf
+        try:
+            p = sor2d.resident_plan(spec, YEAR[1:], torch.float32)
+            scan.append((_device_ms(resident(p), 20), conf))
+        finally:
+            sor2d._RESIDENT_CONFIGS[4] = table
+    scan.sort()
+    cells = math.prod(YEAR)
+    ops = (2 * len(spec.offsets) + 4) * cells * n
+    nbytes = (2 * cells + spec.g.numel() + spec.w0.numel()
+              + spec.relax.numel() + spec.w.numel()) * 4
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    bound_ms, bound_by = (max(t_ops, t_bytes) * 1e3,
+                          "operations" if t_ops >= t_bytes else "bytes")
+    try:
+        t_plain = _device_ms(lambda: sor2d.sor2d_sweeps_reference(
+            spec, S, omega, n), 3)
+    except RuntimeError:
+        t_plain = _time_ms(lambda: sor2d.sor2d_sweeps_reference(
+            spec, S, omega, n), 3)
+    t_res, t_til = min(times["resident"]), min(times["tiled"])
+    log(f"[4] {card} | sor2d_sweeps_resident at {YEAR} float32, one "
+        f"{n}-sweep window with the |S| partials: resident "
+        f"{times['resident'][0]:.4f} / {times['resident'][1]:.4f} ms (one "
+        f"launch; {plan.threads} threads x {plan.cpt} slots, {plan.smem} B "
+        f"shared), tiled "
+        f"{times['tiled'][0]:.4f} / {times['tiled'][1]:.4f} ms "
+        f"({n // tplan.k} launches of {tplan.k}, tiles {tplan.ty}x"
+        f"{tplan.tx}), in turns: {t_til / t_res:.2f}x; "
+        f"{t_res * 1e9 / (cells * n):.3f} ps a point-sweep against "
+        f"{t_til * 1e9 / (cells * n):.3f}; bound {bound_ms:.4f} ms "
+        f"({bound_by}: {ops} operations at 67 TFLOP/s, {nbytes} B at 3.35 "
+        f"TB/s), {100 * bound_ms / t_res:.2f}% of it; plain version "
+        f"{t_plain:.3f} ms")
+    log(f"[4] {card} | resident scan at {YEAR} ((threads, slots): ms a "
+        f"window): " + ", ".join(
+            f"{c}: {ms:.4f}" for ms, c in scan) + f"; the table {table}")
+    lines = _build.BUILD_LOG.get("sor2d", "").splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "resident" in line:
+            log(f"[4] ptxas {line.split(chr(39))[1]}: " + " | ".join(
+                x.split(":", 1)[-1].strip() for x in lines[i + 2:i + 4]))
+    return {"sor2d_sweeps_resident": (t_res, t_plain, bound_ms, bound_by)}
+
+
 def phase4_mg(card, dev, syncs):
     """Where a V-cycle's time goes on bench.py's 2048x2048 FMG problem,
     float32: ten chained V-cycles under torch.profiler, their device time
@@ -3849,6 +4038,36 @@ def _device_ms(fn, calls):
                        "the device")
 
 
+def main_resident():
+    """--resident: phases 0 and 1, phase 2's checks of the resident kernel
+    (the year cell's batch, the odd per-slice shape, multigrid smoothing)
+    and its phase-4 timings alone."""
+    card = phase0()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase1()
+    errs = {name: 0.0 for name in KERNELS}
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    for name, make in (
+            ("the year cell 1460x73x144 (extend, periodic) masked",
+             lambda dt: poisson_spec(73, 144, 1460, dt, dev, seed=6)),
+            ("odd 2x37x53 (extend, fixed) per-slice planes",
+             lambda dt: random_spec((37, 53), ((1, 0), (-1, 0), (0, 1),
+                                               (0, -1)), ("extend", "fixed"),
+                                    False, 2, True, dt, dev, seed=5))):
+        for dt in (torch.float32, torch.float64):
+            spec, omega = make(dt)
+            S0 = (torch.randn(spec.g.shape, generator=gen,
+                              dtype=torch.float64) * 1e-3).to(dt).to(dev)
+            if sor2d.resident_plan(spec, tuple(S0.shape[-2:]), dt):
+                _check_resident(name, spec, omega, S0, errs)
+    name = "multigrid main path 2048x2048 masked Poisson (fixed, fixed)"
+    _check_mg_smoothing(name, MG_PYRAMIDS[name], dev, errs)
+    torch.set_default_dtype(torch.float32)
+    phase4_resident(card, dev)
+    log("[5] the resident phases passed (no result line: --resident)")
+
+
 def main_blocks():
     """--blocks: phases 0 and 1, phase 2's 3-D block checks and phase 4's
     block timings alone (and --parent-sor3d's turns): B5s's loop."""
@@ -3908,6 +4127,7 @@ def main():
     stamp("phase 3 (sharded multigrid)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
+    per.update(phase4_resident(card, dev))
     per.update(phase4_blocks(card, dev))
     if PARENT_SOR3D:
         phase4_parent(card, dev, PARENT_SOR3D)
@@ -3936,12 +4156,17 @@ if __name__ == "__main__":
     blocks = "--blocks" in args
     if blocks:
         args.remove("--blocks")
+    resident = "--resident" in args
+    if resident:
+        args.remove("--resident")
     if len(args) == 2 and args[0] == "--parent-sor3d":
         PARENT_SOR3D = os.path.abspath(args[1])
     elif args:
-        raise SystemExit("usage: chip_smoke.py [--blocks] "
+        raise SystemExit("usage: chip_smoke.py [--blocks | --resident] "
                          "[--parent-sor3d PATH]")
     if blocks:
         main_blocks()
+    elif resident:
+        main_resident()
     else:
         main()

@@ -45,6 +45,14 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+def _main_2d():
+    """Launches of the 2-D main path's kernels: the resident kernel and the
+    two tiled kernels, of which the route takes one by spec, slice shape
+    and dtype."""
+    return (sor2d.RESIDENT_LAUNCHES + sor2d.TILED_LAUNCHES
+            + sor2d.TILED_INPLACE_LAUNCHES)
+
+
 def _poisson(dtype, device, batch=0, ny=45, nx=70,
              bcs=("extend", "periodic")):
     rng = np.random.default_rng(0)
@@ -179,14 +187,179 @@ def test_tiled_at_odd_origins(cuda, monkeypatch, dtype, case):
         sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, 2, with_norm=True)
 
 
+def _year(device, batch=1460):
+    """The year cell's problem (benchmark/configs/poisson_ncep25.json):
+    invert_Poisson's spec on the NCEP/NCAR R1 73 x 144 grid from pole to
+    pole, BCs [extend, periodic], float32, ``batch`` forcings of
+    sin(3 lon) cos(2 lat) plus noise with a continent-shaped block
+    masked."""
+    ny, nx = 73, 144
+    lat = np.linspace(-90.0, 90.0, ny)
+    lon = np.linspace(0.0, 357.5, nx)
+    rng = np.random.default_rng(11)
+    base = (np.sin(3 * np.deg2rad(lon))[None, :]
+            * np.cos(2 * np.deg2rad(lat))[:, None])
+    vals = (base + 0.1 * rng.standard_normal((batch, ny, nx))).astype(
+        np.float32)
+    Fdef = np.ones((ny, nx), bool)
+    Fdef[ny // 3:ny // 2, nx // 4:nx // 2] = False
+    grid = Grid.make(("lat", "lon"), (lat, lon), "lat-lon",
+                     bcs=("extend", "periodic"))
+    spec = problems.build_poisson(torch.as_tensor(vals, device=device),
+                                  torch.as_tensor(Fdef, device=device), grid,
+                                  default_mParams)
+    S0 = torch.as_tensor(rng.normal(0, 1e9, (batch, ny, nx)),
+                         dtype=torch.float32, device=device)
+    return spec, S0
+
+
+def _r1_spec(dtype, device, ny, nx, bcs, batch, per_slice, seed=0):
+    """A random diagonally dominant radius-1 stencil without cross terms
+    (relax 0 on the boundary lines of a non-periodic axis, a few cells
+    masked); every plane one a slice where ``per_slice``, else only g."""
+    rng = np.random.default_rng(seed)
+    shape = (batch, ny, nx) if per_slice else (ny, nx)
+    active = np.ones((ny, nx), bool)
+    if bcs[0] != "periodic":
+        active[[0, -1], :] = False
+    if bcs[1] != "periodic":
+        active[:, [0, -1]] = False
+    active = np.broadcast_to(active, shape) & (rng.random(shape) > 0.05)
+    w = rng.uniform(0.05, 0.25, (4,) + shape) * active
+    w0 = np.where(active, -1.05 * w.sum(0), 0.0)
+    relax = np.where(active, 1.0 / np.where(active, -w0, 1.0), 0.0)
+    g = rng.normal(0, 1, (batch, ny, nx)) * active
+    spec = StencilSpec.from_arrays(w, w0, g, relax, active,
+                                   ((1, 0), (-1, 0), (0, 1), (0, -1)), bcs,
+                                   device=device, dtype=dtype)
+    S0 = torch.as_tensor(rng.normal(0, 1e-3, (batch, ny, nx)), dtype=dtype,
+                         device=device)
+    return spec, S0
+
+
+def _resident_case(case, device):
+    if case == "year":
+        return _year(device)
+    if case == "nan":
+        spec, S0 = _year(device, batch=4)
+        S0[2, 30, 50] = float("nan")
+        S0[1, 0, 5] = float("inf")
+        return spec, S0
+    if case == "poisson_f64":
+        return _poisson(torch.float64, device, batch=3)
+    if case == "three_offsets":
+        spec, S0 = _r1_spec(torch.float32, device, 41, 90,
+                            ("extend", "periodic"), 3, False)
+        return dataclasses.replace(spec, w=spec.w[:3].contiguous(),
+                                   offsets=spec.offsets[:3]), S0
+    bcs, dtype, ny, nx, batch, per_slice = {
+        "extend_fixed_odd": (("extend", "fixed"), torch.float64, 37, 53, 3,
+                             False),
+        "fixed_periodic_odd": (("fixed", "periodic"), torch.float32, 45, 71,
+                               2, True),
+        "fixed_fixed": (("fixed", "fixed"), torch.float64, 40, 72, 3, True),
+        "fixed_periodic": (("fixed", "periodic"), torch.float32, 33, 64, 5,
+                           False)}[case]
+    return _r1_spec(dtype, device, ny, nx, bcs, batch, per_slice)
+
+
+def _nan_same(a, b):
+    """Equal values, and NaN at the same cells."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+@pytest.mark.parametrize("case", ["year", "nan", "poisson_f64",
+                                  "extend_fixed_odd", "fixed_periodic_odd",
+                                  "fixed_fixed", "fixed_periodic",
+                                  "three_offsets"])
+def test_resident_bit_equal_to_plain_and_tiled(cuda, case):
+    """The resident kernel against the plain version and the tiled kernel:
+    the year cell's spec and mask at 1460 x 73 x 144 float32, odd shapes
+    (an odd periodic x with live boundary columns: one color across the
+    wrap), three offsets (K < 4), n
+    of 1, 37 and 70 (two launches: 64 + 6), with and without Chebyshev
+    factors, the fused |S| totals equal to the tiled kernel's, extend and
+    fixed y, periodic and fixed x, planes shared and one a slice, and a
+    state that holds a NaN and an Inf."""
+    spec, S0 = _resident_case(case, cuda)
+    dtype, core = S0.dtype, tuple(S0.shape[-2:])
+    assert sor2d.resident_plan(spec, core, dtype) is not None
+    before = S0.clone()
+    rng = np.random.default_rng(3)
+    for n in (1, 37, 70):
+        fac = [float(torch.tensor(f, dtype=dtype))
+               for f in 1.0 + 0.4 * rng.random(2 * n)]
+        for f, omega in ((None, 1.3), (fac, 1.0)):
+            r0 = sor2d.RESIDENT_LAUNCHES
+            out_r, sum_r = sor2d.sor2d_sweeps_resident(
+                spec, S0, omega, n, with_norm=True, fac=f)
+            out_t, sum_t = sor2d.sor2d_sweeps_tiled(spec, S0, omega, n,
+                                                    with_norm=True, fac=f)
+            out_p = sor2d.sor2d_sweeps_reference(spec, S0, omega, n, f)
+            torch.cuda.synchronize()
+            assert sor2d.RESIDENT_LAUNCHES == r0 + -(-n // 64)
+            assert _nan_same(out_r, out_p), (n, f is None)
+            assert _nan_same(out_r, out_t), (n, f is None)
+            assert _nan_same(sum_r, sum_t), (n, f is None)
+            assert _nan_same(sor2d.sor2d_sweeps_resident(spec, S0, omega, n,
+                                                         fac=f), out_r)
+    assert _nan_same(S0, before)
+
+
+def test_resident_checked_solve_equals_tiled(cuda, monkeypatch):
+    """A checked solve of the year cell's spec (64 fields, tolerance 1e-6,
+    32-sweep windows) through the resident kernel stops where the tiled
+    kernel's does: iters, rel_change, overflow and the state, torch.equal,
+    one launch a window."""
+    spec, _ = _year(cuda, batch=64)
+    S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
+    kw = dict(tol=1e-6, max_iters=5000, check_every=32)
+    r0 = sor2d.RESIDENT_LAUNCHES
+    res = xt.solve(spec, S0, **kw)
+    windows = sor2d.RESIDENT_LAUNCHES - r0
+    monkeypatch.setattr(sor2d, "sor2d_sweeps", sor2d.sor2d_sweeps_tiled)
+    ref = xt.solve(spec, S0, **kw)
+    assert windows == int(ref.iters.max()) // 32
+    assert int(ref.iters.max()) < 5000 and not bool(ref.overflow.any())
+    for f in ("iters", "rel_change", "overflow", "S"):
+        assert torch.equal(getattr(res, f), getattr(ref, f)), f
+
+
+@pytest.mark.parametrize("case", ["year", "2048"])
+def test_2d_solve_launches_only_the_route_kernel(cuda, case):
+    """A checked 2-D solve at the year cell's 73 x 144 launches the resident
+    kernel alone; at 2048 x 2048, past its reach, the tiled kernel
+    alone."""
+    if case == "year":
+        spec, _ = _year(cuda, batch=8)
+        ran_only = "RESIDENT_LAUNCHES"
+    else:
+        spec, _ = _poisson(torch.float32, cuda, ny=2048, nx=2048)
+        ran_only = "TILED_LAUNCHES"
+    S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
+    names = ("RESIDENT_LAUNCHES", "TILED_LAUNCHES", "TILED_INPLACE_LAUNCHES",
+             "LAUNCHES", "INPLACE_LAUNCHES", "EXTEND_LAUNCHES",
+             "BLOCK_LAUNCHES", "PLAIN_CALLS")
+    before = {n: getattr(sor2d, n) for n in names}
+    xt.solve(spec, S0, tol=1e-6, max_iters=256, check_every=32)
+    ran = {n for n in names if getattr(sor2d, n) != before[n]}
+    assert ran == {ran_only}
+
+
 @pytest.mark.parametrize("switch", [False, True])
 def test_2d_solve_launches_only_the_tiled_kernels(cuda, monkeypatch,
                                                   switch):
+    """A slice past the resident kernel's reach (96 x 144: 6912 pairs of
+    cells) runs the tiled kernels alone, the in-place one with the
+    switch."""
     monkeypatch.setattr(sor2d, "INPLACE_KERNEL", switch)
-    spec, _ = _stommel(torch.float32, cuda)
+    spec, _ = _stommel(torch.float32, cuda, ny=96, nx=144)
+    assert sor2d.resident_plan(spec, (96, 144), torch.float32) is None
     S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
     names = ("TILED_LAUNCHES", "TILED_INPLACE_LAUNCHES", "LAUNCHES",
-             "INPLACE_LAUNCHES", "EXTEND_LAUNCHES", "PLAIN_CALLS")
+             "INPLACE_LAUNCHES", "EXTEND_LAUNCHES", "PLAIN_CALLS",
+             "RESIDENT_LAUNCHES")
     before = {n: getattr(sor2d, n) for n in names}
     xt.solve(spec, S0, omega=1.5, tol=1e-9, max_iters=200, check_every=8)
     ran = {n for n in names if getattr(sor2d, n) != before[n]}
@@ -697,9 +870,14 @@ def test_inplace_race_gate(cuda, monkeypatch):
     out = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 4)
     assert (sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES) == (l0 + 8, i0)
     assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 4))
-    t0, ti0 = sor2d.TILED_LAUNCHES, sor2d.TILED_INPLACE_LAUNCHES
+    ti0 = sor2d.TILED_INPLACE_LAUNCHES
+    m0 = _main_2d()
     out = sor2d.sor2d_sweeps(spec, S0, 1.3, 4)
-    assert sor2d.TILED_LAUNCHES > t0 and sor2d.TILED_INPLACE_LAUNCHES == ti0
+    assert _main_2d() > m0 and sor2d.TILED_INPLACE_LAUNCHES == ti0
+    assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 4))
+    t0 = sor2d.TILED_LAUNCHES
+    out = sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, 4)
+    assert sor2d.TILED_LAUNCHES > t0
     assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 4))
     cross, S1 = _poisson(torch.float64, cuda)
     cross = dataclasses.replace(cross, w=torch.cat([cross.w, cross.w[:1]]),
@@ -771,9 +949,12 @@ def test_cheby_solve_on_card_matches_cpu(cuda, monkeypatch, switch):
                                             "active")})
     kw = dict(omega=1.6, tol=1e-9, max_iters=500, check_every=4,
               scheme="cheby")
-    i0 = sor2d.TILED_INPLACE_LAUNCHES
+    i0, r0 = sor2d.TILED_INPLACE_LAUNCHES, sor2d.RESIDENT_LAUNCHES
     r_k = xt.solve(spec, S0, **kw)
-    assert (sor2d.TILED_INPLACE_LAUNCHES > i0) == switch
+    resident = sor2d.resident_plan(spec, tuple(S0.shape[-2:]),
+                                   S0.dtype) is not None
+    assert (sor2d.RESIDENT_LAUNCHES > r0) == resident
+    assert (sor2d.TILED_INPLACE_LAUNCHES > i0) == (switch and not resident)
     r_c = xt.solve(spec_cpu, S0.cpu(), **kw)
     assert torch.equal(r_k.iters.cpu(), r_c.iters)
     torch.testing.assert_close(r_k.S.cpu(), r_c.S, rtol=1e-10, atol=1e-12)
@@ -815,13 +996,12 @@ def test_mg_smoothing_through_the_kernel(cuda, monkeypatch, dtype, inplace):
             S = (torch.randn(batch + shape, generator=gen,
                              dtype=torch.float64) * 1e-2).to(dtype).to(cuda)
             for n in (1, 2, 3, 60):
-                t0 = sor2d.TILED_LAUNCHES + sor2d.TILED_INPLACE_LAUNCHES
+                t0 = _main_2d()
                 p0 = sor2d.PLAIN_CALLS
                 out = mg._smooth(level, S, n)
                 ref = sor2d.sor2d_sweeps_reference(level.spec, S,
                                                    level.omega, n)
-                assert (sor2d.TILED_LAUNCHES + sor2d.TILED_INPLACE_LAUNCHES
-                        > t0)
+                assert _main_2d() > t0
                 assert sor2d.PLAIN_CALLS == p0 + 1
                 assert torch.equal(out, ref), (shape, batch, n)
 
@@ -856,9 +1036,9 @@ def test_invert_poisson_mg_defaults_to_the_card(cuda):
     F = xt.Field(vals, ("time", "lat", "lon"),
                  {"time": np.arange(2.0), "lat": lat, "lon": lon})
     iP = {"BCs": ["extend", "periodic"], "undef": np.nan}
-    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    t0, p0 = _main_2d(), sor2d.PLAIN_CALLS
     out = xt.invert_Poisson_mg(F, ["lat", "lon"], iParams=iP, tol=1e-6)
-    assert sor2d.TILED_LAUNCHES > t0 and sor2d.PLAIN_CALLS == p0
+    assert _main_2d() > t0 and sor2d.PLAIN_CALLS == p0
     dtype = torch.get_default_dtype()
     torch.set_default_dtype(torch.float64)
     try:
@@ -881,10 +1061,10 @@ def test_trajectory_frames_through_the_kernels(cuda, dtype, scheme):
     from xinvert_tpu_torch import solver
     spec, S0 = _poisson(dtype, cuda, batch=2)
     omega = 1.7
-    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    t0, p0 = _main_2d(), sor2d.PLAIN_CALLS
     frames = solver.solve_trajectory(spec, S0, omega, loop_per_frame=5,
                                      max_frames=6, scheme=scheme)
-    assert sor2d.TILED_LAUNCHES - t0 >= 6 and sor2d.PLAIN_CALLS == p0
+    assert _main_2d() - t0 >= 6 and sor2d.PLAIN_CALLS == p0
     rho2 = solver.rho2_from_omega(omega, dtype)
     S, m, w = S0, 0, rho2.dtype.type(1.0)
     for k in range(6):
@@ -954,12 +1134,12 @@ def test_lexico_on_card_matches_cpu(cuda):
     torch.set_default_dtype(torch.float64)
     try:
         for call in calls:
-            n0 = (sor2d.TILED_LAUNCHES, sor3d.LAUNCHES, sor2d.PLAIN_CALLS,
+            n0 = (_main_2d(), sor3d.LAUNCHES, sor2d.PLAIN_CALLS,
                   sor3d.PLAIN_CALLS)
             out_k = call()
             r_k = api.LAST_SOLVE
             assert r_k.S.is_cuda
-            assert n0 == (sor2d.TILED_LAUNCHES, sor3d.LAUNCHES,
+            assert n0 == (_main_2d(), sor3d.LAUNCHES,
                           sor2d.PLAIN_CALLS, sor3d.PLAIN_CALLS)
             out_c = call(device="cpu")
             assert torch.equal(r_k.iters.cpu(), api.LAST_SOLVE.iters)
@@ -1011,9 +1191,9 @@ def test_streamed_bit_equal_to_resident_on_the_card(cuda, chunk):
     dev = dataclasses.replace(spec, **{f: getattr(spec, f).to(cuda) for f in
                                        ("w", "w0", "g", "relax", "active")})
     ref = xt.solve(dev, S0.to(cuda), **kw)
-    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    t0, p0 = _main_2d(), sor2d.PLAIN_CALLS
     got = xt.solve_streamed(spec, S0, chunk=chunk, **kw)
-    assert sor2d.TILED_LAUNCHES > t0 and sor2d.PLAIN_CALLS == p0
+    assert _main_2d() > t0 and sor2d.PLAIN_CALLS == p0
     for f in ("S", "iters", "rel_change", "overflow"):
         assert getattr(got, f).device.type == "cpu"
         assert torch.equal(getattr(got, f), getattr(ref, f).cpu()), f
@@ -1040,9 +1220,9 @@ def test_implicit_gradient_kernel_equals_plain_on_the_card(cuda, monkeypatch,
         torch.sum(c * S).backward()
         return S.detach(), g.grad, w.grad
 
-    t0, p0 = sor2d.TILED_LAUNCHES, sor2d.PLAIN_CALLS
+    t0, p0 = _main_2d(), sor2d.PLAIN_CALLS
     kern = grads()
-    assert sor2d.TILED_LAUNCHES > t0 and sor2d.PLAIN_CALLS == p0
+    assert _main_2d() > t0 and sor2d.PLAIN_CALLS == p0
     monkeypatch.setattr(sor2d, "sor2d_sweeps", _plain_sweeps)
     plain = grads()
     assert sor2d.PLAIN_CALLS > p0
@@ -1205,11 +1385,10 @@ def test_mesh_solve_on_the_card_equals_meshless(cuda):
                        bcs=("fixed", "periodic"))
     S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
     ref = xt.solve(spec, S0, 1.8, tol=1e-4, max_iters=3000, check_every=32)
-    t0, b0, p0 = (sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES,
-                  sor2d.PLAIN_CALLS)
+    t0, b0, p0 = _main_2d(), sor2d.BLOCK_LAUNCHES, sor2d.PLAIN_CALLS
     out = solve_halo_window(spec, S0, 1.8, 1e-4, 3000, check_every=32,
                             mesh=_card_mesh(cuda, (2, 2), ("y", "x")))
-    assert sor2d.TILED_LAUNCHES == t0 and sor2d.PLAIN_CALLS == p0
+    assert _main_2d() == t0 and sor2d.PLAIN_CALLS == p0
     assert sor2d.BLOCK_LAUNCHES > b0
     assert torch.equal(out.iters, ref.iters) and int(ref.iters.max()) < 3000
     assert torch.equal(out.S, ref.S)
@@ -1239,7 +1418,7 @@ def test_mesh_over_several_cards_equals_meshless(cuda):
                        bcs=("fixed", "periodic"))
     S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
     ref = xt.solve(spec, S0, 1.8, tol=1e-4, max_iters=3000, check_every=32)
-    t0, b0 = sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES
+    t0, b0 = _main_2d(), sor2d.BLOCK_LAUNCHES
     out = tpar.solve_halo_window(spec, S0, 1.8, 1e-4, 3000, check_every=32,
                                  mesh=mesh)
     assert torch.equal(out.iters, ref.iters) and int(ref.iters.max()) < 3000
@@ -1250,7 +1429,7 @@ def test_mesh_over_several_cards_equals_meshless(cuda):
     assert torch.equal(res[0].iters, res[1].iters)
     assert int(res[0].iters.max()) < 3000
     assert torch.equal(res[0].S, res[1].S)
-    assert sor2d.TILED_LAUNCHES == t0 and sor2d.BLOCK_LAUNCHES > b0
+    assert _main_2d() == t0 and sor2d.BLOCK_LAUNCHES > b0
     spec3, S3 = _omega_problem3(12, 72, 96, torch.float32, cuda)
     b3 = sor3d.BLOCK_LAUNCHES
     r3 = [tpar.solve_halo_window3d(spec3, S3 + 1e-3, 1.2, 5e-3, 400,
@@ -1432,10 +1611,13 @@ def test_batch_over_65535_slices_2d(cuda, per_slice):
     one."""
     B = 65536
     spec, S0 = _batch_spec2d(torch.float32, cuda, B, per_slice)
-    t0 = sor2d.TILED_LAUNCHES
+    t0 = _main_2d()
     out = xt.solve_fixed(spec, S0, 1.3, 9)
-    assert sor2d.TILED_LAUNCHES > t0
+    assert _main_2d() > t0
     assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 9))
+    t0 = sor2d.TILED_LAUNCHES
+    assert torch.equal(sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, 9), out)
+    assert sor2d.TILED_LAUNCHES > t0
     got, tot = sor2d.sor2d_sweeps(spec, S0, 1.3, 9, with_norm=True)
     assert torch.equal(got, out) and tot.shape == (B,)
     for b in (0, 1, 65534, 65535):
@@ -1517,10 +1699,10 @@ def test_solve_mg_sharded_on_the_card_equals_meshless(cuda):
     for name, pyr, kw in _mg_pyramids(torch.float32, cuda):
         Sm, km, resm, convm = mg.solve_mg(pyr, **kw)
         whole = any(p is None for p in pyramid.level_plan(pyr, mesh))
-        c0 = (sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES, sor3d.LAUNCHES,
+        c0 = (_main_2d(), sor2d.BLOCK_LAUNCHES, sor3d.LAUNCHES,
               sor3d.BLOCK_LAUNCHES, sor2d.PLAIN_CALLS)
         S, k, res, conv = tpar.solve_mg_sharded(pyr, mesh=mesh, **kw)
-        c1 = (sor2d.TILED_LAUNCHES, sor2d.BLOCK_LAUNCHES, sor3d.LAUNCHES,
+        c1 = (_main_2d(), sor2d.BLOCK_LAUNCHES, sor3d.LAUNCHES,
               sor3d.BLOCK_LAUNCHES, sor2d.PLAIN_CALLS)
         d = [b - a for a, b in zip(c0, c1)]
         assert (k, res, conv) == (km, resm, convm) and conv, name

@@ -275,3 +275,119 @@ def test_every_spec_the_pair_takes_gets_a_plan(case):
                   j * plan.tx:(j + 1) * plan.tx] += 1
     assert (count == 1).all()
     assert ty_n <= 65535
+
+
+# ------------------------------------------------------ the resident route
+
+_ROUTES = {
+    # name: (core, offsets, bih, dtype, resident)
+    "year_f32": ((73, 144), P4, False, torch.float32, True),
+    "odd_f32": ((37, 53), P4, False, torch.float32, True),
+    "small_f64": ((37, 53), P4, False, torch.float64, True),
+    "three_offsets": ((73, 144), P4[:3], False, torch.float32, True),
+    "2048": ((2048, 2048), P4, False, torch.float32, False),
+    "era5": ((721, 1440), P4, False, torch.float32, False),
+    "cross_terms": ((73, 144), X8, False, torch.float32, False),
+    "biharmonic": ((73, 144), BIH, True, torch.float32, False),
+    "year_f64": ((73, 144), P4, False, torch.float64, False),
+    "rows_past_the_slots": ((75, 144), P4, False, torch.float32, False),
+    "one_dimension": ((70,), ((1,), (-1,)), False, torch.float32, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTES))
+def test_resident_route_by_shape_spec_and_dtype(case):
+    """resident_plan takes radius-1 stencils without cross terms whose
+    slice fits the kernel (the year cell's 73 x 144 in float32) and
+    refuses the rest, which the tiled kernels run: 2048 x 2048, ERA5's
+    721 x 1440, cross terms, the biharmonic, a float64 year slice."""
+    core, offs, bih, dtype, resident = _ROUTES[case]
+    spec = _Spec(offs, bih, ("extend", "periodic"))
+    plan = sor2d.resident_plan(spec, core, dtype)
+    assert (plan is not None) == resident
+    if plan is not None:
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        assert (plan.threads, plan.cpt) == sor2d._RESIDENT_CONFIGS[itemsize]
+        assert plan.k == sor2d.MAX_RESIDENT_SWEEPS >= 32
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resident_footprint_against_the_shared_memory(dtype):
+    """The footprint of csrc/sor2d.cu::launch_resident, worked out by hand
+    for the year cell's slice, and the plan's limits: a slice fits exactly
+    when its pairs fit the threads x slots and its bytes ``_SMEM_MAX``."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    slots, rs, smem = sor2d.resident_footprint((73, 144), itemsize)
+    assert (slots, rs) == (73 * 72, 74)
+    # two color arrays of 75 x 74 (11 100 cells, a multiple of 4), 4
+    # weights a cell over two colors of 73 x 74, the row sums of 10 x 5
+    # blocks of 32 x 8
+    assert smem == (2 * 75 * 74 + 8 * 73 * 74 + 80 * 5) * itemsize
+    assert (smem <= sor2d._SMEM_MAX) == (dtype == torch.float32)
+    nt, cpt = sor2d._RESIDENT_CONFIGS[itemsize]
+    spec = _Spec(P4, False, ("fixed", "fixed"))
+    for ny in range(3, 200, 7):
+        for nx in range(3, 300, 11):
+            slots, _, smem = sor2d.resident_footprint((ny, nx), itemsize)
+            fits = slots <= nt * cpt and smem <= sor2d._SMEM_MAX
+            plan = sor2d.resident_plan(spec, (ny, nx), dtype)
+            assert (plan is not None) == fits, (ny, nx)
+            if plan is not None:
+                assert plan.smem == smem <= sor2d._SMEM_MAX
+
+
+_RESIDENT_EMU = {
+    # name: (core, bcs, batch, per_slice, dtype, n, fac, nan, modes)
+    "year": ((73, 144), ("extend", "periodic"), 2, False, torch.float32, 5,
+             False, False, {"fast"}),
+    "year_cheby": ((73, 144), ("extend", "periodic"), 2, False,
+                   torch.float32, 33, True, False, {"fast"}),
+    "odd_extend_fixed": ((37, 53), ("extend", "fixed"), 0, False,
+                         torch.float64, 7, False, False, {"fast"}),
+    # an odd periodic x with live boundary columns: one color on both
+    # sides of the wrap, read through the ghosts
+    "odd_periodic": ((37, 53), ("fixed", "periodic"), 2, True,
+                     torch.float64, 6, False, False, {"fast"}),
+    "two_launches": ((37, 54), ("fixed", "fixed"), 3, True, torch.float64,
+                     66, True, False, {"fast"}),
+    "nan_seeded": ((40, 72), ("extend", "periodic"), 3, False,
+                   torch.float64, 9, False, True, {"exact"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_RESIDENT_EMU))
+def test_resident_emulation_bit_equal_to_plain(case):
+    """The resident kernel's algorithm replayed with torch ops
+    (``sor2d_sweeps_resident_emulated``: the color arrays and their ghost
+    ring, the kernel's neighbour offsets, the fast and exact modes, the
+    launches of 64 sweeps) is the plain sweeps bit for bit, NaN and all,
+    and its |S| totals the tiled kernel's blocks in their order."""
+    core, bcs, batch, per_slice, dtype, n, fac, nan, want = \
+        _RESIDENT_EMU[case]
+    spec, S0 = _spec(core, P4, bcs, False, batch, per_slice, seed=len(case),
+                     dtype=dtype)
+    if nan:
+        S0[..., core[0] // 2, 3] = float("nan")
+        S0[..., 0, 5] = float("inf")
+    plan = sor2d.resident_plan(spec, core, dtype)
+    if plan is None:     # float64 slices past the card's reach still replay
+        _, rs, smem = sor2d.resident_footprint(core, S0.element_size())
+        plan = sor2d.ResidentPlan(512, 6, rs, smem)
+    omega, facs = 1.3, None
+    if fac:
+        rng = np.random.default_rng(1)
+        facs = [float(torch.tensor(f, dtype=dtype))
+                for f in 1.0 + 0.4 * rng.random(2 * n)]
+        omega = 1.0
+    modes = []
+    out, sumabs = sor2d.sor2d_sweeps_resident_emulated(
+        spec, S0, omega, n, with_norm=True, fac=facs, plan=plan, modes=modes)
+    ref = tsolver.sweeps(spec, S0, omega, n, facs)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(torch.nan_to_num(out), torch.nan_to_num(ref))
+    B = max(batch, 1)
+    tot = sor2d._driver.slice_totals(
+        sor2d.block_partials(ref).reshape(B, -1)).reshape(S0.shape[:-2])
+    assert torch.equal(torch.nan_to_num(sumabs, nan=-1.0),
+                       torch.nan_to_num(tot, nan=-1.0))
+    assert set(modes) == want

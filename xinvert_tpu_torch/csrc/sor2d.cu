@@ -15,7 +15,10 @@
 // has_top/has_bot, pad_x, clamp_w/clamp_e, ext_bot; B2s) are the block mode
 // of the tiled kernel (sor2d_sweeps_block, after the tiled kernel below).
 //
-// The sweeps run in the two tiled kernels at the end of this file
+// The sweeps run in the resident kernel (sor2d_sweeps_resident, at the end
+// of this file) where a whole slice fits one SM and the stencil has radius 1
+// without cross terms: every slice held in shared memory through a check
+// window of sweeps a launch.  Every other case runs the two tiled kernels
 // (sor2d_sweeps_tiled, and sor2d_sweeps_tiled_inplace for B3's specs):
 // k full sweeps per launch on a window held in shared memory, the extend
 // pre-pass folded in.  The three one-half-sweep kernels below are the first
@@ -75,9 +78,18 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// s + ((rel * sel) * fac) * (acc + w0 * s): the update of the header from
+// the neighbour sum acc = g + sum_k w_k * s_k.  Every kernel of this file
+// ends a cell's update here, so their arithmetic is one and the same.
+template <typename T>
+__device__ __forceinline__ T relax_cell(T s, T acc, T w0, T rel, T sel,
+                                        T fac) {
+  const T r = (rel * sel) * fac;
+  return s + r * (acc + w0 * s);
+}
+
 // The update of cell (j, i) of slice b from the state sb, in the order of
-// the header: shared by both color-sweep kernels, so their arithmetic is
-// one and the same.
+// the header: shared by both color-sweep kernels.
 template <typename T>
 __device__ __forceinline__ T cell_update(const T* sb, const T* w, const T* w0,
                                          const T* g, const T* rel,
@@ -93,8 +105,8 @@ __device__ __forceinline__ T cell_update(const T* sb, const T* w, const T* w0,
     ii = ii < 0 ? ii + a.nx : (ii >= a.nx ? ii - a.nx : ii);
     acc = acc + wb[k * a.w_kstride] * sb[(long long)jj * a.nx + ii];
   }
-  const T r = (rel[b * a.rel_bstride + idx] * sel) * fac;
-  return s + r * (acc + w0[b * a.w0_bstride + idx] * s);
+  const T rl = rel[b * a.rel_bstride + idx];
+  return relax_cell(s, acc, w0[b * a.w0_bstride + idx], rl, sel, fac);
 }
 
 // Per-block sum of |out| (out-of-range threads add 0) into slot
@@ -559,8 +571,8 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
             if (k < p.K)
               acc = acc + (WS ? wsm[k * cells + tid + j * NT] : cw[j][k])
                               * sm[si + a.soff[k]];
-          const T r = (crel[j] * (active ? T(1) : T(0))) * fac;
-          sm[nxt + sidx[j]] = sv + r * (acc + cw0[j] * sv);
+          sm[nxt + sidx[j]] = relax_cell(sv, acc, cw0[j], crel[j],
+                                         active ? T(1) : T(0), fac);
         }
         __syncthreads();
         const int t = cur;
@@ -728,6 +740,530 @@ static int launch_tiled(const T* s_in, T* s_out, const T* w, const T* w0,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The resident kernel (sor2d_sweeps_resident): one whole batch slice held in
+// shared memory for a whole check window of sweeps.
+//
+// Replaces no new TPU kernel.  It is B1/B2's counterpart (xinvert_tpu/ops/
+// pallas_sor.py::_kernel, the VMEM-resident multi-sweep kernel, and
+// pallas_sor_window.py::_kernel) for slices that fit one SM: there the tiled
+// kernel's windows hold a few tiles of the slice each and recompute their
+// halos (a 73x144 slice in 50x80 windows computes 6.9 cells per cell a
+// sweep).  The wrapper takes it for radius-1 stencils without cross terms
+// whose slice fits the instantiation (ops/sor2d.py::resident_plan); every
+// other spec and shape runs the tiled kernels.
+//
+// A block walks slices b = blockIdx.x, + gridDim.x, ... (a grid of
+// min(B, SMs) blocks: no block walks more than ceil(B / blocks) slices).
+// For each it loads the slice once, runs the launch's sweeps (the extend
+// pre-pass, red, black) in shared memory, and writes the slice back once,
+// with the fused |S| partials of the tiled kernel: the same 32 x 8 blocks,
+// summed in the same order, so a checked solve's norms, and so its stops,
+// are the tiled kernel's bit for bit.  The state is read and written in
+// place (one buffer): each block reads its slice whole before it writes it.
+// Planes the batch shares are loaded once a block.
+//
+// Layout.  The slice lives in two color arrays: cell (j, i) of color
+// a = (j + i) & 1 sits in array a at row j + 1 and column (i + 2) >> 1, row
+// stride rs = ceil(nx / 2) + 2.  Every neighbour of a cell has the other
+// color, so a half-sweep of color c reads array 1 - c alone, and the lanes
+// of a warp, which own consecutive columns of a row, read consecutive words
+// (no bank conflict).  Each array has a ring of ghosts: the formal rows -1
+// and ny and columns -1 and nx, each holding the cell torch.roll wraps it to
+// (row ny - 1, row 0, column nx - 1, column 0), so every neighbour read is a
+// fixed offset from the cell: rs for (1, 0), and for (0, +-1) one that
+// depends on the cell's column parity (dx > 0: par, dx < 0: par - 1).  A
+// write of an edge cell writes its ghosts too.  The weights sit in shared
+// memory in the same layout, the K <= 4 of a cell as one 16-byte vector
+// (one load); w0, g and rel of a thread's cells in registers.  Thread t
+// owns the pairs (j, 2q), (j, 2q + 1) of the slots
+// e = t + s * NT, s < CPT, (j, q) = divmod(e, ceil(nx / 2)): one cell of
+// each color, so every half-sweep gives each thread the same work.
+//
+// In place, and exact.  A half-sweep computes only the cells of its color
+// and writes them in place: an active cell reads the other color alone, and
+// a read across the wrap reads a ghost.  Where an odd size joins two cells
+// of one color across the wrap and either may change (rel not 0 on the
+// axis's boundary lines, or the exact mode below), the active cells' ghosts
+// are written after a barrier, so every read sees the state before the
+// half-sweep.  The plain
+// version computes every cell: those of the other color take
+// s + ((rel * 0) * fac) * (acc + w0 * s), which is s (up to the sign of a
+// zero) unless rel, fac or the bracket is not finite, when it is NaN.  The
+// block keeps that, in one of two modes the whole block takes for each
+// half-sweep:
+//   - fast, where no bracket can overflow: the planes are finite,
+//     |w_k|, |w0| <= 2^40 and |g| <= 2^126 (double: 2^400, 2^1022), fac is
+//     finite, and every cell of the state is at most 2^80 (2^600) in
+//     magnitude, so every bracket is finite and the other color keeps its
+//     value: only the active cells are computed.
+//   - exact, otherwise: the threads first note which of their other-color
+//     cells the plain version turns NaN, from the state before the
+//     half-sweep, wait at a barrier, update the active cells, wait again,
+//     and write those NaNs.
+// The planes are tested as they load; the state's bound rides the barrier
+// that ends each half-sweep (__syncthreads_or).  Nothing here is gated by a
+// switch: on the specs it takes the kernel is the plain version bit for bit
+// (torch.equal), NaN and Inf included.
+//
+// Bound: operations.  A point-sweep costs 2K + 4 = 12 operations (K = 4):
+// 15.3 M points take 2.74 us a sweep at 67 TFLOP/s.  Device memory is read
+// and written once a launch (a window of up to 64 sweeps), so its bytes are
+// no longer the limit.  What a half-sweep costs the SM instead: per active
+// cell K + 1 shared-memory reads of the state, a vector of the weights and
+// one write (more for an edge cell's ghosts), conflict-free; some 60
+// instructions; one barrier a half-sweep (two where the ghosts wait), which
+// also carries the state's test, and one for the extend pre-pass; the last
+// slot round of ceil(slots / NT).  The slots' codes and the planes w0, g,
+// rel stay in registers (7 a slot), so a half-sweep keeps no value of its
+// own there.
+// ---------------------------------------------------------------------------
+
+#define RESIDENT_MAX_SWEEPS 64
+#define RESIDENT_MAX_K 4
+
+// Mirrored field by field by ops/sor2d.py::_ResidentParams (ctypes).
+struct ResidentParams {
+  int B, ny, nx, K, nsweeps;
+  int rs;                      // row stride of a color array
+  int extend, periodic_x;
+  int cpt, nt;                 // the instantiation
+  int dy[SOR2D_MAX_K];
+  int dx[SOR2D_MAX_K];
+  long long w_kstride, w_bstride, w0_bstride, g_bstride, rel_bstride;
+  double fac[2 * RESIDENT_MAX_SWEEPS];  // per half-sweep; exact in T
+};
+
+struct ResidentArgs {
+  ResidentParams p;
+  int hx, sa, wa;              // slots a row; cells of a color array, of a
+                               // weight array (4 weights a cell)
+  int wofs;                    // the weight arrays' offset (16-byte aligned)
+  unsigned rs_inv;             // ceil(2^32 / rs): res_row
+  int odd;                     // ny or nx odd: ghosts wait for a barrier
+  int obase[RESIDENT_MAX_K];   // offset k: dy * rs + (dx < 0 ? -1 : 0)
+  int omask[RESIDENT_MAX_K];   //   + (par & omask): -1 where dx != 0
+};
+
+// A slot's code: bits 0-15 the pair's index ix in a color array, bit 16
+// its row's parity, bits 17-18 whether cell h = 0, 1 exists (2q + h < nx),
+// bits 19-20 whether it is an edge cell (has ghosts), bit 21 whether the
+// row is 0 or ny - 1 (the extend pre-pass writes it); -1: no slot.
+#define RES_VALID 17
+#define RES_EDGE 19
+#define RES_EXTROW 21
+
+__device__ __forceinline__ int res_ix(int j, int i, int rs) {
+  return (j + 1) * rs + ((i + 2) >> 1);
+}
+
+// The row j and first column c2 of the pair at index ix: ix / rs by a
+// multiply with rs_inv = ceil(2^32 / rs), exact for ix < 2^16.
+__device__ __forceinline__ void res_row(int ix, int rs, unsigned rs_inv,
+                                        int* j, int* c2) {
+  *j = (int)__umulhi((unsigned)ix, rs_inv) - 1;
+  *c2 = 2 * (ix - (*j + 1) * rs - 1);
+}
+
+template <typename T>
+__device__ __forceinline__ T res_get(const T* st, int sa, int rs, int j,
+                                     int i) {
+  return st[((j + i) & 1) * sa + res_ix(j, i, rs)];
+}
+
+// Writes the ghosts of cell (j, i).
+template <typename T>
+__device__ __forceinline__ void res_ghosts(T* st, int sa, int rs, int ny,
+                                           int nx, int j, int i, T v) {
+  if (i == 0) st[((j + nx) & 1) * sa + res_ix(j, nx, rs)] = v;
+  if (i == nx - 1) st[((j + 1) & 1) * sa + res_ix(j, -1, rs)] = v;
+  if (j == 0) st[((ny + i) & 1) * sa + res_ix(ny, i, rs)] = v;
+  if (j == ny - 1) st[((i + 1) & 1) * sa + res_ix(-1, i, rs)] = v;
+}
+
+// Writes cell (j, i) and its ghosts.
+template <typename T>
+__device__ __forceinline__ void res_put_edge(T* st, int sa, int rs, int ny,
+                                             int nx, int j, int i, T v) {
+  st[((j + i) & 1) * sa + res_ix(j, i, rs)] = v;
+  res_ghosts(st, sa, rs, ny, nx, j, i, v);
+}
+
+template <typename T>
+__device__ __forceinline__ T res_abs(T v) { return v < T(0) ? -v : v; }
+
+// A cell's weights w_0..w_3, one 16-byte-aligned vector in shared memory
+// (one 128-bit load in float, two in double).
+template <typename T>
+struct W4 {
+  T v[RESIDENT_MAX_K];
+};
+
+template <typename T>
+__device__ __forceinline__ W4<T> res_load_w4(const T* at) {
+  W4<T> r;
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(at);
+    r.v[0] = f.x; r.v[1] = f.y; r.v[2] = f.z; r.v[3] = f.w;
+  } else {
+    const double2 a = reinterpret_cast<const double2*>(at)[0];
+    const double2 b = reinterpret_cast<const double2*>(at)[1];
+    r.v[0] = a.x; r.v[1] = a.y; r.v[2] = b.x; r.v[3] = b.y;
+  }
+  return r;
+}
+
+// acc = g + w_0 * s_0 + ... + w_{K-1} * s_{K-1} in k order, s_k read from
+// nb (the other color's array at the cell's index) at offset
+// obase[k] + (par & omask[k]); four offsets without a test of K each.
+template <typename T>
+__device__ __forceinline__ T res_neighbour_sum(T g, const W4<T>& w,
+                                               const T* nb, int par, int K,
+                                               const int* obase,
+                                               const int* omask) {
+  T acc = g;
+  if (K == RESIDENT_MAX_K) {
+#pragma unroll
+    for (int k = 0; k < RESIDENT_MAX_K; ++k)
+      acc = acc + w.v[k] * nb[obase[k] + (par & omask[k])];
+  } else {
+#pragma unroll
+    for (int k = 0; k < RESIDENT_MAX_K; ++k)
+      if (k < K) acc = acc + w.v[k] * nb[obase[k] + (par & omask[k])];
+  }
+  return acc;
+}
+
+template <typename T>
+__device__ __forceinline__ void res_bounds(T* bw, T* bg, T* bs) {
+  if constexpr (sizeof(T) == 4) {
+    *bw = 0x1p40f; *bg = 0x1p126f; *bs = 0x1p80f;
+  } else {
+    *bw = 0x1p400; *bg = 0x1p1022; *bs = 0x1p600;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ T res_nan() {
+  if constexpr (sizeof(T) == 4) return __int_as_float(0x7fffffff);
+  else return __longlong_as_double(0x7fffffffffffffffLL);
+}
+
+template <typename T, int CPT, int NT>
+__global__ void __launch_bounds__(NT, 1)
+sor2d_sweeps_resident_kernel(T* s, const T* __restrict__ w,
+                             const T* __restrict__ w0,
+                             const T* __restrict__ g,
+                             const T* __restrict__ rel,
+                             T* __restrict__ partials,
+                             const __grid_constant__ ResidentArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const st = reinterpret_cast<T*>(smem_raw);  // the two color arrays
+  const ResidentParams& p = a.p;
+  const int ny = p.ny, nx = p.nx, rs = p.rs, hx = a.hx, sa = a.sa,
+            wa = a.wa;
+  // the weights of the cell at index ix of color c: 4 at (c wa + ix - rs) 4
+  T* const wsm = st + a.wofs;
+  T* const rowsum = wsm + 8 * wa;
+  const int tid = threadIdx.x;
+  T bw, bg, bs;
+  res_bounds(&bw, &bg, &bs);
+
+  int code[CPT];
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+    const int e = tid + q * NT;
+    code[q] = -1;
+    if (e < ny * hx) {
+      const int j = e / hx, c2 = 2 * (e - j * hx);
+      const bool erow = j == 0 || j == ny - 1;
+      code[q] = res_ix(j, c2, rs) | (j & 1) << 16 | 1 << RES_VALID |
+                (c2 + 1 < nx) << (RES_VALID + 1) |
+                (erow || c2 == 0 || c2 == nx - 1) << RES_EDGE |
+                (erow || c2 + 1 == nx - 1) << (RES_EDGE + 1) |
+                erow << RES_EXTROW;
+    }
+  }
+  T cw0[CPT][2], cg[CPT][2], crel[CPT][2];
+  bool bad_w = false, bad_w0 = false, bad_g = false, bad_rel = false;
+  bool live_wrap = false;   // a cell of an odd axis's wrap pair moves
+  const long long plane = (long long)ny * nx;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x) {
+    const bool first = b == (int)blockIdx.x;
+    const bool lw = first || p.w_bstride, l0 = first || p.w0_bstride;
+    const bool lg = first || p.g_bstride, lr = first || p.rel_bstride;
+    __syncthreads();   // the previous slice's write-back is done
+    bool bad_s = false;
+    bad_w &= !lw;
+    bad_w0 &= !l0;
+    bad_g &= !lg;
+    bad_rel &= !lr;
+    live_wrap &= !lr;
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) {
+      if (code[q] < 0) continue;
+      const int ix = code[q] & 0xffff;
+      int j, c2;
+      res_row(ix, rs, a.rs_inv, &j, &c2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = c2 + h;
+        if (i >= nx) continue;
+        const long long gi = (long long)j * nx + i;
+        const int col = (j + h) & 1;
+        const T v = s[b * plane + gi];
+        bad_s |= !(res_abs(v) <= bs);
+        res_put_edge(st, sa, rs, ny, nx, j, i, v);
+        if (lw) {
+          T* const wq = wsm + (col * wa + ix - rs) * RESIDENT_MAX_K;
+          for (int k = 0; k < RESIDENT_MAX_K; ++k) {
+            const T wv = k < p.K ? w[k * p.w_kstride + b * p.w_bstride + gi]
+                                 : T(0);
+            wq[k] = wv;
+            bad_w |= !(res_abs(wv) <= bw);
+          }
+        }
+        if (l0) {
+          cw0[q][h] = w0[b * p.w0_bstride + gi];
+          bad_w0 |= !(res_abs(cw0[q][h]) <= bw);
+        }
+        if (lg) {
+          cg[q][h] = g[b * p.g_bstride + gi];
+          bad_g |= !(res_abs(cg[q][h]) <= bg);
+        }
+        if (lr) {
+          crel[q][h] = rel[b * p.rel_bstride + gi];
+          bad_rel |= !isfinite(crel[q][h]);
+          // both cells of a wrap pair of one color keep their value (rel 0)
+          // in the fast mode: their ghosts need not wait
+          live_wrap |= crel[q][h] != T(0) &&
+                       (((nx & 1) && (i == 0 || i == nx - 1)) ||
+                        ((ny & 1) && (j == 0 || j == ny - 1)));
+        }
+      }
+    }
+    const bool planes_bad =
+        __syncthreads_or(bad_w || bad_w0 || bad_g || bad_rel);
+    const bool wrap_moves = __syncthreads_or(live_wrap);
+    bool state_bad = __syncthreads_or(bad_s);
+
+    for (int sw = 0; sw < p.nsweeps; ++sw) {
+      if (p.extend) {
+        // rows 0 and ny - 1 take their sources' values (rows 1 and ny - 2),
+        // in place: no source is a written cell
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+          if (code[q] < 0 || !((code[q] >> RES_EXTROW) & 1)) continue;
+          const int ix = code[q] & 0xffff;
+          int j, c2;
+          res_row(ix, rs, a.rs_inv, &j, &c2);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = c2 + h;
+            if (i >= nx) continue;
+            int dr, dc;
+            if (!extend_source(j, i, ny, nx, p.periodic_x, 0, &dr, &dc))
+              continue;
+            res_put_edge(st, sa, rs, ny, nx, j, i,
+                         res_get(st, sa, rs, j + dr, i + dc));
+          }
+        }
+        __syncthreads();
+      }
+      // one color a turn of the loop, and the slots' codes made opaque to
+      // the compiler at each turn: what it derives from them (indices,
+      // parities, addresses) is recomputed there rather than hoisted out
+      // of the sweeps into registers, which would spill
+#pragma unroll 1
+      for (int color = 0; color < 2; ++color) {
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) asm volatile("" : "+r"(code[q]));
+        const T fac = (T)p.fac[2 * sw + color];
+        const bool exact = planes_bad || state_bad || !isfinite(fac);
+        // the ghosts of this half-sweep's cells wait for a barrier where an
+        // odd size joins cells of one color across the wrap and one of them
+        // may change
+        const bool defer = a.odd && (exact || wrap_moves);
+        T* const own = st + color * sa;
+        const T* const oth = st + (1 - color) * sa;
+        const T* const wc = wsm + (color * wa - rs) * RESIDENT_MAX_K;
+        unsigned turns_nan = 0u;   // exact: bit q, slot q's other cell
+        if (exact) {
+          // the other-color cells the plain version turns NaN: s + 0 * (a
+          // bracket that is not finite), from the state before the writes
+          const T* const wo = wsm + ((1 - color) * wa - rs) * RESIDENT_MAX_K;
+#pragma unroll
+          for (int q = 0; q < CPT; ++q) {
+            if (code[q] < 0) continue;
+            const int par = ((code[q] >> 16) ^ color ^ 1) & 1;
+            if (!((code[q] >> (RES_VALID + par)) & 1)) continue;
+            const int ix = code[q] & 0xffff;
+            const T sv = oth[ix];
+            const T acc = res_neighbour_sum(
+                par ? cg[q][1] : cg[q][0],
+                res_load_w4(wo + ix * RESIDENT_MAX_K), own + ix, par, p.K,
+                a.obase, a.omask);
+            const T out = relax_cell(sv, acc, par ? cw0[q][1] : cw0[q][0],
+                                     par ? crel[q][1] : crel[q][0], T(0),
+                                     fac);
+            if (!(out == sv)) turns_nan |= 1u << q;
+          }
+          __syncthreads();
+        }
+        // the active cells, in place: they read the other color alone, and
+        // a read across the wrap reads a ghost (which waits where defer)
+        bool bad = turns_nan != 0u;
+#pragma unroll
+        for (int q = 0; q < CPT; ++q) {
+          if (code[q] < 0) continue;
+          const int par = ((code[q] >> 16) ^ color) & 1;
+          if (!((code[q] >> (RES_VALID + par)) & 1)) continue;
+          const int ix = code[q] & 0xffff;
+          const T sv = own[ix];
+          const T acc = res_neighbour_sum(
+              par ? cg[q][1] : cg[q][0], res_load_w4(wc + ix * RESIDENT_MAX_K),
+              oth + ix, par, p.K, a.obase, a.omask);
+          const T nv = relax_cell(sv, acc, par ? cw0[q][1] : cw0[q][0],
+                                  par ? crel[q][1] : crel[q][0], T(1), fac);
+          bad |= !(res_abs(nv) <= bs);
+          own[ix] = nv;
+          if (!defer && ((code[q] >> (RES_EDGE + par)) & 1)) {
+            int j, c2;
+            res_row(ix, rs, a.rs_inv, &j, &c2);
+            res_ghosts(st, sa, rs, ny, nx, j, c2 + par, nv);
+          }
+        }
+        if (defer || exact) {
+          __syncthreads();
+#pragma unroll
+          for (int q = 0; q < CPT; ++q) {
+            if (code[q] < 0) continue;
+            const int par = ((code[q] >> 16) ^ color) & 1;
+            const bool ghosts = defer &&
+                                ((code[q] >> (RES_VALID + par)) & 1) &&
+                                ((code[q] >> (RES_EDGE + par)) & 1);
+            const bool turns = (turns_nan >> q) & 1u;
+            if (!ghosts && !turns) continue;
+            const int ix = code[q] & 0xffff;
+            int j, c2;
+            res_row(ix, rs, a.rs_inv, &j, &c2);
+            if (ghosts) res_ghosts(st, sa, rs, ny, nx, j, c2 + par, own[ix]);
+            if (turns)
+              res_put_edge(st, sa, rs, ny, nx, j, c2 + (par ^ 1),
+                           res_nan<T>());
+          }
+        }
+        state_bad = __syncthreads_or(bad);
+      }
+    }
+    // write back the slice, one warp a row of 32 cells; with partials, the
+    // |S| sum of each 32 x 8 block in the tiled kernel's order (the warp's
+    // shuffle tree over a row, then the 8 row sums in turn)
+    const int nby = (ny + 7) / 8, nbx = (nx + 31) / 32;
+    const int lane = tid & 31;
+    for (int q = tid >> 5; q < nby * nbx * 8; q += NT / 32) {
+      const int blk = q >> 3;
+      const int i = (blk / nbx) * 8 + (q & 7);
+      const int jx = (blk % nbx) * 32 + lane;
+      T v = T(0);
+      if (i < ny && jx < nx) {
+        v = res_get(st, sa, rs, i, jx);
+        s[b * plane + (long long)i * nx + jx] = v;
+      }
+      if (partials != nullptr) {
+        v = warp_sum(v < T(0) ? -v : v);
+        if (lane == 0) rowsum[q] = v;
+      }
+    }
+    if (partials != nullptr) {
+      __syncthreads();
+      for (int blk = tid; blk < nby * nbx; blk += NT) {
+        T t = rowsum[blk * 8];
+        for (int r = 1; r < 8; ++r) t = t + rowsum[blk * 8 + r];
+        partials[(long long)b * nby * nbx + blk] = t;
+      }
+    }
+  }
+}
+
+template <typename T, int CPT, int NT>
+static int launch_resident_inst(T* s, const T* w, const T* w0, const T* g,
+                                const T* rel, T* partials,
+                                const ResidentArgs& a, int blocks,
+                                size_t smem, cudaStream_t stream, int dev) {
+  auto kern = sor2d_sweeps_resident_kernel<T, CPT, NT>;
+  // raise the limit only when a launch needs more than before (as the
+  // tiled kernels do)
+  static size_t granted[64] = {0};
+  if (smem > granted[dev]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev] = smem;
+  }
+  kern<<<blocks, NT, smem, stream>>>(s, w, w0, g, rel, partials, a);
+  return (int)cudaGetLastError();
+}
+
+// Checks the parameters and launches the instantiation they name (the
+// table in ops/sor2d.py::_RESIDENT_CONFIGS); cudaErrorInvalidValue on
+// anything else.
+template <typename T>
+static int launch_resident(T* s, const T* w, const T* w0, const T* g,
+                           const T* rel, T* partials,
+                           const ResidentParams* pp, void* stream) {
+  const ResidentParams& p = *pp;
+  const int hx = (p.nx + 1) / 2;
+  if (p.K < 0 || p.K > RESIDENT_MAX_K || p.B < 1 || p.ny < 3 || p.nx < 3 ||
+      p.rs != hx + 2 || (long long)(p.ny + 2) * p.rs > 0xffff ||
+      (long long)p.ny * hx > (long long)p.nt * p.cpt || p.nsweeps < 1 ||
+      p.nsweeps > RESIDENT_MAX_SWEEPS)
+    return (int)cudaErrorInvalidValue;
+  ResidentArgs a;
+  a.p = p;
+  a.hx = hx;
+  a.sa = (p.ny + 2) * p.rs;
+  a.wa = p.ny * p.rs;
+  a.wofs = (2 * a.sa + 3) & ~3;
+  a.rs_inv = (unsigned)((0x100000000ULL + p.rs - 1) / p.rs);
+  a.odd = (p.ny | p.nx) & 1;
+  for (int k = 0; k < RESIDENT_MAX_K; ++k) {
+    a.obase[k] = a.omask[k] = 0;
+    if (k >= p.K) continue;
+    // radius 1 without cross terms: every neighbour has the other color
+    if (abs(p.dy[k]) + abs(p.dx[k]) != 1) return (int)cudaErrorInvalidValue;
+    a.obase[k] = p.dy[k] * p.rs + (p.dx[k] < 0 ? -1 : 0);
+    a.omask[k] = p.dx[k] != 0 ? -1 : 0;
+  }
+  const size_t smem =
+      ((size_t)a.wofs + (size_t)8 * a.wa +
+       (size_t)((p.ny + 7) / 8) * 8 * ((p.nx + 31) / 32)) * sizeof(T);
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev < 0 || dev >= 64)
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidDevice);
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = p.B < sms[dev] ? p.B : sms[dev];
+  cudaStream_t st = (cudaStream_t)stream;
+#define RESIDENT_CASE(CP, N)                                             \
+  if (p.cpt == CP && p.nt == N)                                          \
+    return launch_resident_inst<T, CP, N>(s, w, w0, g, rel, partials, a, \
+                                          blocks, smem, st, dev);
+  if constexpr (sizeof(T) == 4) {
+    RESIDENT_CASE(6, 896)
+    RESIDENT_CASE(7, 768)     // the alternative chip_smoke.py scans
+  } else {
+    RESIDENT_CASE(6, 512)
+  }
+#undef RESIDENT_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 extern "C" {
 
 int sor2d_sweeps_tiled_f32(const float* s_in, float* s_out, const float* w,
@@ -762,6 +1298,22 @@ int sor2d_sweeps_block_f64(const double* s_in, double* s_out,
                            const TiledParams* p, void* stream) {
   return launch_tiled<double>(s_in, s_out, w, w0, g, rel, partials, p,
                               stream, true);
+}
+
+// The resident kernel: every slice of the batch held whole in shared
+// memory through the launch's sweeps, in place on s.
+int sor2d_sweeps_resident_f32(float* s, const float* w, const float* w0,
+                              const float* g, const float* rel,
+                              float* partials, const ResidentParams* p,
+                              void* stream) {
+  return launch_resident<float>(s, w, w0, g, rel, partials, p, stream);
+}
+
+int sor2d_sweeps_resident_f64(double* s, const double* w, const double* w0,
+                              const double* g, const double* rel,
+                              double* partials, const ResidentParams* p,
+                              void* stream) {
+  return launch_resident<double>(s, w, w0, g, rel, partials, p, stream);
 }
 
 // Number of |S| partials a color sweep writes per batch slice.

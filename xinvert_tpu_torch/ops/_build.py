@@ -56,6 +56,7 @@ for _t in ("f32", "f64"):
          _L, _L, _L, _L, _L, _I, _D, _P], _I)
     _SIGNATURES["sor2d"][f"sor2d_sweeps_tiled_{_t}"] = ([_P] * 9, _I)
     _SIGNATURES["sor2d"][f"sor2d_sweeps_block_{_t}"] = ([_P] * 9, _I)
+    _SIGNATURES["sor2d"][f"sor2d_sweeps_resident_{_t}"] = ([_P] * 8, _I)
     _SIGNATURES["sor2d"][f"sor2d_color_sweep_inplace_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
          _L, _L, _L, _L, _L, _I, _D, _P], _I)

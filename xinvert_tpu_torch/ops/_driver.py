@@ -3,13 +3,14 @@
 
 :mod:`.sor2d` and :mod:`.sor3d` differ only in their layout (the number of
 core axes, their limits, the launch arguments), in their launch calls, and
-in that :mod:`.sor2d` also has an in-place color sweep and the tiled
-kernels (k sweeps per launch), while :mod:`.sor3d`'s color sweep can fold
+in that :mod:`.sor2d` also has an in-place color sweep, the tiled
+kernels (k sweeps per launch) and the resident kernel (a whole slice on an
+SM, a check window a launch), while :mod:`.sor3d`'s color sweep can fold
 the extend pre-pass in.  Everything else is here, once: the checks
-on the state and the planes, the two sweep loops (ceil(n / k) tiled
-launches; or three launches a sweep, two with the pre-pass folded, on
-ping-pong buffers or on one buffer
-where the family's ``use_inplace`` lets it) with the fused |S| partials on
+on the state and the planes, the sweep loops (ceil(n / k) tiled or
+resident launches; or three launches a sweep, two with the pre-pass
+folded, on ping-pong buffers or on one buffer where the family's
+``use_inplace`` lets it) with the fused |S| partials on
 the last launch and the per-half-sweep Chebyshev factors, and the dispatch
 of CPU tensors to the plain versions.  Each module describes itself with a :class:`Family`; its
 launch functions and plain versions keep counting into that module's own
@@ -45,6 +46,11 @@ class Family(NamedTuple):
     launch_tiled: Optional[Callable] = None
                                      # (spec, lay, plan, rel, S_in, S_out,
                                      #  n, fac, partials=None): n sweeps
+    resident_plan: Optional[Callable] = None  # (spec, core, dtype) -> plan
+                                     #  with .k, or None where no slice fits
+    launch_resident: Optional[Callable] = None
+                                     # (spec, lay, plan, rel, S, n, fac,
+                                     #  partials=None): n sweeps in place
 
 
 def relax_plane(spec, omega):
@@ -144,17 +150,55 @@ def _plain(fam, spec, S, omega, n, with_norm, fac):
 def sweeps(fam, spec, S, omega, n, with_norm=False, fac=None):
     """n full red-black sweeps of ``spec`` on ``S`` (the extend pre-pass
     when the y boundary is 'extend', then red, then black): through the
-    family's tiled kernels where it has them (in place where its
-    ``use_inplace`` takes (spec, core)), else :func:`sweeps_pair`.  With
-    ``with_norm`` also the per-slice total |S'| (n >= 1 then).  ``fac``
+    family's resident kernel where its ``resident_plan`` takes (spec,
+    core, dtype), else through its tiled kernels where it has them (in
+    place where its ``use_inplace`` takes (spec, core)), else
+    :func:`sweeps_pair`.  With ``with_norm`` also the per-slice total
+    |S'| (n >= 1 then).  ``fac``
     (cyclic Chebyshev) holds 2n factors, one per half-sweep in order, each
     scaling that half-sweep's relaxation plane; None runs every half-sweep
     with factor 1."""
     if fam.launch_tiled is None:
         return sweeps_pair(fam, spec, S, omega, n, with_norm, fac)
+    core = tuple(S.shape[-spec.ndim:])
+    if S.device.type != "cpu" and fam.resident_plan is not None:
+        plan = fam.resident_plan(spec, core, S.dtype)
+        if plan is not None:
+            return sweeps_resident(fam, spec, S, omega, n, with_norm, fac,
+                                   plan)
     inplace = (S.device.type != "cpu" and fam.use_inplace is not None
-               and fam.use_inplace(spec, tuple(S.shape[-spec.ndim:])))
+               and fam.use_inplace(spec, core))
     return sweeps_tiled(fam, spec, S, omega, n, with_norm, fac, inplace)
+
+
+def sweeps_resident(fam, spec, S, omega, n, with_norm, fac, plan):
+    """:func:`sweeps` through the family's resident kernel with ``plan``,
+    every slice held whole on one SM: ceil(n / plan.k) launches on one
+    buffer, each taking its slice of the factors, the last one also the
+    |S| partials (the tiled kernel's blocks and order)."""
+    n = _check_sweeps(n, with_norm, fac)
+    if S.device.type == "cpu":
+        return _plain(fam, spec, S, omega, n, with_norm, fac)
+    rel = relax_plane(spec, omega)
+    lay = fam.layout(spec, S, rel)
+    A = _buffer(S, lay)
+    partials = None
+    if with_norm:
+        partials = torch.empty((lay["B"], lay["n_partials"]), dtype=S.dtype,
+                               device=S.device)
+    done = 0
+    with torch.cuda.device(S.device):
+        while done < n:
+            m = min(plan.k, n - done)
+            f = [1.0] * (2 * m) if fac is None else fac[2 * done:
+                                                        2 * (done + m)]
+            fam.launch_resident(spec, lay, plan, rel, A, m, f,
+                                partials if done + m == n else None)
+            done += m
+    out = A.reshape(S.shape)
+    if with_norm:
+        return out, slice_totals(partials).reshape(lay["batch_shape"])
+    return out
 
 
 def sweeps_tiled(fam, spec, S, omega, n, with_norm=False, fac=None,

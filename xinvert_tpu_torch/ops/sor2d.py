@@ -14,6 +14,9 @@ how.  Each kernel has a wrapper here and a plain PyTorch version built from
   :func:`sor2d_sweeps_reference` and :func:`sor2d_sweeps_reference_norm`;
 - ``sor2d_sweeps_tiled_inplace`` (the same with one buffer, B3's design):
   :func:`sor2d_sweeps_tiled_inplace`, the same plain versions;
+- ``sor2d_sweeps_resident`` (every slice held whole in shared memory for
+  up to a check window of sweeps a launch, in place; slices that fit one
+  SM): :func:`sor2d_sweeps_resident`, the same plain versions;
 - ``sor2d_sweeps_block`` (B2s: the ping-pong tiled kernel on one
   ghost-padded block of a decomposition, the pallas ``_kernel``'s block
   arguments): :func:`sor2d_sweeps_block` and :func:`make_block_sweeper`
@@ -28,17 +31,22 @@ how.  Each kernel has a wrapper here and a plain PyTorch version built from
   :func:`sor2d_color_sweep_inplace_reference`), and n sweeps of them,
   :func:`sor2d_sweeps_pair`.
 
-:func:`sor2d_sweeps`, which the solver calls, runs the tiled kernels: the
-in-place one when ``INPLACE_KERNEL`` is set (the environment variable
-``XINVERT_INPLACE=1`` at import, as in the JAX package) and the spec passes
-:func:`_no_cross_r1` and the race check of :func:`inplace_eligible`, the
-ping-pong one otherwise.  :func:`tile_plan` sizes their tiles and sweeps
-per launch; :func:`sor2d_sweeps_tiled_emulated` replays a plan's windows
-with torch ops, so the tiling's semantics are testable on the CPU.
+:func:`sor2d_sweeps`, which the solver calls, runs the resident kernel
+where :func:`resident_plan` takes the spec, the slice's shape and the dtype
+(a radius-1 stencil without cross terms whose slice fits the kernel's
+shared memory and registers), else the tiled kernels: the in-place one when
+``INPLACE_KERNEL`` is set (the environment variable ``XINVERT_INPLACE=1``
+at import, as in the JAX package) and the spec passes :func:`_no_cross_r1`
+and the race check of :func:`inplace_eligible`, the ping-pong one
+otherwise.  :func:`tile_plan` sizes the tiled kernels' tiles and sweeps per
+launch; :func:`sor2d_sweeps_tiled_emulated` replays a plan's windows, and
+:func:`sor2d_sweeps_resident_emulated` the resident kernel's color arrays
+and modes, with torch ops, so their semantics are testable on the CPU.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; any other input raises.  ``TILED_LAUNCHES``,
-``TILED_INPLACE_LAUNCHES``, ``BLOCK_LAUNCHES``, ``LAUNCHES``,
+only for CPU tensors; any other input raises.  ``RESIDENT_LAUNCHES``,
+``TILED_LAUNCHES``, ``TILED_INPLACE_LAUNCHES``, ``BLOCK_LAUNCHES``,
+``LAUNCHES``,
 ``INPLACE_LAUNCHES`` and ``EXTEND_LAUNCHES`` count kernel launches,
 ``PLAIN_CALLS`` calls of the plain versions, so a run can show which path
 it took.  No function here
@@ -61,7 +69,9 @@ from ._driver import relax_plane
 
 __all__ = ["sor2d_sweeps", "sor2d_sweeps_tiled",
            "sor2d_sweeps_tiled_inplace", "sor2d_sweeps_tiled_emulated",
-           "tile_plan", "TilePlan", "sor2d_sweeps_pair",
+           "tile_plan", "TilePlan", "sor2d_sweeps_resident",
+           "sor2d_sweeps_resident_emulated", "resident_plan",
+           "resident_footprint", "ResidentPlan", "sor2d_sweeps_pair",
            "sor2d_sweeps_reference", "sor2d_sweeps_reference_norm",
            "sor2d_extend", "sor2d_extend_reference", "sor2d_color_sweep",
            "sor2d_color_sweep_reference", "sor2d_color_sweep_inplace",
@@ -73,11 +83,14 @@ MAX_K = 16          # offsets the color-sweep kernel takes (csrc SOR2D_MAX_K)
 _MAX_BATCH = 65535  # batch slices the first version's launches take (a grid
 #                     dimension); the tiled kernels walk any batch
 MAX_TILED_SWEEPS = 8  # sweeps per tiled launch (csrc TILED_MAX_SWEEPS)
+MAX_RESIDENT_SWEEPS = 64  # sweeps per resident launch (csrc
+#                           RESIDENT_MAX_SWEEPS): a check window of 32
 
 #: sweeps take the in-place kernel for eligible specs (off by default, as
 #: in the JAX package; tests and smoke runs set the attribute)
 INPLACE_KERNEL = os.environ.get("XINVERT_INPLACE") == "1"
 
+RESIDENT_LAUNCHES = 0       # sor2d_sweeps_resident kernel launches
 TILED_LAUNCHES = 0          # sor2d_sweeps_tiled kernel launches
 TILED_INPLACE_LAUNCHES = 0  # sor2d_sweeps_tiled_inplace kernel launches
 BLOCK_LAUNCHES = 0          # sor2d_sweeps_block kernel launches
@@ -223,6 +236,68 @@ def tile_plan(spec, core, dtype, inplace=False, k=None):
 
 
 # ---------------------------------------------------------------------------
+# the resident kernel's plan: does a whole slice fit one SM?
+# ---------------------------------------------------------------------------
+
+#: itemsize -> (threads, slots per thread): the resident kernel's
+#: instantiations (csrc/sor2d.cu RESIDENT_CASE).
+#: A slot is a pair of cells of one row, one of each color, whose w0, g and
+#: rel a thread holds in registers, so threads x slots bounds a slice:
+#: ny x ceil(nx / 2) <= 5376 pairs in float32, 3072 in float64.  Chosen
+#: from chip_smoke.py's phase-4 scan (PERF.md §6).
+_RESIDENT_CONFIGS = {4: (896, 6), 8: (512, 6)}
+
+
+class ResidentPlan(NamedTuple):
+    """The resident kernel for one (spec, core, dtype): ``k`` sweeps per
+    launch at most, ``threads`` per block each holding ``cpt`` slots,
+    color arrays of row stride ``rs``, ``smem`` bytes of shared memory
+    (the two color arrays with their ghost ring, the weights, the row sums
+    of the |S| partials)."""
+    threads: int
+    cpt: int
+    rs: int
+    smem: int
+    k: int = MAX_RESIDENT_SWEEPS
+
+
+def resident_footprint(core, itemsize):
+    """(slots, row stride, shared-memory bytes) of a ``core`` = (ny, nx)
+    slice (csrc/sor2d.cu::launch_resident): ny x ceil(nx / 2) slots; two
+    color arrays of (ny + 2) x (ceil(nx / 2) + 2) cells (the slice and its
+    ghost ring), rounded up to 4 cells; the weights, 4 a cell (K <= 4) over
+    the two colors' ny rows; the row sums of the slice's 32 x 8 blocks."""
+    ny, nx = core
+    hx = -(-nx // 2)
+    rs = hx + 2
+    cells = (-(-2 * (ny + 2) * rs // 4) * 4 + 8 * ny * rs
+             + -(-ny // 8) * 8 * -(-nx // 32))
+    return ny * hx, rs, cells * itemsize
+
+
+def resident_plan(spec, core, dtype):
+    """The resident kernel's plan for ``spec`` on a ``core`` = (ny, nx)
+    slice in ``dtype``, or None where the kernel does not take it: a
+    slice that is not 2-D, a stencil with cross terms, a radius beyond 1 or
+    the biharmonic (a
+    neighbour of the slice's own color), or a slice whose pairs exceed the
+    instantiation's threads x slots or whose footprint exceeds
+    ``_SMEM_MAX``.  Chosen from the shape, the spec and the dtype alone."""
+    if len(core) != 2:
+        return None
+    ny, nx = core
+    K = len(spec.offsets)
+    if not _radius1_no_cross(spec) or K > 4 or ny < 3 or nx < 3:
+        return None
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nt, cpt = _RESIDENT_CONFIGS[itemsize]
+    slots, rs, smem = resident_footprint(core, itemsize)
+    if slots > nt * cpt or smem > _SMEM_MAX or (ny + 2) * rs > 0xFFFF:
+        return None
+    return ResidentPlan(nt, cpt, rs, smem)
+
+
+# ---------------------------------------------------------------------------
 # the plan replayed with torch ops (tests the tiling's semantics on the CPU;
 # not the plain version, and no entry point calls it)
 # ---------------------------------------------------------------------------
@@ -340,6 +415,173 @@ def sor2d_sweeps_tiled_emulated(spec, S, omega, n, with_norm=False,
     if with_norm:
         return out, sums.reshape(batch_shape)
     return out
+
+
+#: the resident kernel's fast-mode bounds (csrc/sor2d.cu::res_bounds):
+#: itemsize -> (|w_k|, |w0|; |g|; |state|)
+_RESIDENT_BOUNDS = {4: (2.0 ** 40, 2.0 ** 126, 2.0 ** 80),
+                    8: (2.0 ** 400, 2.0 ** 1022, 2.0 ** 600)}
+
+
+def _resident_index(spec, ny, nx, rs):
+    """The resident kernel's addresses: each cell's (ny, nx) index into its
+    two color arrays laid end to end, each ghost's (cells, index) and each
+    offset's (base, mask) (csrc/sor2d.cu: res_ix, res_put_edge,
+    ResidentArgs.obase/omask)."""
+    sa = (ny + 2) * rs
+    j = torch.arange(ny)[:, None].expand(ny, nx)
+    i = torch.arange(nx)[None, :].expand(ny, nx)
+
+    def at(jj, ii):
+        return ((jj + ii) & 1) * sa + (jj + 1) * rs + ((ii + 2) >> 1)
+    ghosts = [(i == 0, at(j, torch.full_like(i, nx))),
+              (i == nx - 1, at(j, torch.full_like(i, -1))),
+              (j == 0, at(torch.full_like(j, ny), i)),
+              (j == ny - 1, at(torch.full_like(j, -1), i))]
+    offs = [(dy * rs + (-1 if dx < 0 else 0), -1 if dx else 0)
+            for dy, dx in spec.offsets]
+    return at(j, i), ghosts, offs, j, i
+
+
+def _resident_put(buf, idx, ghosts, vals, mask):
+    """Writes ``vals`` (B, ny, nx) where ``mask`` into the color arrays
+    ``buf`` (B, 2 sa), with their ghosts."""
+    buf[:, idx[mask]] = vals[:, mask]
+    for gm, gidx in ghosts:
+        m = mask & gm
+        buf[:, gidx[m]] = vals[:, m]
+
+
+def sor2d_sweeps_resident_emulated(spec, S, omega, n, with_norm=False,
+                                   fac=None, plan=None, modes=None):
+    """n sweeps as the resident kernel runs them, with torch ops: launches
+    of at most ``plan.k`` sweeps (default :func:`resident_plan`), each
+    loading every slice into the kernel's two color arrays with their ghost
+    ring (unwritten slots hold NaN), its weight planes into their arrays,
+    then for each sweep the extend pre-pass in place and two half-sweeps,
+    each in the mode the kernel takes for the slice (``modes``, a list,
+    gets "fast" or "exact" per slice and half-sweep): fast updates the
+    active color alone, in place (raising if an active cell reads a cell
+    another active cell's write changes: the ghosts wait where an odd
+    size's wrap pair of one color may move); exact also turns NaN the other
+    color's cells whose plain update is NaN.  Reads every neighbour through the
+    kernel's offsets.  With ``with_norm`` also the per-slice total |S'| as
+    the kernel's partials give it.  Equal to :func:`sor2d_sweeps_reference`
+    wherever the kernel's design is right; it exists to test that."""
+    ny, nx = S.shape[-2:]
+    batch_shape = tuple(S.shape[:-2])
+    B = max(1, S.numel() // (ny * nx))
+    plan = plan or resident_plan(spec, (ny, nx), S.dtype)
+    if plan is None:
+        raise ValueError("the resident kernel does not take this spec")
+    rs = plan.rs
+    sa, wa = (ny + 2) * rs, ny * rs
+    K = len(spec.offsets)
+    bw, bg, bs = _RESIDENT_BOUNDS[S.element_size()]
+    idx, ghosts, offs, J, I = _resident_index(spec, ny, nx, rs)
+    color = (J + I) & 1
+    par_of = J & 1                    # (par ^ c): the cell's column parity
+    rel = relax_plane(spec, omega)
+
+    def per_slice(p):
+        return p.reshape((-1, ny, nx)).expand(B, ny, nx)
+    w = spec.w.reshape((K, -1, ny, nx)).expand(K, B, ny, nx)
+    w0, g, rl = per_slice(spec.w0), per_slice(spec.g), per_slice(rel)
+    # the weights: the 4 of the cell at index ix of color c at
+    # (c wa + ix - rs) 4 + k, 0 past K
+    wsm = torch.full((B, 8 * wa), float("nan"), dtype=S.dtype)
+    ix = idx - color * sa
+    for k in range(4):
+        wsm[:, (color * wa + ix - rs) * 4 + k] = w[k] if k < K else 0.0
+    # the planes' test (the kernel's bad_w, bad_w0, bad_g, bad_rel)
+    planes_bad = ((~(w.abs() <= bw)).flatten(2).any(2).any(0)
+                  | (~(w0.abs() <= bw)).flatten(1).any(1)
+                  | (~(g.abs() <= bg)).flatten(1).any(1)
+                  | (~torch.isfinite(rl)).flatten(1).any(1))
+    odd = (ny | nx) & 1
+    pair = torch.zeros(ny, nx, dtype=torch.bool)
+    if nx % 2:
+        pair[:, 0] = pair[:, -1] = True
+    if ny % 2:
+        pair[0, :] = pair[-1, :] = True
+    wrap_moves = (pair & (rl != 0)).flatten(1).any(1)
+    periodic_x = spec.bcs[-1] == "periodic"
+    erow = (J == 0) | (J == ny - 1)
+    dr = torch.where(J == 0, 1, -1)
+    dc = (torch.zeros_like(I) if periodic_x else
+          torch.where(I == 0, 1, torch.where(I == nx - 1, -1, 0)))
+    src = idx[(J + dr).clamp(0, ny - 1), (I + dc).clamp(0, nx - 1)]
+    A = S.reshape(B, ny, nx)
+    done = 0
+    n = int(n)
+    while done < n:
+        m = min(plan.k, n - done)
+        buf = torch.full((B, 2 * sa), float("nan"), dtype=S.dtype)
+        _resident_put(buf, idx, ghosts, A, torch.ones_like(erow))
+        state_bad = (~(A.abs() <= bs)).flatten(1).any(1)
+        for sw in range(done, done + m):
+            if spec.bcs[-2] == "extend":
+                _resident_put(buf, idx, ghosts, buf[:, src], erow)
+            for c in (0, 1):
+                f = 1.0 if fac is None else fac[2 * sw + c]
+                exact = planes_bad | state_bad | (not math.isfinite(f))
+                # the active cells' ghosts wait (written after the race
+                # check) where an odd wrap pair of one color may move
+                defer = (exact | wrap_moves) & bool(odd)
+                act = color == c
+                new = torch.empty_like(A)
+                reads = []
+                for cc, mask in ((c, act), (1 - c, ~act)):
+                    par = par_of ^ cc
+                    base = cc * sa
+                    acc = g
+                    for k, (ob, om) in enumerate(offs):
+                        nb = (1 - cc) * sa + ix + ob + (par & om)
+                        if cc == c:
+                            reads.append(nb[mask])
+                        acc = acc + (wsm[:, (cc * wa + ix - rs) * 4 + k]
+                                     * buf[:, nb])
+                    sv = buf[:, base + ix]
+                    out = relax_cell(sv, acc, w0, rl, float(cc == c), f)
+                    new = torch.where(mask, out, new)
+                old = buf[:, idx]
+                turns_nan = ~act & ~(new == old)
+                bad = ((act & ~(new.abs() <= bs))
+                       | (turns_nan & exact[:, None, None]))
+                # no active cell may read a cell another active cell's
+                # in-place write (with its ghosts, unless they wait) changes
+                changed = act & ~(new == old)
+                hit = torch.zeros(B, 2 * sa, dtype=torch.bool)
+                hit[:, idx[act]] = changed[:, act]
+                for gm, gidx in ghosts:
+                    mm = act & gm
+                    hit[:, gidx[mm]] |= changed[:, mm] & ~defer[:, None]
+                race = torch.stack([hit[:, r] for r in reads], 0).any(0)
+                if bool(race.any()):
+                    raise RuntimeError("an in-place half-sweep raced")
+                if modes is not None:
+                    modes.extend("exact" if e else "fast"
+                                 for e in exact.tolist())
+                upd = act | (turns_nan & exact[:, None, None])
+                vals = torch.where(turns_nan, torch.full_like(new, math.nan),
+                                   new)
+                for b in range(B):
+                    _resident_put(buf[b:b + 1], idx, ghosts,
+                                  vals[b:b + 1], upd[b])
+                state_bad = bad.flatten(1).any(1)
+        A = buf[:, idx]
+        done += m
+    out = A.reshape(S.shape)
+    if with_norm:
+        sums = _driver.slice_totals(block_partials(A).reshape(B, -1))
+        return out, sums.reshape(batch_shape)
+    return out
+
+
+def relax_cell(s, acc, w0, rel, sel, fac):
+    """s + ((rel * sel) * fac) * (acc + w0 * s): the kernels' per-cell
+    update (csrc/sor2d.cu::relax_cell) with torch ops."""
+    return s + ((rel * sel) * fac) * (acc + w0 * s)
 
 
 # ---------------------------------------------------------------------------
@@ -496,6 +738,7 @@ def _layout(spec, S, rel=None):
                sweep_fn=getattr(lib, f"sor2d_color_sweep_{sfx}"),
                inplace_fn=getattr(lib, f"sor2d_color_sweep_inplace_{sfx}"),
                tiled_fn=getattr(lib, f"sor2d_sweeps_tiled_{sfx}"),
+               resident_fn=getattr(lib, f"sor2d_sweeps_resident_{sfx}"),
                block_fn=getattr(lib, f"sor2d_sweeps_block_{sfx}"))
     return lay
 
@@ -569,6 +812,43 @@ def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+class _ResidentParams(ctypes.Structure):
+    """csrc/sor2d.cu::ResidentParams, field by field."""
+    _fields_ = ([(f, ctypes.c_int) for f in (
+        "B", "ny", "nx", "K", "nsweeps", "rs", "extend", "periodic_x",
+        "cpt", "nt")]
+                + [("dy", ctypes.c_int * MAX_K), ("dx", ctypes.c_int * MAX_K)]
+                + [(f, ctypes.c_longlong) for f in (
+                    "w_kstride", "w_bstride", "w0_bstride", "g_bstride",
+                    "rel_bstride")]
+                + [("fac", ctypes.c_double * (2 * MAX_RESIDENT_SWEEPS))])
+
+
+def _launch_resident(spec, lay, plan, rel, S, n, fac, partials=None):
+    """sor2d_sweeps_resident: n sweeps of S in place in one launch, ``fac``
+    its 2n factors."""
+    global RESIDENT_LAUNCHES
+    ny, nx = lay["core"]
+    p = _ResidentParams(
+        B=lay["B"], ny=ny, nx=nx, K=lay["K"], nsweeps=int(n), rs=plan.rs,
+        extend=int(spec.bcs[-2] == "extend"),
+        periodic_x=int(spec.bcs[-1] == "periodic"), cpt=plan.cpt,
+        nt=plan.threads,
+        dy=lay["dy"], dx=lay["dx"], w_kstride=lay["w_kstride"],
+        w_bstride=lay["w_bstride"], w0_bstride=lay["w0_bstride"],
+        g_bstride=lay["g_bstride"], rel_bstride=lay["relax_bstride"])
+    p.fac[:2 * int(n)] = [float(f) for f in fac]
+    err = lay["resident_fn"](S.data_ptr(), spec.w.data_ptr(),
+                             spec.w0.data_ptr(), spec.g.data_ptr(),
+                             rel.data_ptr(),
+                             None if partials is None else partials.data_ptr(),
+                             ctypes.byref(p), lay["stream"])
+    RESIDENT_LAUNCHES += 1
+    if err:
+        raise RuntimeError(f"sor2d_sweeps_resident launch failed: CUDA "
+                           f"error {err}")
+
+
 def _first_version_batch(lay, name):
     """The first version's launches map the batch onto a grid dimension:
     they take at most ``_MAX_BATCH`` slices (the tiled kernels walk any
@@ -632,19 +912,34 @@ def _launch_color_sweep_inplace(spec, lay, rel, S, color, fac=1.0,
 
 def sor2d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     """n full red-black sweeps (extend pre-pass when the y boundary is
-    'extend', then red, then black) of ``spec`` on ``S``, through the
-    tiled kernels, ceil(n / k) launches of the spec's :func:`tile_plan`.
+    'extend', then red, then black) of ``spec`` on ``S``: through the
+    resident kernel, ceil(n / 64) launches, where :func:`resident_plan`
+    takes (spec, slice shape, dtype); else through the tiled kernels,
+    ceil(n / k) launches of the spec's :func:`tile_plan`.
 
     With ``with_norm`` returns ``(S', sumabs)``, sumabs being the per-slice
     total |S'| over the core cells, which the last launch sums per tile as
     it writes S' (n >= 1 then).  ``fac`` (cyclic Chebyshev,
     :func:`~xinvert_tpu_torch.solver.solve_fixed_cheby`) holds 2n factors in
     the state's dtype, one per half-sweep, each scaling ``omega * relax``.
-    With ``INPLACE_KERNEL`` set, a spec that :func:`_no_cross_r1` and
-    :func:`inplace_eligible` take runs the in-place tiled kernel; any other
-    runs the ping-pong one.  CPU tensors take the plain version.
+    Of the specs the resident kernel does not take, with ``INPLACE_KERNEL``
+    set, a spec that :func:`_no_cross_r1` and :func:`inplace_eligible` take
+    runs the in-place tiled kernel; any other runs the ping-pong one.  CPU
+    tensors take the plain version.
     """
     return _driver.sweeps(_FAMILY, spec, S, omega, n, with_norm, fac)
+
+
+def sor2d_sweeps_resident(spec, S, omega, n, with_norm=False, fac=None):
+    """:func:`sor2d_sweeps` through the resident kernel; a spec or slice
+    that :func:`resident_plan` refuses raises.  CPU tensors take the plain
+    version."""
+    plan = resident_plan(spec, tuple(S.shape[-2:]), S.dtype)
+    if S.device.type != "cpu" and plan is None:
+        raise ValueError("the resident kernel takes radius-1 stencils "
+                         "without cross terms on slices that fit one SM")
+    return _driver.sweeps_resident(_FAMILY, spec, S, omega, n, with_norm,
+                                   fac, plan)
 
 
 def sor2d_sweeps_tiled(spec, S, omega, n, with_norm=False, fac=None):
@@ -891,4 +1186,5 @@ _FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,
                          sor2d_sweeps_reference, sor2d_sweeps_reference_norm,
                          sor2d_extend_reference, sor2d_color_sweep_reference,
                          _use_inplace, _launch_color_sweep_inplace,
-                         tile_plan, _launch_tiled)
+                         tile_plan, _launch_tiled, resident_plan,
+                         _launch_resident)
