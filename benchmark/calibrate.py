@@ -38,7 +38,8 @@ def control_answers(cell, answers, pool, device, dtype):
     values = np.stack([judge.field_values(pool, k, *key) for key in keys])
     prob = cell.reference.build(cfg, values, dtype, device)
     ip = cfg["iParams"]
-    S, n = redblack.solve(prob, redblack.optimal_omega(values.shape[1:]),
+    S, n = redblack.solve(prob, redblack.relaxation(cell.reference,
+                                                    values.shape[1:]),
                           float(ip["tolerance"]), int(cfg["check_window"]),
                           int(ip["mxLoop"]))
     S = S.double().cpu().numpy()

@@ -6,7 +6,12 @@ files are
 
     benchmark/configs/<config>.json     sizes, iParams, limits
     benchmark/inputs/<config>.py        the seeded generator of its fields
-    benchmark/reference/<config>.py     its plain reference
+    benchmark/reference/<config>.py     its plain reference: build(),
+                                        active(), coefficient_elements(),
+                                        FLOPS_PER_POINT_SWEEP, the
+                                        Problem.prepass of its source, and
+                                        where the source sets one, the
+                                        constant RELAXATION
     benchmark/traffic/<mix>.json        fields a call, pool, sample, trace
     benchmark/metrics/<metric>.py       one reader a metric
 
@@ -32,7 +37,9 @@ class Cell:
     mix: dict
     chips: int
     inputs: object          # module: fields(), coords(), mparams()
-    reference: object       # module: build(), active(), FLOPS_PER_POINT_SWEEP
+    # module: build(), active(), coefficient_elements(),
+    # FLOPS_PER_POINT_SWEEP, optionally RELAXATION (redblack.relaxation)
+    reference: object
     end_to_end: list        # [(entry of BENCHMARK.json, reader module)]
     per_layer: list
 

@@ -19,6 +19,15 @@ Three numbers, each with a limit from the configuration's file:
 
 A call that raised, or returned a field of the wrong shape or with a
 non-finite value where the forcing is defined, is a failed call.
+
+The reference's states come from the configuration's reference module
+(``benchmark/reference/<config>.py``): its ``build`` gives the folded
+problem, with the boundary pre-pass of its source
+(``redblack.Problem.prepass``), and the relaxation factor is its constant
+``RELAXATION`` where it sets one, else the grid's optimal factor
+(``redblack.relaxation``).  The module also gives
+``active``, ``coefficient_elements`` and ``FLOPS_PER_POINT_SWEEP`` for
+the metric readers.
 """
 from __future__ import annotations
 
@@ -107,7 +116,7 @@ def judge(cfg, reference, answers, pool_values, fields_per_call, device):
         wanted[slot[(a.pool, a.index)]].update(
             x for x in (n, n - W) if x > 0)
     prob = reference.build(cfg, values, torch.float64, device)
-    omega = redblack.optimal_omega(values.shape[1:])
+    omega = redblack.relaxation(reference, values.shape[1:])
     states = redblack.states_at(prob, omega, [sorted(w) for w in wanted])
     gap = stop = 0.0
     for a in answers:

@@ -100,5 +100,5 @@ def build(cfg, values, dtype, device):
 
     return redblack.Problem(
         weights={k: t(v) for k, v in weights.items()}, w0=t(w0), g=t(g),
-        active=torch.as_tensor(act, device=device), extend=False,
+        active=torch.as_tensor(act, device=device),
         zero_norm_stops=False)

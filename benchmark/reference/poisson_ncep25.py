@@ -15,7 +15,8 @@ Folded per point (ratio = dx/dy):
     w0 = -(A[j+1] + A[j]) ratio^2 - 2 C[j],  g = -F cos(lat) dx^2.
 
 Active points: rows 1..ny-2, every column (x periodic), where the forcing
-is defined.  BCs: extend in y, periodic in x.
+is defined.  BCs: extend in y (``redblack.one_row_extend``), periodic in
+x.
 """
 from __future__ import annotations
 
@@ -84,5 +85,5 @@ def build(cfg, values, dtype, device):
 
     return redblack.Problem(
         weights={k: t(v) for k, v in weights.items()}, w0=t(w0), g=t(g),
-        active=torch.as_tensor(act, device=device), extend=True,
-        zero_norm_stops=True)
+        active=torch.as_tensor(act, device=device),
+        zero_norm_stops=True, prepass=redblack.one_row_extend)

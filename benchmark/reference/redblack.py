@@ -5,19 +5,27 @@ It follows the rules that xinvert (github.com/miniufo/xinvert, apps.py and
 numbas.py) sets for the standard 2-D and 3-D equations, in the red-black
 order that the program documents for its engine:
 
-- a sweep is the 'extend' pre-pass (rows 0 and ny-1 copy rows 1 and ny-2),
-  then the red half-sweep (points whose core indices sum to an even
-  number), then the black one;
+- a sweep is the problem's boundary pre-pass (``Problem.prepass``, such
+  as ``one_row_extend``: rows 0 and ny-1 copy rows 1 and ny-2), where it
+  has one, then the red half-sweep (points whose core indices sum to an
+  even number), then the black one;
 - a half-sweep updates each of its active points by
       S += omega * (g + sum_k w_k S[. + off_k] + w0 S) / (-w0)
   reading the state from before the half-sweep; x wraps (periodic);
-- omega is the grid's optimal factor (apps.py:2206-2209, :2289-2290,
-  :2342-2343);
+- omega is the factor that the configuration's reference states
+  (``relaxation``): the grid's optimal one (apps.py:2206-2209, :2289-2290,
+  :2342-2343) unless the reference module sets its own ``RELAXATION``;
 - the stopping rule compares mean |S| over all core cells at checks
   ``check_every`` sweeps apart (and at the mxLoop cap, after its
   remainder): a field stops once the relative change is below the
   tolerance, its norm is not finite, or (standard 2-D only) its norm is 0.
   A stopped field is frozen.
+
+A configuration's reference module (``benchmark/reference/<config>.py``)
+defines ``build(cfg, values, dtype, device)``, which returns a ``Problem``
+with the boundary pre-pass of its source, ``active(cfg, values)``,
+``coefficient_elements(cfg)`` and ``FLOPS_PER_POINT_SWEEP``, and may set
+``RELAXATION``, the constant relaxation factor its source sets.
 
 It imports nothing of the program and takes nothing the program made.
 """
@@ -25,11 +33,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Callable
 
 import torch
 
-__all__ = ["Problem", "flops_per_point_sweep", "optimal_omega", "sweep",
-           "states_at", "solve"]
+__all__ = ["Problem", "flops_per_point_sweep", "optimal_omega",
+           "relaxation", "one_row_extend", "sweep", "states_at", "solve"]
 
 
 def flops_per_point_sweep(n_offsets):
@@ -51,19 +60,39 @@ def optimal_omega(shape):
     return 2.0 / (1.0 + math.sqrt((2.0 - eps) * eps))
 
 
+def relaxation(reference, core_shape):
+    """The relaxation factor of a configuration: its reference module's
+    ``RELAXATION`` where the module sets one, else the grid-optimal
+    ``optimal_omega(core_shape)``."""
+    own = getattr(reference, "RELAXATION", None)
+    return optimal_omega(core_shape) if own is None else float(own)
+
+
+def one_row_extend(S):
+    """The 'extend' pre-pass of the standard kernels on the second-to-last
+    axis: rows 0 and ny-1 copy rows 1 and ny-2."""
+    S = S.clone()
+    S[..., 0, :] = S[..., 1, :]
+    S[..., -1, :] = S[..., -2, :]
+    return S
+
+
 @dataclasses.dataclass
 class Problem:
     """B fields on one core grid.  ``weights`` maps a neighbour offset to
     its weight plane, ``w0`` is the centre weight, ``g`` the folded
     forcing (B, *core), ``active`` the points a sweep updates (B, *core);
-    every plane is zero where a point is inactive.  ``extend`` runs the
-    pre-pass on the second-to-last axis."""
+    every plane is zero where a point is inactive.  ``prepass``, where
+    set, is the boundary pre-pass a sweep opens with: a callable from a
+    state (B, *core) to a new state that leaves its argument unchanged,
+    chosen or written by the configuration's reference from its source
+    (``one_row_extend`` for the standard 2-D kernel's extend)."""
     weights: dict
     w0: torch.Tensor
     g: torch.Tensor
     active: torch.Tensor
-    extend: bool
     zero_norm_stops: bool
+    prepass: Callable | None = None
 
     @property
     def core(self):
@@ -91,11 +120,9 @@ def _neighbour(S, off):
 
 
 def sweep(prob, S, red, black):
-    """One sweep: the extend pre-pass, the red half, the black half."""
-    if prob.extend:
-        S = S.clone()
-        S[..., 0, :] = S[..., 1, :]
-        S[..., -1, :] = S[..., -2, :]
+    """One sweep: the boundary pre-pass, the red half, the black half."""
+    if prob.prepass is not None:
+        S = prob.prepass(S)
     for r in (red, black):
         acc = prob.g + prob.w0 * S
         for off, w in prob.weights.items():

@@ -2,8 +2,10 @@
 """CPU tests of the benchmark's harness: names resolve to files, the
 generators repeat with the seed, the interval and roofline arithmetic on
 hand-made inputs, the plain reference against known solves, the import
-rules, and the check's verdict on sound runs, on its control and on
-planted faults.  Tests that need the card carry the ``cuda`` marker.
+rules, the check's verdict on sound runs, on its control and on planted
+faults, and the hooks by which a configuration's reference states its own
+relaxation factor and boundary pre-pass.  Tests that need the card carry
+the ``cuda`` marker.
 
     python -m pytest benchmark/tests -q
 """
@@ -12,11 +14,13 @@ from __future__ import annotations
 import ast
 import copy
 import dataclasses
+import functools
 import json
 import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -519,3 +523,289 @@ def test_cell_runs_on_the_card(name):
     roofline = [v["value"] for k, v in res["metrics"].items()
                 if k.startswith("kernels.roofline_pct")]
     assert roofline and 0 < roofline[0] <= 100
+
+
+# ------------------------- a reference's own factor and pre-pass
+
+def core_shape(grid):
+    return tuple(int(n) for _, _, n in grid.values())
+
+
+#: whether each configuration's source extends in y (its BCs)
+EXTENDS = {"poisson_ncep25": True, "omega_nb11": False}
+
+
+def one_row_sweep(extend):
+    """``redblack.sweep`` as it stood before the pre-pass hook, for a
+    problem that does or does not ``extend``."""
+    return functools.partial(_one_row_sweep, extend)
+
+
+def _one_row_sweep(extend, prob, S, red, black):
+    """The one-row extend where ``extend``, the red half, the black half."""
+    if extend:
+        S = S.clone()
+        S[..., 0, :] = S[..., 1, :]
+        S[..., -1, :] = S[..., -2, :]
+    for r in (red, black):
+        acc = prob.g + prob.w0 * S
+        for off, w in prob.weights.items():
+            acc = acc + w * redblack._neighbour(S, off)
+        S = S + r * acc
+    return S
+
+
+@pytest.mark.parametrize("config", sorted(SMALL))
+def test_default_relaxation_is_the_grid_optimal(config):
+    """Neither configuration states its own factor: the grid-optimal one,
+    at the cell's grid and at the small one."""
+    full = cells.resolve(CELL_OF[config])
+    assert not hasattr(full.reference, "RELAXATION")
+    for grid in (full.config["grid"], SMALL[config]):
+        shape = core_shape(grid)
+        got = redblack.relaxation(full.reference, shape)
+        assert type(got) is float
+        assert got == redblack.optimal_omega(shape)
+
+
+@pytest.mark.parametrize("config", sorted(SMALL))
+def test_default_states_equal_the_one_row_sweep(config):
+    """Neither configuration states its own pre-pass: the states are
+    bit-equal to the one-row sweep at the grid-optimal factor."""
+    c = small_cell(CELL_OF[config])
+    vals = c.inputs.fields(c.config, 3, window.streams(2 ** 31 + 11)[0])
+    prob = c.reference.build(c.config, vals.astype(np.float64),
+                             torch.float64, "cpu")
+    assert prob.prepass is (redblack.one_row_extend if EXTENDS[config]
+                            else None)
+    omega = redblack.relaxation(c.reference, vals.shape[1:])
+    wanted = [[1, 7, 24], [24], [2, 3, 24]]
+    got = redblack.states_at(prob, omega, wanted)
+    red, black = prob.relax(redblack.optimal_omega(vals.shape[1:]))
+    S = torch.zeros_like(prob.g)
+    seen = 0
+    old_sweep = one_row_sweep(EXTENDS[config])
+    for n in range(1, 25):
+        S = old_sweep(prob, S, red, black)
+        for f, counts in enumerate(wanted):
+            if n in counts:
+                assert torch.equal(got[(f, n)], S[f].double().cpu())
+                seen += 1
+    assert seen == len(got) == 7
+
+
+@pytest.mark.parametrize("config", sorted(SMALL))
+def test_default_judge_equals_the_one_row_sweep(config, monkeypatch):
+    """The judge's numbers on answers that stop before and at mxLoop, with
+    the hooks and with the one-row sweep at the grid-optimal factor."""
+    c = small_cell(CELL_OF[config])
+    k = c.mix["fields_per_call"]
+    pool = window.make_pool(c, window.streams(2 ** 31 + 12)[0])
+    asked = [judge.Answer(p, j, None, 0) for p in range(2)
+             for j in range(min(k, 3))]
+    answers = calibrate.control_answers(c, asked, pool, "cpu", torch.float32)
+    mx = int(c.config["iParams"]["mxLoop"])
+    # one answer at the cap, the rest where they stopped
+    answers[0] = judge.Answer(answers[0].pool, answers[0].index,
+                              answers[0].values, mx)
+    assert any(a.sweeps < mx for a in answers)
+    new = judge.judge(c.config, c.reference, answers, pool, k, "cpu")
+    monkeypatch.setattr(redblack, "sweep", one_row_sweep(EXTENDS[config]))
+    monkeypatch.setattr(redblack, "relaxation",
+                        lambda ref, shape: redblack.optimal_omega(shape))
+    old = judge.judge(c.config, c.reference, answers, pool, k, "cpu")
+    assert all(np.isfinite(v) and v > 0 for v in new.values()), new
+    assert new == old
+
+
+# a biharmonic configuration: a Stommel-Munk reference written here, with
+# the factor 1 and the two-row sequential extend of its source, follows
+# the program's invert_StommelMunk; each hook left out breaks that
+
+#: a 0.5-degree lat-lon band (SODA's spacing; at 5 degrees the beta term
+#: outweighs the centre and the sweeps diverge at the factor 1) with a land
+#: block, and xinvert's Stommel-Munk test parameters
+#: (tests/test_MunkWBC.py:66-84: R 2e-4, D 100, A4 5e3)
+MUNK = {
+    "grid": {"lat": [20.0, 32.0, 25], "lon": [0.0, 35.5, 72]},
+    "mParams": {"A4": 5e3, "R": 2e-4, "D": 100.0, "rho0": 1027.0,
+                "beta": 2e-11, "Omega": 7.292e-5, "Rearth": 6371200.0},
+    "iParams": {"mxLoop": 200, "tolerance": 1e-30},
+    "check_window": 200,
+}
+LAND = (slice(9, 13), slice(20, 31))
+
+
+def munk_curl(n_fields, seed):
+    """Wind-stress curls (N m^-3) with land as NaN, large in the rows
+    next to the y edges so that the boundary pre-pass matters."""
+    rng = np.random.default_rng(seed)
+    ny, nx = MUNK["grid"]["lat"][2], MUNK["grid"]["lon"][2]
+    lat = np.linspace(*MUNK["grid"]["lat"])[:, None]
+    lon = np.linspace(*MUNK["grid"]["lon"])[None, :]
+    base = 1e-7 * np.sin(np.deg2rad(3 * lat)) * np.cos(np.deg2rad(2 * lon))
+    curl = base + 5e-8 * rng.standard_normal((n_fields, ny, nx))
+    curl[:, [1, 2, -3, -2], :] += 2e-7
+    curl[(slice(None),) + LAND] = np.nan
+    return curl
+
+
+def munk_active(cfg, values):
+    """Rows 2..ny-3 (the biharmonic's two-row ring), every column (x
+    periodic), where the curl is defined."""
+    inner = np.zeros(values.shape[-2:], bool)
+    inner[2:-2, :] = True
+    return ~np.isnan(values) & inner
+
+
+def two_row_extend(S):
+    """The biharmonic extend of xinvert's general_bih_2D with x periodic,
+    in its sequential order: S[0] = S[1], then S[1] = S[2];
+    S[-1] = S[-2] = S[-3]."""
+    S = S.clone()
+    S[..., 0, :] = S[..., 1, :]
+    S[..., 1, :] = S[..., 2, :]
+    bottom = S[..., -3, :].clone()
+    S[..., -1, :] = bottom
+    S[..., -2, :] = bottom
+    return S
+
+
+def munk_build(cfg, values, dtype, device, prepass):
+    """A4 Syyyy + C Sxxxx + D Syy + F Sxx + H Sx = J on a lat-lon grid
+    (xinvert apps.py:1793-1836): A = A4, C = A4 / cos^2, D = -R / depth,
+    F = -R / (depth cos^2), H = -2 Omega / Rearth, J = -curl / (rho0
+    depth); x and y in metres of arc.  Times dx^4 with r = dx / dy, the
+    centred differences give the neighbour terms n and the centre term c
+    (the fourth differences 1 -4 6 -4 1, the second 1 -2 1, the first
+    -1/2 0 1/2); the reference's form takes w = -n, w0 = -c, g = J dx^4."""
+    mp = cfg["mParams"]
+    lat = np.linspace(*cfg["grid"]["lat"])
+    lon = np.linspace(*cfg["grid"]["lon"])
+    Re = mp["Rearth"]
+    dy = np.deg2rad(lat[1] - lat[0]) * Re
+    dx = np.deg2rad(lon[1] - lon[0]) * Re
+    r4, r2 = (dx / dy) ** 4, (dx / dy) ** 2
+    icos2 = 1.0 / np.cos(np.deg2rad(lat)) ** 2
+    A, C = mp["A4"], mp["A4"] * icos2
+    D, F = -mp["R"] / mp["D"], -mp["R"] / mp["D"] * icos2
+    H = -2.0 * mp["Omega"] / Re
+    n = {(2, 0): A * r4, (-2, 0): A * r4,
+         (1, 0): -4 * A * r4 + D * r2 * dx ** 2,
+         (-1, 0): -4 * A * r4 + D * r2 * dx ** 2,
+         (0, 2): C, (0, -2): C,
+         (0, 1): -4 * C + F * dx ** 2 + H * dx ** 3 / 2,
+         (0, -1): -4 * C + F * dx ** 2 - H * dx ** 3 / 2}
+    c = 6 * (A * r4 + C) - 2 * (D * r2 + F) * dx ** 2
+    act = munk_active(cfg, values)
+    J = -np.nan_to_num(values) / (mp["rho0"] * mp["D"])
+    ny, nx = values.shape[-2:]
+
+    def plane(col):
+        """A term that varies with latitude (or is constant), where
+        active."""
+        col = np.broadcast_to(col, (ny,))[:, None]
+        return np.where(act, np.broadcast_to(col, (ny, nx)), 0.0)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                               device=device).to(dtype)
+
+    return redblack.Problem(
+        weights={off: t(plane(-v)) for off, v in n.items()}, w0=t(plane(-c)),
+        g=t(np.where(act, J * dx ** 4, 0.0)),
+        active=torch.as_tensor(act, device=device),
+        zero_norm_stops=False, prepass=prepass)
+
+
+def munk_reference(own_omega=True, prepass=two_row_extend):
+    """The reference module: ``build``, ``active``, and where
+    ``own_omega`` the source's factor 1 (its ``optArg``) as
+    ``RELAXATION``."""
+    ref = types.SimpleNamespace(
+        build=lambda cfg, v, dtype, device: munk_build(cfg, v, dtype, device,
+                                                       prepass),
+        active=munk_active,
+        FLOPS_PER_POINT_SWEEP=redblack.flops_per_point_sweep(8))
+    if own_omega:
+        ref.RELAXATION = 1.0
+    return ref
+
+
+def munk_solve(curl):
+    """The program's fields after mxLoop sweeps from ``curl`` (B, ny, nx):
+    float64 on the CPU, B fields a call, the program's own factor."""
+    import xinvert_tpu_torch as xt
+    g = MUNK["grid"]
+    coords = {"time": np.arange(len(curl)), "lat": np.linspace(*g["lat"]),
+              "lon": np.linspace(*g["lon"])}
+    ip = dict(MUNK["iParams"], BCs=["extend", "periodic"], undef=np.nan,
+              checkEvery=MUNK["iParams"]["mxLoop"], printInfo=False)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        out = xt.invert_StommelMunk(
+            xt.Field(curl, ("time", "lat", "lon"), coords),
+            dims=["lat", "lon"], coords="lat-lon", iParams=ip,
+            mParams=dict(MUNK["mParams"]), device="cpu").values
+    finally:
+        torch.set_default_dtype(old)
+    return np.asarray(out, np.float64)
+
+
+@pytest.fixture(scope="module")
+def munk_program():
+    """(curls, the program's fields): two fields a call."""
+    curl = munk_curl(2, seed=2 ** 31 + 5)
+    return curl, munk_solve(curl)
+
+
+def munk_numbers(reference, munk_program):
+    curl, out = munk_program
+    mx = MUNK["iParams"]["mxLoop"]
+    answers = [judge.Answer(0, j, out[j], mx) for j in range(len(out))]
+    return judge.judge(MUNK, reference, answers, [curl], len(out), "cpu")
+
+
+def test_biharmonic_reference_follows_the_program(munk_program):
+    curl, out = munk_program
+    assert np.isnan(out[(slice(None),) + LAND]).all()
+    # a gyre's streamfunction (m^3/s), not a diverging iteration
+    assert np.isfinite(out[~np.isnan(curl)]).all()
+    assert 1e3 < np.nanmax(np.abs(out)) < 1e7
+    ref = munk_reference()
+    assert redblack.relaxation(ref, (25, 72)) == 1.0
+    nums = munk_numbers(ref, munk_program)
+    assert nums["field_gap"] <= 1e-10, nums
+
+
+def test_biharmonic_needs_its_own_omega(munk_program):
+    """With the grid-optimal factor in place of the source's 1, the
+    reference reads a gap above poisson_ncep25's limit."""
+    ref = munk_reference(own_omega=False)
+    assert redblack.relaxation(ref, (25, 72)) == \
+        redblack.optimal_omega((25, 72))
+    nums = munk_numbers(ref, munk_program)
+    assert nums["field_gap"] > 5e-3, nums
+
+
+def test_biharmonic_needs_its_own_prepass(munk_program):
+    """With the one-row extend in place of the two-row pre-pass, the
+    reference reads a gap above 1e-6."""
+    nums = munk_numbers(munk_reference(prepass=redblack.one_row_extend),
+                        munk_program)
+    assert nums["field_gap"] > 1e-6, nums
+
+
+def test_control_takes_the_references_factor_and_prepass():
+    """The control solve runs the reference's own rules: in float64 in the
+    program's place it reads no gap to the judge's states."""
+    cell = types.SimpleNamespace(config=MUNK, reference=munk_reference(),
+                                 mix={"fields_per_call": 2})
+    curl = munk_curl(2, seed=2 ** 31 + 6)
+    asked = [judge.Answer(0, j, None, 0) for j in range(2)]
+    ctrl = calibrate.control_answers(cell, asked, [curl], "cpu",
+                                     torch.float64)
+    assert [a.sweeps for a in ctrl] == [MUNK["iParams"]["mxLoop"]] * 2
+    nums = judge.judge(MUNK, cell.reference, ctrl, [curl], 2, "cpu")
+    assert nums["field_gap"] == 0.0, nums
