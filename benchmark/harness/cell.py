@@ -4,19 +4,28 @@
 A cell ``<config>.<mix>`` names its configuration and its traffic mix; the
 files are
 
-    benchmark/configs/<config>.json     sizes, iParams, limits
+    benchmark/configs/<config>.json     entry, dims, grid, iParams, limits,
+                                        and cpu_grid: a smaller grid on the
+                                        same axes, at a spacing its sweeps
+                                        converge on, where the CPU tests
+                                        run its cells
     benchmark/inputs/<config>.py        the seeded generator of its fields
     benchmark/reference/<config>.py     its plain reference: build(),
                                         active(), coefficient_elements(),
-                                        FLOPS_PER_POINT_SWEEP, the
+                                        OFFSETS (the tests hold
+                                        FLOPS_PER_POINT_SWEEP to them), the
                                         Problem.prepass of its source, and
                                         where the source sets one, the
                                         constant RELAXATION
     benchmark/traffic/<mix>.json        fields a call, pool, sample, trace
     benchmark/metrics/<metric>.py       one reader a metric
 
-so a later change adds a configuration, a mix or a metric by adding files
-and entries, and edits none.
+A new cell is an entry of BENCHMARK.json's ``workloads``, appended to the
+``workloads`` list of one end-to-end rate (``fields_per_s`` where the card
+sets the pace, ``fields_per_s.host`` where the host does) and of each
+per-layer metric that ``moves`` that rate.  So a later change adds a
+configuration, a mix or a metric by adding files and entries, and edits
+none.
 """
 from __future__ import annotations
 
