@@ -2100,7 +2100,7 @@ def _trajectory(name, key, field, dims, iP, mP, lpf, frames, kernels,
              else solver.solve_fixed_cheby)(spec, S0, omega, lpf * frames)
 
     def masked(S):
-        return np.where(Fdef, S.cpu().numpy(), iP_m["undef"])
+        return np.where(Fdef.cpu().numpy(), S.cpu().numpy(), iP_m["undef"])
 
     same = [np.array_equal(out.values[k], masked(ref[k]), equal_nan=True)
             for k in range(frames)]

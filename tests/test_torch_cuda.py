@@ -15,7 +15,8 @@ plain versions and, on local meshes that repeat the card, to the meshless
 sweeps and solves; batches over 65 535 slices through the main-path
 kernels; the sharded multigrid pyramid (solve_mg_sharded) on local meshes
 of the card, over several cards and under NCCL, equal to the meshless
-solve; the copy and sync counters of a traced call.  Every test here needs an NVIDIA GPU (marker
+solve; the copy and sync counters of a traced call; the API's steps on the
+card bit-equal to its former numpy steps.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -1828,10 +1829,11 @@ def test_nccl_solve_mg_sharded_equals_meshless(cuda, tmp_path):
 @pytest.mark.parametrize("kind", ["poisson", "omega"])
 def test_copies_and_syncs_counted_on_the_card(cuda, kind):
     """A traced float32 call on the card: the copy counters grow by the
-    forcing and the initial state up and the solution down, a plane each
-    a field, and the batch-invariant mask up once; one ``copy.*`` span a
-    copy; the ``engine.sync`` spans equal the growth of
-    ``solver.HOST_SYNCS``, one more than the ``engine.window`` spans."""
+    forcing up and the solution down, a plane each a field (the mask and
+    the zero first guess are made on the card); one ``copy.*`` span a
+    copy; no numpy pass over the batch (``api.HOST_PASSES``); the
+    ``engine.sync`` spans equal the growth of ``solver.HOST_SYNCS``, one
+    more than the ``engine.window`` spans."""
     from xinvert_tpu_torch import solver, telemetry
     from xinvert_tpu_torch.models import api
     batch = 3
@@ -1865,7 +1867,7 @@ def test_copies_and_syncs_counted_on_the_card(cuda, kind):
     iP.update(mxLoop=5000, tolerance=1e-6, printInfo=False)
     entry(F, dims=dims, iParams=iP, mParams=mP)          # warm
     h2d, d2h = telemetry.H2D_BYTES, telemetry.D2H_BYTES
-    syncs = solver.HOST_SYNCS
+    syncs, passes = solver.HOST_SYNCS, api.HOST_PASSES
     telemetry.drain()
     telemetry.enable()
     try:
@@ -1875,9 +1877,67 @@ def test_copies_and_syncs_counted_on_the_card(cuda, kind):
     spans = telemetry.drain()
     names = [s[0] for s in spans]
     plane = batch * int(np.prod(core)) * 4
-    assert telemetry.H2D_BYTES - h2d == 2 * plane + int(np.prod(core))
+    assert telemetry.H2D_BYTES - h2d == plane
     assert telemetry.D2H_BYTES - d2h == plane
-    assert (names.count("copy.h2d"), names.count("copy.d2h")) == (3, 1)
+    assert (names.count("copy.h2d"), names.count("copy.d2h")) == (1, 1)
+    assert api.HOST_PASSES == passes
     assert names.count("engine.sync") == solver.HOST_SYNCS - syncs \
         == names.count("engine.window") + 1
     assert int(api.LAST_SOLVE.iters.max()) < 5000
+
+
+@pytest.mark.parametrize("kind", ["year", "omega", "direct_stream"])
+def test_api_device_steps_equal_the_numpy_steps(cuda, kind):
+    """On the year cell's shape (1460 x 73 x 144, its land block NaN), on
+    a small omega batch with a NaN block, and on a streamed batch that
+    ``scheme='direct'`` solves on the card by the capacitance route (the
+    mask made on the host, the solution on the card), the fields of
+    ``invert_*`` are bit for bit those of the same call through the numpy
+    steps that the mask, the first guess and the fill ran as before they
+    moved to the card (tests/api_numpy_steps.py)."""
+    from api_numpy_steps import direct, numpy_steps, same_field, sor
+    rng = np.random.default_rng(7)
+    run = None
+    if kind == "direct_stream":
+        lat, lon = np.linspace(-80.0, 80.0, 65), np.arange(128) * 2.8125
+        v = (np.sin(3 * np.deg2rad(lon))[None, :]
+             * np.cos(2 * np.deg2rad(lat))[:, None])[None] \
+            * rng.uniform(0.5, 1.5, (6, 1, 1)) * 1e-5
+        v[:, 30:36, 50:70] = np.nan
+        dims, coords = ["lat", "lon"], {"lat": lat, "lon": lon}
+        iP = {"BCs": ["fixed", "periodic"], "scheme": "direct",
+              "streamChunk": 4}
+        entry, run, mP = xt.invert_Poisson, direct("poisson"), None
+    elif kind == "year":
+        lat, lon = np.linspace(-90.0, 90.0, 73), np.linspace(0.0, 357.5, 144)
+        v = (np.sin(3 * np.deg2rad(lon))[None, :]
+             * np.cos(2 * np.deg2rad(lat))[:, None])[None] \
+            + 0.1 * rng.standard_normal((1460, 73, 144))
+        v[:, 24:36, 36:72] = np.nan
+        dims, coords = ["lat", "lon"], {"lat": lat, "lon": lon}
+        iP = {"BCs": ["extend", "periodic"], "undef": np.nan}
+        entry, key, mP = xt.invert_Poisson, "poisson", None
+    else:
+        lev = np.linspace(100000.0, 10000.0, 37)
+        lat, lon = np.linspace(-87.5, 87.5, 72), np.arange(288) * 1.25
+        v = (np.sin(np.pi * (1e5 - lev) / 9e4)[:, None, None]
+             * np.cos(np.deg2rad(lat))[None, :, None]
+             * np.sin(3 * np.deg2rad(lon))[None, None, :])[None] \
+            * rng.uniform(0.5, 1.5, (4, 1, 1, 1)) * 1e-15
+        v[:, 10:20, 30:40, 100:160] = np.nan
+        dims = ["LEV", "lat", "lon"]
+        coords = {"LEV": lev, "lat": lat, "lon": lon}
+        iP = {"BCs": ["fixed", "fixed", "periodic"]}
+        entry, key = xt.invert_omega, "omega"
+        mP = {"N2": xt.Field(np.where(lev > 25000.0, 1.5e-5, 6e-5),
+                             ("LEV",), {"LEV": lev})}
+    F = xt.Field(v.astype(np.float32), ["time"] + dims,
+                 dict(coords, time=np.arange(v.shape[0])))
+    iP.update(mxLoop=5000 if kind == "year" else 500, tolerance=1e-6,
+              printInfo=False)
+    got = entry(F, dims=dims, iParams=iP, mParams=mP)
+    want = numpy_steps(run or sor(key), F, dims, len(dims), mParams=mP,
+                       iParams=iP, device=cuda)
+    assert same_field(got, want)
+    assert torch.equal(torch.from_numpy(got.values).view(torch.int32),
+                       torch.from_numpy(want.values).view(torch.int32))

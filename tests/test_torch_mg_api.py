@@ -219,7 +219,7 @@ def test_mg_entry_matches_jax(name):
         jres = japi.LAST_SOLVE
         tout = getattr(xt, entry)(tf, dims=dims, device="cpu", **kw_t)
     tres = tapi.LAST_SOLVE
-    assert isinstance(tres.S, np.ndarray)
+    assert isinstance(tres.S, torch.Tensor) and tres.S.device.type == "cpu"
     _compare(jout, tout, jres, tres, tol)
 
 

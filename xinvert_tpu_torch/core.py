@@ -17,12 +17,10 @@ import numpy as np
 import torch
 
 from .field import Field, as_field
-from .grid import Grid
 from .solver import solve
 from . import stencil
-from .models.api import (_collapse_mask, _init_state, _prepare,
-                         _resolve_device, _validate_bcs)
-from .models.params import default_iParams, merge_params
+from .models.api import _finish, _numpy_dtype, _prologue, _resolve_device
+from .models.params import default_iParams, default_mParams, merge_params
 
 __all__ = ["inv_standard1D", "inv_standard2D", "inv_standard2D_test",
            "inv_general2D", "inv_general2D_bih", "inv_standard3D",
@@ -37,48 +35,38 @@ def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None,
     dims = [dims] if isinstance(dims, str) else list(dims)
     if len(dims) != ndim:
         raise ValueError(f"{ndim:2d} dimensional forcing are needed")
-    ft, vals, Fdef, _ = _prepare(f, dims, iP)
-    grid = Grid.make(dims, [ft.coords[d] for d in dims], coords,
-                     _validate_bcs(iP, ndim))
 
-    # align coefficient fields to the core grid
-    cs = []
-    for c in coeffs:
-        if np.isscalar(c):
-            cs.append(torch.full(grid.shape, float(c),
-                                 dtype=torch.get_default_dtype(),
-                                 device=device))
-            continue
-        cf = as_field(c) if hasattr(c, "dims") else Field(np.asarray(c), dims)
-        cdims = [d for d in dims if d in cf.dims]
-        if tuple(cdims) != cf.dims:
-            cf = cf.transpose(*cdims)
-        shape = [1] * ndim
-        for d in cf.dims:
-            shape[dims.index(d)] = cf.shape[cf.dims.index(d)]
-        cs.append(torch.tensor(np.broadcast_to(
-            np.asarray(cf.values, vals.dtype).reshape(shape), grid.shape),
-            device=device))
+    def build(vals, Fdef, grid, _):
+        # align coefficient fields to the core grid
+        cs = []
+        for c in coeffs:
+            if np.isscalar(c):
+                cs.append(torch.full(grid.shape, float(c), dtype=vals.dtype,
+                                     device=device))
+                continue
+            cf = (as_field(c) if hasattr(c, "dims")
+                  else Field(np.asarray(c), dims))
+            cdims = [d for d in dims if d in cf.dims]
+            if tuple(cdims) != cf.dims:
+                cf = cf.transpose(*cdims)
+            shape = [1] * ndim
+            for d in cf.dims:
+                shape[dims.index(d)] = cf.shape[cf.dims.index(d)]
+            cs.append(torch.tensor(np.broadcast_to(
+                np.asarray(cf.values, _numpy_dtype(vals.dtype))
+                .reshape(shape), grid.shape), device=device))
+        return family(*cs, torch.where(Fdef, vals, 0.0), Fdef, grid.deltas,
+                      grid.bcs)
 
-    Fdef_t = torch.as_tensor(Fdef, device=device)
-    Fm = torch.where(Fdef_t, torch.as_tensor(vals, device=device), 0.0)
-    spec = family(*cs, Fm,
-                  torch.as_tensor(_collapse_mask(Fdef, ndim), device=device),
-                  grid.deltas, grid.bcs)
-
-    S0 = _init_state(vals, Fdef, icbc, grid, ft)
+    ft, _, Fdef, spec, S0, grid, _, _ = _prologue(
+        f, dims, coords, icbc, iP, default_mParams, ndim, build, device)
     omega = iP["optArg"] if iP["optArg"] is not None else grid.omega_opt
     # iParams['scheme'] reaches the engine here (the JAX package's core
     # drops it and always runs SOR): 'direct' solves a qualifying spec in
     # one shot and raises ValueError for the rest
-    res = solve(spec, torch.as_tensor(S0, device=device), omega=omega,
-                tol=iP["tolerance"], max_iters=iP["mxLoop"],
-                scheme=iP.get("scheme", "sor"))
-    S = res.S.cpu().numpy()
-    if icbc is None:
-        S = np.where(Fdef, S, iP["undef"])
-    out = Field(S, ft.dims, ft.coords, name="inverted")
-    return out.transpose(*f.dims) if out.dims != f.dims else out
+    res = solve(spec, S0, omega=omega, tol=iP["tolerance"],
+                max_iters=iP["mxLoop"], scheme=iP.get("scheme", "sor"))
+    return _finish(res.S, Fdef, icbc, iP["undef"], ft, f)
 
 
 def inv_standard2D(A, B, C, F, dims, coords="lat-lon", icbc=None,

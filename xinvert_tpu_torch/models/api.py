@@ -27,7 +27,6 @@ as the JAX package does.
 from __future__ import annotations
 
 import dataclasses
-import math
 import warnings
 
 import numpy as np
@@ -61,13 +60,19 @@ __all__ = ["invert_Poisson", "invert_RefState", "invert_PV2D",
 #: :class:`~xinvert_tpu_torch.solver.SolveResult` (iters, rel_change,
 #: overflow) — the machine-readable analog of the reference's per-slice
 #: ``flags`` array (apps.py:2308-2311), which only surfaces through prints.
-#: After an ``invert_*_mg`` call its fields are numpy values, as in the JAX
-#: package: the solution, the cycles, the relative residual and whether it
-#: is non-finite.
+#: After an ``invert_*_mg`` call the solution is a tensor on the call's
+#: device, as after the others, and the cycles, the relative residual and
+#: whether it is non-finite are numpy values, as in the JAX package.
 LAST_SOLVE = None
 #: The :class:`~xinvert_tpu_torch.refine.RefineResult` of the last
 #: ``tolType='refined'`` call: the (hi, lo) pair and the certified residual.
 LAST_REFINE = None
+#: Numpy passes over a whole batch that an entry point still makes on the
+#: host, one a step: the first guess from ``icbc``, and the masked direct
+#: route's zero-filled forcing.  Every other step of a call runs on the
+#: solve's device, so a call without ``icbc`` and off the direct route
+#: adds 0.
+HOST_PASSES = 0
 
 
 def _resolve_device(device=None):
@@ -110,15 +115,9 @@ def loop_noncore(F, dims):
                for d, i in zip(non_core, idx)}
 
 
-def _undef_mask(vals, undef):
-    """True where the forcing is defined: not ``undef`` and not NaN."""
-    if isinstance(undef, float) and math.isnan(undef):
-        return ~np.isnan(vals)
-    return (vals != undef) & ~np.isnan(vals)
-
-
-def _prepare(F, dims, iParams):
-    """Field -> (transposed field, values[batch..., core...], Fdef, batch dims)."""
+def _values(F, dims):
+    """Field -> (transposed field, values[batch..., core...] in the solve's
+    dtype, batch dims)."""
     f = as_field(F)
     dims = [dims] if isinstance(dims, str) else list(dims)
     for d in dims:
@@ -127,18 +126,32 @@ def _prepare(F, dims, iParams):
     batch = tuple(d for d in f.dims if d not in dims)
     order = batch + tuple(dims)
     ft = f.transpose(*order) if f.dims != order else f
-    vals = np.asarray(ft.values, dtype=_dtype())
-    return ft, vals, _undef_mask(vals, iParams["undef"]), batch
+    return ft, np.asarray(ft.values, dtype=_dtype()), batch
 
 
-def _collapse_mask(Fdef, core_ndim):
-    """Use a core-shaped mask when it is batch-invariant (the common case);
-    keeps the compiled stencil weights unbatched."""
+def _numpy_dtype(dtype):
+    """The numpy dtype of a torch dtype."""
+    return torch.empty(0, dtype=dtype).numpy().dtype
+
+
+def _device_mask(vals, undef, core_ndim):
+    """True where the forcing tensor ``vals`` is defined: not NaN and not
+    ``undef``, on its device.  A mask the same in every slice of the batch
+    (the common case) comes back core-shaped, which keeps the stencil
+    weights unbatched, for one bool read back.  ``undef`` compares as numpy
+    compares it with an array of vals' dtype: a Python number in that dtype,
+    a wider numpy scalar in its own, where it equals no value of vals' dtype
+    unless that dtype holds it exactly."""
+    Fdef = ~torch.isnan(vals)
+    dt = _numpy_dtype(vals.dtype)
+    u = np.asarray(undef, np.result_type(dt, undef))
+    if u.astype(dt) == u:             # not NaN, and exact in vals' dtype
+        Fdef &= vals != float(u)
     if Fdef.ndim == core_ndim:
         return Fdef
     flat = Fdef.reshape((-1,) + Fdef.shape[-core_ndim:])
-    if bool(np.all(flat == flat[0])):
-        return flat[0]
+    if bool(torch.all(flat == flat[0])):
+        return flat[0].clone()        # the batch's mask is freed
     return Fdef
 
 
@@ -192,6 +205,60 @@ def _init_state(vals, Fdef, icbc, grid, ft, warm=False):
         shape[ax] = -1
         mask = mask | edge.reshape(shape)
     return np.where(mask, ic, 0.0)
+
+
+def _prologue(F, dims, coords, icbc, iP, mP, ndim, build, device,
+              warm=False):
+    """What an entry point does before its solve, every pass over the batch
+    on ``device``: the forcing in the solve's layout and dtype, copied there
+    once; its mask (``_device_mask``); ``build(vals, Fdef, grid, mPr)`` on
+    both; the first guess, zeros made there without ``icbc`` (with it,
+    ``_init_state`` on the host, ``warm`` as there, copied up).  Returns
+    (transposed field, host values, mask, what ``build`` returned, first
+    guess, grid, resolved mParams, batch dims)."""
+    global HOST_PASSES
+    with telemetry.span("api.prepare"):
+        ft, vals, batch = _values(F, dims)
+        grid = Grid.make(dims, [ft.coords[d] for d in dims], coords,
+                         _validate_bcs(iP, ndim), rearth=mP["Rearth"])
+        mPr = _resolve_mp(mP, dims, grid.shape)
+        vals_t = telemetry.to_device(vals, device)
+        Fdef = _device_mask(vals_t, iP["undef"], ndim)
+    with telemetry.span("builders.build"):
+        built = build(vals_t, Fdef, grid, mPr)
+    del vals_t                  # what is built holds what it keeps of it
+    with telemetry.span("api.init_state"):
+        if icbc is None:
+            S0 = torch.zeros(vals.shape, dtype=torch.get_default_dtype(),
+                             device=device)
+        else:
+            HOST_PASSES += 1
+            S0 = telemetry.to_device(
+                _init_state(vals, telemetry.to_host(Fdef).numpy(), icbc,
+                            grid, ft, warm=warm),
+                device)
+    return ft, vals, Fdef, built, S0, grid, mPr, batch
+
+
+def _fill(S, Fdef, icbc, undef):
+    """The solution tensor ``S`` (left as it is) as a host array, with
+    ``undef`` where the forcing is undefined unless ``icbc`` was given, as
+    ``np.where`` gives it: made on S's device, which the mask is copied to
+    where it lives elsewhere (a streamed batch's), and copied down once."""
+    if icbc is None:
+        dt = np.result_type(_numpy_dtype(S.dtype), undef)
+        S = torch.where(Fdef.to(S.device),
+                        S.to(torch.from_numpy(np.empty(0, dt)).dtype),
+                        float(np.asarray(undef, dt)))
+    return telemetry.to_host(S).numpy()
+
+
+def _finish(S, Fdef, icbc, undef, ft, F):
+    """The returned Field: ``_fill``'s array in the forcing's dims order."""
+    out = Field(_fill(S, Fdef, icbc, undef), ft.dims, ft.coords,
+                name="inverted")
+    dims = as_field(F).dims
+    return out.transpose(*dims) if out.dims != dims else out
 
 
 def _auto_check_every(user_iParams, iP, device, dtype) -> int:
@@ -272,13 +339,15 @@ def _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr, spec, S0):
     fully active direct case and raises a clear error for the rest)."""
     from ..ops.direct import masked_direct_applicable, solve_direct_masked
 
+    global HOST_PASSES
     if grid.ndim != 2:
         return None
-    Fdef_np = np.asarray(Fdef_c)
+    Fdef_np = telemetry.to_host(Fdef_c).numpy()
     interior = _interior_mask(grid.shape, grid.bcs, False)
     holes = interior & ~Fdef_np
     if not holes.any():
         return None
+    HOST_PASSES += 1
     # undefined cells may be NaN in the forcing; the active-cell answer is
     # independent of g at the holes (they are pinned), so zero-fill there
     vals_f = np.where(Fdef_np, np.nan_to_num(vals), 0.0).astype(vals.dtype)
@@ -319,24 +388,13 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
         device = _resolve_device(device)
         dtype = torch.get_default_dtype()
 
-        with telemetry.span("api.prepare"):
-            ft, vals, Fdef, batch = _prepare(F, dims, iP)
-            bcs = _validate_bcs(iP, ndim)
-            grid = Grid.make(dims, [ft.coords[d] for d in dims], coords,
-                             bcs, rearth=mP["Rearth"])
-            mPr = _resolve_mp(mP, dims, grid.shape)
-            Fdef_c = _collapse_mask(Fdef, ndim)
         # a streamed batch lives on the host: its spec is built there and
         # solve_streamed sends it to the device a chunk at a time
         spec_dev = torch.device("cpu") if stream else device
-        vals_t = telemetry.to_device(vals, spec_dev)
-        Fdef_t = telemetry.to_device(Fdef_c, spec_dev)
-        with telemetry.span("builders.build"):
-            spec = problems.BUILDERS[problem_key](vals_t, Fdef_t, grid, mPr)
-        del vals_t, Fdef_t          # the spec holds what it keeps of them
-        with telemetry.span("api.init_state"):
-            S0 = _init_state(vals, Fdef, icbc, grid, ft,
-                             warm=bool(iP.get("warmStart", False)))
+        ft, vals, Fdef, spec, S0_t, grid, mPr, _ = _prologue(
+            F, dims, coords, icbc, iP, mP, ndim,
+            problems.BUILDERS[problem_key], spec_dev,
+            warm=bool(iP.get("warmStart", False)))
         if iP["optArg"] is not None:
             omega = iP["optArg"]
         else:
@@ -347,17 +405,15 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
                   f"optArg     : {omega}\nmax loops  : {iP['mxLoop']}\n"
                   f"tolerance  : {iP['tolerance']}\nboundaries : {grid.bcs}")
 
-        S0_t = telemetry.to_device(S0, spec_dev)
         res = None
         if iP.get("scheme", "sor") == "direct":
             # the capacitance path solves the whole batch resident on the
             # device, streamed or not (a declined attempt leaves its
             # engine.solve span too)
-            res = _try_masked_direct(problem_key, vals, Fdef_c, grid, mPr,
+            res = _try_masked_direct(problem_key, vals, Fdef, grid, mPr,
                                      _spec_to(spec, device),
                                      telemetry.to_device(S0_t, device))
-            if res is None and grid.ndim == 2 \
-                    and not bool(np.all(np.asarray(Fdef_c))):
+            if res is None and grid.ndim == 2 and not bool(torch.all(Fdef)):
                 # a masked domain the capacitance-matrix path declined
                 # (hole count past the dense budget, as a realistic
                 # land/sea mask has, or a non-separable operator): the
@@ -420,7 +476,6 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
         LAST_SOLVE = res
 
         with telemetry.span("api.finish"):
-            S = telemetry.to_host(res.S).numpy()
             if iP.get("printInfo"):
                 iters = np.atleast_1d(telemetry.to_host(res.iters).numpy())
                 rel = np.atleast_1d(telemetry.to_host(res.rel_change).numpy())
@@ -429,13 +484,7 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
                     suffix = " (overflows!)" if ovf.flat[i] else ""
                     print(f"loops {iters.flat[i]:4.0f} and tolerance is "
                           f"{rel.flat[i]:e}{suffix}")
-
-            if icbc is None:
-                S = np.where(Fdef, S, iP["undef"])
-            out = Field(S, ft.dims, ft.coords, name="inverted")
-            if out.dims != as_field(F).dims:
-                out = out.transpose(*as_field(F).dims)
-            return out
+            return _finish(res.S, Fdef, icbc, iP["undef"], ft, F)
 
 
 def invert_Poisson(F, dims, coords="lat-lon", icbc=None,
@@ -625,27 +674,17 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
         mP = merge_params(default_mParams, mParams,
                           valid_mp if validate else None)
         device = _resolve_device(device)
-        with telemetry.span("api.prepare"):
-            ft, vals, Fdef, batch = _prepare(F, dims, iP)
-            bcs = _validate_bcs(iP, ndim)
-            grid = Grid.make(dims, [ft.coords[d] for d in dims], coords,
-                             bcs, rearth=mP["Rearth"])
-            mPr = _resolve_mp(mP, dims, grid.shape)
-            Fdef_c = _collapse_mask(Fdef, ndim)
-        if Fdef_c.ndim != ndim:
-            raise ValueError("the multigrid path needs a batch-invariant "
-                             "mask; use the SOR inverter for batch-varying "
-                             "masks")
 
-        vals_t = telemetry.to_device(vals, device)
-        Fdef_t = telemetry.to_device(Fdef_c, device)
-        with telemetry.span("builders.build"):
-            levels, g0 = build_levels(vals_t, Fdef_t, grid, mPr)
-        del vals_t, Fdef_t          # the pyramid holds what it keeps of them
-        with telemetry.span("api.init_state"):
-            S0 = _init_state(vals, Fdef, icbc, grid, ft,
-                             warm=bool(iP.get("warmStart", False)))
-        S0_t = telemetry.to_device(S0, device)
+        def build(vals, Fdef, grid, mPr):
+            if Fdef.ndim != ndim:
+                raise ValueError("the multigrid path needs a batch-invariant "
+                                 "mask; use the SOR inverter for "
+                                 "batch-varying masks")
+            return build_levels(vals, Fdef, grid, mPr)
+
+        ft, vals, Fdef, (levels, g0), S0_t, grid, _, batch = _prologue(
+            F, dims, coords, icbc, iP, mP, ndim, build, device,
+            warm=bool(iP.get("warmStart", False)))
         # fmg: full-multigrid nested iteration warm-starts the V-cycle
         # loop; disabled with an icbc warm start, which already provides
         # the state
@@ -670,7 +709,7 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
                     levels, S0=S0_t, g0=g0 if batch else None, tol=tol,
                     max_cycles=max_cycles, fmg=not warm, **mg_kw)
         with telemetry.span("api.finish"):
-            S = telemetry.to_host(S).numpy().reshape(vals.shape)
+            S = S.reshape(vals.shape)
             global LAST_SOLVE
             LAST_SOLVE = SolveResult(S=S, iters=np.asarray(cycles),
                                      rel_change=np.asarray(res),
@@ -681,12 +720,7 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
                               f"{tol:.3e}")
             if iP.get("printInfo"):
                 print(f"cycles {cycles:3d} and residual is {res:e}")
-            if icbc is None:
-                S = np.where(Fdef, S, iP["undef"])
-            out = Field(S, ft.dims, ft.coords, name="inverted")
-            if out.dims != as_field(F).dims:
-                out = out.transpose(*as_field(F).dims)
-            return out
+            return _finish(S, Fdef, icbc, iP["undef"], ft, F)
 
 
 def _mg_with_g(level, g0):
@@ -1091,17 +1125,15 @@ def _animate_problem(app_name, F, dims, coords, icbc, mParams, iParams,
             f"'cheby', got {scheme!r} (a one-shot 'direct' solve has no "
             "trajectory)")
     device = _resolve_device(device)
-    ft, vals, Fdef, batch = _prepare(F, dims, iP)
-    if batch:
-        raise ValueError("only a single slice (no non-core dims) is allowed")
-    bcs = _validate_bcs(iP, ndim)
-    grid = Grid.make(dims, [ft.coords[d] for d in dims], coords, bcs,
-                     rearth=mP["Rearth"])
-    mPr = _resolve_mp(mP, dims, grid.shape)
-    spec = problems.BUILDERS[problem_key](
-        telemetry.to_device(vals, device),
-        telemetry.to_device(Fdef, device), grid, mPr)
-    S0 = telemetry.to_device(_init_state(vals, Fdef, icbc, grid, ft), device)
+
+    def build(vals, Fdef, grid, mPr):
+        if vals.ndim != ndim:
+            raise ValueError("only a single slice (no non-core dims) is "
+                             "allowed")
+        return problems.BUILDERS[problem_key](vals, Fdef, grid, mPr)
+
+    ft, _, Fdef, spec, S0, grid, _, _ = _prologue(
+        F, dims, coords, icbc, iP, mP, ndim, build, device)
     if iP["optArg"] is not None:
         omega = iP["optArg"]
     else:
@@ -1124,9 +1156,7 @@ def animate_iteration(app_name, F, dims, coords="lat-lon", icbc=None,
                               loop_per_frame=int(loop_per_frame),
                               max_frames=int(max_frames),
                               scheme=scheme)
-    frames = telemetry.to_host(frames).numpy()
-    if icbc is None:
-        frames = np.where(Fdef, frames, iP["undef"])
+    frames = _fill(frames, Fdef, icbc, iP["undef"])
     iters = np.arange(loop_per_frame, loop_per_frame * (max_frames + 1),
                       loop_per_frame)
     coords_out = dict(ft.coords)
