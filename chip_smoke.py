@@ -20,20 +20,17 @@ seed, and runs these phases, each printing its lines:
      factors; the resident kernel, where its plan takes the grid (the year
      cell's 1460x73x144 among them), over n in {1, 20, 37, 70} with and
      without factors, from a NaN/Inf-seeded state too, against the plain
-     version and the tiled kernel (states and |S| totals); the first
-     version's kernels (extend, color sweep, in-place
-     color sweep) alone and over 20 sweeps; the 3-D pair, with the extend
+     version and the tiled kernel (states and |S| totals); the 3-D color
+     sweep alone and over 20 sweeps; the 3-D pair, with the extend
      pre-pass folded into the red launch over n in {1, 2, 37} with factors,
-     NaN/Inf-seeded boundary rows, the folded red launch alone, and the
-     first version's three launches a sweep (sor3d_sweeps_pair); the fused
-     |S| sums against sum|S| (rtol 1e-5 / 1e-12); multigrid's point smoother
-     (mg._smooth) on every level of three pyramids (bench.py's 2048x2048
+     NaN/Inf-seeded boundary rows, and the folded red launch alone; the
+     fused |S| sums against sum|S| (rtol 1e-5 / 1e-12); multigrid's point
+     smoother (mg._smooth) on every level of three pyramids (bench.py's 2048x2048
      Poisson, the SODA Stommel-Munk biharmonic one, a Fofonoff-like
      standard_2d_e one), n in {1, 2, 3, 60}, one state and a batch under a
      batched forcing, the in-place switch off and on; the block kernels
      (B2s sor2d_sweeps_block; B5s sor3d_color_sweep_block, through the
-     block sweep kernel with three z chunkings and through its first
-     version, the color sweep's block mode) on ghost-padded blocks cut
+     block sweep kernel with three z chunkings) on ghost-padded blocks cut
      from the main paths' grids (row blocks at odd and even origins, x
      splits with the extend corner clamps, the biharmonic on a row mesh,
      batched forcings, NaN boundary lines), one launch against its plain
@@ -57,13 +54,8 @@ seed, and runs these phases, each printing its lines:
      kernel (equal to the first run).  Each path runs with every launch
      count set to 0 just before it and read just after, which must show it
      went through its kernels alone (in 2-D the tiled kernels, or the
-     resident one at 8x73x144, with no launch of the first version's),
-     most then once more under
-     torch.profiler for the device's busy time against the wall time.
-     Each 2-D path runs again through the first version's three launches a
-     sweep, which must give the same iters and bit-equal states; so does
-     invert_3DOcean, whose folded run must launch sor3d_extend_rows 0
-     times.  Smaller
+     resident one at 8x73x144), most then once more under torch.profiler
+     for the device's busy time against the wall time.  Smaller
      runs of the same calls are held against a float64 CPU run
      (device="cpu", the plain version): Poisson 8x73x144, omega 37x72x144,
      ocean 20x110x240, and the three SODA calls at 2x110x240 (mxLoop cut to
@@ -137,24 +129,22 @@ seed, and runs these phases, each printing its lines:
      beside a device-to-device copy of the bytes a sweep of the kernels
      must move (2-D 2048x2048, float64 too; 3-D 37x72x288, 73x72x288,
      30x330x720); in 2-D at 2048x2048, Stommel and Stommel-Munk 12x330x720,
-     the tiled kernels per sweep in turns against the first version's pair
-     and B3, and a scan of sweeps per launch and window width beside the
-     plan's choice; each kernel's device time per launch (CUDA events
-     around back-to-back launches queued behind a device-side spin, so no
+     the ping-pong tiled kernel per sweep in turns against the in-place one
+     where the spec takes it; each kernel's device time per launch (CUDA
+     events around back-to-back launches queued behind a device-side spin, so no
      host gap counts), per sweep for the tiled kernels, beside its plain
      version's, its bound (k sweeps for the tiled kernels) and a copy of
-     its bytes; the folded 3-D pair per sweep in turns against the first
-     version, and its red launch (folded and not) against the black one;
+     its bytes; the folded 3-D pair per sweep, and its red launch (folded
+     and not) against the black one;
      the block kernels per launch on a 2x2 mesh's block of the 2048x2048
      Poisson and of the 30x330x720 ocean, beside their plain versions and
-     bounds (B5s's block sweep in turns against its first version, red and
-     black, and a scan of the levels a CTA walks); where a 2048x2048
+     bounds (B5s's block sweep, red and black, and a scan of the levels a
+     CTA walks); where a 2048x2048
      V-cycle's device time goes (smoothing against the rest), its wall
      time and host gap, host syncs per cycle; the resident kernel at the
      year cell's 1460x73x144: one 32-sweep window in one launch beside the
-     tiled kernel's 8 in turns, its bound, its plain version's window, a
-     scan of its instantiations (RESIDENT_SCAN), ptxas's registers and
-     spills.  With --parent-sor3d PATH
+     tiled kernel's 8 in turns, its bound, its plain version's window,
+     ptxas's registers and spills.  With --parent-sor3d PATH
      (another tree's csrc/sor3d.cu), also the whole-grid 3-D color sweep
      of this tree against that one's build, in turns.  --blocks runs only
      phases 0 and 1, phase 2's 3-D block checks and phase 4's block
@@ -181,7 +171,7 @@ import numpy as np
 import torch
 
 import xinvert_tpu_torch as xt
-from xinvert_tpu_torch import mg, telemetry
+from xinvert_tpu_torch import mg, solver, telemetry
 from xinvert_tpu_torch.grid import Grid
 from xinvert_tpu_torch.models import api, problems
 from xinvert_tpu_torch.models.params import default_mParams
@@ -202,18 +192,6 @@ KERNELS = {   # name: (source, replaces, also_replaces)
     "sor2d_sweeps_resident": ("xinvert_tpu_torch/csrc/sor2d.cu",
                               "xinvert_tpu/ops/pallas_sor.py:94",
                               "xinvert_tpu/ops/pallas_sor_window.py:252"),
-    "sor2d_extend_rows": ("xinvert_tpu_torch/csrc/sor2d.cu",
-                          "xinvert_tpu/ops/pallas_sor.py:43",
-                          "xinvert_tpu/ops/pallas_sor_window.py:67"),
-    "sor2d_color_sweep": ("xinvert_tpu_torch/csrc/sor2d.cu",
-                          "xinvert_tpu/ops/pallas_sor.py:94",
-                          "xinvert_tpu/ops/pallas_sor_window.py:252"),
-    "sor2d_color_sweep_inplace": ("xinvert_tpu_torch/csrc/sor2d.cu",
-                                  "xinvert_tpu/ops/pallas_sor_window.py:414",
-                                  None),
-    "sor3d_extend_rows": ("xinvert_tpu_torch/csrc/sor3d.cu",
-                          "xinvert_tpu/ops/pallas_sor3d.py:50",
-                          "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
     "sor3d_color_sweep": ("xinvert_tpu_torch/csrc/sor3d.cu",
                           "xinvert_tpu/ops/pallas_sor3d.py:75",
                           "xinvert_tpu/ops/pallas_sor3d_window.py:174"),
@@ -222,28 +200,18 @@ KERNELS = {   # name: (source, replaces, also_replaces)
     "sor2d_sweeps_block": ("xinvert_tpu_torch/csrc/sor2d.cu",
                            "xinvert_tpu/ops/pallas_sor_window.py:252",
                            "xinvert_tpu/parallel/halo_window.py:292"),
-    # B5s's wrapper launches the block sweep kernel (sor3d_block_sweep);
-    # its first version, the color sweep's block mode, is the yardstick
+    # B5s's wrapper launches the block sweep kernel (sor3d_block_sweep)
     "sor3d_color_sweep_block": ("xinvert_tpu_torch/csrc/sor3d.cu",
                                 "xinvert_tpu/ops/pallas_sor3d_window.py:174",
                                 "xinvert_tpu/parallel/halo_window3d.py:205"),
-    "sor3d_color_sweep_block_first": (
-        "xinvert_tpu_torch/csrc/sor3d.cu",
-        "xinvert_tpu/ops/pallas_sor3d_window.py:174",
-        "xinvert_tpu/parallel/halo_window3d.py:205"),
 }
 # each kernel's launch counter
 COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
             "sor2d_sweeps_tiled_inplace": (sor2d, "TILED_INPLACE_LAUNCHES"),
             "sor2d_sweeps_resident": (sor2d, "RESIDENT_LAUNCHES"),
-            "sor2d_extend_rows": (sor2d, "EXTEND_LAUNCHES"),
-            "sor2d_color_sweep": (sor2d, "LAUNCHES"),
-            "sor2d_color_sweep_inplace": (sor2d, "INPLACE_LAUNCHES"),
-            "sor3d_extend_rows": (sor3d, "EXTEND_LAUNCHES"),
             "sor3d_color_sweep": (sor3d, "LAUNCHES"),
             "sor2d_sweeps_block": (sor2d, "BLOCK_LAUNCHES"),
-            "sor3d_color_sweep_block": (sor3d, "BLOCK_LAUNCHES"),
-            "sor3d_color_sweep_block_first": (sor3d, "BLOCK_FIRST_LAUNCHES")}
+            "sor3d_color_sweep_block": (sor3d, "BLOCK_LAUNCHES")}
 # another tree's csrc/sor3d.cu to time the whole-grid color sweep against
 # (--parent-sor3d; phase 4)
 PARENT_SOR3D = None
@@ -606,89 +574,60 @@ def _max_err(a, b):
 
 
 def _check_kernels(mod, name, make, errs, n=20):
-    """Each kernel of ``mod`` alone and n sweeps of them, against the plain
-    versions, in float32 and float64: the color sweep with and without a
-    Chebyshev factor, and, where the spec takes it, the in-place color
-    sweep and the sweeps through it (``sor2d.INPLACE_KERNEL`` set); in 2-D
-    the sweeps of the first version (``sor2d_sweeps_pair``) and the tiled
-    kernels (:func:`_check_tiled`); raises on any difference."""
-    p = mod.__name__.rsplit(".", 1)[-1]           # "sor2d" / "sor3d"
-    extend, extend_ref = (getattr(mod, f"{p}_extend"),
-                          getattr(mod, f"{p}_extend_reference"))
-    color, color_ref = (getattr(mod, f"{p}_color_sweep"),
-                        getattr(mod, f"{p}_color_sweep_reference"))
-    sweeps = sor2d.sor2d_sweeps_pair if p == "sor2d" else mod.sor3d_sweeps
-    sweeps_ref = getattr(mod, f"{p}_sweeps_reference")
-    core = (-3, -2, -1) if p == "sor3d" else (-2, -1)
+    """Each kernel of ``mod`` against its plain version, in float32 and
+    float64; raises on any difference.  In 2-D the tiled kernels
+    (:func:`_check_tiled`) and, where its plan takes the grid, the resident
+    one (:func:`_check_resident`); in 3-D the color sweep alone on the
+    extended state, with and without a Chebyshev factor, n sweeps at omega
+    and as cheby with the fused |S| sums, and, where the y boundary is
+    'extend', the folded pair (:func:`_check_fold`)."""
     for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
         spec, omega = make(dt)
-        inplace = p == "sor2d" and sor2d.inplace_eligible(
-            spec, tuple(spec.g.shape[-2:]))
         gen = torch.Generator(device="cpu").manual_seed(7)
         S0 = (torch.randn(spec.g.shape, generator=gen, dtype=torch.float64)
               * 1e-3).to(dt).to(spec.g.device)
-        ext_k = extend(spec, S0)
-        ext_p = extend_ref(spec, S0)
-        ok = torch.equal(ext_k, ext_p)
-        errs[f"{p}_extend_rows"] = max(errs[f"{p}_extend_rows"],
-                                       _max_err(ext_k, ext_p))
-        rel = mod.relax_plane(spec, omega)
+        if mod is sor2d:
+            _check_tiled(name, spec, omega, S0, rtol, errs)
+            if sor2d.resident_plan(spec, tuple(S0.shape[-2:]),
+                                   dt) is not None:
+                _check_resident(name, spec, omega, S0, errs)
+            continue
+        ext = solver._apply_extend(spec, S0)
+        rel = sor3d.relax_plane(spec, omega)
         fac_1 = float(torch.tensor(1.37, dtype=dt))
+        ok, err = True, 0.0
         for c in (0, 1):
             for fac in (1.0, fac_1):
-                cs_k = color(spec, ext_k, rel, c, fac)
-                cs_p = color_ref(spec, ext_p, rel, c, fac)
+                cs_k = sor3d.sor3d_color_sweep(spec, ext, rel, c, fac)
+                cs_p = sor3d.sor3d_color_sweep_reference(spec, ext, rel, c,
+                                                         fac)
                 ok &= torch.equal(cs_k, cs_p)
-                errs[f"{p}_color_sweep"] = max(errs[f"{p}_color_sweep"],
-                                               _max_err(cs_k, cs_p))
-                if inplace:
-                    ip_k = sor2d.sor2d_color_sweep_inplace(spec, ext_k, rel,
-                                                           c, fac)
-                    ip_p = sor2d.sor2d_color_sweep_inplace_reference(
-                        spec, ext_p, rel, c, fac)
-                    ok &= torch.equal(ip_k, ip_p)
-                    errs["sor2d_color_sweep_inplace"] = max(
-                        errs["sor2d_color_sweep_inplace"],
-                        _max_err(ip_k, ip_p))
+                err = max(err, _max_err(cs_k, cs_p))
         # n sweeps at omega, and n cheby sweeps (omega 1 with factors)
         facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dt))
                 for k in range(2 * n)]
-        kernels = [f"{p}_extend_rows", f"{p}_color_sweep"]
-        runs = [(False, omega, None), (False, 1.0, facs)]
-        if inplace:
-            kernels.append("sor2d_color_sweep_inplace")
-            runs += [(True, omega, None), (True, 1.0, facs)]
         norm_err = 0.0
-        for switch, om, fac in runs:
-            sor2d.INPLACE_KERNEL = switch
-            i0 = sor2d.INPLACE_LAUNCHES
-            out_k = sweeps(spec, S0, om, n, fac=fac)
-            out_n, sumabs = sweeps(spec, S0, om, n, with_norm=True, fac=fac)
-            sor2d.INPLACE_KERNEL = False
-            out_p = sweeps_ref(spec, S0, om, n, fac)
+        for om, fac in ((omega, None), (1.0, facs)):
+            out_k = sor3d.sor3d_sweeps(spec, S0, om, n, fac=fac)
+            out_n, sumabs = sor3d.sor3d_sweeps(spec, S0, om, n,
+                                               with_norm=True, fac=fac)
+            out_p = sor3d.sor3d_sweeps_reference(spec, S0, om, n, fac)
             torch.cuda.synchronize()
-            ok &= (sor2d.INPLACE_LAUNCHES > i0) == switch
-            err = _max_err(out_k, out_p)
-            for k in kernels:
-                errs[k] = max(errs[k], err)
+            err = max(err, _max_err(out_k, out_p))
             ok &= torch.equal(out_k, out_p) and torch.equal(out_n, out_k)
             ok &= bool(torch.isfinite(out_p).all())
-            ref = out_p.double().abs().sum(dim=core)
+            ref = out_p.double().abs().sum(dim=(-3, -2, -1))
             norm_err = max(norm_err, float(
                 ((sumabs.double() - ref).abs() / ref).max()))
-        log(f"[2] {name} {str(dt)[6:]}: bit-equal={ok} "
-            f"(in-place kernel: {'checked' if inplace else 'not eligible'}) "
+        errs["sor3d_color_sweep"] = max(errs["sor3d_color_sweep"], err)
+        log(f"[2] {name} {str(dt)[6:]}: sor3d_color_sweep alone and over "
+            f"{n} sweeps, with and without factors: bit-equal={ok} "
             f"max|kernel-plain|={err:.3e} sumabs rel err={norm_err:.3e} "
             f"(tol {rtol:g})")
         if not ok or not norm_err <= rtol:
             raise RuntimeError(f"kernel disagrees with its plain version "
                                f"on {name} {dt}")
-        if p == "sor2d":
-            _check_tiled(name, spec, omega, S0, rtol, errs)
-            if sor2d.resident_plan(spec, tuple(S0.shape[-2:]),
-                                   dt) is not None:
-                _check_resident(name, spec, omega, S0, errs)
-        elif spec.bcs[-2] == "extend":
+        if spec.bcs[-2] == "extend":
             _check_fold(name, spec, omega, S0, rtol, errs)
 
 
@@ -778,11 +717,10 @@ def _check_fold(name, spec, omega, S0, rtol, errs):
     """The 3-D pair with the extend pre-pass folded into the red launch
     (sor3d_sweeps, the solver's executor) over n in {1, 2, 37}, at omega
     and as cheby, against the plain version: torch.equal, finite, two
-    launches a sweep and no extend launch, the fused |S| sums of the last
+    launches a sweep, the fused |S| sums of the last
     black launch against sum|S|; NaN and Inf seeded in the boundary rows of
-    the interior levels (the pre-pass overwrites them: finite, equal); the
-    folded red launch alone; and the first version (sor3d_sweeps_pair:
-    the extend launch, then the unfolded pair) over 37 sweeps, equal."""
+    the interior levels (the pre-pass overwrites them: finite, equal); and
+    the folded red launch alone."""
     dt = S0.dtype
     facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dt))
             for k in range(74)]
@@ -793,13 +731,12 @@ def _check_fold(name, spec, omega, S0, rtol, errs):
     for n in (1, 2, 37):
         for om, fac in ((omega, None), (1.0, facs[:2 * n])):
             for S in ((S0, seeded) if n == 2 else (S0,)):
-                l0, e0 = sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES
+                l0 = sor3d.LAUNCHES
                 out, sumabs = sor3d.sor3d_sweeps(spec, S, om, n,
                                                  with_norm=True, fac=fac)
                 ref = sor3d.sor3d_sweeps_reference(spec, S, om, n, fac)
                 torch.cuda.synchronize()
-                ok &= (sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES) == (l0 + 2 * n,
-                                                                  e0)
+                ok &= sor3d.LAUNCHES == l0 + 2 * n
                 ok &= torch.equal(out, ref) and bool(
                     torch.isfinite(ref).all())
                 err = max(err, _max_err(out, ref))
@@ -813,16 +750,11 @@ def _check_fold(name, spec, omega, S0, rtol, errs):
                                                 extend=True)
         ok &= torch.equal(red, ref)
         err = max(err, _max_err(red, ref))
-    e0 = sor3d.EXTEND_LAUNCHES
-    first = sor3d.sor3d_sweeps_pair(spec, S0, 1.0, 37, fac=facs)
-    ref = sor3d.sor3d_sweeps_reference(spec, S0, 1.0, 37, facs)
-    torch.cuda.synchronize()
-    ok &= sor3d.EXTEND_LAUNCHES == e0 + 37 and torch.equal(first, ref)
     errs["sor3d_color_sweep"] = max(errs["sor3d_color_sweep"], err)
     log(f"[2] {name} {str(dt)[6:]}: sor3d_color_sweep with the extend "
         f"pre-pass folded in, n in [1, 2, 37], with and without factors, "
-        f"NaN/Inf-seeded boundary rows, the red launch alone, and the first "
-        f"version's three launches a sweep: bit-equal={ok} "
+        f"NaN/Inf-seeded boundary rows and the red launch alone: "
+        f"bit-equal={ok} "
         f"max|kernel-plain|={err:.3e} sumabs rel err={norm_err:.3e} "
         f"(tol {rtol:g})")
     if not ok or not norm_err <= rtol:
@@ -1249,25 +1181,27 @@ def _check_block2d(name, make, blocks, k, mesh, errs):
 
 def _check_block3d(name, make, blocks, k, mesh, errs):
     """B5s on each block, through the block sweep kernel (three z chunkings:
-    the plan's, one level and five levels a CTA) and through its first
-    version (the color sweep's block mode): the red launch with the extend
-    pre-pass folded in and the black launch with the owned |S| partials,
+    the plan's, one level and five levels a CTA): the red launch with the
+    extend pre-pass folded in and the black launch with the owned |S| partials,
     with and without a Chebyshev factor, against the plain version: every
     cell of the padded buffer torch.equal, NaN matching NaN; then 37 sweeps
     with factors through the executor on ``mesh`` against the plain
     meshless sweeps, and on the aligned layout its norm against the
     whole-grid pair's."""
     def block_sweep(zc):
-        """The block sweep's one launch walking zc levels a CTA (0: the
-        launcher's choice)."""
-        def launch(spec, lay, *args):
-            sor3d._launch_block(spec, dict(lay, zc=zc), *args)
-        return lambda *args: sor3d._block_once(launch, *args)
+        """sor3d_color_sweep_block, its one launch walking zc levels a CTA
+        (0: the launcher's choice)."""
+        def run(*args):
+            launch = sor3d._launch_block
+            sor3d._launch_block = lambda spec, lay, *a: launch(
+                spec, dict(lay, zc=zc), *a)
+            try:
+                return sor3d.sor3d_color_sweep_block(*args)
+            finally:
+                sor3d._launch_block = launch
+        return run
     wrappers = [("sor3d_color_sweep_block", block_sweep(zc), "BLOCK_LAUNCHES")
                 for zc in (0, 1, 5)]
-    wrappers.append(("sor3d_color_sweep_block_first",
-                     sor3d.sor3d_color_sweep_block_first,
-                     "BLOCK_FIRST_LAUNCHES"))
     for dt in (torch.float32, torch.float64):
         spec, S0, om = make(dt)
         shape = tuple(S0.shape[-2:])
@@ -1317,8 +1251,8 @@ def _check_block3d(name, make, blocks, k, mesh, errs):
         log(f"[2] {name} {str(dt)[6:]}: B5s on {len(blocks)} block(s) "
             f"(ghosts {[b[2] for b in blocks]}), red (extend folded in) and "
             f"black (owned partials), factors 1 and 1.37, through the block "
-            f"sweep kernel (z chunks: the launcher's, 1, 5) and its first "
-            f"version, then 37 sweeps through the executor on "
+            f"sweep kernel (z chunks: the launcher's, 1, 5), then 37 sweeps "
+            f"through the executor on "
             f"{dict(mesh.shape)} (k {ex.k})"
             + ("" if exc is None else " and its norm on the aligned layout")
             + f": bit-equal={ok} max|kernel-plain|="
@@ -1404,33 +1338,18 @@ def _levels2d(levels):
 
 
 MG_POINT2D = "the point smoother's routes over the pyramid's levels"
-FIRST = {False: ("sor2d_extend_rows", "sor2d_color_sweep"),
-         True: ("sor2d_extend_rows", "sor2d_color_sweep_inplace")}
 
 
 def _drive2d(name, call, field, inplace, launches, kernels=None):
     """A 2-D main path through the tiled kernels alone (the in-place one
     with ``inplace``, the switch set; ``kernels`` where the route takes
-    another), then the same call through the
-    first version's three launches a sweep (``sor2d_sweeps`` set to
-    ``sor2d_sweeps_pair``, B3 where the switch takes the spec): the same
-    iters, bit-equal states and fields.  Returns the tiled run as
-    (Field, SolveResult)."""
+    another).  Returns the run as (Field, SolveResult)."""
     sor2d.INPLACE_KERNEL = inplace
     try:
-        tiled = (_drive(name, kernels or TILED[inplace], call, field,
-                        launches), api.LAST_SOLVE)
-        tiled_sweeps = sor2d.sor2d_sweeps
-        sor2d.sor2d_sweeps = sor2d.sor2d_sweeps_pair
-        try:
-            first = (_drive(f"{name}, first version", FIRST[inplace], call,
-                            field), api.LAST_SOLVE)
-        finally:
-            sor2d.sor2d_sweeps = tiled_sweeps
+        return (_drive(name, kernels or TILED[inplace], call, field,
+                       launches), api.LAST_SOLVE)
     finally:
         sor2d.INPLACE_KERNEL = False
-    _same(f"{name}, tiled vs first version", tiled, first)
-    return tiled
 
 
 def _profiled(call):
@@ -1523,8 +1442,7 @@ def phase3():
     # in-place switch on and off, which must agree bit for bit;
     # Stommel-Munk (biharmonic, the ping-pong kernel); Stommel with
     # scheme="cheby" (in place, with its factors); the reference
-    # workload's iParams, a cheby omega that converges (1.3); each also
-    # through the first version, equal
+    # workload's iParams, a cheby omega that converges (1.3)
     iP_soda = {"BCs": ["extend", "periodic"], "undef": np.nan,
                "mxLoop": 5000, "tolerance": 1e-12, "optArg": 1,
                "printInfo": False}
@@ -1611,26 +1529,12 @@ def phase3():
 
 def _drive3d(name, call, field, launches):
     """A 3-D main path with an extend y boundary through the folded pair
-    alone (two launches of sor3d_color_sweep a sweep, no
-    sor3d_extend_rows launch), then the same call through the first
-    version's three launches a sweep (``sor3d_sweeps`` set to
-    ``sor3d_sweeps_pair``): the same iters, bit-equal states and fields.
-    Returns the folded run's Field."""
-    folded = (_drive(name, ("sor3d_color_sweep",), call, field, launches),
-              api.LAST_SOLVE)
-    sweeps = sor3d.LAUNCHES / max(int(folded[1].iters.max()), 1)
-    folded_sweeps = sor3d.sor3d_sweeps
-    sor3d.sor3d_sweeps = sor3d.sor3d_sweeps_pair
-    try:
-        first = (_drive(f"{name}, first version",
-                        ("sor3d_color_sweep", "sor3d_extend_rows"), call,
-                        field), api.LAST_SOLVE)
-    finally:
-        sor3d.sor3d_sweeps = folded_sweeps
-    log(f"[3] {name}: the folded pair {sweeps:.2f} launches a sweep, "
-        f"sor3d_extend_rows 0 launches")
-    _same(f"{name}, folded vs first version", folded, first)
-    return folded[0]
+    alone: two launches of sor3d_color_sweep a sweep.  Returns its
+    Field."""
+    out = _drive(name, ("sor3d_color_sweep",), call, field, launches)
+    sweeps = sor3d.LAUNCHES / max(int(api.LAST_SOLVE.iters.max()), 1)
+    log(f"[3] {name}: the folded pair {sweeps:.2f} launches a sweep")
+    return out
 
 
 def _same(name, a, b):
@@ -3374,26 +3278,19 @@ def _rates(card, label, spec, omega, shape, plain, dev, n=500):
 
 
 def _turns(card, label, spec, omega, shape, dev, n=200):
-    """n sweeps per call, median of 5 chained calls, in turns: the first
-    version's pair, the tiled kernel, the tiled kernel, the pair; and,
-    where the spec takes them, B3, the in-place tiled kernel, the in-place
-    tiled kernel, B3.  Returns ms per sweep, the best of each pair of
-    turns."""
+    """n sweeps per call, median of 5 chained calls, in turns: the
+    ping-pong tiled kernel, and where the spec takes it the in-place one
+    (ping-pong, in-place, in-place, ping-pong).  Returns ms per sweep, the
+    best of each kernel's turns."""
     S0 = torch.zeros(shape, dtype=spec.w0.dtype, device=dev)
-    runs = [("pair", False, sor2d.sor2d_sweeps_pair),
-            ("sor2d_sweeps_tiled", False, sor2d.sor2d_sweeps_tiled)]
+    runs = [("sor2d_sweeps_tiled", sor2d.sor2d_sweeps_tiled)]
     if sor2d.inplace_eligible(spec, tuple(shape[-2:])):
-        runs += [("B3", True, sor2d.sor2d_sweeps_pair),
-                 ("sor2d_sweeps_tiled_inplace", True,
-                  sor2d.sor2d_sweeps_tiled_inplace)]
+        runs.append(("sor2d_sweeps_tiled_inplace",
+                     sor2d.sor2d_sweeps_tiled_inplace))
     times = {}
-    for i in range(0, len(runs), 2):
-        for label_, switch, fn in (runs[i], runs[i + 1], runs[i + 1],
-                                   runs[i]):
-            sor2d.INPLACE_KERNEL = switch
-            times.setdefault(label_, []).append(_chain_ms(
-                lambda S, fn=fn: fn(spec, S, omega, n), S0) / n)
-            sor2d.INPLACE_KERNEL = False
+    for label_, fn in (runs[0], runs[-1], runs[-1], runs[0]):
+        times.setdefault(label_, []).append(_chain_ms(
+            lambda S, fn=fn: fn(spec, S, omega, n), S0) / n)
     pts = int(np.prod(shape))
     log(f"[4] {card} | {label} {str(spec.w0.dtype)[6:]}, {n} sweeps per "
         f"call, median of 5 chained calls, in turns: " + "; ".join(
@@ -3401,53 +3298,6 @@ def _turns(card, label, spec, omega, shape, dev, n=200):
             f"{pts / (min(v) * 1e-3):.4e} point-sweeps/s"
             for k, v in times.items()))
     return {k: min(v) for k, v in times.items()}
-
-
-# the instantiations each plan scan tries (itemsize 4 only): (threads,
-# cells per thread, weight planes in shared memory)
-SCAN_CONFIGS = {4: ((1024, 4, 0),), 8: ((1024, 4, 1), (512, 4, 0))}
-
-
-def _plan_scan(card, label, spec, omega, shape, dev, n=48):
-    """The ping-pong tiled kernel's time per sweep over its instantiations
-    (``SCAN_CONFIGS``), sweeps per launch and window widths (windows as
-    tall as the instantiation allows), beside the plan's own choice: the
-    table behind ``sor2d.tile_plan``."""
-    S0 = torch.zeros(shape, dtype=spec.w0.dtype, device=dev)
-    core = tuple(shape[-2:])
-    dt = spec.w0.dtype
-    chosen = sor2d.tile_plan(spec, core, dt)
-    r = sor2d._radius(spec)
-    ey, ex = sor2d._extend_reach(spec)
-    key = (4, chosen.kmax, False)
-    table = sor2d._CONFIGS[key]
-    fam = sor2d._FAMILY
-    results = []
-    for conf in SCAN_CONFIGS.get(chosen.kmax, (table,)):
-        sor2d._CONFIGS[key] = conf
-        for k in ((2, 3, 4, 5, 6) if r == 1 else (1, 2, 3)):
-            for tx in (32, 64, 96):
-                hy, hx = 2 * r * k + ey, 2 * r * k + ex
-                ty = (conf[0] * conf[1] // (tx + 2 * hx) - 2 * hy) // 8 * 8
-                try:
-                    plan = sor2d.make_plan(spec, core, dt, False, k, ty, tx)
-                except ValueError:
-                    continue
-                sor2d._FAMILY = fam._replace(
-                    tile_plan=lambda *a, p=plan: p)
-                try:
-                    ms = _chain_ms(lambda S: sor2d.sor2d_sweeps_tiled(
-                        spec, S, omega, n), S0, calls=3) / n
-                finally:
-                    sor2d._FAMILY = fam
-                results.append((ms, conf, k, plan.ty, plan.tx))
-    sor2d._CONFIGS[key] = table
-    results.sort()
-    log(f"[4] {card} | plan scan {label}: the plan {table} k {chosen.k} "
-        f"tile {chosen.ty}x{chosen.tx}; ms per sweep ((threads, cells, "
-        f"weights in shared memory), k, tile): " + ", ".join(
-            f"{ms:.5f} ({c}, {k}, {ty}x{tx})"
-            for ms, c, k, ty, tx in results))
 
 
 def _launch_cost(card, label, spec, omega, S, dev):
@@ -3460,16 +3310,14 @@ def _launch_cost(card, label, spec, omega, S, dev):
     core = tuple(S.shape[-2:])
     dt = S.dtype
     plan = sor2d.tile_plan(spec, core, dt)
-    fam = sor2d._FAMILY
     rel = sor2d.relax_plane(spec, omega)
-    lay = fam.layout(spec, S, rel)
+    lay = sor2d._layout(spec, S, rel)
     A = torch.empty((lay["B"],) + lay["core"], dtype=dt, device=dev)
     A.copy_(S.reshape(A.shape))
     A2 = torch.empty_like(A)
     ns = list(range(1, plan.k + 1))
-    ts = [_device_ms(lambda n=n: fam.launch_tiled(spec, lay, plan, rel, A,
-                                                  A2, n, [1.0] * 2 * n), 20)
-          for n in ns]
+    ts = [_device_ms(lambda n=n: sor2d._launch_tiled(
+        spec, lay, plan, rel, A, A2, n, [1.0] * 2 * n), 20) for n in ns]
     slope, icpt = np.polyfit(ns, ts, 1) if len(ns) > 1 else (ts[0], 0.0)
     blocks = math.prod(plan.tiles(core)) * lay["B"]
     nbytes = _bound("sor2d_sweeps_tiled", spec, S.shape, 1)[2]
@@ -3496,26 +3344,11 @@ def _bound(name, spec, shape, k=1):
     K = len(spec.offsets)
     planes = [spec.w0, spec.g, spec.relax]
     plane_bytes = (sum(p.numel() for p in planes) + spec.w.numel()) * itemsize
-    if name.endswith("extend_rows"):
-        # rows 1 and ny-2 read, rows 0 and ny-1 written, in every (batch
-        # slice, level) the pre-pass touches: interior levels in 3-D
-        slabs = cells // (shape[-2] * shape[-1])
-        if spec.ndim == 3:
-            slabs = slabs // shape[-3] * (shape[-3] - 2)
-        nbytes, ops = 4 * slabs * shape[-1] * itemsize, 0
-    elif "tiled" in name:
-        # k sweeps: the planes and S read once, S written once; each sweep
-        # updates every cell once (2K+5 operations)
-        nbytes = 2 * cells * itemsize + plane_bytes
-        ops = (2 * K + 5) * cells * k
-    else:
-        # S, K weights, w0, g, rel read; S' written (planes shared by the
-        # batch read once: a checkerboard write still dirties every sector,
-        # so the in-place kernel moves the same bytes); 2K+5 operations per
-        # cell updated (the in-place kernel computes one color only)
-        nbytes = 2 * cells * itemsize + plane_bytes
-        ops = (2 * K + 5) * (cells // 2 if name.endswith("inplace")
-                             else cells)
+    # the planes and S read once (planes shared by the batch read once), S
+    # written once; 2K+5 operations a cell for each of the k sweeps of a
+    # tiled launch, for the one half-sweep of a color sweep
+    nbytes = 2 * cells * itemsize + plane_bytes
+    ops = (2 * K + 5) * cells * (k if "tiled" in name else 1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
@@ -3567,7 +3400,6 @@ def phase4(card, dev):
            sor2d.sor2d_sweeps_reference, dev)
     del spec64
     _turns(card, "2048x2048", spec, omega, (2048, 2048), dev)
-    _plan_scan(card, "2048x2048", spec, omega, (2048, 2048), dev)
     S = xt.solve_fixed(spec, S0, omega, 50)
     _launch_cost(card, "2048x2048", spec, omega, S, dev)
     per.update(_per_launch(card, "2048x2048",
@@ -3581,7 +3413,6 @@ def phase4(card, dev):
              MUNK_MP)):
         spec, omega = soda_spec(builder, mp, 12, torch.float32, dev)
         _turns(card, label, spec, omega, (12, 330, 720), dev)
-        _plan_scan(card, label, spec, omega, (12, 330, 720), dev)
         S = xt.solve_fixed(spec, torch.zeros((12, 330, 720), device=dev),
                            omega, 50)
         _launch_cost(card, label, spec, omega, S, dev)
@@ -3605,45 +3436,35 @@ def phase4(card, dev):
 
 
 def _fold_timing(card, spec, omega, S, dev, per_color, n=200):
-    """The 3-D pair with the extend pre-pass folded in against the first
-    version (the extend launch and the unfolded pair): ms per sweep, n
-    sweeps per call, median of 5 chained calls, in turns (first, folded,
-    folded, first); and the device time per launch of the folded red
-    launch, the unfolded red and the black one, each 50 bare launches
-    behind a device spin.  Returns the color sweep's entry of the kernels
-    line with its time per launch on the main path: the mean of the folded
-    red and the black launch."""
+    """The 3-D pair with the extend pre-pass folded in: ms per sweep, n
+    sweeps per call, median of 5 chained calls, twice; and the device time
+    per launch of the folded red launch, the unfolded red and the black
+    one, each 50 bare launches behind a device spin.  Returns the color
+    sweep's entry of the kernels line with its time per launch on the main
+    path: the mean of the folded red and the black launch."""
     S0 = torch.zeros(S.shape, dtype=S.dtype, device=dev)
-    runs = (("first version", sor3d.sor3d_sweeps_pair),
-            ("folded", sor3d.sor3d_sweeps))
-    times = {}
-    for label, fn in (runs[0], runs[1], runs[1], runs[0]):
-        times.setdefault(label, []).append(_chain_ms(
-            lambda S_, fn=fn: fn(spec, S_, omega, n), S0) / n)
-    fam = sor3d._FAMILY
+    times = [_chain_ms(lambda S_: sor3d.sor3d_sweeps(spec, S_, omega, n),
+                       S0) / n for _ in range(2)]
     rel = sor3d.relax_plane(spec, omega)
-    lay = fam.layout(spec, S, rel)
+    lay = sor3d._layout(spec, S, rel)
     A = S.reshape((lay["B"],) + lay["core"]).clone()
     A2 = torch.empty_like(A)
-    red_f = _device_ms(lambda: fam.launch_color_sweep(
+    red_f = _device_ms(lambda: sor3d._launch_color_sweep(
         spec, lay, rel, A, A2, 0, extend=True), 50)
-    red = _device_ms(lambda: fam.launch_color_sweep(spec, lay, rel, A, A2,
-                                                    0), 50)
-    black = _device_ms(lambda: fam.launch_color_sweep(spec, lay, rel, A, A2,
-                                                      1), 50)
-    ext = _device_ms(lambda: fam.launch_extend(spec, lay, A), 50)
+    red = _device_ms(lambda: sor3d._launch_color_sweep(spec, lay, rel, A, A2,
+                                                       0), 50)
+    black = _device_ms(lambda: sor3d._launch_color_sweep(spec, lay, rel, A,
+                                                         A2, 1), 50)
     pts = int(np.prod(S.shape))
     log(f"[4] {card} | 3-D pair 30x330x720 float32, {n} sweeps per call, "
-        f"median of 5 chained calls, in turns: " + "; ".join(
-            f"{k} {v[0]:.5f} / {v[1]:.5f} ms per sweep = "
-            f"{pts / (min(v) * 1e-3):.4e} point-sweeps/s"
-            for k, v in times.items()))
+        f"median of 5 chained calls, twice: " + " / ".join(
+            f"{t:.5f}" for t in times) + f" ms per sweep = "
+        f"{pts / (min(times) * 1e-3):.4e} point-sweeps/s")
     log(f"[4] {card} | 3-D pair 30x330x720 float32, device time per launch "
         f"(50 launches behind a spin): red with the extend folded in "
         f"{red_f:.5f} ms, red unfolded {red:.5f} ms (the fold adds "
         f"{red_f - red:+.5f} ms, {100 * (red_f / red - 1):+.2f}%), black "
-        f"{black:.5f} ms, the extend launch {ext:.5f} ms; a sweep: folded "
-        f"{red_f + black:.5f} ms, first version {ext + red + black:.5f} ms")
+        f"{black:.5f} ms; a sweep {red_f + black:.5f} ms")
     return ((red_f + black) / 2,) + tuple(per_color[1:])
 
 
@@ -3677,9 +3498,8 @@ def phase4_blocks(card, dev):
     beside its plain version's (10 calls) and its bound: 2-D block (1, 1)
     of bench.py's 2048x2048 on a 2x2 mesh, k 4; 3-D block (1, 1) of the
     30x330x720 ocean on a 2x2 mesh, the folded red and the black launch
-    (their mean is the kernels line's time) of the block sweep kernel in
-    turns against its first version (first, block sweep, block sweep,
-    first), then the block sweep at several z chunks."""
+    (their mean is the kernels line's time) of the block sweep kernel,
+    twice, then the block sweep at several z chunks."""
     per = {}
     n = 2048
     spec, om = poisson_spec(n, n, 0, torch.float32, dev)
@@ -3710,36 +3530,27 @@ def phase4_blocks(card, dev):
     rel = sor3d.relax_plane(bspec, om)
     lay = sor3d._block_layout(bspec, P, rel, origin, (330, 720), g)
     A, Bf = P.clone(), torch.empty_like(P)
-    launch = {"block sweep": sor3d._launch_block,
-              "first version": sor3d._launch_block_first}
-
-    def red_black(label):
-        return (_device_ms(lambda: launch[label](bspec, lay, rel, A, Bf, 0,
-                                                 extend=True), 50),
-                _device_ms(lambda: launch[label](bspec, lay, rel, A, Bf, 1),
-                           50))
-    times = {}
-    for label in ("first version", "block sweep", "block sweep",
-                  "first version"):
-        times.setdefault(label, []).append(red_black(label))
+    times = [(_device_ms(lambda: sor3d._launch_block(
+        bspec, lay, rel, A, Bf, 0, extend=True), 50),
+              _device_ms(lambda: sor3d._launch_block(bspec, lay, rel, A, Bf,
+                                                     1), 50))
+             for _ in range(2)]
     t_p = _plain_ms(lambda: sor3d.sor3d_color_sweep_block_reference(
         bspec, P, rel, 1, origin, (330, 720), g))
     bound = _block_bound(bspec, P, (P.numel(), 1))
-    for label, kname in (("block sweep", "sor3d_color_sweep_block"),
-                         ("first version", "sor3d_color_sweep_block_first")):
-        red = float(np.mean([t[0] for t in times[label]]))
-        black = float(np.mean([t[1] for t in times[label]]))
-        per[kname] = ((red + black) / 2, t_p) + bound[:2]
-        log(f"[4] {card} | B5s {label} ({kname}) ocean 30x330x720 block "
-            f"(1, 1) of a 2x2 mesh, padded {tuple(P.shape)}, float32, in "
-            f"turns (first, block sweep, block sweep, first): red (extend "
-            f"folded in) " + " / ".join(f"{t[0]:.5f}" for t in times[label])
-            + " ms, black " + " / ".join(f"{t[1]:.5f}" for t in times[label])
-            + f" ms device time per launch (50 launches); mean "
-            f"{(red + black) / 2:.5f} ms, red/black {red / black:.3f}; "
-            f"bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]} B at 3.35 "
-            f"TB/s), {100 * bound[0] / ((red + black) / 2):.1f}% of it; "
-            f"plain version {t_p:.4f} ms")
+    red = float(np.mean([t[0] for t in times]))
+    black = float(np.mean([t[1] for t in times]))
+    per["sor3d_color_sweep_block"] = ((red + black) / 2, t_p) + bound[:2]
+    log(f"[4] {card} | B5s block sweep (sor3d_color_sweep_block) ocean "
+        f"30x330x720 block (1, 1) of a 2x2 mesh, padded {tuple(P.shape)}, "
+        f"float32, twice: red (extend folded in) "
+        + " / ".join(f"{t[0]:.5f}" for t in times)
+        + " ms, black " + " / ".join(f"{t[1]:.5f}" for t in times)
+        + f" ms device time per launch (50 launches); mean "
+        f"{(red + black) / 2:.5f} ms, red/black {red / black:.3f}; "
+        f"bound {bound[0]:.5f} ms ({bound[1]}, {bound[2]} B at 3.35 "
+        f"TB/s), {100 * bound[0] / ((red + black) / 2):.1f}% of it; "
+        f"plain version {t_p:.4f} ms")
     # what the flag costs: the flagged launch with no edge tiles (a wrong
     # field, timed only) and the red launch unflagged, beside black
     no_edge = dict(lay, n_edge=0)
@@ -3782,9 +3593,8 @@ def phase4_parent(card, dev, parent_src):
     fn.argtypes, fn.restype = args, res
     spec, om = ocean_spec(30, torch.float32, dev)
     S = xt.solve_fixed(spec, torch.zeros((30, 330, 720), device=dev), om, 50)
-    fam = sor3d._FAMILY
     rel = sor3d.relax_plane(spec, om)
-    lays = {"this tree": fam.layout(spec, S, rel)}
+    lays = {"this tree": sor3d._layout(spec, S, rel)}
     lays["parent"] = dict(lays["this tree"], sweep_fn=fn)
     A = S.reshape((1,) + tuple(S.shape)).clone()
     A2 = torch.empty_like(A)
@@ -3792,7 +3602,7 @@ def phase4_parent(card, dev, parent_src):
     for label in ("parent", "this tree", "this tree", "parent") * 2:
         lay = lays[label]
         times.setdefault(label, []).append(tuple(
-            _device_ms(lambda c=c: fam.launch_color_sweep(
+            _device_ms(lambda c=c: sor3d._launch_color_sweep(
                 spec, lay, rel, A, A2, c, extend=c == 0), 50)
             for c in (0, 1)))
     mean = {k: [float(np.mean([t[c] for t in v])) for c in (0, 1)]
@@ -3808,9 +3618,6 @@ def phase4_parent(card, dev, parent_src):
         f"{mean['this tree'][1] / mean['parent'][1]:.4f}")
 
 
-# the resident kernel's instantiations the scan tries (threads, slots per
-# thread), float32
-RESIDENT_SCAN = ((896, 6), (768, 7))
 YEAR = (1460, 73, 144)   # the year cell's batch (benchmark/)
 
 
@@ -3818,17 +3625,15 @@ def phase4_resident(card, dev):
     """The resident kernel at the year cell's shape, 1460x73x144 float32:
     one 32-sweep check window with the fused |S| partials in one launch,
     beside the tiled kernel's window (8 launches of 4 sweeps) in turns
-    (bare launches on prepared buffers, device time behind a spin); the
-    scan of its instantiations (``RESIDENT_SCAN``) behind
-    ``sor2d._RESIDENT_CONFIGS``; its bound (12 operations a point-sweep at
+    (bare launches on prepared buffers, device time behind a spin); its
+    bound (12 operations a point-sweep at
     67 TFLOP/s against the window's bytes once at 3.35 TB/s), the plain
     version's window, and ptxas's registers and spills."""
     spec, omega = poisson_spec(YEAR[1], YEAR[2], YEAR[0], torch.float32,
                                dev)
     S = xt.solve_fixed(spec, torch.zeros(YEAR, device=dev), omega, 64)
-    fam = sor2d._FAMILY
     rel = sor2d.relax_plane(spec, omega)
-    lay = fam.layout(spec, S, rel)
+    lay = sor2d._layout(spec, S, rel)
     part = torch.empty((lay["B"], lay["n_partials"]), device=dev)
     A = S.clone()
     X = [S.clone(), torch.empty_like(S)]
@@ -3836,29 +3641,19 @@ def phase4_resident(card, dev):
     n = 32
 
     def resident(plan):
-        return lambda: fam.launch_resident(spec, lay, plan, rel, A, n,
-                                           [1.0] * 2 * n, part)
+        return lambda: sor2d._launch_resident(spec, lay, plan, rel, A, n,
+                                              [1.0] * 2 * n, part)
 
     def tiled():
         for i in range(n // tplan.k):
-            fam.launch_tiled(spec, lay, tplan, rel, X[i % 2],
-                             X[(i + 1) % 2], tplan.k, [1.0] * 2 * tplan.k,
-                             part if i == n // tplan.k - 1 else None)
+            sor2d._launch_tiled(spec, lay, tplan, rel, X[i % 2],
+                                X[(i + 1) % 2], tplan.k, [1.0] * 2 * tplan.k,
+                                part if i == n // tplan.k - 1 else None)
     plan = sor2d.resident_plan(spec, YEAR[1:], torch.float32)
     times = {"resident": [], "tiled": []}
     for label in ("resident", "tiled", "tiled", "resident"):
         fn = resident(plan) if label == "resident" else tiled
         times[label].append(_device_ms(fn, 20))
-    table = sor2d._RESIDENT_CONFIGS[4]
-    scan = []
-    for conf in RESIDENT_SCAN:
-        sor2d._RESIDENT_CONFIGS[4] = conf
-        try:
-            p = sor2d.resident_plan(spec, YEAR[1:], torch.float32)
-            scan.append((_device_ms(resident(p), 20), conf))
-        finally:
-            sor2d._RESIDENT_CONFIGS[4] = table
-    scan.sort()
     cells = math.prod(YEAR)
     ops = (2 * len(spec.offsets) + 4) * cells * n
     nbytes = (2 * cells + spec.g.numel() + spec.w0.numel()
@@ -3886,9 +3681,6 @@ def phase4_resident(card, dev):
         f"({bound_by}: {ops} operations at 67 TFLOP/s, {nbytes} B at 3.35 "
         f"TB/s), {100 * bound_ms / t_res:.2f}% of it; plain version "
         f"{t_plain:.3f} ms")
-    log(f"[4] {card} | resident scan at {YEAR} ((threads, slots): ms a "
-        f"window): " + ", ".join(
-            f"{c}: {ms:.4f}" for ms, c in scan) + f"; the table {table}")
     lines = _build.BUILD_LOG.get("sor2d", "").splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and "resident" in line:
@@ -3952,45 +3744,33 @@ def _launch_calls(mod, spec, omega, S):
     wrapper, its plain version, one bare launch of the kernel on a buffer
     holding S (through the module's own launch call, so no copy or
     allocation is timed with it), its sweeps per launch and its bound,
-    for :func:`_per_launch`."""
-    p = mod.__name__.rsplit(".", 1)[-1]
-    fam = mod._FAMILY
+    for :func:`_per_launch`: the tiled kernels in 2-D (the in-place one
+    where the spec takes it), the unflagged color sweep in 3-D."""
     rel = mod.relax_plane(spec, omega)
-    lay = fam.layout(spec, S, rel)
+    lay = mod._layout(spec, S, rel)
     A = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype,
                     device=S.device)
     A.copy_(S.reshape(A.shape))
     A2 = torch.empty_like(A)
-    calls = {
-        f"{p}_extend_rows": (
-            lambda: getattr(mod, f"{p}_extend")(spec, S),
-            lambda: getattr(mod, f"{p}_extend_reference")(spec, S),
-            lambda: fam.launch_extend(spec, lay, A), 1),
-        f"{p}_color_sweep": (
-            lambda: getattr(mod, f"{p}_color_sweep")(spec, S, rel, 0),
-            lambda: getattr(mod, f"{p}_color_sweep_reference")(spec, S, rel,
-                                                               0),
-            lambda: fam.launch_color_sweep(spec, lay, rel, A, A2, 0), 1),
-    }
-    if p == "sor2d":
+    if mod is sor3d:
+        calls = {"sor3d_color_sweep": (
+            lambda: sor3d.sor3d_color_sweep(spec, S, rel, 0),
+            lambda: sor3d.sor3d_color_sweep_reference(spec, S, rel, 0),
+            lambda: sor3d._launch_color_sweep(spec, lay, rel, A, A2, 0), 1)}
+    else:
         core = lay["core"]
         kinds = [("sor2d_sweeps_tiled", sor2d.sor2d_sweeps_tiled, False)]
         if sor2d.inplace_eligible(spec, core):
-            calls["sor2d_color_sweep_inplace"] = (
-                lambda: sor2d.sor2d_color_sweep_inplace(spec, S, rel, 0),
-                lambda: sor2d.sor2d_color_sweep_inplace_reference(
-                    spec, S, rel, 0),
-                lambda: fam.launch_color_sweep_inplace(spec, lay, rel, A, 0),
-                1)
             kinds.append(("sor2d_sweeps_tiled_inplace",
                           sor2d.sor2d_sweeps_tiled_inplace, True))
+        calls = {}
         for name, fn, inplace in kinds:
             plan = sor2d.tile_plan(spec, core, S.dtype, inplace)
             calls[name] = (
                 lambda fn=fn, k=plan.k: fn(spec, S, omega, k),
                 lambda k=plan.k: sor2d.sor2d_sweeps_reference(spec, S,
                                                               omega, k),
-                lambda plan=plan: fam.launch_tiled(
+                lambda plan=plan: sor2d._launch_tiled(
                     spec, lay, plan, rel, A, A2, plan.k, [1.0] * 2 * plan.k),
                 plan.k)
     return {name: c + (_bound(name, spec, S.shape, c[3]),)

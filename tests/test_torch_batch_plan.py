@@ -2,15 +2,13 @@
 """The launch plan of batches over 65 535 slices (fault 8), on the CPU:
 the tiled kernel's grid z, ceil(B / spb), stays at or under the grid's
 65 535 in both branches of ``ops.sor2d._slices_per_block`` (planes one a
-slice; planes the batch shares), and the first version's launches, which
-map the batch onto a grid dimension, refuse such a batch in their own
-wrappers.  The kernels themselves run such batches in
-tests/test_torch_cuda.py."""
+slice; planes the batch shares).  The kernels themselves run such batches
+in tests/test_torch_cuda.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from xinvert_tpu_torch.ops import sor2d, sor3d  # noqa: E402
+from xinvert_tpu_torch.ops import sor2d  # noqa: E402
 from xinvert_tpu_torch.stencil import StencilSpec  # noqa: E402
 
 P4 = ((1, 0), (-1, 0), (0, 1), (0, -1))
@@ -39,13 +37,3 @@ def test_grid_z_within_the_limit(B, shared, core):
     z = -(-B // spb)
     assert spb >= 1 and z <= 65535
     assert (z - 1) * spb < B <= z * spb      # every slice walked once
-
-
-def test_first_versions_refuse_a_batch_over_the_grid():
-    sor2d._first_version_batch({"B": 65535}, "sor2d_color_sweep")
-    with pytest.raises(ValueError, match="65535"):
-        sor2d._first_version_batch({"B": 65536}, "sor2d_color_sweep")
-    with pytest.raises(ValueError, match="65535"):
-        sor3d._launch_extend(None, {"B": 65536, "nz": 4}, None)
-    with pytest.raises(ValueError, match="levels"):
-        sor3d._launch_extend(None, {"B": 1, "nz": 65538}, None)

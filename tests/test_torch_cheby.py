@@ -175,8 +175,9 @@ def test_entry_point_cheby_matches_jax(entry):
 
 def test_wrappers_take_factors_on_cpu():
     """sor2d_sweeps / sor3d_sweeps with factors run the plain cheby sweeps
-    on CPU tensors; their color-sweep wrappers scale the relaxation plane by
-    the factor, and a count of factors that does not match raises."""
+    on CPU tensors; the 3-D color-sweep wrapper (the red launch with the
+    extend pre-pass folded in, then the black) scales the relaxation plane
+    by the factor, and a count of factors that does not match raises."""
     ts2 = _port(_poisson(batch=2, seed=5))
     ts3 = _port(_omega3d())
     for mod, ts, p in ((sor2d, ts2, "sor2d"), (sor3d, ts3, "sor3d")):
@@ -188,11 +189,11 @@ def test_wrappers_take_factors_on_cpu():
         out_n, sumabs = getattr(mod, f"{p}_sweeps")(ts, S0, 1.0, 2,
                                                     with_norm=True, fac=fac)
         assert torch.equal(out_n, out)
-        rel = mod.relax_plane(ts, 1.0)
-        S = getattr(mod, f"{p}_extend")(ts, S0)
-        for color, f in ((0, fac[0]), (1, fac[1])):
-            S = getattr(mod, f"{p}_color_sweep")(ts, S, rel, color, f)
-        assert torch.equal(S, tsolver.sweeps(ts, S0, 1.0, 1, fac[:2]))
+        if mod is sor3d:
+            rel = mod.relax_plane(ts, 1.0)
+            S = sor3d.sor3d_color_sweep(ts, S0, rel, 0, fac[0], extend=True)
+            S = sor3d.sor3d_color_sweep(ts, S, rel, 1, fac[1])
+            assert torch.equal(S, tsolver.sweeps(ts, S0, 1.0, 1, fac[:2]))
         with pytest.raises(ValueError, match="factors"):
             getattr(mod, f"{p}_sweeps")(ts, S0, 1.0, 2, fac=fac[:3])
 

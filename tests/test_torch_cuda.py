@@ -1,8 +1,8 @@
 # -*- coding: utf-8 -*-
 """The CUDA kernels of the PyTorch port (xinvert_tpu_torch/csrc/sor2d.cu and
 csrc/sor3d.cu) on the card: bit-equal to their plain PyTorch versions (the
-2-D tiled kernels, the first version's pair and in-place kernel, the 3-D
-pair with the extend pre-pass folded in and its first version, and the
+2-D route, the resident kernel and the tiled kernels with their in-place
+twin, the 3-D color sweep with the extend pre-pass folded in, and the
 Chebyshev factor argument included), counted, and refusing what they do not
 take; the direct engine on the card against the CPU; solution trajectories
 through the kernels frame by frame against the plain version; the
@@ -10,7 +10,7 @@ lexicographic executor and the 1-D entry points on the card against the
 CPU; the error-free transformations exact on the card, refinement through
 the kernels, streamed solves bit-equal to the resident solve, implicit
 gradients through the kernels equal to the plain version's; the block
-kernels (sor2d_sweeps_block, sor3d_color_sweep_block) bit-equal to their
+kernels (sor2d_sweeps_block, sor3d_block_sweep) bit-equal to their
 plain versions and, on local meshes that repeat the card, to the meshless
 sweeps and solves; batches over 65 535 slices through the main-path
 kernels; the sharded multigrid pyramid (solve_mg_sharded) on local meshes
@@ -23,6 +23,7 @@ machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -33,7 +34,7 @@ import xinvert_tpu_torch as xt  # noqa: E402
 from xinvert_tpu_torch.grid import Grid  # noqa: E402
 from xinvert_tpu_torch.models import problems  # noqa: E402
 from xinvert_tpu_torch.models.params import default_mParams  # noqa: E402
-from xinvert_tpu_torch.ops import sor2d, sor3d  # noqa: E402
+from xinvert_tpu_torch.ops import _driver, sor2d, sor3d  # noqa: E402
 from xinvert_tpu_torch.stencil import StencilSpec  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +98,10 @@ def _bih(dtype, device, bcs):
 @pytest.mark.parametrize("case", ["poisson", "poisson_batch", "fixed",
                                   "bih_periodic", "bih_fixed"])
 def test_kernel_bit_equal_to_plain(cuda, dtype, case):
+    """The 2-D route (sor2d_sweeps: the resident kernel where its plan
+    takes the slice, else the tiled kernel), 15 sweeps with the fused |S|
+    sums, against the plain version: ceil(15 / k) launches of the route's
+    kernel."""
     if case == "poisson":
         spec, S0 = _poisson(dtype, cuda)
     elif case == "poisson_batch":
@@ -106,12 +111,14 @@ def test_kernel_bit_equal_to_plain(cuda, dtype, case):
     else:
         spec, S0 = _bih(dtype, cuda, ("extend", case[4:]))
     before = S0.clone()
-    l0 = sor2d.LAUNCHES
-    out_k, sumabs = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 15,
-                                            with_norm=True)
+    core = tuple(S0.shape[-2:])
+    plan = (sor2d.resident_plan(spec, core, dtype)
+            or sor2d.tile_plan(spec, core, dtype))
+    m0 = _main_2d()
+    out_k, sumabs = sor2d.sor2d_sweeps(spec, S0, 1.3, 15, with_norm=True)
     out_p = sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 15)
     torch.cuda.synchronize()
-    assert sor2d.LAUNCHES == l0 + 30
+    assert _main_2d() == m0 + -(-15 // plan.k)
     assert torch.equal(out_k, out_p)
     assert torch.equal(S0, before)
     ref = out_p.double().abs().sum(dim=(-2, -1))
@@ -151,12 +158,12 @@ def test_tiled_bit_equal_to_plain(cuda, dtype, case):
         fac = [float(torch.tensor(f, dtype=dtype))
                for f in 1.0 + 0.4 * rng.random(2 * n)]
         for f, omega in ((None, 1.3), (fac, 1.0)):
-            c0, l0 = getattr(sor2d, counter), sor2d.LAUNCHES
+            c0, m0 = getattr(sor2d, counter), _main_2d()
             out_k, sumabs = fn(spec, S0, omega, n, with_norm=True, fac=f)
             out_p = sor2d.sor2d_sweeps_reference(spec, S0, omega, n, f)
             torch.cuda.synchronize()
             assert getattr(sor2d, counter) == c0 + 3
-            assert sor2d.LAUNCHES == l0
+            assert _main_2d() == m0 + 3
             assert torch.equal(out_k, out_p)
             assert torch.equal(fn(spec, S0, omega, 1, fac=None if f is None
                                   else f[:2]),
@@ -178,8 +185,7 @@ def test_tiled_at_odd_origins(cuda, monkeypatch, dtype, case):
     which need whole 32 x 8 blocks per tile, are refused for them."""
     spec, S0 = _case2d(case, dtype, cuda)
     plan = sor2d.make_plan(spec, tuple(S0.shape[-2:]), dtype, False, 2, 7, 9)
-    monkeypatch.setattr(sor2d, "_FAMILY", sor2d._FAMILY._replace(
-        tile_plan=lambda *a: plan))
+    monkeypatch.setattr(sor2d, "tile_plan", lambda *a: plan)
     for n in (1, 5):
         out = sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, n)
         assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3,
@@ -340,7 +346,6 @@ def test_2d_solve_launches_only_the_route_kernel(cuda, case):
         ran_only = "TILED_LAUNCHES"
     S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
     names = ("RESIDENT_LAUNCHES", "TILED_LAUNCHES", "TILED_INPLACE_LAUNCHES",
-             "LAUNCHES", "INPLACE_LAUNCHES", "EXTEND_LAUNCHES",
              "BLOCK_LAUNCHES", "PLAIN_CALLS")
     before = {n: getattr(sor2d, n) for n in names}
     xt.solve(spec, S0, tol=1e-6, max_iters=256, check_every=32)
@@ -358,9 +363,8 @@ def test_2d_solve_launches_only_the_tiled_kernels(cuda, monkeypatch,
     spec, _ = _stommel(torch.float32, cuda, ny=96, nx=144)
     assert sor2d.resident_plan(spec, (96, 144), torch.float32) is None
     S0 = torch.zeros(spec.g.shape, dtype=torch.float32, device=cuda)
-    names = ("TILED_LAUNCHES", "TILED_INPLACE_LAUNCHES", "LAUNCHES",
-             "INPLACE_LAUNCHES", "EXTEND_LAUNCHES", "PLAIN_CALLS",
-             "RESIDENT_LAUNCHES")
+    names = ("TILED_LAUNCHES", "TILED_INPLACE_LAUNCHES", "PLAIN_CALLS",
+             "RESIDENT_LAUNCHES", "BLOCK_LAUNCHES")
     before = {n: getattr(sor2d, n) for n in names}
     xt.solve(spec, S0, omega=1.5, tol=1e-9, max_iters=200, check_every=8)
     ran = {n for n in names if getattr(sor2d, n) != before[n]}
@@ -518,41 +522,45 @@ def _case3d(case, dtype, device):
 @pytest.mark.parametrize("case", ["omega_batch", "ocean", "ocean_fixed_x",
                                   "per_slice", "many_slices", "odd"])
 def test_kernel3d_bit_equal_to_plain(cuda, dtype, case):
-    """The folded sweeps (two launches a sweep, no extend launch) and the
-    first version's (sor3d_sweeps_pair: the extend launch too) bit-equal
-    to the plain version; each kernel alone, the red color sweep with the
-    extend flag too."""
+    """The folded sweeps (two launches a sweep) bit-equal to the plain
+    version, with the fused |S| totals of the kernels' order; each launch
+    alone, unflagged on the extended state and with the extend flag."""
+    from xinvert_tpu_torch import solver
     spec, S0 = _case3d(case, dtype, cuda)
     before = S0.clone()
-    extend = spec.bcs[-2] == "extend"
-    l0, e0 = sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES
+    l0 = sor3d.LAUNCHES
     out_k, sumabs = sor3d.sor3d_sweeps(spec, S0, 1.3, 15, with_norm=True)
     out_p = sor3d.sor3d_sweeps_reference(spec, S0, 1.3, 15)
     torch.cuda.synchronize()
     assert sor3d.LAUNCHES == l0 + 30
-    assert sor3d.EXTEND_LAUNCHES == e0
     assert torch.equal(out_k, out_p)
     assert torch.equal(S0, before)
-    ref = out_p.double().abs().sum(dim=(-3, -2, -1))
-    rtol = 1e-5 if dtype == torch.float32 else 1e-12
-    torch.testing.assert_close(sumabs.double(), ref, rtol=rtol, atol=0)
-    out_y = sor3d.sor3d_sweeps_pair(spec, S0, 1.3, 15)
-    torch.cuda.synchronize()
-    assert sor3d.LAUNCHES == l0 + 60
-    assert sor3d.EXTEND_LAUNCHES == e0 + (15 if extend else 0)
-    assert torch.equal(out_y, out_p)
-    # each kernel alone
-    ext_k = sor3d.sor3d_extend(spec, S0)
-    assert torch.equal(ext_k, sor3d.sor3d_extend_reference(spec, S0))
+    assert torch.equal(sumabs, _plain3d(spec, S0, 1.3, 15, True)[1])
+    # each launch alone
+    ext = solver._apply_extend(spec, S0)
     rel = sor3d.relax_plane(spec, 1.3)
     for color in (0, 1):
         assert torch.equal(
-            sor3d.sor3d_color_sweep(spec, ext_k, rel, color),
-            sor3d.sor3d_color_sweep_reference(spec, ext_k, rel, color))
+            sor3d.sor3d_color_sweep(spec, ext, rel, color),
+            sor3d.sor3d_color_sweep_reference(spec, ext, rel, color))
         assert torch.equal(
             sor3d.sor3d_color_sweep(spec, S0, rel, color, extend=True),
             sor3d.sor3d_color_sweep_reference(spec, S0, rel, color,
                                               extend=True))
+
+
+def _plain3d(spec, S, omega, n, with_norm=False, fac=None):
+    """The plain 3-D sweeps with sor3d_sweeps' signature; with
+    ``with_norm`` the per-slice |S| totals in the kernels' order (each
+    level's 32 x 8 blocks as sor2d.block_partials sums them, then
+    slice_totals), so that a solve run on them stops where the kernels'
+    does."""
+    out = sor3d.sor3d_sweeps_reference(spec, S, omega, n, fac)
+    if not with_norm:
+        return out
+    batch = tuple(out.shape[:-3])
+    part = sor2d.block_partials(out).reshape(math.prod(batch), -1)
+    return out, _driver.slice_totals(part).reshape(batch)
 
 
 def _nan_equal(a, b):
@@ -585,7 +593,7 @@ def test_folded_pair_bit_equal_nan_and_factors(cuda, dtype, bcs, nz, batch,
     shared (batch stride 0) planes, n in {1, 2, 37} at omega and with
     Chebyshev factors, the |S| partials, and NaN/Inf seeded in the
     boundary rows of the interior levels: torch.equal to the plain
-    version, with no extend launch."""
+    version, two launches a sweep."""
     shape = (nz, 11, 13)
     if shared:
         spec, S0 = _shared3d(dtype, cuda, shape, batch, bcs)
@@ -597,12 +605,12 @@ def test_folded_pair_bit_equal_nan_and_factors(cuda, dtype, bcs, nz, batch,
         facs = [float(torch.tensor(1.0 + 0.45 * (1 - 0.9 ** k), dtype=dtype))
                 for k in range(2 * n)]
         for om, fac in ((1.3, None), (1.0, facs)):
-            e0 = sor3d.EXTEND_LAUNCHES
+            l0 = sor3d.LAUNCHES
             out, sumabs = sor3d.sor3d_sweeps(spec, S0, om, n, with_norm=True,
                                              fac=fac)
             ref = sor3d.sor3d_sweeps_reference(spec, S0, om, n, fac)
             torch.cuda.synchronize()
-            assert sor3d.EXTEND_LAUNCHES == e0
+            assert sor3d.LAUNCHES == l0 + 2 * n
             assert bool(torch.isfinite(ref).all())
             assert torch.equal(out, ref)
             tot = ref.double().abs().sum(dim=(-3, -2, -1))
@@ -656,10 +664,11 @@ def test_solve3d_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_folded_pair_on_the_entry_point(cuda, dtype):
+def test_folded_pair_on_the_entry_point(cuda, monkeypatch, dtype):
     """invert_3DOcean on the card sweeps through the folded pair alone (two
-    launches a sweep, no extend launch) and gives the iters and the state
-    of the first version's three launches a sweep."""
+    launches a sweep) and gives the iters and the state of the same call
+    with the plain sweeps on the card (their norms in the kernels'
+    order)."""
     from xinvert_tpu_torch.models import api
     rng = np.random.default_rng(9)
     nz, ny, nx = 6, 20, 30
@@ -675,22 +684,20 @@ def test_folded_pair_on_the_entry_point(cuda, dtype):
                        "printInfo": False})
     default = torch.get_default_dtype()
     torch.set_default_dtype(dtype)
-    folded = sor3d.sor3d_sweeps
     try:
-        l0, e0 = sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES
+        l0 = sor3d.LAUNCHES
         xt.invert_3DOcean(f, **kw)
         r_f = api.LAST_SOLVE
-        assert sor3d.EXTEND_LAUNCHES == e0
         assert sor3d.LAUNCHES - l0 == 2 * int(r_f.iters)
-        sor3d.sor3d_sweeps = sor3d.sor3d_sweeps_pair
+        monkeypatch.setattr(sor3d, "sor3d_sweeps", _plain3d)
+        l0 = sor3d.LAUNCHES
         xt.invert_3DOcean(f, **kw)
-        r_y = api.LAST_SOLVE
-        assert sor3d.EXTEND_LAUNCHES - e0 == int(r_y.iters)
+        r_p = api.LAST_SOLVE
+        assert sor3d.LAUNCHES == l0 and r_p.S.is_cuda
     finally:
-        sor3d.sor3d_sweeps = folded
         torch.set_default_dtype(default)
-    assert torch.equal(r_f.iters, r_y.iters)
-    assert torch.equal(r_f.S, r_y.S)
+    assert torch.equal(r_f.iters, r_p.iters)
+    assert torch.equal(r_f.S, r_p.S)
 
 
 @pytest.mark.parametrize("case", ["extend_periodic", "fixed_periodic",
@@ -815,62 +822,47 @@ def _inplace_case(case, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["poisson", "poisson_batch", "fixed_odd",
                                   "per_slice", "stommel"])
-def test_inplace_kernel_bit_equal_to_plain(cuda, monkeypatch, dtype, case):
+def test_inplace_kernel_bit_equal_to_plain(cuda, dtype, case):
+    """The in-place tiled kernel, 20 sweeps with and without partials and
+    factors, against the plain version, and its fused |S| totals and
+    states against the ping-pong kernel's."""
     spec, S0 = _inplace_case(case, dtype, cuda)
-    assert sor2d.inplace_eligible(spec, tuple(S0.shape[-2:]))
+    core = tuple(S0.shape[-2:])
+    assert sor2d.inplace_eligible(spec, core)
     before = S0.clone()
-    # each half-sweep alone, with and without a factor
-    for fac in (1.0, 1.37):
-        rel = sor2d.relax_plane(spec, 1.3)
-        for color in (0, 1):
-            assert torch.equal(
-                sor2d.sor2d_color_sweep_inplace(spec, S0, rel, color, fac),
-                sor2d.sor2d_color_sweep_inplace_reference(spec, S0, rel,
-                                                          color, fac))
-    # 20 sweeps through the switch, with and without partials and factors
-    # (the first version's loop: three launches a sweep)
-    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", True)
+    launches = -(-20 // sor2d.tile_plan(spec, core, dtype, True).k)
     rng = np.random.default_rng(9)
-    outs = []
     for fac in (None, list(1.0 + rng.random(40))):
         fac = None if fac is None else [float(torch.tensor(f, dtype=dtype))
                                         for f in fac]
-        l0, i0 = sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES
-        out_k = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 20, fac=fac)
-        out_n, sumabs = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 20,
-                                                with_norm=True, fac=fac)
+        i0, m0 = sor2d.TILED_INPLACE_LAUNCHES, _main_2d()
+        out_k = sor2d.sor2d_sweeps_tiled_inplace(spec, S0, 1.3, 20, fac=fac)
+        out_n, sumabs = sor2d.sor2d_sweeps_tiled_inplace(
+            spec, S0, 1.3, 20, with_norm=True, fac=fac)
         out_p = sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 20, fac)
         torch.cuda.synchronize()
-        assert (sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES) == (l0, i0 + 80)
+        assert sor2d.TILED_INPLACE_LAUNCHES == i0 + 2 * launches
+        assert _main_2d() == m0 + 2 * launches
         assert torch.equal(out_k, out_p) and torch.equal(out_n, out_p)
         ref = out_p.double().abs().sum(dim=(-2, -1))
         rtol = 1e-5 if dtype == torch.float32 else 1e-12
         torch.testing.assert_close(sumabs.double(), ref, rtol=rtol, atol=0)
-        outs.append((fac, out_k))
-    # the pair gives the same answers
-    monkeypatch.setattr(sor2d, "INPLACE_KERNEL", False)
-    for fac, out_k in outs:
-        assert torch.equal(sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 20,
-                                                   fac=fac), out_k)
+        out_t, sum_t = sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, 20,
+                                                with_norm=True, fac=fac)
+        assert torch.equal(out_t, out_k) and torch.equal(sum_t, sumabs)
     assert torch.equal(S0, before)
 
 
 def test_inplace_race_gate(cuda, monkeypatch):
     """An odd nx with periodic x joins two cells of one color across the
-    wrap: the in-place wrappers refuse it, and the switched-on sweeps run
-    the ping-pong kernels instead (counted)."""
+    wrap: the in-place wrapper refuses it, and the switched-on sweeps run
+    the other kernels instead (counted); a spec with cross terms is
+    refused too."""
     spec, S0 = _poisson(torch.float64, cuda, nx=71)
-    rel = sor2d.relax_plane(spec, 1.3)
     assert not sor2d.inplace_eligible(spec, tuple(S0.shape))
-    with pytest.raises(ValueError, match="even"):
-        sor2d.sor2d_color_sweep_inplace(spec, S0, rel, 0)
     with pytest.raises(ValueError, match="even"):
         sor2d.sor2d_sweeps_tiled_inplace(spec, S0, 1.3, 2)
     monkeypatch.setattr(sor2d, "INPLACE_KERNEL", True)
-    l0, i0 = sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES
-    out = sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 4)
-    assert (sor2d.LAUNCHES, sor2d.INPLACE_LAUNCHES) == (l0 + 8, i0)
-    assert torch.equal(out, sor2d.sor2d_sweeps_reference(spec, S0, 1.3, 4))
     ti0 = sor2d.TILED_INPLACE_LAUNCHES
     m0 = _main_2d()
     out = sor2d.sor2d_sweeps(spec, S0, 1.3, 4)
@@ -884,59 +876,56 @@ def test_inplace_race_gate(cuda, monkeypatch):
     cross = dataclasses.replace(cross, w=torch.cat([cross.w, cross.w[:1]]),
                                 offsets=cross.offsets + ((1, 1),))
     with pytest.raises(ValueError, match="cross"):
-        sor2d.sor2d_color_sweep_inplace(cross, S1,
-                                        sor2d.relax_plane(cross, 1.3), 0)
+        sor2d.sor2d_sweeps_tiled_inplace(cross, S1, 1.3, 2)
 
 
 @pytest.mark.parametrize("dtype,check_every", [(torch.float32, 1),
                                                (torch.float32, 32),
                                                (torch.float64, 1)])
 @pytest.mark.parametrize("case", ["diverging", "nan_seed"])
-def test_inplace_stops_like_the_pair(cuda, monkeypatch, dtype, check_every,
-                                     case):
+def test_inplace_stops_like_the_ping_pong(cuda, monkeypatch, dtype,
+                                         check_every, case):
     """A diverging solve (omega 2.5) and a NaN seeded in the interior of
-    the state: the in-place kernel and the pair (the first version's loop,
-    which the solve runs with ``sor2d_sweeps`` set to it) stop at the same
-    check with the same overflow flag."""
+    the state: the in-place tiled kernel and the ping-pong one (each run by
+    the solve with ``sor2d_sweeps`` set to it) stop at the same check with
+    the same overflow flag."""
     spec, _ = _poisson(dtype, cuda, batch=2, nx=72)
     S0 = torch.zeros(spec.g.shape, dtype=dtype, device=cuda)
     omega = 2.5 if case == "diverging" else 1.5
     if case == "nan_seed":
         S0[1, 20, 40] = float("nan")
     res = {}
-    monkeypatch.setattr(sor2d, "sor2d_sweeps", sor2d.sor2d_sweeps_pair)
-    for switch in (False, True):
-        monkeypatch.setattr(sor2d, "INPLACE_KERNEL", switch)
-        i0 = sor2d.INPLACE_LAUNCHES
-        res[switch] = xt.solve(spec, S0, omega=omega, tol=1e-12,
-                               max_iters=3000, check_every=check_every)
-        assert (sor2d.INPLACE_LAUNCHES > i0) == switch
+    for inplace in (False, True):
+        monkeypatch.setattr(sor2d, "sor2d_sweeps",
+                            sor2d.sor2d_sweeps_tiled_inplace if inplace
+                            else sor2d.sor2d_sweeps_tiled)
+        i0 = sor2d.TILED_INPLACE_LAUNCHES
+        res[inplace] = xt.solve(spec, S0, omega=omega, tol=1e-12,
+                                max_iters=3000, check_every=check_every)
+        assert (sor2d.TILED_INPLACE_LAUNCHES > i0) == inplace
     for field in ("iters", "overflow"):
         assert torch.equal(getattr(res[True], field),
                            getattr(res[False], field)), field
     assert bool(res[True].overflow.any())
 
 
-def test_pair_kernels_take_a_factor(cuda):
-    """The fac argument of sor2d_color_sweep and sor3d_color_sweep, alone
-    and through 20 sweeps with factors, bit-equal to the plain versions."""
-    for mod, (spec, S0), p in (
-            (sor2d, _bih(torch.float32, cuda, ("extend", "periodic")),
-             "sor2d"),
-            (sor2d, _poisson(torch.float64, cuda, batch=2), "sor2d"),
-            (sor3d, _ocean3d(torch.float32, cuda), "sor3d"),
-            (sor3d, _omega3d(torch.float64, cuda), "sor3d")):
-        rel = mod.relax_plane(spec, 1.0)
+def test_color_sweep3d_takes_a_factor(cuda):
+    """The fac argument of sor3d_color_sweep, alone (with and without the
+    extend flag) and through 20 sweeps with factors, bit-equal to the plain
+    versions."""
+    for spec, S0 in (_ocean3d(torch.float32, cuda),
+                     _omega3d(torch.float64, cuda)):
+        rel = sor3d.relax_plane(spec, 1.0)
         for color in (0, 1):
-            assert torch.equal(
-                getattr(mod, f"{p}_color_sweep")(spec, S0, rel, color, 1.43),
-                getattr(mod, f"{p}_color_sweep_reference")(spec, S0, rel,
-                                                           color, 1.43))
+            for ext in (False, True):
+                assert torch.equal(
+                    sor3d.sor3d_color_sweep(spec, S0, rel, color, 1.43, ext),
+                    sor3d.sor3d_color_sweep_reference(spec, S0, rel, color,
+                                                      1.43, ext))
         fac = [float(torch.tensor(1.0 + 0.02 * k, dtype=S0.dtype))
                for k in range(40)]
-        loop = "sweeps_pair" if p == "sor2d" else "sweeps"
-        out_k = getattr(mod, f"{p}_{loop}")(spec, S0, 1.0, 20, fac=fac)
-        out_p = getattr(mod, f"{p}_sweeps_reference")(spec, S0, 1.0, 20, fac)
+        out_k = sor3d.sor3d_sweeps(spec, S0, 1.0, 20, fac=fac)
+        out_p = sor3d.sor3d_sweeps_reference(spec, S0, 1.0, 20, fac)
         assert torch.equal(out_k, out_p)
 
 
@@ -1344,8 +1333,7 @@ def _block_case3d(case, dtype, device):
 def test_block3d_kernel_bit_equal_to_plain(cuda, dtype, case):
     """sor3d_color_sweep_block's red launch (the extend folded in) and
     black launch (with the owned |S| partials) against the plain version,
-    every cell of the padded buffer, through the block sweep kernel and
-    through its first version (the color sweep's block mode); then 37
+    every cell of the padded buffer, through the block sweep kernel; then 37
     sweeps through the executor on a 2x2 mesh of the card against the
     plain sweeps."""
     from xinvert_tpu_torch.parallel import halo
@@ -1357,18 +1345,15 @@ def test_block3d_kernel_bit_equal_to_plain(cuda, dtype, case):
     for color, ext, norm in ((0, True, False), (1, False, True)):
         ref = sor3d.sor3d_color_sweep_block_reference(
             bspec, P, rel, color, origin, shape, g, 1.07, ext, norm)
-        for fn, counter in ((sor3d.sor3d_color_sweep_block,
-                             "BLOCK_LAUNCHES"),
-                            (sor3d.sor3d_color_sweep_block_first,
-                             "BLOCK_FIRST_LAUNCHES")):
-            b0 = getattr(sor3d, counter)
-            res = fn(bspec, P, rel, color, origin, shape, g, 1.07, ext, norm)
-            assert getattr(sor3d, counter) == b0 + 1
-            torch.cuda.synchronize()
-            if norm:
-                assert _nan_equal(res[1], ref[1])
-                res = res[0]
-            assert _nan_equal(res, ref[0] if norm else ref)
+        b0 = sor3d.BLOCK_LAUNCHES
+        res = sor3d.sor3d_color_sweep_block(bspec, P, rel, color, origin,
+                                            shape, g, 1.07, ext, norm)
+        assert sor3d.BLOCK_LAUNCHES == b0 + 1
+        torch.cuda.synchronize()
+        if norm:
+            assert _nan_equal(res[1], ref[1])
+            res = res[0]
+        assert _nan_equal(res, ref[0] if norm else ref)
     fac = [float(torch.tensor(1.0 + 0.01 * i, dtype=dtype))
            for i in range(74)]
     mesh = _card_mesh(cuda, (2, 2), ("y", "x"))
@@ -1625,8 +1610,6 @@ def test_batch_over_65535_slices_2d(cuda, per_slice):
         one, t1 = sor2d.sor2d_sweeps(_slice_spec(spec, b, 2), S0[b:b + 1],
                                      1.3, 9, with_norm=True)
         assert torch.equal(one[0], out[b]) and torch.equal(t1[0], tot[b])
-    with pytest.raises(ValueError, match="65535"):
-        sor2d.sor2d_sweeps_pair(spec, S0, 1.3, 1)
 
 
 def test_batch_over_65535_slices_3d(cuda):
@@ -1652,8 +1635,6 @@ def test_batch_over_65535_slices_3d(cuda):
         one, t1 = sor3d.sor3d_sweeps(spec, S0[b:b + 1], 1.2, 3,
                                      with_norm=True)
         assert torch.equal(one[0], out[b]) and torch.equal(t1[0], tot[b])
-    with pytest.raises(ValueError, match="65535"):
-        sor3d.sor3d_extend(spec, S0)
 
 
 # --------------------------------------------- the sharded multigrid

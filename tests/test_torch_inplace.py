@@ -1,6 +1,6 @@
 # -*- coding: utf-8 -*-
 """The in-place 2-D kernel's plain path (xinvert_tpu_torch/ops/sor2d.py,
-``sor2d_color_sweep_inplace`` and the sweeps that take it) against the TPU
+``sor2d_sweeps_tiled_inplace`` and the sweeps that take it) against the TPU
 kernel it stands for, ``xinvert_tpu/ops/pallas_sor_window.py::
 _kernel_inplace`` (B3), run in Pallas interpret mode with the JAX package's
 switch set on the module (``INPLACE_KERNEL``), on identical planes
@@ -127,26 +127,6 @@ def test_plain_matches_b3_cheby_factors(b3):
     _close(S_t, st.join(s_j))
     assert m == int(m_j) and w == float(w_j)
     np.testing.assert_allclose(float(sumabs_t), float(sumabs_j), rtol=1e-12)
-
-
-def test_inplace_wrappers_compose_one_sweep():
-    """extend, then the in-place wrapper's red and black half-sweeps, is
-    one sweep; with factors, one cheby sweep.  CPU tensors take the plain
-    version and count as plain calls."""
-    js, S0 = _spec(20, 24, ("extend", "periodic"), batch=2, seed=5)
-    ts, S0 = _port(js), torch.as_tensor(S0)
-    rel = sor2d.relax_plane(ts, 1.4)
-    p0, i0 = sor2d.PLAIN_CALLS, sor2d.INPLACE_LAUNCHES
-    S = sor2d.sor2d_extend(ts, S0)
-    S = sor2d.sor2d_color_sweep_inplace(ts, S, rel, 0)
-    S = sor2d.sor2d_color_sweep_inplace(ts, S, rel, 1)
-    assert torch.equal(S, tsolver.sweep(ts, S0, 1.4))
-    assert (sor2d.PLAIN_CALLS, sor2d.INPLACE_LAUNCHES) == (p0 + 3, i0)
-    rel1 = sor2d.relax_plane(ts, 1.0)
-    S = sor2d.sor2d_extend(ts, S0)
-    S = sor2d.sor2d_color_sweep_inplace(ts, S, rel1, 0, 1.25)
-    S = sor2d.sor2d_color_sweep_inplace(ts, S, rel1, 1, 1.5)
-    assert torch.equal(S, sor2d.sor2d_sweeps(ts, S0, 1.0, 1, fac=[1.25, 1.5]))
 
 
 @pytest.mark.parametrize("bcs,shape,cross,expect", [

@@ -1,8 +1,10 @@
 # -*- coding: utf-8 -*-
 """Package boundaries of the PyTorch port: it imports neither JAX nor
-xinvert_tpu, and chip_smoke.py refuses to run (and prints no result) on a
-machine without CUDA."""
+xinvert_tpu, chip_smoke.py refuses to run (and prints no result) on a
+machine without CUDA, and the ctypes signatures that ``ops/_build.py``
+sets are the ``extern "C"`` functions of the CUDA sources, read as text."""
 import os
+import re
 import subprocess
 import sys
 
@@ -33,3 +35,27 @@ def test_chip_smoke_fails_without_cuda():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def _extern_functions(src):
+    """name -> parameter count of every function defined in the
+    ``extern "C"`` block of a CUDA source."""
+    body = src[src.index('extern "C" {'):src.rindex('}  // extern "C"')]
+    found = {}
+    for m in re.finditer(r"^int (\w+)\(([^)]*)\)", body, re.M):
+        found[m.group(1)] = len(m.group(2).split(","))
+    return found
+
+
+@pytest.mark.parametrize("name", ["sor2d", "sor3d"])
+def test_signatures_match_the_sources(name):
+    """Every ``_SIGNATURES`` entry of a source is one of its ``extern "C"``
+    functions, with as many arguments, and every such function has an
+    entry."""
+    from xinvert_tpu_torch.ops import _build
+    with open(_build.SOURCES[name]) as fh:
+        defined = _extern_functions(fh.read())
+    sigs = _build._SIGNATURES[name]
+    assert sorted(sigs) == sorted(defined)
+    for fn, (argtypes, _) in sigs.items():
+        assert len(argtypes) == defined[fn], fn

@@ -153,10 +153,13 @@ def _cpu_case(batch=3):
 def test_wrapper_takes_plain_path_on_cpu():
     ts, S0 = _cpu_case()
     before = S0.clone()
-    l0, e0, p0 = sor2d.LAUNCHES, sor2d.EXTEND_LAUNCHES, sor2d.PLAIN_CALLS
+    names = ("RESIDENT_LAUNCHES", "TILED_LAUNCHES", "TILED_INPLACE_LAUNCHES",
+             "BLOCK_LAUNCHES")
+    launches = [getattr(sor2d, k) for k in names]
+    p0 = sor2d.PLAIN_CALLS
     out = sor2d.sor2d_sweeps(ts, S0, 1.3, 5)
     out_n, sumabs = sor2d.sor2d_sweeps(ts, S0, 1.3, 5, with_norm=True)
-    assert (sor2d.LAUNCHES, sor2d.EXTEND_LAUNCHES) == (l0, e0)
+    assert [getattr(sor2d, k) for k in names] == launches
     assert sor2d.PLAIN_CALLS == p0 + 2
     assert torch.equal(out, sor2d.sor2d_sweeps_reference(ts, S0, 1.3, 5))
     assert torch.equal(out_n, out)
@@ -164,23 +167,12 @@ def test_wrapper_takes_plain_path_on_cpu():
     assert torch.equal(S0, before)          # the caller's tensor is untouched
 
 
-def test_per_kernel_plain_versions_compose_one_sweep():
-    """extend, red, black through the per-kernel wrappers == one sweep."""
-    ts, S0 = _cpu_case()
-    rel = sor2d.relax_plane(ts, 1.3)
-    S = sor2d.sor2d_extend(ts, S0)
-    assert torch.equal(S, tsolver._apply_extend(ts, S0))
-    S = sor2d.sor2d_color_sweep(ts, S, rel, 0)
-    S = sor2d.sor2d_color_sweep(ts, S, rel, 1)
-    assert torch.equal(S, sor2d.sor2d_sweeps_reference(ts, S0, 1.3, 1))
-    assert torch.equal(S, tsolver.sweep(ts, S0, 1.3))
-
-
 def test_wrapper_raises_off_cpu_without_cuda():
     """A tensor that is neither on the CPU nor on CUDA never falls back."""
     ts, S0 = _cpu_case(batch=0)
     meta = torch.empty(S0.shape, dtype=S0.dtype, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        sor2d.sor2d_sweeps(ts, meta, 1.3, 2)
+    for sweeps in (sor2d.sor2d_sweeps, sor2d.sor2d_sweeps_tiled):
+        with pytest.raises(ValueError, match="CUDA"):
+            sweeps(ts, meta, 1.3, 2)
     with pytest.raises(ValueError, match="meta"):
         tsolver.solve_fixed(ts, meta, 1.3, 2)

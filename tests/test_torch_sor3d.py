@@ -189,10 +189,10 @@ def _cpu_case(batch=2):
 def test_wrapper_takes_plain_path_on_cpu():
     ts, S0 = _cpu_case()
     before = S0.clone()
-    l0, e0, p0 = sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES, sor3d.PLAIN_CALLS
+    l0, b0, p0 = sor3d.LAUNCHES, sor3d.BLOCK_LAUNCHES, sor3d.PLAIN_CALLS
     out = sor3d.sor3d_sweeps(ts, S0, 1.3, 5)
     out_n, sumabs = sor3d.sor3d_sweeps(ts, S0, 1.3, 5, with_norm=True)
-    assert (sor3d.LAUNCHES, sor3d.EXTEND_LAUNCHES) == (l0, e0)
+    assert (sor3d.LAUNCHES, sor3d.BLOCK_LAUNCHES) == (l0, b0)
     assert sor3d.PLAIN_CALLS == p0 + 2
     assert torch.equal(out, sor3d.sor3d_sweeps_reference(ts, S0, 1.3, 5))
     assert torch.equal(out_n, out)
@@ -203,16 +203,18 @@ def test_wrapper_takes_plain_path_on_cpu():
 
 
 def test_per_kernel_plain_versions_compose_one_sweep():
-    """extend, red, black through the per-kernel wrappers == one sweep."""
+    """The red wrapper with the extend pre-pass folded in, then the black
+    one, == one sweep; the pre-pass changes rows 0 and ny-1 on interior
+    levels only."""
     ts, S0 = _cpu_case()
     rel = sor3d.relax_plane(ts, 1.3)
-    S = sor3d.sor3d_extend(ts, S0)
-    assert torch.equal(S, tsolver._apply_extend(ts, S0))
+    E = tsolver._apply_extend(ts, S0)
     # rows 0 and ny-1 change on interior levels only, never on z edges
-    assert torch.equal(S[:, [0, -1]], S0[:, [0, -1]])
-    assert torch.equal(S[:, 1:-1, 0, 1:-1], S0[:, 1:-1, 1, 1:-1])
-    assert torch.equal(S[:, 1:-1, -1, 0], S0[:, 1:-1, -2, 1])
-    S = sor3d.sor3d_color_sweep(ts, S, rel, 0)
+    assert torch.equal(E[:, [0, -1]], S0[:, [0, -1]])
+    assert torch.equal(E[:, 1:-1, 0, 1:-1], S0[:, 1:-1, 1, 1:-1])
+    assert torch.equal(E[:, 1:-1, -1, 0], S0[:, 1:-1, -2, 1])
+    S = sor3d.sor3d_color_sweep(ts, S0, rel, 0, extend=True)
+    assert torch.equal(S, sor3d.sor3d_color_sweep(ts, E, rel, 0))
     S = sor3d.sor3d_color_sweep(ts, S, rel, 1)
     assert torch.equal(S, sor3d.sor3d_sweeps_reference(ts, S0, 1.3, 1))
     assert torch.equal(S, tsolver.sweep(ts, S0, 1.3))
@@ -225,7 +227,8 @@ def test_wrapper_raises_off_cpu_without_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         sor3d.sor3d_sweeps(ts, meta, 1.3, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        sor3d.sor3d_extend(ts, meta)
+        sor3d.sor3d_color_sweep(ts, meta, sor3d.relax_plane(ts, 1.3), 0,
+                                extend=True)
     with pytest.raises(ValueError, match="meta"):
         tsolver.solve_fixed(ts, meta, 1.3, 2)
 
@@ -265,7 +268,7 @@ def test_folded_red_replay_equals_extend_then_red(bcs, nz, batch, per_slice):
         for fac in (1.0, 1.37):
             replay = sor3d.sor3d_color_sweep_emulated(ts, S, rel, 0, fac)
             plain = sor3d.sor3d_color_sweep_reference(
-                ts, sor3d.sor3d_extend_reference(ts, S), rel, 0, fac)
+                ts, tsolver._apply_extend(ts, S), rel, 0, fac)
             assert bool(torch.isfinite(plain).all()) == finite
             assert _nan_equal(replay, plain)
             # the wrapper's plain path with the flag is the same function
@@ -286,13 +289,3 @@ def test_extend_source_is_the_prepass_map():
         src = sor3d.extend_source(spec, core)
         assert torch.equal(S.flatten()[src], tsolver._apply_extend(spec, S))
 
-
-def test_sweeps_pair_is_the_unfolded_yardstick_on_cpu():
-    """sor3d_sweeps_pair (three launches a sweep on the card) and the
-    folded sor3d_sweeps share one plain version on the CPU."""
-    ts, S0 = _cpu_case()
-    fac = [1.0 + 0.1 * k for k in range(6)]
-    out = sor3d.sor3d_sweeps_pair(ts, S0, 1.0, 3, fac=fac)
-    assert torch.equal(out, sor3d.sor3d_sweeps(ts, S0, 1.0, 3, fac=fac))
-    assert torch.equal(out, sor3d.sor3d_sweeps_reference(ts, S0, 1.0, 3,
-                                                         fac))

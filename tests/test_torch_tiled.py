@@ -15,12 +15,15 @@ in the windows that hold its rows, global parity, owned write-back):
   (``_kernel_inplace``) with periodic x (its corner clamp for a
   non-periodic x fails to trace, pallas_sor_window.py:469), within
   1e-12 * max|S| (XLA on the CPU may contract an FMA);
-- the plan: every (spec, core) the pair takes with the package's radii (1,
-  and 2 for the biharmonic) gets one, its tiles cover each cell exactly
-  once in whole 32 x 8 blocks, and its halo covers k sweeps (h >= 2 r k).
+- the plan: every (spec, core) the tiled kernels take with the package's
+  radii (1, and 2 for the biharmonic) gets one, its tiles cover each cell
+  exactly once in whole 32 x 8 blocks, and its halo covers k sweeps
+  (h >= 2 r k).
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -36,7 +39,7 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 from xinvert_tpu import stencil as jst  # noqa: E402
 from xinvert_tpu.ops import pallas_sor_window as win  # noqa: E402
 from xinvert_tpu_torch import solver as tsolver  # noqa: E402
-from xinvert_tpu_torch.ops import sor2d  # noqa: E402
+from xinvert_tpu_torch.ops import _build, sor2d  # noqa: E402
 from xinvert_tpu_torch.stencil import StencilSpec, _interior_mask  # noqa: E402
 
 P4 = ((1, 0), (-1, 0), (0, 1), (0, -1))
@@ -139,17 +142,18 @@ def test_cpu_sweeps_take_the_plain_version():
     spec, S0 = _spec(core, offs, bcs, bih, batch, per_slice)
     before = S0.clone()
     counts = (sor2d.TILED_LAUNCHES, sor2d.TILED_INPLACE_LAUNCHES,
-              sor2d.LAUNCHES, sor2d.EXTEND_LAUNCHES)
+              sor2d.RESIDENT_LAUNCHES)
     p0 = sor2d.PLAIN_CALLS
     ref = tsolver.sweeps(spec, S0, 1.3, 5)
     for fn in (sor2d.sor2d_sweeps, sor2d.sor2d_sweeps_tiled,
-               sor2d.sor2d_sweeps_tiled_inplace, sor2d.sor2d_sweeps_pair):
+               sor2d.sor2d_sweeps_tiled_inplace,
+               sor2d.sor2d_sweeps_resident):
         out, sumabs = fn(spec, S0, 1.3, 5, with_norm=True)
         assert torch.equal(out, ref)
         assert torch.equal(sumabs, ref.abs().sum(dim=(-2, -1)))
     assert sor2d.PLAIN_CALLS == p0 + 4
     assert counts == (sor2d.TILED_LAUNCHES, sor2d.TILED_INPLACE_LAUNCHES,
-                      sor2d.LAUNCHES, sor2d.EXTEND_LAUNCHES)
+                      sor2d.RESIDENT_LAUNCHES)
     assert torch.equal(S0, before)
 
 
@@ -250,7 +254,7 @@ class _Spec:
 
 @settings(max_examples=150, deadline=None, database=None)
 @given(_plan_cases())
-def test_every_spec_the_pair_takes_gets_a_plan(case):
+def test_every_spec_the_tiled_kernels_take_gets_a_plan(case):
     offs, bih, bcs, core, dtype, inplace = case
     spec = _Spec(offs, bih, bcs)
     plan = sor2d.tile_plan(spec, core, dtype, inplace)
@@ -262,8 +266,8 @@ def test_every_spec_the_pair_takes_gets_a_plan(case):
     assert plan.hy >= 2 * r * plan.k and plan.hx >= 2 * r * plan.k
     assert plan.winy * plan.winx <= plan.threads * plan.cpt
     assert plan.pad >= r and plan.smem <= 227 * 1024
-    # whole 32 x 8 blocks, whose |S| sums the kernels add in the first
-    # version's order
+    # whole 32 x 8 blocks, whose |S| sums the kernels add in one order
+    # (block_partials)
     assert plan.ty % 8 == 0 or plan.ty >= core[0]
     assert plan.tx % 32 == 0 or plan.tx >= core[1]
     # the owned tiles cover each cell of the grid exactly once
@@ -275,6 +279,39 @@ def test_every_spec_the_pair_takes_gets_a_plan(case):
                   j * plan.tx:(j + 1) * plan.tx] += 1
     assert (count == 1).all()
     assert ty_n <= 65535
+
+
+def _instantiated(macro):
+    """{itemsize: [row, ...]}: the arguments of every ``macro`` row of
+    csrc/sor2d.cu, by the ``sizeof(T)`` branch that holds it."""
+    with open(_build.SOURCES["sor2d"]) as fh:
+        src = fh.read()
+    src = src[src.index(f"#define {macro}("):]
+    m = re.search(r"if constexpr \(sizeof\(T\) == 4\) \{(.*?)\} else "
+                  r"\{(.*?)\}", src, re.S)
+    return {size: [tuple(int(v) for v in row.split(","))
+                   for row in re.findall(rf"{macro}\(([^)]*)\)", body)]
+            for size, body in ((4, m.group(1)), (8, m.group(2)))}
+
+
+@pytest.mark.parametrize("kernel", ["tiled", "resident"])
+def test_instantiations_are_the_plan_tables(kernel):
+    """The rows of ``TILED_CASE`` and ``RESIDENT_CASE`` in csrc/sor2d.cu are
+    exactly the configurations ``_CONFIGS`` and ``_RESIDENT_CONFIGS`` can
+    pick: none is built that no plan takes, none missing that one does."""
+    if kernel == "tiled":
+        rows = _instantiated("TILED_CASE")
+        # TILED_CASE(kmax, cpt, threads, inplace, wsmem)
+        table = {s: sorted((km, cpt, nt, int(ip), ws)
+                           for (isz, km, ip), (nt, cpt, ws)
+                           in sor2d._CONFIGS.items() if isz == s)
+                 for s in (4, 8)}
+    else:
+        rows = _instantiated("RESIDENT_CASE")
+        # RESIDENT_CASE(cpt, threads)
+        table = {s: [(cpt, nt)] for s, (nt, cpt)
+                 in sor2d._RESIDENT_CONFIGS.items()}
+    assert {s: sorted(r) for s, r in rows.items()} == table
 
 
 # ------------------------------------------------------ the resident route

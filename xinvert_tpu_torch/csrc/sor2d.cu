@@ -9,50 +9,39 @@
 //     factors (fac);
 //   - xinvert_tpu/ops/pallas_sor_window.py::_kernel_inplace, B2's function
 //     for radius-1 stencils without cross terms, updating one buffer in
-//     place (sor2d_color_sweep_inplace below).
+//     place (the tiled kernel's in-place instantiations).
 // On Hopper the VMEM split between the first two has no meaning, so one
-// design serves every 2-D shape.  B2's sharded-block variants (pad_lo,
-// has_top/has_bot, pad_x, clamp_w/clamp_e, ext_bot; B2s) are the block mode
-// of the tiled kernel (sor2d_sweeps_block, after the tiled kernel below).
+// design serves every 2-D shape, in three kernels:
+//   - sor2d_sweeps_resident (at the end of this file), where a whole slice
+//     fits one SM and the stencil has radius 1 without cross terms: every
+//     slice held in shared memory through a check window of sweeps a
+//     launch;
+//   - sor2d_sweeps_tiled, and sor2d_sweeps_tiled_inplace for B3's specs,
+//     in every other case: k full sweeps per launch on a window held in
+//     shared memory, the extend pre-pass folded in;
+//   - sor2d_sweeps_block (B2s): the ping-pong tiled kernel on one
+//     ghost-padded block of a decomposition, B2's sharded-block variants
+//     (pad_lo, has_top/has_bot, pad_x, clamp_w/clamp_e, ext_bot) read from
+//     global coordinates (the block mode, after the tiled kernel's header).
 //
-// The sweeps run in the resident kernel (sor2d_sweeps_resident, at the end
-// of this file) where a whole slice fits one SM and the stencil has radius 1
-// without cross terms: every slice held in shared memory through a check
-// window of sweeps a launch.  Every other case runs the two tiled kernels
-// (sor2d_sweeps_tiled, and sor2d_sweeps_tiled_inplace for B3's specs):
-// k full sweeps per launch on a window held in shared memory, the extend
-// pre-pass folded in.  The three one-half-sweep kernels below are the first
-// version; they stay as the yardstick the tiled kernels are timed against.
-//
-// In the first version one full sweep is three launches on the caller's
-// stream:
-//   sor2d_extend_rows   (when the y boundary is 'extend'), in place on A;
-//   sor2d_color_sweep   color 0 (red),   A -> B;
-//   sor2d_color_sweep   color 1 (black), B -> A.
-// A half-sweep reads only the pre-half-sweep state (ping-pong buffers):
-// cross and +-2 offsets read same-color neighbours, and the reference sweep
-// computes every term from the old state, so an in-place update would race
-// and differ.  The in-place variant replaces the two color launches where
-// no neighbour shares the cell's color (see its kernel).
-//
-// Arithmetic, per cell and in this order, for every cell (not only cells of
-// the active color, so NaN/Inf propagate through 0*(...) exactly as in the
-// plain version):
-//   acc = g;  for k: acc = acc + w_k * S_in[(j+dy_k) mod ny, (i+dx_k) mod nx]
+// Arithmetic, per cell and in this order, every term from the state before
+// the half-sweep:
+//   acc = g;  for k: acc = acc + w_k * S[(j+dy_k) mod ny, (i+dx_k) mod nx]
 //   sel = ((j + i) & 1) == color ? 1 : 0
 //   r = (rel * sel) * fac        (rel = omega*relax; fac = 1 for SOR, the
 //                                 half-sweep's Chebyshev factor for cheby)
-//   S_out = s + r * (acc + w0 * s)
-// Built with -fmad=false, every product and sum rounds on its own, as the
-// plain PyTorch ops do, so the kernels are bit-for-bit equal to the plain
-// version in float and double.
+//   S' = s + r * (acc + w0 * s)
+// The plain version (solver._half_sweep) computes it for every cell, so
+// NaN/Inf propagate through 0*(...); a kernel that computes the active
+// color alone says why it gives the same.  Built with -fmad=false, every
+// product and sum rounds on its own, as the plain PyTorch ops do, so the
+// kernels are bit-for-bit equal to the plain version in float and double.
 //
-// Bound: HBM bytes.  A half-sweep reads K+4 planes (S, w_k, w0, g, rel) and
-// writes one, about 2*(K+5)*ny*nx*itemsize bytes per full sweep, at a few
-// flops per byte.  This first version does nothing about that bound: no
-// shared-memory tiling, no temporal blocking over several sweeps, no FMA
-// contraction.  Those are later work.  x is the fastest thread index, so
-// every plane is read coalesced.
+// The fused |S| partials: one a 32 x 8 block of the grid and slice
+// (sor2d_partials_per_slice), each summed in one order, the warp's shuffle
+// tree over a row of 32 cells, then the 8 row sums in turn
+// (ops/sor2d.py::block_partials replays it), so a checked solve's norms,
+// and so its stops, do not depend on the kernel that ran.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,16 +49,6 @@
 #define SOR2D_MAX_K 16
 #define SWEEP_BX 32
 #define SWEEP_BY 8
-#define EXTEND_BX 128
-
-struct Sor2dArgs {
-  int B, ny, nx, K, color;
-  int dy[SOR2D_MAX_K];
-  int dx[SOR2D_MAX_K];
-  // element strides: between weight planes k, and between batch slices of
-  // each plane (0 for a plane shared by the whole batch)
-  long long w_kstride, w_bstride, w0_bstride, g_bstride, rel_bstride;
-};
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -86,211 +65,6 @@ __device__ __forceinline__ T relax_cell(T s, T acc, T w0, T rel, T sel,
                                         T fac) {
   const T r = (rel * sel) * fac;
   return s + r * (acc + w0 * s);
-}
-
-// The update of cell (j, i) of slice b from the state sb, in the order of
-// the header: shared by both color-sweep kernels.
-template <typename T>
-__device__ __forceinline__ T cell_update(const T* sb, const T* w, const T* w0,
-                                         const T* g, const T* rel,
-                                         const Sor2dArgs& a, long long b,
-                                         int j, int i, T s, T sel, T fac) {
-  const long long idx = (long long)j * a.nx + i;
-  T acc = g[b * a.g_bstride + idx];
-  const T* wb = w + b * a.w_bstride + idx;
-  for (int k = 0; k < a.K; ++k) {
-    int jj = j + a.dy[k];
-    int ii = i + a.dx[k];
-    jj = jj < 0 ? jj + a.ny : (jj >= a.ny ? jj - a.ny : jj);
-    ii = ii < 0 ? ii + a.nx : (ii >= a.nx ? ii - a.nx : ii);
-    acc = acc + wb[k * a.w_kstride] * sb[(long long)jj * a.nx + ii];
-  }
-  const T rl = rel[b * a.rel_bstride + idx];
-  return relax_cell(s, acc, w0[b * a.w0_bstride + idx], rl, sel, fac);
-}
-
-// Per-block sum of |out| (out-of-range threads add 0) into slot
-// (b, blockIdx.y, blockIdx.x) of partials, reduced in a fixed order: warp
-// shuffles, then the 8 warp sums by thread 0.  Every thread of the block
-// calls it.
-template <typename T>
-__device__ __forceinline__ void block_partial(T out, T* partials,
-                                              long long b) {
-  __shared__ T warp_sums[SWEEP_BX * SWEEP_BY / 32];
-  const int tid = threadIdx.y * SWEEP_BX + threadIdx.x;
-  T v = warp_sum(out < T(0) ? -out : out);
-  if ((tid & 31) == 0) warp_sums[tid >> 5] = v;
-  __syncthreads();
-  if (tid == 0) {
-    T t = warp_sums[0];
-    for (int q = 1; q < SWEEP_BX * SWEEP_BY / 32; ++q) t = t + warp_sums[q];
-    partials[b * gridDim.x * gridDim.y + blockIdx.y * gridDim.x + blockIdx.x] = t;
-  }
-}
-
-template <typename T>
-__global__ void sor2d_color_sweep_kernel(const T* __restrict__ s_in,
-                                         T* __restrict__ s_out,
-                                         const T* __restrict__ w,
-                                         const T* __restrict__ w0,
-                                         const T* __restrict__ g,
-                                         const T* __restrict__ rel,
-                                         T* __restrict__ partials,
-                                         Sor2dArgs a, T fac) {
-  const int i = blockIdx.x * SWEEP_BX + threadIdx.x;
-  const int j = blockIdx.y * SWEEP_BY + threadIdx.y;
-  const long long b = blockIdx.z;
-  const long long plane = (long long)a.ny * a.nx;
-  T out = T(0);
-  if (i < a.nx && j < a.ny) {
-    const long long idx = (long long)j * a.nx + i;
-    const T* sb = s_in + b * plane;
-    const T sel = (((j + i) & 1) == a.color) ? T(1) : T(0);
-    out = cell_update(sb, w, w0, g, rel, a, b, j, i, sb[idx], sel, fac);
-    s_out[b * plane + idx] = out;
-  }
-  if (partials != nullptr) block_partial(out, partials, b);
-}
-
-// B3, in place: one half-sweep of `color` on the one buffer S.  Only cells
-// of the active color are computed and written, with the arithmetic above
-// (sel = 1); the others keep their value, which is what the plain version
-// gives them (s + 0*(...) == s) wherever their update term is finite.  On a
-// state that already holds a NaN or an Inf the two may differ in which
-// inactive cells turn NaN; the norm is then non-finite on both paths and
-// the solve stops on overflow at the same check.
-//
-// No race: the wrapper takes only radius-1 stencils without cross terms, so
-// each neighbour of an active cell has the other color and nobody writes it
-// in this launch.  The wrapped reads keep that when the wrap joins cells of
-// opposite parity: an even nx when x is periodic, an even ny when y is.  A
-// non-periodic axis wraps only between its two boundary lines, which the
-// sweep never updates (relax = 0 there), so whichever value such a read
-// sees is the same one.  S carries no __restrict__: it is read and written.
-//
-// Bound: HBM bytes, as the pair.  A checkerboard write still dirties every
-// 32-byte sector and every plane is read in whole sectors, so the launch
-// moves the pair's bytes (K+4 planes read, one written); what it saves is
-// the second state buffer.  Measured (NVIDIA H100 80GB HBM3, 700.00 W;
-// chip_smoke.py phase 4): at 2048x2048 float32 it takes 1.20x the pair's
-// time per sweep (65.0 against 54.2 ms per 500), and the pair's time
-// (0.0275 against 0.0273 ms per launch) at 12x330x720, whose 40 MB stay in
-// the L2.  The suspect, not
-// measured: every sector it writes is half-written, and one that leaves
-// the L2 half-written costs the memory a read-modify-write.  Writing the
-// unchanged cells back too would make the sectors whole.
-template <typename T>
-__global__ void sor2d_color_sweep_inplace_kernel(T* S,
-                                                 const T* __restrict__ w,
-                                                 const T* __restrict__ w0,
-                                                 const T* __restrict__ g,
-                                                 const T* __restrict__ rel,
-                                                 T* __restrict__ partials,
-                                                 Sor2dArgs a, T fac) {
-  const int i = blockIdx.x * SWEEP_BX + threadIdx.x;
-  const int j = blockIdx.y * SWEEP_BY + threadIdx.y;
-  const long long b = blockIdx.z;
-  T out = T(0);
-  if (i < a.nx && j < a.ny) {
-    const long long idx = (long long)j * a.nx + i;
-    T* sb = S + b * (long long)a.ny * a.nx;
-    out = sb[idx];
-    if (((j + i) & 1) == a.color) {
-      out = cell_update<T>(sb, w, w0, g, rel, a, b, j, i, out, T(1), fac);
-      sb[idx] = out;
-    }
-  }
-  if (partials != nullptr) block_partial(out, partials, b);
-}
-
-// The extend pre-pass (xinvert_tpu/solver.py:_apply_extend, 2-D branches),
-// in place.  One thread per (column, batch slice) walks its column's rows in
-// the reference's order.  Race-free: the rows written (0, 1, ny-2, ny-1) are
-// never read by another column's thread — the corner clamps read rows 1,
-// ny-2 (one ring) or 2, ny-3 (two rings), which nobody writes.
-template <typename T>
-__global__ void sor2d_extend_rows_kernel(T* __restrict__ S, int ny, int nx,
-                                         int periodic_x, int bih) {
-  const int i = blockIdx.x * EXTEND_BX + threadIdx.x;
-  if (i >= nx) return;
-  T* s = S + (long long)blockIdx.y * ny * nx;
-#define AT(r, c) s[(long long)(r) * nx + (c)]
-  if (!bih) {
-    if (periodic_x || (i > 0 && i < nx - 1)) {
-      AT(0, i) = AT(1, i);
-      AT(ny - 1, i) = AT(ny - 2, i);
-    } else if (i == 0) {
-      AT(0, 0) = AT(1, 1);
-      AT(ny - 1, 0) = AT(ny - 2, 1);
-    } else {
-      AT(0, nx - 1) = AT(1, nx - 2);
-      AT(ny - 1, nx - 1) = AT(ny - 2, nx - 2);
-    }
-  } else if (periodic_x) {
-    // sequential reference semantics: S[0]=old S[1]; S[1]=S[2];
-    // S[-1]=S[-2]=S[-3]
-    AT(0, i) = AT(1, i);
-    AT(1, i) = AT(2, i);
-    const T v = AT(ny - 3, i);
-    AT(ny - 1, i) = v;
-    AT(ny - 2, i) = v;
-  } else {
-    // two-ring rows copy row 2 / ny-3; the 2x2 corner blocks clamp to the
-    // nearest interior column (2 / nx-3) of that row
-    const int c = i < 2 ? 2 : (i >= nx - 2 ? nx - 3 : i);
-    const T top = AT(2, c);
-    AT(0, i) = top;
-    AT(1, i) = top;
-    const T bot = AT(ny - 3, c);
-    AT(ny - 1, i) = bot;
-    AT(ny - 2, i) = bot;
-  }
-#undef AT
-}
-
-// s_in == nullptr selects the in-place kernel, on s_out.
-template <typename T>
-static int launch_color_sweep(const T* s_in, T* s_out, const T* w,
-                              const T* w0, const T* g, const T* rel,
-                              T* partials, int B, int ny, int nx, int K,
-                              const int* dy, const int* dx,
-                              long long w_kstride, long long w_bstride,
-                              long long w0_bstride, long long g_bstride,
-                              long long rel_bstride, int color, double fac,
-                              void* stream) {
-  if (K < 0 || K > SOR2D_MAX_K || B < 1 || B > 65535 || ny < 1 || nx < 1)
-    return (int)cudaErrorInvalidValue;
-  Sor2dArgs a;
-  a.B = B; a.ny = ny; a.nx = nx; a.K = K; a.color = color;
-  for (int k = 0; k < SOR2D_MAX_K; ++k) {
-    a.dy[k] = k < K ? dy[k] : 0;
-    a.dx[k] = k < K ? dx[k] : 0;
-  }
-  a.w_kstride = w_kstride; a.w_bstride = w_bstride;
-  a.w0_bstride = w0_bstride; a.g_bstride = g_bstride;
-  a.rel_bstride = rel_bstride;
-  dim3 block(SWEEP_BX, SWEEP_BY, 1);
-  dim3 grid((nx + SWEEP_BX - 1) / SWEEP_BX, (ny + SWEEP_BY - 1) / SWEEP_BY, B);
-  // the caller computed fac in T, so the conversion back is exact
-  if (s_in == nullptr)
-    sor2d_color_sweep_inplace_kernel<T><<<grid, block, 0,
-                                          (cudaStream_t)stream>>>(
-        s_out, w, w0, g, rel, partials, a, (T)fac);
-  else
-    sor2d_color_sweep_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-        s_in, s_out, w, w0, g, rel, partials, a, (T)fac);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-static int launch_extend_rows(T* S, int B, int ny, int nx, int periodic_x,
-                              int bih, void* stream) {
-  if (B < 1 || B > 65535 || ny < (bih ? 5 : 3) || nx < (bih ? 5 : 3))
-    return (int)cudaErrorInvalidValue;
-  dim3 grid((nx + EXTEND_BX - 1) / EXTEND_BX, B, 1);
-  sor2d_extend_rows_kernel<T><<<grid, EXTEND_BX, 0, (cudaStream_t)stream>>>(
-      S, ny, nx, periodic_x, bih);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -332,15 +106,19 @@ static int launch_extend_rows(T* S, int B, int ny, int nx, int periodic_x,
 // side so edge reads stay in the buffer (the pad is zero and never
 // written).  The ping-pong kernel keeps two buffers and computes every
 // window cell in each half-sweep (s + 0*(...) for the other color, as the
-// pair); the in-place kernel keeps one and computes the active color only,
-// as B3 does (radius-1 stencils without cross terms, even periodic sizes:
-// every neighbour of an active cell has the other color).
+// plain version); the in-place kernel keeps one and computes the active
+// color only, as B3 does (radius-1 stencils without cross terms, even
+// periodic sizes: every neighbour of an active cell has the other color,
+// and a non-periodic axis wraps only between its two boundary lines, which
+// the sweep never updates).  Its inactive cells keep their value, which is
+// what the plain version gives them wherever their update term is finite;
+// on a state that already holds a NaN or an Inf the two may differ in which
+// inactive cells turn NaN, and the norm is then non-finite on both paths,
+// so the solve stops on overflow at the same check.
 //
-// The owned tile is written back in rows of 32 cells.  The fused |S|
-// partials are summed per 32 x 8 block of the grid in the pair's order, so
-// a checked solve's norms, and so its stopping check, are the first
-// version's bit for bit; tiles hold whole blocks (ty a multiple of 8, tx of
-// 32, or one tile along the axis).
+// The owned tile is written back in rows of 32 cells, with the fused |S|
+// partials of its 32 x 8 blocks (header); tiles hold whole blocks (ty a
+// multiple of 8, tx of 32, or one tile along the axis).
 //
 // Bound: device-memory bytes per launch, (K+4) planes read and one written
 // per cell, over k sweeps.  What the design pays for that: the window
@@ -582,9 +360,8 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
     }
     // write back the owned tile from buffer 0 (an even number of swaps),
     // one warp a row of 32 cells; with partials, the |S| sum of each 32 x 8
-    // block of the grid the tile holds, in sor2d_color_sweep's order (the
-    // warp's shuffle tree over a row, then the 8 row sums in turn), so the
-    // norms of a checked solve are those of the first version bit for bit
+    // block of the grid the tile holds, in the header's order (the warp's
+    // shuffle tree over a row, then the 8 row sums in turn)
     const int by = BLOCK ? p.by : p.ny, bx = BLOCK ? p.bx : p.nx;
     const int ry = min(p.ty, by - ty0), rx = min(p.tx, bx - tx0);
     const int nby = (ry + 7) / 8, nbx = (rx + 31) / 32;
@@ -728,7 +505,6 @@ static int launch_tiled(const T* s_in, T* s_out, const T* w, const T* w0,
     TILED_CASE(4, 4, 1024, 0, 0)
     TILED_CASE(4, 4, 1024, 1, 0)
     TILED_CASE(8, 4, 512, 0, 0)
-    TILED_CASE(8, 4, 1024, 0, 1)   // the alternative chip_smoke.py scans
     TILED_CASE(16, 2, 1024, 0, 1)
   } else {
     TILED_CASE(4, 4, 512, 0, 0)
@@ -1256,7 +1032,6 @@ static int launch_resident(T* s, const T* w, const T* w0, const T* g,
                                           blocks, smem, st, dev);
   if constexpr (sizeof(T) == 4) {
     RESIDENT_CASE(6, 896)
-    RESIDENT_CASE(7, 768)     // the alternative chip_smoke.py scans
   } else {
     RESIDENT_CASE(6, 512)
   }
@@ -1316,74 +1091,10 @@ int sor2d_sweeps_resident_f64(double* s, const double* w, const double* w0,
   return launch_resident<double>(s, w, w0, g, rel, partials, p, stream);
 }
 
-// Number of |S| partials a color sweep writes per batch slice.
+// Number of |S| partials a launch writes per batch slice (one a 32 x 8
+// block).
 int sor2d_partials_per_slice(int ny, int nx) {
   return ((nx + SWEEP_BX - 1) / SWEEP_BX) * ((ny + SWEEP_BY - 1) / SWEEP_BY);
-}
-
-int sor2d_color_sweep_f32(const float* s_in, float* s_out, const float* w,
-                          const float* w0, const float* g, const float* rel,
-                          float* partials, int B, int ny, int nx, int K,
-                          const int* dy, const int* dx, long long w_kstride,
-                          long long w_bstride, long long w0_bstride,
-                          long long g_bstride, long long rel_bstride,
-                          int color, double fac, void* stream) {
-  return launch_color_sweep<float>(s_in, s_out, w, w0, g, rel, partials, B,
-                                   ny, nx, K, dy, dx, w_kstride, w_bstride,
-                                   w0_bstride, g_bstride, rel_bstride, color,
-                                   fac, stream);
-}
-
-int sor2d_color_sweep_f64(const double* s_in, double* s_out, const double* w,
-                          const double* w0, const double* g,
-                          const double* rel, double* partials, int B, int ny,
-                          int nx, int K, const int* dy, const int* dx,
-                          long long w_kstride, long long w_bstride,
-                          long long w0_bstride, long long g_bstride,
-                          long long rel_bstride, int color, double fac,
-                          void* stream) {
-  return launch_color_sweep<double>(s_in, s_out, w, w0, g, rel, partials, B,
-                                    ny, nx, K, dy, dx, w_kstride, w_bstride,
-                                    w0_bstride, g_bstride, rel_bstride, color,
-                                    fac, stream);
-}
-
-int sor2d_color_sweep_inplace_f32(float* S, const float* w, const float* w0,
-                                  const float* g, const float* rel,
-                                  float* partials, int B, int ny, int nx,
-                                  int K, const int* dy, const int* dx,
-                                  long long w_kstride, long long w_bstride,
-                                  long long w0_bstride, long long g_bstride,
-                                  long long rel_bstride, int color,
-                                  double fac, void* stream) {
-  return launch_color_sweep<float>(nullptr, S, w, w0, g, rel, partials, B,
-                                   ny, nx, K, dy, dx, w_kstride, w_bstride,
-                                   w0_bstride, g_bstride, rel_bstride, color,
-                                   fac, stream);
-}
-
-int sor2d_color_sweep_inplace_f64(double* S, const double* w,
-                                  const double* w0, const double* g,
-                                  const double* rel, double* partials, int B,
-                                  int ny, int nx, int K, const int* dy,
-                                  const int* dx, long long w_kstride,
-                                  long long w_bstride, long long w0_bstride,
-                                  long long g_bstride, long long rel_bstride,
-                                  int color, double fac, void* stream) {
-  return launch_color_sweep<double>(nullptr, S, w, w0, g, rel, partials, B,
-                                    ny, nx, K, dy, dx, w_kstride, w_bstride,
-                                    w0_bstride, g_bstride, rel_bstride, color,
-                                    fac, stream);
-}
-
-int sor2d_extend_rows_f32(float* S, int B, int ny, int nx, int periodic_x,
-                          int bih, void* stream) {
-  return launch_extend_rows<float>(S, B, ny, nx, periodic_x, bih, stream);
-}
-
-int sor2d_extend_rows_f64(double* S, int B, int ny, int nx, int periodic_x,
-                          int bih, void* stream) {
-  return launch_extend_rows<double>(S, B, ny, nx, periodic_x, bih, stream);
 }
 
 }  // extern "C"

@@ -49,25 +49,12 @@ _D = ctypes.c_double
 _SIGNATURES = {"sor2d": {"sor2d_partials_per_slice": ([_I, _I], _I)},
                "sor3d": {"sor3d_partials_per_slice": ([_I, _I, _I], _I)}}
 for _t in ("f32", "f64"):
-    _SIGNATURES["sor2d"][f"sor2d_extend_rows_{_t}"] = (
-        [_P, _I, _I, _I, _I, _I, _P], _I)
-    _SIGNATURES["sor2d"][f"sor2d_color_sweep_{_t}"] = (
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-         _L, _L, _L, _L, _L, _I, _D, _P], _I)
     _SIGNATURES["sor2d"][f"sor2d_sweeps_tiled_{_t}"] = ([_P] * 9, _I)
     _SIGNATURES["sor2d"][f"sor2d_sweeps_block_{_t}"] = ([_P] * 9, _I)
     _SIGNATURES["sor2d"][f"sor2d_sweeps_resident_{_t}"] = ([_P] * 8, _I)
-    _SIGNATURES["sor2d"][f"sor2d_color_sweep_inplace_{_t}"] = (
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
-         _L, _L, _L, _L, _L, _I, _D, _P], _I)
-    _SIGNATURES["sor3d"][f"sor3d_extend_rows_{_t}"] = (
-        [_P, _I, _I, _I, _I, _I, _P], _I)
     _SIGNATURES["sor3d"][f"sor3d_color_sweep_{_t}"] = (
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P,
          _L, _L, _L, _L, _L, _I, _I, _I, _D, _P], _I)
-    _SIGNATURES["sor3d"][f"sor3d_color_sweep_block_{_t}"] = (
-        [_P] * 7 + [_I] * 11 + [_P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _I,
-                                _D, _P], _I)
     _SIGNATURES["sor3d"][f"sor3d_block_sweep_{_t}"] = (
         [_P] * 7 + [_I] * 11 + [_P, _P, _P, _L, _L, _L, _L, _L, _I, _I, _I,
                                 _D, _I, _P, _I, _P], _I)

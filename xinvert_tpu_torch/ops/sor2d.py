@@ -21,37 +21,27 @@ how.  Each kernel has a wrapper here and a plain PyTorch version built from
   ghost-padded block of a decomposition, the pallas ``_kernel``'s block
   arguments): :func:`sor2d_sweeps_block` and :func:`make_block_sweeper`
   (the multi-device executor's), plain
-  :func:`sor2d_sweeps_block_reference` with :func:`block_partials`;
-- the first version, one half-sweep per launch, kept as the yardstick the
-  tiled kernels are timed against and reached by no entry point:
-  ``sor2d_extend_rows`` (:func:`sor2d_extend`, plain
-  :func:`sor2d_extend_reference`), ``sor2d_color_sweep``
-  (:func:`sor2d_color_sweep`, plain :func:`sor2d_color_sweep_reference`),
-  ``sor2d_color_sweep_inplace`` (:func:`sor2d_color_sweep_inplace`, plain
-  :func:`sor2d_color_sweep_inplace_reference`), and n sweeps of them,
-  :func:`sor2d_sweeps_pair`.
+  :func:`sor2d_sweeps_block_reference` with :func:`block_partials`.
 
-:func:`sor2d_sweeps`, which the solver calls, runs the resident kernel
-where :func:`resident_plan` takes the spec, the slice's shape and the dtype
-(a radius-1 stencil without cross terms whose slice fits the kernel's
-shared memory and registers), else the tiled kernels: the in-place one when
-``INPLACE_KERNEL`` is set (the environment variable ``XINVERT_INPLACE=1``
-at import, as in the JAX package) and the spec passes :func:`_no_cross_r1`
-and the race check of :func:`inplace_eligible`, the ping-pong one
-otherwise.  :func:`tile_plan` sizes the tiled kernels' tiles and sweeps per
-launch; :func:`sor2d_sweeps_tiled_emulated` replays a plan's windows, and
-:func:`sor2d_sweeps_resident_emulated` the resident kernel's color arrays
-and modes, with torch ops, so their semantics are testable on the CPU.
+:func:`sor2d_sweeps`, which the solver calls, makes the route: the resident
+kernel where :func:`resident_plan` takes the spec, the slice's shape and
+the dtype (a radius-1 stencil without cross terms whose slice fits the
+kernel's shared memory and registers), else the tiled kernels: the
+in-place one when ``INPLACE_KERNEL`` is set (the environment variable
+``XINVERT_INPLACE=1`` at import, as in the JAX package) and the spec passes
+:func:`_no_cross_r1` and the race check of :func:`inplace_eligible`, the
+ping-pong one otherwise.  :func:`tile_plan` sizes the tiled kernels'
+tiles and sweeps per launch; :func:`sor2d_sweeps_tiled_emulated` replays a
+plan's windows, and :func:`sor2d_sweeps_resident_emulated` the resident
+kernel's color arrays and modes, with torch ops, so their semantics are
+testable on the CPU.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; any other input raises.  ``RESIDENT_LAUNCHES``,
-``TILED_LAUNCHES``, ``TILED_INPLACE_LAUNCHES``, ``BLOCK_LAUNCHES``,
-``LAUNCHES``,
-``INPLACE_LAUNCHES`` and ``EXTEND_LAUNCHES`` count kernel launches,
-``PLAIN_CALLS`` calls of the plain versions, so a run can show which path
-it took.  No function here
-changes the caller's tensors: the kernels work on buffers the wrappers
-allocate.
+``TILED_LAUNCHES``, ``TILED_INPLACE_LAUNCHES`` and ``BLOCK_LAUNCHES`` count
+kernel launches, ``PLAIN_CALLS`` calls of the plain versions, so a run can
+show which path it took.  No function here changes the caller's tensors:
+the kernels work on buffers the wrappers allocate.
 """
 from __future__ import annotations
 
@@ -71,17 +61,13 @@ __all__ = ["sor2d_sweeps", "sor2d_sweeps_tiled",
            "sor2d_sweeps_tiled_inplace", "sor2d_sweeps_tiled_emulated",
            "tile_plan", "TilePlan", "sor2d_sweeps_resident",
            "sor2d_sweeps_resident_emulated", "resident_plan",
-           "resident_footprint", "ResidentPlan", "sor2d_sweeps_pair",
-           "sor2d_sweeps_reference", "sor2d_sweeps_reference_norm",
-           "sor2d_extend", "sor2d_extend_reference", "sor2d_color_sweep",
-           "sor2d_color_sweep_reference", "sor2d_color_sweep_inplace",
-           "sor2d_color_sweep_inplace_reference", "inplace_eligible",
+           "resident_footprint", "ResidentPlan", "sor2d_sweeps_reference",
+           "sor2d_sweeps_reference_norm", "inplace_eligible",
            "sor2d_sweeps_block", "sor2d_sweeps_block_reference",
            "make_block_sweeper", "block_partials", "relax_plane", "MAX_K"]
 
-MAX_K = 16          # offsets the color-sweep kernel takes (csrc SOR2D_MAX_K)
-_MAX_BATCH = 65535  # batch slices the first version's launches take (a grid
-#                     dimension); the tiled kernels walk any batch
+MAX_K = 16          # offsets the kernels take (csrc SOR2D_MAX_K)
+_MAX_GRID_Z = 65535  # the grid's z limit (the tiled kernels' slice groups)
 MAX_TILED_SWEEPS = 8  # sweeps per tiled launch (csrc TILED_MAX_SWEEPS)
 MAX_RESIDENT_SWEEPS = 64  # sweeps per resident launch (csrc
 #                           RESIDENT_MAX_SWEEPS): a check window of 32
@@ -94,10 +80,7 @@ RESIDENT_LAUNCHES = 0       # sor2d_sweeps_resident kernel launches
 TILED_LAUNCHES = 0          # sor2d_sweeps_tiled kernel launches
 TILED_INPLACE_LAUNCHES = 0  # sor2d_sweeps_tiled_inplace kernel launches
 BLOCK_LAUNCHES = 0          # sor2d_sweeps_block kernel launches
-LAUNCHES = 0          # sor2d_color_sweep kernel launches
-INPLACE_LAUNCHES = 0  # sor2d_color_sweep_inplace kernel launches
-EXTEND_LAUNCHES = 0   # sor2d_extend_rows kernel launches
-PLAIN_CALLS = 0       # calls of the plain versions
+PLAIN_CALLS = 0             # calls of the plain versions
 
 
 # ---------------------------------------------------------------------------
@@ -207,9 +190,9 @@ def tile_plan(spec, core, dtype, inplace=False, k=None):
     its window fits; as many rows as the
     instantiation's cells allow, a multiple of 8, or the whole y axis.
     The tiles thus hold whole 32 x 8 blocks, whose |S| sums the kernels
-    add in the first version's order.  Raises where even one sweep per
-    launch leaves no such window (a radius beyond the package's stencils
-    with 16 offsets in float64)."""
+    add in one order (:func:`block_partials`).  Raises where even one
+    sweep per launch leaves no such window (a radius beyond the package's
+    stencils with 16 offsets in float64)."""
     ny, nx = core
     K = len(spec.offsets)
     kmax = 4 if K <= 4 else (8 if K <= 8 else 16)
@@ -605,36 +588,6 @@ def sor2d_sweeps_reference_norm(spec, S, omega, n, fac=None):
     return S, torch.sum(torch.abs(S), dim=(-2, -1))
 
 
-def sor2d_extend_reference(spec, S):
-    """The extend pre-pass with PyTorch ops."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
-    return solver._apply_extend(spec, S)
-
-
-def _color_sweep_plain(spec, S, rel, color, fac):
-    red = solver._checkerboard(S.shape[-2:], S.dtype, S.device)
-    sel = red if color == 0 else 1.0 - red
-    return solver._half_sweep(spec, S, fac * (rel * sel))
-
-
-def sor2d_color_sweep_reference(spec, S, rel, color, fac=1.0):
-    """One half-sweep of ``color`` (0 red, 1 black) with PyTorch ops;
-    ``rel`` is :func:`relax_plane`, scaled by ``fac``."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
-    return _color_sweep_plain(spec, S, rel, color, fac)
-
-
-def sor2d_color_sweep_inplace_reference(spec, S, rel, color, fac=1.0):
-    """The in-place kernel's plain version: the function of
-    :func:`sor2d_color_sweep_reference`, which the in-place update computes
-    on the specs it takes."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
-    return _color_sweep_plain(spec, S, rel, color, fac)
-
-
 # ---------------------------------------------------------------------------
 # the in-place gate
 # ---------------------------------------------------------------------------
@@ -657,7 +610,7 @@ def _no_cross_r1(spec) -> bool:
 
 
 def inplace_eligible(spec, core) -> bool:
-    """True when the in-place kernel computes the pair's function on
+    """True when the in-place kernel computes the ping-pong one's function on
     ``spec`` over a ``core`` = (ny, nx) grid without a race: a radius-1
     stencil without cross terms, and along each periodic axis an even size
     (with an odd one the wrap joins two cells of one color, which read each
@@ -713,7 +666,7 @@ def _fold_extend(spec):
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers (the driving loop is :mod:`._driver`'s)
+# kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _layout(spec, S, rel=None):
@@ -734,9 +687,6 @@ def _layout(spec, S, rel=None):
                dy=(ctypes.c_int * MAX_K)(*[o[0] for o in spec.offsets]),
                dx=(ctypes.c_int * MAX_K)(*[o[1] for o in spec.offsets]),
                n_partials=lib.sor2d_partials_per_slice(ny, nx),
-               extend_fn=getattr(lib, f"sor2d_extend_rows_{sfx}"),
-               sweep_fn=getattr(lib, f"sor2d_color_sweep_{sfx}"),
-               inplace_fn=getattr(lib, f"sor2d_color_sweep_inplace_{sfx}"),
                tiled_fn=getattr(lib, f"sor2d_sweeps_tiled_{sfx}"),
                resident_fn=getattr(lib, f"sor2d_sweeps_resident_{sfx}"),
                block_fn=getattr(lib, f"sor2d_sweeps_block_{sfx}"))
@@ -769,7 +719,7 @@ def _slices_per_block(lay, plan, S, core=None):
     cells."""
     B = lay["B"]
     if B == 1 or all(lay[f"{p}_bstride"] for p in ("w", "w0", "g", "relax")):
-        return max(1, -(-B // _MAX_BATCH))
+        return max(1, -(-B // _MAX_GRID_Z))
     if "sms" not in lay:
         lay["sms"] = torch.cuda.get_device_properties(
             S.device).multi_processor_count
@@ -849,65 +799,40 @@ def _launch_resident(spec, lay, plan, rel, S, n, fac, partials=None):
                            f"error {err}")
 
 
-def _first_version_batch(lay, name):
-    """The first version's launches map the batch onto a grid dimension:
-    they take at most ``_MAX_BATCH`` slices (the tiled kernels walk any
-    batch in steps of ``spb`` slices a block)."""
-    if lay["B"] > _MAX_BATCH:
-        raise ValueError(f"batch of {lay['B']} slices; {name} takes 1.."
-                         f"{_MAX_BATCH} (the tiled kernels take any batch)")
-
-
-def _launch_extend(spec, lay, A):
-    """sor2d_extend_rows on the (B, ny, nx) buffer A, in place."""
-    global EXTEND_LAUNCHES
-    _first_version_batch(lay, "sor2d_extend_rows")
-    err = lay["extend_fn"](A.data_ptr(), lay["B"], lay["ny"], lay["nx"],
-                           int(spec.bcs[-1] == "periodic"), int(spec.bih),
-                           lay["stream"])
-    EXTEND_LAUNCHES += 1
-    if err:
-        raise RuntimeError(f"sor2d_extend_rows launch failed: CUDA error "
-                           f"{err}")
-
-
-def _plane_args(spec, lay, rel, partials):
-    """The launch arguments after the state pointer(s), up to ``color``."""
-    return (spec.w.data_ptr(), spec.w0.data_ptr(), spec.g.data_ptr(),
-            rel.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            lay["B"], lay["ny"], lay["nx"], lay["K"],
-            ctypes.addressof(lay["dy"]), ctypes.addressof(lay["dx"]),
-            lay["w_kstride"], lay["w_bstride"], lay["w0_bstride"],
-            lay["g_bstride"], lay["relax_bstride"])
-
-
-def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
-                        partials=None):
-    """sor2d_color_sweep: S_out = half-sweep ``color`` of S_in."""
-    global LAUNCHES
-    _first_version_batch(lay, "sor2d_color_sweep")
-    err = lay["sweep_fn"](S_in.data_ptr(), S_out.data_ptr(),
-                          *_plane_args(spec, lay, rel, partials), int(color),
-                          float(fac), lay["stream"])
-    LAUNCHES += 1
-    if err:
-        raise RuntimeError(f"sor2d_color_sweep launch failed: CUDA error "
-                           f"{err}")
-
-
-def _launch_color_sweep_inplace(spec, lay, rel, S, color, fac=1.0,
-                                partials=None):
-    """sor2d_color_sweep_inplace: half-sweep ``color`` of S, in place."""
-    global INPLACE_LAUNCHES
-    _first_version_batch(lay, "sor2d_color_sweep_inplace")
-    err = lay["inplace_fn"](S.data_ptr(),
-                            *_plane_args(spec, lay, rel, partials),
-                            int(color), float(fac), lay["stream"])
-    INPLACE_LAUNCHES += 1
-    if err:
-        raise RuntimeError(f"sor2d_color_sweep_inplace launch failed: CUDA "
-                           f"error {err}")
+def _sweeps(spec, S, omega, n, with_norm, fac, resident=None,
+            inplace=False):
+    """n sweeps through the resident kernel with the plan ``resident``,
+    else through the tiled kernel (``inplace``: its in-place twin):
+    ceil(n / k) launches of the plan, each taking its slice of the factors,
+    the last one also the |S| partials.  The resident kernel sweeps one
+    buffer in place; the tiled kernels write a second, and the two swap
+    between launches.  CPU tensors take the plain version."""
+    n = _driver._check_sweeps(n, with_norm, fac)
+    if S.device.type == "cpu":
+        if with_norm:
+            return sor2d_sweeps_reference_norm(spec, S, omega, n, fac)
+        return sor2d_sweeps_reference(spec, S, omega, n, fac)
+    rel = relax_plane(spec, omega)
+    lay = _layout(spec, S, rel)
+    plan = (resident if resident is not None
+            else tile_plan(spec, lay["core"], S.dtype, inplace))
+    A = _driver._buffer(S, lay)
+    Bf = None if resident is not None else torch.empty_like(A)
+    partials = _driver._partials(S, lay, with_norm)
+    done = 0
+    with torch.cuda.device(S.device):
+        while done < n:
+            m = min(plan.k, n - done)
+            f = [1.0] * (2 * m) if fac is None else fac[2 * done:
+                                                        2 * (done + m)]
+            last = partials if done + m == n else None
+            if resident is not None:
+                _launch_resident(spec, lay, plan, rel, A, m, f, last)
+            else:
+                _launch_tiled(spec, lay, plan, rel, A, Bf, m, f, last)
+                A, Bf = Bf, A
+            done += m
+    return _driver._result(A, S, lay, partials)
 
 
 def sor2d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
@@ -927,7 +852,10 @@ def sor2d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     runs the in-place tiled kernel; any other runs the ping-pong one.  CPU
     tensors take the plain version.
     """
-    return _driver.sweeps(_FAMILY, spec, S, omega, n, with_norm, fac)
+    core = tuple(S.shape[-2:])
+    return _sweeps(spec, S, omega, n, with_norm, fac,
+                   resident_plan(spec, core, S.dtype),
+                   _use_inplace(spec, core))
 
 
 def sor2d_sweeps_resident(spec, S, omega, n, with_norm=False, fac=None):
@@ -938,15 +866,13 @@ def sor2d_sweeps_resident(spec, S, omega, n, with_norm=False, fac=None):
     if S.device.type != "cpu" and plan is None:
         raise ValueError("the resident kernel takes radius-1 stencils "
                          "without cross terms on slices that fit one SM")
-    return _driver.sweeps_resident(_FAMILY, spec, S, omega, n, with_norm,
-                                   fac, plan)
+    return _sweeps(spec, S, omega, n, with_norm, fac, plan)
 
 
 def sor2d_sweeps_tiled(spec, S, omega, n, with_norm=False, fac=None):
     """:func:`sor2d_sweeps` through the ping-pong tiled kernel, whatever
     ``INPLACE_KERNEL`` says.  CPU tensors take the plain version."""
-    return _driver.sweeps_tiled(_FAMILY, spec, S, omega, n, with_norm, fac,
-                                inplace=False)
+    return _sweeps(spec, S, omega, n, with_norm, fac)
 
 
 def sor2d_sweeps_tiled_inplace(spec, S, omega, n, with_norm=False, fac=None):
@@ -958,52 +884,7 @@ def sor2d_sweeps_tiled_inplace(spec, S, omega, n, with_norm=False, fac=None):
         raise ValueError("the in-place kernel takes radius-1 stencils "
                          "without cross terms and an even size along a "
                          "periodic axis")
-    return _driver.sweeps_tiled(_FAMILY, spec, S, omega, n, with_norm, fac,
-                                inplace=True)
-
-
-def sor2d_sweeps_pair(spec, S, omega, n, with_norm=False, fac=None):
-    """n sweeps through the first version, three launches each:
-    ``sor2d_extend_rows``, then the two ``sor2d_color_sweep`` half-sweeps,
-    or, where ``INPLACE_KERNEL`` and the gate take the spec, the two
-    ``sor2d_color_sweep_inplace`` ones.  The yardstick of the tiled
-    kernels; no entry point calls it.  CPU tensors take the plain
-    version."""
-    return _driver.sweeps_pair(_FAMILY, spec, S, omega, n, with_norm, fac)
-
-
-def sor2d_extend(spec, S):
-    """The extend pre-pass on a copy of S (one kernel launch; a no-op copy
-    when the y boundary is not 'extend').  CPU tensors take the plain
-    version."""
-    return _driver.extend(_FAMILY, spec, S)
-
-
-def sor2d_color_sweep(spec, S, rel, color, fac=1.0):
-    """One half-sweep of ``color`` (0 red, 1 black) into a new tensor
-    (one kernel launch); ``rel`` is :func:`relax_plane`, scaled by
-    ``fac``.  CPU tensors take the plain version."""
-    return _driver.color_sweep(_FAMILY, spec, S, rel, color, fac)
-
-
-def sor2d_color_sweep_inplace(spec, S, rel, color, fac=1.0):
-    """:func:`sor2d_color_sweep` through the in-place kernel, on a copy of
-    S (one kernel launch), whatever ``INPLACE_KERNEL`` says; a spec that
-    :func:`inplace_eligible` refuses raises.  CPU tensors take the plain
-    version."""
-    if S.device.type == "cpu":
-        return sor2d_color_sweep_inplace_reference(spec, S, rel, color, fac)
-    if color not in (0, 1):
-        raise ValueError(f"color must be 0 or 1, got {color}")
-    lay = _layout(spec, S, rel)
-    if not inplace_eligible(spec, lay["core"]):
-        raise ValueError("the in-place kernel takes radius-1 stencils "
-                         "without cross terms and an even size along a "
-                         "periodic axis")
-    A = _driver._buffer(S, lay)
-    with torch.cuda.device(S.device):
-        _launch_color_sweep_inplace(spec, lay, rel, A, color, fac)
-    return A.reshape(S.shape)
+    return _sweeps(spec, S, omega, n, with_norm, fac, inplace=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1180,11 +1061,3 @@ def sor2d_sweeps_block(spec, P, omega, n, origin, shape, ghosts,
     py, px = P.shape[-2:]
     own = out.reshape(P.shape)[..., gy:py - gy, gx:px - gx]
     return (own, part) if with_norm else own
-
-
-_FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,
-                         sor2d_sweeps_reference, sor2d_sweeps_reference_norm,
-                         sor2d_extend_reference, sor2d_color_sweep_reference,
-                         _use_inplace, _launch_color_sweep_inplace,
-                         tile_plan, _launch_tiled, resident_plan,
-                         _launch_resident)

@@ -11,18 +11,15 @@ pieces:
 =====================  ==========================  ==============================
 kernel                 wrapper                     plain version
 =====================  ==========================  ==============================
-``sor3d_extend_rows``  :func:`sor3d_extend`        :func:`sor3d_extend_reference`
 ``sor3d_color_sweep``  :func:`sor3d_color_sweep`   :func:`sor3d_color_sweep_reference`
-n sweeps               :func:`sor3d_sweeps`,       :func:`sor3d_sweeps_reference`,
-                       :func:`sor3d_sweeps_pair`   :func:`sor3d_sweeps_reference_norm`
+n sweeps               :func:`sor3d_sweeps`        :func:`sor3d_sweeps_reference`,
+                                                   :func:`sor3d_sweeps_reference_norm`
 =====================  ==========================  ==============================
 
 A sweep is two launches of ``sor3d_color_sweep``, the red one with the
 extend pre-pass folded in (:func:`sor3d_sweeps`, the solver's executor).
-The first version, three launches a sweep with ``sor3d_extend_rows`` before
-an unfolded red launch, stays as :func:`sor3d_sweeps_pair`, the yardstick
-no entry point calls.  :func:`sor3d_color_sweep_emulated` replays the
-folded launch's reads with torch ops on the CPU (tests only).
+:func:`sor3d_color_sweep_emulated` replays the folded launch's reads with
+torch ops on the CPU (tests only).
 
 B5s (the pallas ``_kernel``'s block arguments) sweeps one ghost-padded block
 of a decomposition for the multi-device executor
@@ -32,16 +29,14 @@ of a decomposition for the multi-device executor
 :func:`make_block_sweeper`, plain version
 :func:`sor3d_color_sweep_block_reference`;
 :func:`sor3d_color_sweep_block_emulated` replays the plan's tile classes
-with torch ops on the CPU (tests only).  Its first version, the color
-sweep's block mode, stays as :func:`sor3d_color_sweep_block_first`, the
-yardstick no entry point calls.
+with torch ops on the CPU (tests only).
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; any other input raises.  ``LAUNCHES``,
-``BLOCK_LAUNCHES``, ``BLOCK_FIRST_LAUNCHES`` and ``EXTEND_LAUNCHES`` count
-kernel launches, ``PLAIN_CALLS`` calls of the plain versions, so a run can
-show which path it took.  No function here changes
-the caller's tensors: the kernels work on buffers the wrappers allocate.
+only for CPU tensors; any other input raises.  ``LAUNCHES`` and
+``BLOCK_LAUNCHES`` count kernel launches, ``PLAIN_CALLS`` calls of the
+plain versions, so a run can show which path it took.  No function here
+changes the caller's tensors: the kernels work on buffers the wrappers
+allocate.
 """
 from __future__ import annotations
 
@@ -53,22 +48,17 @@ from .. import solver
 from . import _driver
 from ._driver import relax_plane
 
-__all__ = ["sor3d_sweeps", "sor3d_sweeps_pair", "sor3d_sweeps_reference",
-           "sor3d_sweeps_reference_norm", "sor3d_extend",
-           "sor3d_extend_reference", "sor3d_color_sweep",
+__all__ = ["sor3d_sweeps", "sor3d_sweeps_reference",
+           "sor3d_sweeps_reference_norm", "sor3d_color_sweep",
            "sor3d_color_sweep_reference", "sor3d_color_sweep_emulated",
            "sor3d_color_sweep_block", "sor3d_color_sweep_block_reference",
-           "sor3d_color_sweep_block_emulated", "sor3d_color_sweep_block_first",
-           "block_plan", "make_block_sweeper", "relax_plane", "MAX_K"]
+           "sor3d_color_sweep_block_emulated", "block_plan",
+           "make_block_sweeper", "relax_plane", "MAX_K"]
 
-MAX_K = 8            # offsets the color-sweep kernel takes (csrc SOR3D_MAX_K)
-_MAX_GRID = 65535    # batch slices and interior levels sor3d_extend_rows
-#                      takes (grid dims); the sweeps walk any batch
+MAX_K = 8            # offsets the kernels take (csrc SOR3D_MAX_K)
 
 LAUNCHES = 0         # sor3d_color_sweep kernel launches
 BLOCK_LAUNCHES = 0   # sor3d_block_sweep kernel launches (B5s)
-BLOCK_FIRST_LAUNCHES = 0  # launches of the color sweep's block mode
-EXTEND_LAUNCHES = 0  # sor3d_extend_rows kernel launches
 PLAIN_CALLS = 0      # calls of the plain versions
 
 _CORE = (-3, -2, -1)
@@ -93,13 +83,6 @@ def sor3d_sweeps_reference_norm(spec, S, omega, n, fac=None):
     PLAIN_CALLS += 1
     S = solver.sweeps(spec, S, omega, n, fac)
     return S, torch.sum(torch.abs(S), dim=_CORE)
-
-
-def sor3d_extend_reference(spec, S):
-    """The extend pre-pass with PyTorch ops."""
-    global PLAIN_CALLS
-    PLAIN_CALLS += 1
-    return solver._apply_extend(spec, S)
 
 
 def sor3d_color_sweep_reference(spec, S, rel, color, fac=1.0, extend=False):
@@ -158,7 +141,7 @@ def sor3d_color_sweep_emulated(spec, S, rel, color, fac=1.0):
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers (the driving loop is :mod:`._driver`'s)
+# kernel wrappers
 # ---------------------------------------------------------------------------
 
 def _layout(spec, S, rel=None):
@@ -181,30 +164,9 @@ def _layout(spec, S, rel=None):
             for a in range(3)]
     lay.update(nz=nz, ny=ny, nx=nx, dz=offs[0], dy=offs[1], dx=offs[2],
                n_partials=lib.sor3d_partials_per_slice(nz, ny, nx),
-               extend_fn=getattr(lib, f"sor3d_extend_rows_{sfx}"),
                sweep_fn=getattr(lib, f"sor3d_color_sweep_{sfx}"),
-               block_fn=getattr(lib, f"sor3d_block_sweep_{sfx}"),
-               first_fn=getattr(lib, f"sor3d_color_sweep_block_{sfx}"))
+               block_fn=getattr(lib, f"sor3d_block_sweep_{sfx}"))
     return lay
-
-
-def _launch_extend(spec, lay, A):
-    """sor3d_extend_rows on the (B, nz, ny, nx) buffer A, in place.  Its
-    grid maps the slices and the interior levels onto grid dimensions, so
-    it alone takes at most ``_MAX_GRID`` of each (the color sweeps walk
-    (slice, level) pairs in steps of the grid, the block sweep slices)."""
-    global EXTEND_LAUNCHES
-    if lay["B"] > _MAX_GRID or lay["nz"] - 2 > _MAX_GRID:
-        raise ValueError(f"{lay['B']} batch slices of {lay['nz']} levels; "
-                         f"sor3d_extend_rows takes 1..{_MAX_GRID} slices of "
-                         f"at most {_MAX_GRID + 2} levels")
-    err = lay["extend_fn"](A.data_ptr(), lay["B"], lay["nz"], lay["ny"],
-                           lay["nx"], int(spec.bcs[-1] == "periodic"),
-                           lay["stream"])
-    EXTEND_LAUNCHES += 1
-    if err:
-        raise RuntimeError(f"sor3d_extend_rows launch failed: CUDA error "
-                           f"{err}")
 
 
 def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
@@ -232,7 +194,8 @@ def _launch_color_sweep(spec, lay, rel, S_in, S_out, color, fac=1.0,
 def sor3d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     """n full red-black sweeps (extend pre-pass when the y boundary is
     'extend', then red, then black) of ``spec`` on ``S``: two launches a
-    sweep, the pre-pass folded into the red one.
+    sweep, the pre-pass folded into the red one, on two buffers that
+    ping-pong.
 
     With ``with_norm`` returns ``(S', sumabs)``, sumabs being the per-slice
     total |S'| over the core cells, which the last black half-sweep sums
@@ -240,22 +203,26 @@ def sor3d_sweeps(spec, S, omega, n, with_norm=False, fac=None):
     holds 2n factors in the state's dtype, one per half-sweep, each scaling
     ``omega * relax``.  CPU tensors take the plain version.
     """
-    return _driver.sweeps_pair(_FAMILY, spec, S, omega, n, with_norm, fac,
-                               fold_extend=True)
-
-
-def sor3d_sweeps_pair(spec, S, omega, n, with_norm=False, fac=None):
-    """:func:`sor3d_sweeps` through the first version's three launches a
-    sweep: ``sor3d_extend_rows``, then the unfolded red and the black
-    launch.  The yardstick of the folded sweeps; no entry point calls it."""
-    return _driver.sweeps_pair(_FAMILY, spec, S, omega, n, with_norm, fac)
-
-
-def sor3d_extend(spec, S):
-    """The extend pre-pass on a copy of S (one kernel launch; a no-op copy
-    when the y boundary is not 'extend').  CPU tensors take the plain
-    version."""
-    return _driver.extend(_FAMILY, spec, S)
+    n = _driver._check_sweeps(n, with_norm, fac)
+    if S.device.type == "cpu":
+        if with_norm:
+            return sor3d_sweeps_reference_norm(spec, S, omega, n, fac)
+        return sor3d_sweeps_reference(spec, S, omega, n, fac)
+    rel = relax_plane(spec, omega)
+    lay = _layout(spec, S, rel)
+    A = _driver._buffer(S, lay)
+    Bf = torch.empty_like(A)
+    partials = _driver._partials(S, lay, with_norm)
+    extend = spec.bcs[-2] == "extend"
+    with torch.cuda.device(S.device):
+        for it in range(n):
+            f_red, f_black = (1.0, 1.0) if fac is None else fac[2 * it:
+                                                                 2 * it + 2]
+            _launch_color_sweep(spec, lay, rel, A, Bf, 0, f_red,
+                                extend=extend)
+            _launch_color_sweep(spec, lay, rel, Bf, A, 1, f_black,
+                                partials if it == n - 1 else None)
+    return _driver._result(A, S, lay, partials)
 
 
 def sor3d_color_sweep(spec, S, rel, color, fac=1.0, extend=False):
@@ -263,7 +230,18 @@ def sor3d_color_sweep(spec, S, rel, color, fac=1.0, extend=False):
     (one kernel launch); ``rel`` is :func:`relax_plane`, scaled by
     ``fac``; ``extend``: of S after the extend pre-pass, folded into the
     launch.  CPU tensors take the plain version."""
-    return _driver.color_sweep(_FAMILY, spec, S, rel, color, fac, extend)
+    if S.device.type == "cpu":
+        return sor3d_color_sweep_reference(spec, S, rel, color, fac, extend)
+    if color not in (0, 1):
+        raise ValueError(f"color must be 0 or 1, got {color}")
+    lay = _layout(spec, S, rel)
+    S_in = S if S.is_contiguous() else S.contiguous()
+    out = torch.empty((lay["B"],) + lay["core"], dtype=S.dtype,
+                      device=S.device)
+    with torch.cuda.device(S.device):
+        _launch_color_sweep(spec, lay, rel, S_in, out, color, fac,
+                            extend=extend)
+    return out.reshape(S.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -349,8 +327,8 @@ def block_plan(spec, pshape, origin, shape, ghosts):
     """The block sweep kernel's tiles for a padded block of ``pshape`` =
     (rows, columns), as a dict: ``lead`` = (rows, columns) the launch grid
     starts before the buffer, ``tiles`` = its (rows, columns) of 32 x 8
-    tiles (the owned region's tiles, as in the block mode: the |S|
-    partials stay whole), and ``edge``, the [lo, hi) intervals of tile rows
+    tiles (the owned region's tiles, so that the |S| partials stay
+    whole), and ``edge``, the [lo, hi) intervals of tile rows
     that take the full rule in a flagged (extend) launch: those holding a
     buffer row whose global row is within the offsets' y reach of row 0 or
     ny - 1, where the extend map moves reads (the kernel stages a two-cell
@@ -404,21 +382,6 @@ def _block_layout(spec, P, rel, origin, shape, ghosts):
     return lay
 
 
-def _block_args(spec, lay, rel, S_in, S_out, color, fac, partials, extend):
-    """The leading arguments both block kernels' launches share (the
-    buffers to ``fac``)."""
-    return (S_in.data_ptr(), S_out.data_ptr(), spec.w.data_ptr(),
-            spec.w0.data_ptr(), spec.g.data_ptr(), rel.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            lay["B"], lay["nz"], *lay["blk"], lay["K"],
-            ctypes.addressof(lay["dz"]), ctypes.addressof(lay["dy"]),
-            ctypes.addressof(lay["dx"]),
-            lay["w_kstride"], lay["w_bstride"], lay["w0_bstride"],
-            lay["g_bstride"], lay["relax_bstride"], int(color),
-            int(extend and spec.bcs[-2] == "extend"),
-            int(spec.bcs[-1] == "periodic"), float(fac))
-
-
 def _launch_block(spec, lay, rel, S_in, S_out, color, fac=1.0,
                   partials=None, extend=False):
     """sor3d_block_sweep: S_out = half-sweep ``color`` of the padded block
@@ -429,29 +392,21 @@ def _launch_block(spec, lay, rel, S_in, S_out, color, fac=1.0,
     # current (a mesh's blocks may sit on several cards)
     with torch.cuda.device(S_in.device):
         err = lay["block_fn"](
-            *_block_args(spec, lay, rel, S_in, S_out, color, fac, partials,
-                         extend),
-            lay["zc"], ctypes.addressof(lay["edge"]), lay["n_edge"],
-            lay["stream"])
+            S_in.data_ptr(), S_out.data_ptr(), spec.w.data_ptr(),
+            spec.w0.data_ptr(), spec.g.data_ptr(), rel.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            lay["B"], lay["nz"], *lay["blk"], lay["K"],
+            ctypes.addressof(lay["dz"]), ctypes.addressof(lay["dy"]),
+            ctypes.addressof(lay["dx"]),
+            lay["w_kstride"], lay["w_bstride"], lay["w0_bstride"],
+            lay["g_bstride"], lay["relax_bstride"], int(color),
+            int(extend and spec.bcs[-2] == "extend"),
+            int(spec.bcs[-1] == "periodic"), float(fac), lay["zc"],
+            ctypes.addressof(lay["edge"]), lay["n_edge"], lay["stream"])
     BLOCK_LAUNCHES += 1
     if err:
         raise RuntimeError(f"sor3d_block_sweep launch failed: CUDA error "
                            f"{err}")
-
-
-def _launch_block_first(spec, lay, rel, S_in, S_out, color, fac=1.0,
-                        partials=None, extend=False):
-    """:func:`_launch_block`'s half-sweep through the first version, the
-    color sweep's block mode."""
-    global BLOCK_FIRST_LAUNCHES
-    with torch.cuda.device(S_in.device):
-        err = lay["first_fn"](
-            *_block_args(spec, lay, rel, S_in, S_out, color, fac, partials,
-                         extend), lay["stream"])
-    BLOCK_FIRST_LAUNCHES += 1
-    if err:
-        raise RuntimeError(f"sor3d_color_sweep_block launch failed: CUDA "
-                           f"error {err}")
 
 
 def sor3d_color_sweep_block_emulated(spec, P, rel, color, origin, shape,
@@ -517,22 +472,6 @@ def sor3d_color_sweep_block(spec, P, rel, color, origin, shape, ghosts,
     pre-pass, folded in.  With ``with_norm`` also the owned cells' |S|
     partials (B, nz, ceil(by/8), ceil(bx/32)).  CPU tensors take the plain
     version."""
-    return _block_once(_launch_block, spec, P, rel, color, origin, shape,
-                       ghosts, fac, extend, with_norm)
-
-
-def sor3d_color_sweep_block_first(spec, P, rel, color, origin, shape, ghosts,
-                                  fac=1.0, extend=False, with_norm=False):
-    """:func:`sor3d_color_sweep_block` through the first version, the
-    color sweep's block mode (PR 9's B5s): the yardstick of the block
-    sweep kernel; no entry point calls it.  CPU tensors take the plain
-    version."""
-    return _block_once(_launch_block_first, spec, P, rel, color, origin,
-                       shape, ghosts, fac, extend, with_norm)
-
-
-def _block_once(launch, spec, P, rel, color, origin, shape, ghosts, fac,
-                extend, with_norm):
     if P.device.type == "cpu":
         return sor3d_color_sweep_block_reference(
             spec, P, rel, color, origin, shape, ghosts, fac, extend,
@@ -544,7 +483,7 @@ def _block_once(launch, spec, P, rel, color, origin, shape, ghosts, fac,
     out = torch.empty_like(A)
     part = (torch.empty(lay["pshape"], dtype=P.dtype, device=P.device)
             if with_norm else None)
-    launch(spec, lay, rel, A, out, color, fac, part, extend)
+    _launch_block(spec, lay, rel, A, out, color, fac, part, extend)
     out = out.reshape(P.shape)
     return (out, part) if with_norm else out
 
@@ -594,8 +533,3 @@ def make_block_sweeper(spec, P, omega, origin, shape, ghosts, k):
         return A, part
     sweep.rel = rel        # the launches read it: keep it alive
     return sweep
-
-
-_FAMILY = _driver.Family(_layout, _launch_extend, _launch_color_sweep,
-                         sor3d_sweeps_reference, sor3d_sweeps_reference_norm,
-                         sor3d_extend_reference, sor3d_color_sweep_reference)
