@@ -16,7 +16,8 @@ sweeps and solves; batches over 65 535 slices through the main-path
 kernels; the sharded multigrid pyramid (solve_mg_sharded) on local meshes
 of the card, over several cards and under NCCL, equal to the meshless
 solve; the copy and sync counters of a traced call; the API's steps on the
-card bit-equal to its former numpy steps.  Every test here needs an NVIDIA GPU (marker
+card bit-equal to its former numpy steps; the pinned staging of large
+copies bit-equal to the plain copies, on its own and through the API.  Every test here needs an NVIDIA GPU (marker
 ``cuda``) and skips elsewhere.  This file imports no JAX, so it runs on a
 machine without it:
 
@@ -1922,3 +1923,117 @@ def test_api_device_steps_equal_the_numpy_steps(cuda, kind):
     assert same_field(got, want)
     assert torch.equal(torch.from_numpy(got.values).view(torch.int32),
                        torch.from_numpy(want.values).view(torch.int32))
+
+
+def _bits(t):
+    """The bytes of tensor ``t``, for bit-for-bit comparison."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int64, torch.bool])
+@pytest.mark.parametrize("size", ["chunk_less_one", "chunk", "chunk_plus_one",
+                                  "two_and_a_half"])
+def test_staged_copies_equal_the_plain_copies(cuda, dtype, size):
+    """``to_device`` and ``to_host`` of a C-contiguous array one element
+    under a chunk (plain), one chunk, one element over and 2.5 chunks
+    (staged, tail included) give the plain copies' bytes; STAGED_BYTES
+    grows by the array's bytes each way where it is staged."""
+    from xinvert_tpu_torch import _staging, telemetry
+    item = torch.empty(0, dtype=dtype).element_size()
+    step = _staging.CHUNK // item
+    n = {"chunk_less_one": step - 1, "chunk": step, "chunk_plus_one": step + 1,
+         "two_and_a_half": 5 * step // 2}[size]
+    a = torch.from_numpy(np.random.default_rng(n).standard_normal(n)
+                         * 1e3).to(dtype).numpy()
+    a = a.reshape(5, -1) if n % 5 == 0 else a
+    staged = telemetry.STAGED_BYTES
+    up = telemetry.to_device(a, cuda)
+    want = torch.as_tensor(a, device=cuda)
+    assert up.shape == want.shape and up.dtype == want.dtype
+    assert torch.equal(_bits(up), _bits(want))
+    down = telemetry.to_host(want)
+    assert down.shape == want.shape and down.dtype == want.dtype
+    assert torch.equal(_bits(down), _bits(want.cpu()))
+    grew = telemetry.STAGED_BYTES - staged
+    assert grew == (0 if size == "chunk_less_one" else 2 * a.nbytes)
+
+
+def test_staged_downloads_are_arrays_of_their_own(cuda):
+    """Two staged downloads in a row: the first is unchanged by the
+    second, writeable, and aliases no staging buffer nor the card."""
+    from xinvert_tpu_torch import _staging, telemetry
+    n = 3 * _staging.CHUNK // 4 + 7
+    x = torch.arange(n, dtype=torch.float32, device=cuda)
+    first = telemetry.to_host(x).numpy()
+    keep = first.copy()
+    telemetry.to_host(-x).numpy()
+    assert np.array_equal(first, keep)
+    assert first.flags.writeable
+    first[:] = 0
+    assert np.array_equal(x.cpu().numpy(), keep)
+    for bufs in _staging._BUFFERS.values():
+        for b in bufs:
+            assert not np.shares_memory(first, b.mem.numpy())
+
+
+def test_staged_upload_reads_its_source_before_it_returns(cuda):
+    """A source changed as soon as ``to_device`` returns, and a second
+    upload through the same buffers, leave the first tensor as it was."""
+    from xinvert_tpu_torch import _staging, telemetry
+    n = 5 * _staging.CHUNK // 8 + 3
+    a = np.arange(n, dtype=np.float64)
+    want = a.copy()
+    t = telemetry.to_device(a, cuda)
+    a[:] = -1.0
+    u = telemetry.to_device(a, cuda)
+    torch.cuda.synchronize()
+    assert np.array_equal(t.cpu().numpy(), want)
+    assert bool(torch.all(u == -1.0))
+
+
+@pytest.mark.parametrize("kind", ["poisson", "omega"])
+def test_staged_entry_points_equal_the_plain_copies(cuda, monkeypatch, kind):
+    """``invert_Poisson`` and ``invert_omega`` on a batch above one chunk
+    (its NaN block filled with undef) return the same bits as with the
+    staging threshold out of reach, and stage the forcing up and the
+    answer down."""
+    from xinvert_tpu_torch import _staging, telemetry
+    rng = np.random.default_rng(11)
+    if kind == "poisson":
+        lat, lon = np.linspace(-90.0, 90.0, 73), np.arange(144) * 2.5
+        v = (np.sin(3 * np.deg2rad(lon))[None, :]
+             * np.cos(2 * np.deg2rad(lat))[:, None])[None] \
+            * rng.uniform(0.5, 1.5, (420, 1, 1)) * 1e-5
+        v[:, 24:36, 36:72] = np.nan
+        dims, coords = ["lat", "lon"], {"lat": lat, "lon": lon}
+        iP = {"BCs": ["extend", "periodic"], "undef": np.nan, "mxLoop": 300}
+        entry, mP = xt.invert_Poisson, None
+    else:
+        lev = np.linspace(100000.0, 10000.0, 37)
+        lat, lon = np.linspace(-87.5, 87.5, 72), np.arange(288) * 1.25
+        v = (np.sin(np.pi * (1e5 - lev) / 9e4)[:, None, None]
+             * np.cos(np.deg2rad(lat))[None, :, None]
+             * np.sin(3 * np.deg2rad(lon))[None, None, :])[None] \
+            * rng.uniform(0.5, 1.5, (7, 1, 1, 1)) * 1e-15
+        v[:, 10:20, 30:40, 100:160] = np.nan
+        dims = ["LEV", "lat", "lon"]
+        coords = {"LEV": lev, "lat": lat, "lon": lon}
+        iP = {"BCs": ["fixed", "fixed", "periodic"], "mxLoop": 100}
+        entry = xt.invert_omega
+        mP = {"N2": xt.Field(np.where(lev > 25000.0, 1.5e-5, 6e-5),
+                             ("LEV",), {"LEV": lev})}
+    F = xt.Field(v.astype(np.float32), ["time"] + dims,
+                 dict(coords, time=np.arange(v.shape[0])))
+    iP.update(tolerance=1e-6, printInfo=False)
+    plane = v.size * 4
+    assert plane > _staging.CHUNK
+    staged = telemetry.STAGED_BYTES
+    got = entry(F, dims=dims, iParams=iP, mParams=mP).values
+    assert telemetry.STAGED_BYTES - staged == 2 * plane
+    monkeypatch.setattr(_staging, "CHUNK", 1 << 62)
+    want = entry(F, dims=dims, iParams=iP, mParams=mP).values
+    assert telemetry.STAGED_BYTES - staged == 2 * plane
+    assert got.dtype == want.dtype == np.float32
+    assert np.isnan(got).any()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))

@@ -17,7 +17,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import xinvert_tpu_torch as xt  # noqa: E402
-from xinvert_tpu_torch import solver, telemetry  # noqa: E402
+from xinvert_tpu_torch import _staging, solver, telemetry  # noqa: E402
 from xinvert_tpu_torch.models import api  # noqa: E402
 
 PIECES = ["api.prepare", "builders.build", "api.init_state", "engine.solve",
@@ -273,3 +273,128 @@ def test_copies_on_the_cpu_count_nothing():
     assert t.device.type == "cpu" and np.shares_memory(t.numpy(), a)
     assert telemetry.to_host(t) is t
     assert (telemetry.H2D_BYTES, telemetry.D2H_BYTES) == (h2d, d2h)
+
+
+C = _staging.CHUNK
+
+
+@pytest.mark.parametrize("numel,itemsize,want", [
+    (2 * C, 1, [(0, C), (C, C)]),                       # exact multiple
+    (3 * C // 8, 4, [(0, C // 4), (C // 4, C // 8)]),   # a tail chunk
+    (C + 1, 1, [(0, C), (C, 1)]),                       # one byte over
+    (C // 8 - 1, 8, [(0, C // 8 - 1)]),                 # below one chunk
+])
+def test_staging_chunk_plan(numel, itemsize, want):
+    assert _staging.plan(numel, itemsize) == want
+
+
+def _sources():
+    """(name, source, staged) with a chunk of 4096 bytes."""
+    big = np.arange(64 * 64, dtype=np.float64).reshape(64, 64)
+    grad = torch.ones(4096, requires_grad=True)
+    return [
+        ("numpy", big, True),
+        ("tensor", torch.from_numpy(big), True),
+        ("bool", big > 100, True),
+        ("sub_chunk", big[:7], False),
+        ("non_contiguous", big[:, ::2], False),
+        ("fortran", big.T, False),
+        ("negative_stride", big[::-1], False),
+        ("tensor_non_contiguous", torch.from_numpy(big).t(), False),
+        ("grad", grad, False),
+        ("bfloat16", torch.ones(4096, dtype=torch.bfloat16), False),
+        ("big_endian", big.astype(">f8"), False),
+    ]
+
+
+@pytest.mark.parametrize("case", [c[0] for c in _sources()])
+def test_staging_routes_by_what_it_sees(monkeypatch, case):
+    """Contiguous sources of a chunk or more are staged; CPU devices,
+    smaller, strided, negative-stride and other sources take the plain
+    copies, whose results stay torch.as_tensor's and count nothing
+    staged."""
+    monkeypatch.setattr(_staging, "CHUNK", 4096)
+    _, a, staged = next(c for c in _sources() if c[0] == case)
+    src = _staging.source(a)
+    assert (src is not None) == staged
+    if staged:
+        assert src.data_ptr() == (a.data_ptr() if torch.is_tensor(a)
+                                  else a.ctypes.data)
+    before = telemetry.STAGED_BYTES
+    try:
+        want = torch.as_tensor(a)
+    except (TypeError, ValueError) as e:
+        with pytest.raises(type(e)):
+            telemetry.to_device(a, "cpu")
+    else:
+        got = telemetry.to_device(a, "cpu")
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert not _staging.takes(got)
+        assert telemetry.to_host(got) is got
+    assert telemetry.STAGED_BYTES == before
+
+
+class _PlainBuffer(_staging._Buffer):
+    """A staging buffer in pageable memory whose events are no-ops: the
+    chunk loops run on the CPU."""
+    __slots__ = ()
+
+    def __init__(self):
+        self.mem = torch.empty(_staging.CHUNK, dtype=torch.uint8)
+        self.mem.fill_(0xA5)
+        self.event = None
+
+    def wait(self):
+        pass
+
+    def record(self, device):
+        self.event = device
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.int64, torch.bool])
+def test_staging_chunk_loops_round_trip(monkeypatch, dtype):
+    """upload and download copy every chunk and the tail, whatever the
+    size: one element under a chunk, one chunk, one element over, 2.5
+    chunks; the download is a new writeable numpy array."""
+    monkeypatch.setattr(_staging, "CHUNK", 256)
+    monkeypatch.setattr(_staging, "_BUFFERS", {})
+    monkeypatch.setattr(_staging, "_Buffer", _PlainBuffer)
+    step = 256 // torch.empty(0, dtype=dtype).element_size()
+    rng = np.random.default_rng(5)
+    for n in (step - 1, step, step + 1, 5 * step // 2):
+        a = torch.from_numpy(rng.standard_normal(n) * 100).to(dtype)
+        if n % 5 == 0:
+            a = a.reshape(5, -1)
+        up = _staging.upload(a, torch.device("cpu"))
+        down = _staging.download(up)
+        assert up.data_ptr() != a.data_ptr()
+        assert torch.equal(up, a) and torch.equal(down, a)
+        v = down.numpy()
+        assert v.flags.writeable and v.dtype == a.numpy().dtype
+        assert not any(np.shares_memory(v, b.mem.numpy())
+                       for bufs in _staging._BUFFERS.values()
+                       for b in bufs)
+    assert sorted(_staging._BUFFERS) == [(None, "d2h"), (None, "h2d")]
+
+
+def test_staging_reserves_the_answer_array(monkeypatch):
+    """``reserve`` gives a future of a new writeable array of the shape
+    and dtype asked (None below one chunk or for a dtype numpy lacks);
+    a download lands in it where shape and dtype fit, and in a new array
+    where they do not."""
+    monkeypatch.setattr(_staging, "CHUNK", 256)
+    monkeypatch.setattr(_staging, "_BUFFERS", {})
+    monkeypatch.setattr(_staging, "_Buffer", _PlainBuffer)
+    assert _staging.reserve((7, 9), np.float32) is None
+    assert _staging.reserve((700,), np.dtype("V4")) is None
+    t = torch.arange(4 * 50 * 3, dtype=torch.float32).reshape(4, 50, 3)
+    for shape, dtype, lands in [((4, 50, 3), np.float32, True),
+                                ((4, 150), np.float32, False),
+                                ((4, 50, 3), np.float64, False)]:
+        into = _staging.reserve(shape, dtype)
+        a = into.result(timeout=60)
+        assert a.shape == shape and a.dtype == dtype and a.flags.writeable
+        out = _staging.download(t, into)
+        assert torch.equal(out, t)
+        assert np.shares_memory(out.numpy(), a) == lands

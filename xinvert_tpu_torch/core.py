@@ -19,7 +19,8 @@ import torch
 from .field import Field, as_field
 from .solver import solve
 from . import stencil
-from .models.api import _finish, _numpy_dtype, _prologue, _resolve_device
+from .models.api import (_finish, _numpy_dtype, _prologue, _reserve_answer,
+                         _resolve_device)
 from .models.params import default_iParams, default_mParams, merge_params
 
 __all__ = ["inv_standard1D", "inv_standard2D", "inv_standard2D_test",
@@ -60,13 +61,14 @@ def _run(family, coeffs, F, dims, coords, iParams, ndim, icbc=None,
 
     ft, _, Fdef, spec, S0, grid, _, _ = _prologue(
         f, dims, coords, icbc, iP, default_mParams, ndim, build, device)
+    into = _reserve_answer(S0.shape, icbc, iP["undef"], device)
     omega = iP["optArg"] if iP["optArg"] is not None else grid.omega_opt
     # iParams['scheme'] reaches the engine here (the JAX package's core
     # drops it and always runs SOR): 'direct' solves a qualifying spec in
     # one shot and raises ValueError for the rest
     res = solve(spec, S0, omega=omega, tol=iP["tolerance"],
                 max_iters=iP["mxLoop"], scheme=iP.get("scheme", "sor"))
-    return _finish(res.S, Fdef, icbc, iP["undef"], ft, f)
+    return _finish(res.S, Fdef, icbc, iP["undef"], ft, f, into)
 
 
 def inv_standard2D(A, B, C, F, dims, coords="lat-lon", icbc=None,

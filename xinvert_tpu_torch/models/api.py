@@ -32,7 +32,7 @@ import warnings
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import _staging, telemetry
 from ..field import Field, as_field
 from ..grid import Grid
 from ..solver import SolveResult, direct_result, solve, solve_trajectory
@@ -240,22 +240,39 @@ def _prologue(F, dims, coords, icbc, iP, mP, ndim, build, device,
     return ft, vals, Fdef, built, S0, grid, mPr, batch
 
 
-def _fill(S, Fdef, icbc, undef):
+def _answer_dtype(dtype, icbc, undef):
+    """The numpy dtype of ``_fill``'s array for a state of torch ``dtype``."""
+    dt = _numpy_dtype(dtype)
+    return dt if icbc is not None else np.result_type(dt, undef)
+
+
+def _reserve_answer(shape, icbc, undef, device):
+    """The host array of the answer to a solve of ``shape`` on ``device``,
+    reserved before the solve (``_staging.reserve``: its pages are faulted
+    in while the card works); None off the card or below one chunk."""
+    if torch.device(device).type != "cuda":
+        return None
+    return _staging.reserve(
+        shape, _answer_dtype(torch.get_default_dtype(), icbc, undef))
+
+
+def _fill(S, Fdef, icbc, undef, into=None):
     """The solution tensor ``S`` (left as it is) as a host array, with
     ``undef`` where the forcing is undefined unless ``icbc`` was given, as
     ``np.where`` gives it: made on S's device, which the mask is copied to
-    where it lives elsewhere (a streamed batch's), and copied down once."""
+    where it lives elsewhere (a streamed batch's), and copied down once,
+    into ``into`` (``_reserve_answer``'s) where it fits."""
     if icbc is None:
-        dt = np.result_type(_numpy_dtype(S.dtype), undef)
+        dt = _answer_dtype(S.dtype, icbc, undef)
         S = torch.where(Fdef.to(S.device),
                         S.to(torch.from_numpy(np.empty(0, dt)).dtype),
                         float(np.asarray(undef, dt)))
-    return telemetry.to_host(S).numpy()
+    return telemetry.to_host(S, into).numpy()
 
 
-def _finish(S, Fdef, icbc, undef, ft, F):
+def _finish(S, Fdef, icbc, undef, ft, F, into=None):
     """The returned Field: ``_fill``'s array in the forcing's dims order."""
-    out = Field(_fill(S, Fdef, icbc, undef), ft.dims, ft.coords,
+    out = Field(_fill(S, Fdef, icbc, undef, into), ft.dims, ft.coords,
                 name="inverted")
     dims = as_field(F).dims
     return out.transpose(*dims) if out.dims != dims else out
@@ -395,6 +412,9 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
             F, dims, coords, icbc, iP, mP, ndim,
             problems.BUILDERS[problem_key], spec_dev,
             warm=bool(iP.get("warmStart", False)))
+        # a streamed answer comes back on the host, a chunk at a time
+        into = None if stream else _reserve_answer(vals.shape, icbc,
+                                                   iP["undef"], device)
         if iP["optArg"] is not None:
             omega = iP["optArg"]
         else:
@@ -484,7 +504,7 @@ def _invert(problem_key, F, dims, coords, icbc, valid_mp, mParams, iParams,
                     suffix = " (overflows!)" if ovf.flat[i] else ""
                     print(f"loops {iters.flat[i]:4.0f} and tolerance is "
                           f"{rel.flat[i]:e}{suffix}")
-            return _finish(res.S, Fdef, icbc, iP["undef"], ft, F)
+            return _finish(res.S, Fdef, icbc, iP["undef"], ft, F, into)
 
 
 def invert_Poisson(F, dims, coords="lat-lon", icbc=None,
@@ -685,6 +705,7 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
         ft, vals, Fdef, (levels, g0), S0_t, grid, _, batch = _prologue(
             F, dims, coords, icbc, iP, mP, ndim, build, device,
             warm=bool(iP.get("warmStart", False)))
+        into = _reserve_answer(vals.shape, icbc, iP["undef"], device)
         # fmg: full-multigrid nested iteration warm-starts the V-cycle
         # loop; disabled with an icbc warm start, which already provides
         # the state
@@ -720,7 +741,7 @@ def _invert_mg(F, dims, coords, icbc, valid_mp, mParams, iParams, ndim,
                               f"{tol:.3e}")
             if iP.get("printInfo"):
                 print(f"cycles {cycles:3d} and residual is {res:e}")
-            return _finish(S, Fdef, icbc, iP["undef"], ft, F)
+            return _finish(S, Fdef, icbc, iP["undef"], ft, F, into)
 
 
 def _mg_with_g(level, g0):

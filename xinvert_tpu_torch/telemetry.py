@@ -20,11 +20,24 @@ the time.
 Times are ``time.time_ns()``, the Unix-epoch wall clock that
 torch.profiler's raw events use, so the spans merge with a device trace.
 
+:func:`to_device` and :func:`to_host` move a whole batch between the
+host and a CUDA device.  A copy of at least ``_staging.CHUNK`` bytes
+(16 MiB) from or to a C-contiguous array goes through reused pinned
+buffers a chunk at a time, each chunk's DMA overlapped with the host's
+copy of the one before (``_staging``); smaller copies (the mask, the
+stop counts, a single map) and other sources take torch's plain copy.
+The entry points reserve the answer's host array before the solve, so
+that its pages are faulted in while the card works.  The ``copy.h2d`` /
+``copy.d2h`` spans time the whole copy either way: a download until its
+last byte is in the returned array, an upload until its source is read,
+its last chunks then still in flight on the stream.
+
 The copy counters are always on, module integers like the kernel launch
 counters of ``ops.sor2d``: ``H2D_BYTES`` and ``D2H_BYTES`` grow by the
 bytes that :func:`to_device`, :func:`to_host` and the streamed solve's
-pinned copies move between the host and a CUDA device.  Copies that stay
-on one side count nothing, so on the CPU both stay 0.
+pinned copies move between the host and a CUDA device, ``STAGED_BYTES``
+by those of them that went through the staging.  Copies that stay on one
+side count nothing, so on the CPU all stay 0.
 """
 from __future__ import annotations
 
@@ -33,10 +46,14 @@ import time
 
 import torch
 
+from . import _staging
+
 #: bytes copied host -> CUDA device through this module's helpers
 H2D_BYTES = 0
 #: bytes copied CUDA device -> host through this module's helpers
 D2H_BYTES = 0
+#: bytes of those two that went through the pinned staging buffers
+STAGED_BYTES = 0
 
 _ON = False
 _SPANS = []                   # [name, start_ns, end_ns, parent, call]
@@ -122,37 +139,52 @@ def drain():
 def to_device(a, device):
     """``a`` (a numpy array or a tensor) as a tensor on ``device``, as
     ``torch.as_tensor`` makes it; a copy from the host to a CUDA device
-    adds its bytes to ``H2D_BYTES`` and records a ``copy.h2d`` span."""
+    adds its bytes to ``H2D_BYTES`` and records a ``copy.h2d`` span.  It
+    is staged through pinned buffers where ``a`` is a C-contiguous array
+    or CPU tensor of at least one chunk, and has then been read whole
+    when this returns."""
     device = torch.device(device)
     if device.type != "cuda" or (torch.is_tensor(a)
                                  and a.device.type != "cpu"):
         return torch.as_tensor(a, device=device)
     with span("copy.h2d"):
-        t = torch.as_tensor(a, device=device)
-    count_h2d(t.numel() * t.element_size())
+        src = _staging.source(a)
+        if src is None:
+            t = torch.as_tensor(a, device=device)
+        else:
+            t = _staging.upload(src, device)
+    count_h2d(t.numel() * t.element_size(), staged=src is not None)
     return t
 
 
-def to_host(t):
+def to_host(t, into=None):
     """``t`` on the host; a copy from a CUDA device adds its bytes to
-    ``D2H_BYTES`` and records a ``copy.d2h`` span."""
+    ``D2H_BYTES`` and records a ``copy.d2h`` span.  A contiguous tensor of
+    at least one chunk is staged through pinned buffers into a new numpy
+    array (``into``'s, a ``_staging.reserve`` future, where it fits), and
+    comes back as the tensor on it."""
     if t.device.type != "cuda":
         return t
     with span("copy.d2h"):
-        out = t.cpu()
-    count_d2h(out.numel() * out.element_size())
+        staged = _staging.takes(t)
+        out = _staging.download(t, into) if staged else t.cpu()
+    count_d2h(out.numel() * out.element_size(), staged=staged)
     return out
 
 
-def count_h2d(nbytes):
-    """Adds ``nbytes`` copied from the host to a CUDA device."""
-    global H2D_BYTES
+def count_h2d(nbytes, staged=False):
+    """Adds ``nbytes`` copied from the host to a CUDA device (to
+    ``STAGED_BYTES`` too where ``staged``)."""
+    global H2D_BYTES, STAGED_BYTES
     with _LOCK:
         H2D_BYTES += int(nbytes)
+        STAGED_BYTES += int(nbytes) if staged else 0
 
 
-def count_d2h(nbytes):
-    """Adds ``nbytes`` copied from a CUDA device to the host."""
-    global D2H_BYTES
+def count_d2h(nbytes, staged=False):
+    """Adds ``nbytes`` copied from a CUDA device to the host (to
+    ``STAGED_BYTES`` too where ``staged``)."""
+    global D2H_BYTES, STAGED_BYTES
     with _LOCK:
         D2H_BYTES += int(nbytes)
+        STAGED_BYTES += int(nbytes) if staged else 0
