@@ -372,6 +372,32 @@ def test_2d_solve_launches_only_the_tiled_kernels(cuda, monkeypatch,
     assert ran == {"TILED_INPLACE_LAUNCHES" if switch else "TILED_LAUNCHES"}
 
 
+def test_tiled_cell_counters(cuda):
+    """One tiled launch of a radius-2 stencil on 3 slices grows
+    TILED_WINDOW_CELLS and TILED_CELLS by ``tiled_cells`` of its plan; 32
+    sweeps through the resident route leave both unchanged."""
+    spec, S0 = _bih(torch.float32, cuda, ("extend", "periodic"))
+    S = S0.expand(3, *S0.shape).contiguous()
+    core = tuple(S.shape[-2:])
+    plan = sor2d.tile_plan(spec, core, torch.float32)
+    assert plan.k == 1
+    before = (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS)
+    sor2d.sor2d_sweeps(spec, S, 1.0, 1)
+    torch.cuda.synchronize()
+    window, cells = sor2d.tiled_cells(plan, 3, core)
+    assert (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS) == (
+        before[0] + window, before[1] + cells)
+    spec, S0 = _year(cuda, batch=8)
+    assert sor2d.resident_plan(spec, tuple(S0.shape[-2:]),
+                               S0.dtype) is not None
+    before = (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS,
+              sor2d.RESIDENT_LAUNCHES)
+    sor2d.sor2d_sweeps(spec, S0, 1.3, 32)
+    torch.cuda.synchronize()
+    assert (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS,
+            sor2d.RESIDENT_LAUNCHES) == before[:2] + (before[2] + 1,)
+
+
 @pytest.mark.parametrize("dtype,check_every", [(torch.float32, 1),
                                                (torch.float32, 32),
                                                (torch.float64, 1)])

@@ -40,7 +40,10 @@ A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; any other input raises.  ``RESIDENT_LAUNCHES``,
 ``TILED_LAUNCHES``, ``TILED_INPLACE_LAUNCHES`` and ``BLOCK_LAUNCHES`` count
 kernel launches, ``PLAIN_CALLS`` calls of the plain versions, so a run can
-show which path it took.  No function here changes the caller's tensors:
+show which path it took; ``TILED_WINDOW_CELLS`` and ``TILED_CELLS`` count
+the cells the tiled launches' windows load and the cells they update
+(:func:`tiled_cells`), so a run can show how much of their traffic is
+halo.  No function here changes the caller's tensors:
 the kernels work on buffers the wrappers allocate.
 """
 from __future__ import annotations
@@ -59,7 +62,7 @@ from ._driver import relax_plane
 
 __all__ = ["sor2d_sweeps", "sor2d_sweeps_tiled",
            "sor2d_sweeps_tiled_inplace", "sor2d_sweeps_tiled_emulated",
-           "tile_plan", "TilePlan", "sor2d_sweeps_resident",
+           "tile_plan", "TilePlan", "tiled_cells", "sor2d_sweeps_resident",
            "sor2d_sweeps_resident_emulated", "resident_plan",
            "resident_footprint", "ResidentPlan", "sor2d_sweeps_reference",
            "sor2d_sweeps_reference_norm", "inplace_eligible",
@@ -81,6 +84,8 @@ TILED_LAUNCHES = 0          # sor2d_sweeps_tiled kernel launches
 TILED_INPLACE_LAUNCHES = 0  # sor2d_sweeps_tiled_inplace kernel launches
 BLOCK_LAUNCHES = 0          # sor2d_sweeps_block kernel launches
 PLAIN_CALLS = 0             # calls of the plain versions
+TILED_WINDOW_CELLS = 0      # cells the tiled launches' windows load
+TILED_CELLS = 0             # cells the tiled launches update
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +139,17 @@ class TilePlan(NamedTuple):
     def tiles(self, core):
         """(tiles along y, tiles along x) of a ``core`` = (ny, nx) grid."""
         return (-(-core[0] // self.ty), -(-core[1] // self.tx))
+
+
+def tiled_cells(plan, B, core):
+    """(window cells, grid cells) of one tiled launch of ``plan`` on ``B``
+    slices of a ``core`` = (ny, nx) grid: the winy x winx window of every
+    tile of every slice, which the launch loads, and the B x ny x nx cells
+    it updates.  Their ratio is the launch's read of the state over the
+    grid, halo and the last tiles' overhang included."""
+    tiles_y, tiles_x = plan.tiles(core)
+    return (B * tiles_y * tiles_x * plan.winy * plan.winx,
+            B * core[0] * core[1])
 
 
 def _radius(spec):
@@ -731,7 +747,8 @@ def _slices_per_block(lay, plan, S, core=None):
 def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
     """sor2d_sweeps_tiled (or its in-place twin, as ``plan.inplace`` says):
     S_out = n sweeps of S_in in one launch, ``fac`` its 2n factors."""
-    global TILED_LAUNCHES, TILED_INPLACE_LAUNCHES
+    global TILED_LAUNCHES, TILED_INPLACE_LAUNCHES, TILED_WINDOW_CELLS
+    global TILED_CELLS
     ny, nx = lay["core"]
     tiles_y, tiles_x = plan.tiles(lay["core"])
     p = _TiledParams(
@@ -758,6 +775,9 @@ def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
         name += "_inplace"
     else:
         TILED_LAUNCHES += 1
+    window, cells = tiled_cells(plan, lay["B"], lay["core"])
+    TILED_WINDOW_CELLS += window
+    TILED_CELLS += cells
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
