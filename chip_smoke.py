@@ -144,14 +144,22 @@ seed, and runs these phases, each printing its lines:
      time and host gap, host syncs per cycle; the resident kernel at the
      year cell's 1460x73x144: one 32-sweep window in one launch beside the
      tiled kernel's 8 in turns, its bound, its plain version's window,
-     ptxas's registers and spills.  With --parent-sor3d PATH
-     (another tree's csrc/sor3d.cu), also the whole-grid 3-D color sweep
-     of this tree against that one's build, in turns.  --blocks runs only
-     phases 0 and 1, phase 2's 3-D block checks and phase 4's block
-     timings (and prints no result line); --resident runs only phases 0
-     and 1, phase 2's resident checks (the year cell's batch, an odd
-     per-slice grid, the 2048x2048 pyramid's smoothing) and phase 4's
-     resident timings (no result line either).
+     ptxas's registers and spills; the ping-pong tiled kernel at the
+     decade cell's 120x330x720 Stommel-Munk, one sweep a launch, at
+     _slices_per_block's slices a block (the staged walk) and at each of
+     TILED_SPB_SCAN (one: unstaged), beside its bound and ptxas's line.
+     With --parent-sor3d PATH (another tree's csrc/sor3d.cu), also the
+     whole-grid 3-D color sweep of this tree against that one's build, in
+     turns; with --parent-sor2d PATH (another tree's csrc/sor2d.cu), the
+     decade (float32, float64), 16-offset, 2048x2048, year-batch and B2s
+     launches against that one's build, in turns, states torch.equal.  --blocks runs only phases 0 and 1, phase 2's 3-D block
+     checks and phase 4's block timings (and prints no result line);
+     --resident runs only phases 0 and 1, phase 2's resident checks (the
+     year cell's batch, an odd per-slice grid, the 2048x2048 pyramid's
+     smoothing) and phase 4's resident timings (no result line either);
+     --tiled runs only phases 0 and 1, phase 2's tiled checks on batches
+     whose walk is staged (the decade's 120 months among them) and phase
+     4's decade timing (no result line either).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.  Any failed phase raises, and the
@@ -215,6 +223,9 @@ COUNTERS = {"sor2d_sweeps_tiled": (sor2d, "TILED_LAUNCHES"),
 # another tree's csrc/sor3d.cu to time the whole-grid color sweep against
 # (--parent-sor3d; phase 4)
 PARENT_SOR3D = None
+# another tree's csrc/sor2d.cu to time the decade cell's tiled launch
+# against (--parent-sor2d; phase 4)
+PARENT_SOR2D = None
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -353,8 +364,8 @@ def soda_curl(months=12, step=1):
     ocean (the repository's SODA-analog fixture recipe,
     tools/make_fixtures.py::make_soda_curl): subtropical and subpolar gyre
     bands with a seasonal cycle and deterministic synoptic texture, NaN
-    over the land mask; the first ``months`` months at every ``step``-th
-    point."""
+    over the land mask; the first ``months`` months (the year repeated past
+    12: month i is calendar month i mod 12) at every ``step``-th point."""
     ny, nx = 330, 720
     lat = np.linspace(-74.75, 89.75, ny)
     lon = np.linspace(0.25, 360.0 - 360.0 / nx + 0.25, nx)
@@ -371,8 +382,9 @@ def soda_curl(months=12, step=1):
     base = (np.sin(3 * L) * np.cos(L) + 0.25 * np.sin(5 * L)) * 1e-7
     curl = (seasonal[:, None, None] * base[None]
             + 2e-8 * texture[None] * np.cos(L)[None])
-    curl = np.where(land[None], np.nan, curl)[:months, ::step, ::step]
-    coords = {"time": months_idx[:months].astype(np.float64),
+    curl = np.where(land[None], np.nan, curl)
+    curl = np.tile(curl, (-(-months // 12), 1, 1))[:months, ::step, ::step]
+    coords = {"time": np.arange(months, dtype=np.float64),
               "lat": lat[::step], "lon": lon[::step]}
     return xt.Field(curl, ("time", "lat", "lon"), coords)
 
@@ -451,6 +463,19 @@ def soda_spec(builder, mp, months, dtype, device, step=1):
     Fdef = ~torch.isnan(vals[0])              # the land mask of every month
     spec = builder(vals, Fdef, grid, dict(default_mParams, **mp))
     return prune_zero_offsets(spec), 1.0
+
+
+DECADE = (120, 330, 720)   # the decade cell's batch (benchmark/)
+
+
+def decade_case(dev):
+    """(name, make) of the decade cell's problem: Stommel-Munk on the
+    SODA-class curl, 120 months (one land mask, so w, w0 and relax are
+    shared and g varies a slice: the tiled kernel's staged walk)."""
+    return (f"the decade cell {DECADE[0]}x{DECADE[1]}x{DECADE[2]} "
+            "Stommel-Munk bih (extend, periodic) SODA, pruned",
+            lambda dt: soda_spec(problems.build_stommelmunk, MUNK_MP,
+                                 DECADE[0], dt, dev))
 
 
 # ------------------------------------------------------- multigrid inputs
@@ -648,6 +673,7 @@ def _check_tiled(name, spec, omega, S0, rtol, errs):
         plan = sor2d.tile_plan(spec, shape, dt, inplace)
         counter = COUNTERS[kname][1]
         ok, norm_err, err = True, 0.0, 0.0
+        s0 = (sor2d.TILED_STAGED_SLICES, sor2d.TILED_SLICES)
         for n in sorted({1, plan.k, 20, 37}):
             for om, fac in ((omega, None), (1.0, facs[:2 * n])):
                 c0 = getattr(sor2d, counter)
@@ -662,9 +688,12 @@ def _check_tiled(name, spec, omega, S0, rtol, errs):
                 norm_err = max(norm_err, float(
                     ((sumabs.double() - tot).abs() / tot).max()))
         errs[kname] = max(errs[kname], err)
+        staged = (sor2d.TILED_STAGED_SLICES - s0[0]) / max(
+            1, sor2d.TILED_SLICES - s0[1])
         log(f"[2] {name} {str(dt)[6:]}: {kname} (k {plan.k}, tile "
             f"{plan.ty}x{plan.tx}, halo {plan.hy}x{plan.hx}, "
-            f"{plan.threads} threads x {plan.cpt} cells) n in "
+            f"{plan.threads} threads x {plan.cpt} cells, staged slice "
+            f"windows {staged:.4f} of the walk) n in "
             f"{sorted({1, plan.k, 20, 37})}, with and without factors: "
             f"bit-equal={ok} max|kernel-plain|={err:.3e} sumabs rel err="
             f"{norm_err:.3e} (tol {rtol:g})")
@@ -850,6 +879,7 @@ def phase2(dev):
         ("Stommel-Munk bih 2x110x240 (extend, periodic) SODA, pruned",
          lambda dt: soda_spec(problems.build_stommelmunk, MUNK_MP, 2, dt,
                               dev, step=3)),
+        decade_case(dev),
         ("bih 16-offset 29x31 (extend, fixed)",
          lambda dt: random_spec((29, 31), BIH_OFFSETS, ("extend", "fixed"),
                                 True, 0, False, dt, dev)),
@@ -3618,6 +3648,247 @@ def phase4_parent(card, dev, parent_src):
         f"{mean['this tree'][1] / mean['parent'][1]:.4f}")
 
 
+#: slices a block the decade timing scans beside _slices_per_block's own
+TILED_SPB_SCAN = (1, 20, 30, 40, 60, 120)
+#: the ping-pong tiled instantiation the decade cell runs (float32, 8
+#: offsets, 4 cells a thread, 512 threads, neither in place nor WS nor the
+#: block mode; staged), as ptxas names it, its unstaged twin, and the one
+#: instantiation of a tree without the staged walk
+DECADE_INST = "sor2d_sweeps_tiled_kernelIfLi8ELi4ELi512ELb0ELb0ELb0ELb1EEv"
+DECADE_INST_UNSTAGED = (
+    "sor2d_sweeps_tiled_kernelIfLi8ELi4ELi512ELb0ELb0ELb0ELb0EEv")
+DECADE_INST_PARENT = "sor2d_sweeps_tiled_kernelIfLi8ELi4ELi512ELb0ELb0ELb0EEv"
+
+
+def _ptxas(log_text, inst):
+    """ptxas's registers / spills line of the entry ``inst`` in an nvcc
+    log, or None."""
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and inst in line:
+            return " | ".join(x.split(":", 1)[-1].strip()
+                              for x in lines[i + 2:i + 4])
+    return None
+
+
+def phase4_tiled(card, dev, parent_src=None):
+    """The ping-pong tiled kernel at the decade cell's 120x330x720 float32
+    Stommel-Munk, one sweep a launch: device time per launch (50 launches
+    behind a spin) with ``_slices_per_block``'s slices a block (the staged
+    walk) and at each of TILED_SPB_SCAN slices a block (one: unstaged),
+    beside its bound and ptxas's line.  With ``parent_src`` (another tree's
+    csrc/sor2d.cu, same flags), :func:`phase4_parent_tiled`."""
+    spec, omega = decade_case(dev)[1](torch.float32)
+    S = xt.solve_fixed(spec, torch.zeros(DECADE, device=dev), omega, 8)
+    rel = sor2d.relax_plane(spec, omega)
+    lay = sor2d._layout(spec, S, rel)
+    plan = sor2d.tile_plan(spec, DECADE[1:], torch.float32)
+    spb = sor2d._slices_per_block(lay, plan, S)
+    A, A2 = S.clone(), torch.empty_like(S)
+
+    def launch():
+        sor2d._launch_tiled(spec, lay, plan, rel, A, A2, 1, [1.0, 1.0])
+    bound_ms, bound_by, nbytes = _bound("sor2d_sweeps_tiled", spec, DECADE,
+                                        1)
+    for inst in (DECADE_INST, DECADE_INST_UNSTAGED):
+        info = _ptxas(_build.BUILD_LOG.get("sor2d", ""), inst)
+        log(f"[4] ptxas {inst} (this tree): {info or 'not built here'}")
+    real = sor2d._slices_per_block
+    scan = []
+    try:
+        for n in TILED_SPB_SCAN:
+            sor2d._slices_per_block = lambda *a, n=n, **k: n
+            scan.append(_device_ms(launch, 50))
+    finally:
+        sor2d._slices_per_block = real
+    staged = sor2d.tiled_slices(plan, DECADE[0], spb, DECADE[1:])
+    t_own = _device_ms(launch, 50)
+    log(f"[4] {card} | sor2d_sweeps_tiled decade {DECADE} float32 "
+        f"Stommel-Munk, 1 sweep a launch, tiles {plan.ty}x{plan.tx} in "
+        f"{plan.winy}x{plan.winx} windows, {plan.smem} B shared (stage "
+        f"{plan.stage}): {spb} slices a block (staged {staged[0]} of "
+        f"{staged[1]} slice windows) {t_own:.5f} ms device time per launch "
+        f"(50 launches); slices a block: " + ", ".join(
+            f"{n} {t:.5f}" for n, t in zip(TILED_SPB_SCAN, scan))
+        + f" ms; bound {bound_ms:.5f} ms ({bound_by}, {nbytes} B at 3.35 "
+        f"TB/s), {100 * bound_ms / t_own:.1f}% of it")
+    if parent_src:
+        del S, A2
+        phase4_parent_tiled(card, dev, parent_src, (spec, omega, A))
+
+
+def _captured(call, key):
+    """The arguments ``call`` hands the kernel function ``lay[key]`` of the
+    layouts it makes (``sor2d._layout``): a stand-in takes them, nothing
+    launches."""
+    got = []
+    real = sor2d._layout
+
+    def layout(*a, **k):
+        return dict(real(*a, **k), **{key: lambda *args: got.append(args)
+                                      or 0})
+    sor2d._layout = layout
+    try:
+        call()
+    finally:
+        sor2d._layout = real
+    return got[0]
+
+
+def phase4_parent_tiled(card, dev, parent_src, decade):
+    """This tree's 2-D tiled launches against the ones built from
+    ``parent_src`` (another tree's csrc/sor2d.cu, same flags), on the same
+    arguments (the parent's layout of the parameters), in turns (parent,
+    this tree, this tree, parent, twice), device time per launch (50
+    launches behind a spin), the states of both torch.equal: the decade
+    cell's launch (``decade`` = (spec, omega, state); 60 slices a block,
+    the staged walk; in float32 and float64), the same at one slice a
+    block and on one map (unstaged), a 16-offset biharmonic batch of 120
+    slices (float32 and float64), a 2048x2048 Poisson launch of 4 sweeps
+    (one slice: unstaged), the year cell's batch through the tiled kernel
+    (4 sweeps, 4 offsets: unstaged) and B2s on block (1, 1) of the
+    2048x2048 grid's 2x2 mesh, 4 sweeps; ptxas's line of the decade's
+    instantiation in the parent's build."""
+    import ctypes
+    import tempfile
+    nvcc = _build._nvcc()
+    with open(parent_src) as fh:
+        has_stage = "int stage;" in fh.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        so = os.path.join(tmp, "libsor2d_parent.so")
+        built = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-o", so,
+                                parent_src], check=True, capture_output=True,
+                               text=True)
+        parent = ctypes.CDLL(so)
+    log(f"[4] ptxas {DECADE_INST_PARENT} (parent): "
+        f"{_ptxas(built.stderr, DECADE_INST_PARENT)}")
+    this = _build.load("sor2d")
+
+    class ParentParams(ctypes.Structure):
+        _fields_ = [f for f in sor2d._TiledParams._fields_
+                    if has_stage or f[0] != "stage"]
+    cases = []
+    spec, omega, A = decade
+    A2 = torch.empty_like(A)
+    rel = sor2d.relax_plane(spec, omega)
+    plan = sor2d.tile_plan(spec, DECADE[1:], torch.float32)
+    decade_args = _captured(lambda: sor2d._launch_tiled(
+        spec, sor2d._layout(spec, A, rel), plan, rel, A, A2, 1, [1.0, 1.0]),
+        "tiled_fn")
+    cases.append(("decade 120x330x720, 1 sweep", "sor2d_sweeps_tiled_f32",
+                  decade_args, A2))
+    cases.append(("decade 120x330x720, 1 sweep, one slice a block",
+                  "sor2d_sweeps_tiled_f32", decade_args, A2,
+                  {"spb": 1, "stage": 0}))
+    mspec, mom = soda_spec(problems.build_stommelmunk, MUNK_MP, 1,
+                           torch.float32, dev)
+    M = torch.zeros((1,) + DECADE[1:], device=dev)
+    mrel = sor2d.relax_plane(mspec, mom)
+    M2 = torch.empty_like(M)
+    cases.append(("one map 1x330x720, 1 sweep", "sor2d_sweeps_tiled_f32",
+                  _captured(lambda: sor2d._launch_tiled(
+                      mspec, sor2d._layout(mspec, M, mrel), plan, mrel, M,
+                      M2, 1, [1.0, 1.0]), "tiled_fn"), M2))
+    dspec, dom = decade_case(dev)[1](torch.float64)
+    D = torch.zeros(DECADE, dtype=torch.float64, device=dev)
+    drel = sor2d.relax_plane(dspec, dom)
+    dplan = sor2d.tile_plan(dspec, DECADE[1:], torch.float64)
+    D2 = torch.empty_like(D)
+    cases.append(("decade 120x330x720, 1 sweep (float64: the weights in "
+                  "shared memory)", "sor2d_sweeps_tiled_f64",
+                  _captured(lambda: sor2d._launch_tiled(
+                      dspec, sor2d._layout(dspec, D, drel), dplan, drel, D,
+                      D2, 1, [1.0, 1.0]), "tiled_fn"), D2))
+    bspec16, bom = random_spec((165, 360), BIH_OFFSETS, ("extend", "periodic"),
+                               True, 120, False, torch.float32, dev, seed=3)
+    W = torch.zeros((120, 165, 360), device=dev)
+    wrel = sor2d.relax_plane(bspec16, bom)
+    wplan = sor2d.tile_plan(bspec16, (165, 360), torch.float32)
+    W2 = torch.empty_like(W)
+    cases.append(("16 offsets 120x165x360, 1 sweep", "sor2d_sweeps_tiled_f32",
+                  _captured(lambda: sor2d._launch_tiled(
+                      bspec16, sor2d._layout(bspec16, W, wrel), wplan, wrel,
+                      W, W2, 1, [1.0, 1.0]), "tiled_fn"), W2))
+    dspec16, dom16 = random_spec((165, 360), BIH_OFFSETS,
+                                 ("extend", "periodic"), True, 120, False,
+                                 torch.float64, dev, seed=3)
+    DW = torch.zeros((120, 165, 360), dtype=torch.float64, device=dev)
+    dwrel = sor2d.relax_plane(dspec16, dom16)
+    dwplan = sor2d.tile_plan(dspec16, (165, 360), torch.float64)
+    DW2 = torch.empty_like(DW)
+    cases.append(("16 offsets 120x165x360, 1 sweep", "sor2d_sweeps_tiled_f64",
+                  _captured(lambda: sor2d._launch_tiled(
+                      dspec16, sor2d._layout(dspec16, DW, dwrel), dwplan,
+                      dwrel, DW, DW2, 1, [1.0, 1.0]), "tiled_fn"), DW2))
+    n = 2048
+    pspec, pom = poisson_spec(n, n, 0, torch.float32, dev)
+    P0 = xt.solve_fixed(pspec, torch.zeros((n, n), device=dev), pom, 50)
+    prel = sor2d.relax_plane(pspec, pom)
+    pplan = sor2d.tile_plan(pspec, (n, n), torch.float32)
+    X, X2 = P0.clone(), torch.empty_like(P0)
+    cases.append(("2048x2048 Poisson, 4 sweeps", "sor2d_sweeps_tiled_f32",
+                  _captured(lambda: sor2d._launch_tiled(
+                      pspec, sor2d._layout(pspec, X, prel), pplan, prel, X,
+                      X2, 4, [1.0] * 8), "tiled_fn"), X2))
+    yspec, yom = poisson_spec(YEAR[1], YEAR[2], YEAR[0], torch.float32, dev)
+    Y = torch.zeros(YEAR, device=dev)
+    yrel = sor2d.relax_plane(yspec, yom)
+    yplan = sor2d.tile_plan(yspec, YEAR[1:], torch.float32)
+    Y2 = torch.empty_like(Y)
+    cases.append(("the year cell's 1460x73x144 Poisson, 4 sweeps",
+                  "sor2d_sweeps_tiled_f32", _captured(
+                      lambda: sor2d._launch_tiled(
+                          yspec, sor2d._layout(yspec, Y, yrel), yplan, yrel,
+                          Y, Y2, 4, [1.0] * 8), "tiled_fn"), Y2))
+    origin, owned, g = (1024, 1024), (1024, 1024), (9, 8)
+    Pb = phalo.padded_block(P0, origin, owned, g)
+    bspec = phalo.padded_block_spec(pspec, origin, owned, g)
+    Bb, Bb2 = Pb.clone(), torch.empty_like(Pb)
+    keep = []
+    cases.append(("B2s block (1, 1) of 2x2, 4 sweeps",
+                  "sor2d_sweeps_block_f32",
+                  _captured(lambda: keep.append(sor2d.make_block_sweeper(
+                      bspec, Pb, pom, origin, (n, n), g, 4)) or keep[0](
+                          Bb, Bb2, 4), "block_fn"), Bb2))
+    for label, name, args, out, *over in cases:
+        mine = args[7]._obj
+        if over:
+            mine = type(mine).from_buffer_copy(mine)
+            for f, v in over[0].items():
+                setattr(mine, f, v)
+        pp = ParentParams(**{f: getattr(mine, f)
+                             for f, _ in ParentParams._fields_})
+        fns = {}
+        for side, lib, params in (("parent", parent, pp),
+                                  ("this tree", this, mine)):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = _build._SIGNATURES["sor2d"][name]
+            fns[side] = (lambda fn=fn, params=params: fn(
+                *args[:7], ctypes.byref(params), args[8]))
+        times = {}
+        for side in ("parent", "this tree", "this tree", "parent") * 2:
+            times.setdefault(side, []).append(_device_ms(fns[side], 50))
+        outs = {}
+        for side in ("this tree", "parent"):
+            out.fill_(-7.0)
+            if fns[side]():
+                raise RuntimeError(f"{name} ({side}) failed to launch")
+            torch.cuda.synchronize()
+            outs[side] = out.clone()
+        same = torch.equal(outs["this tree"], outs["parent"])
+        ratio = np.mean(times["this tree"]) / np.mean(times["parent"])
+        log(f"[4] {card} | {name} {label} {str(out.dtype)[6:]}, this tree "
+            f"against the "
+            f"parent's build, in turns (parent, this, this, parent, "
+            f"twice), device time per launch (50 launches): "
+            + "; ".join(f"{k}: " + " / ".join(f"{t:.5f}" for t in v)
+                        for k, v in times.items())
+            + f"; this tree / parent {ratio:.4f}; states torch.equal: "
+            f"{same}")
+        if not same:
+            raise RuntimeError(f"{name} {label} differs from the parent's")
+
+
 YEAR = (1460, 73, 144)   # the year cell's batch (benchmark/)
 
 
@@ -3848,6 +4119,38 @@ def main_resident():
     log("[5] the resident phases passed (no result line: --resident)")
 
 
+def main_tiled():
+    """--tiled: phases 0 and 1, phase 2's checks of the tiled kernels on
+    batches whose slice walk is staged (Stommel-Munk at 12 and 120 months,
+    the year cell's batch, 16 offsets over a shared-plane batch), and phase
+    4's decade timing (and --parent-sor2d's turns)."""
+    card = phase0()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    phase1()
+    errs = {name: 0.0 for name in KERNELS}
+    for name, make in (
+            ("Stommel-Munk bih 12x330x720 (extend, periodic) SODA, pruned",
+             lambda dt: soda_spec(problems.build_stommelmunk, MUNK_MP, 12,
+                                  dt, dev)),
+            decade_case(dev),
+            ("the year cell 1460x73x144 (extend, periodic) masked",
+             lambda dt: poisson_spec(73, 144, 1460, dt, dev, seed=6)),
+            ("bih 16-offset 300x33x37 (extend, periodic) shared planes",
+             lambda dt: random_spec((33, 37), BIH_OFFSETS,
+                                    ("extend", "periodic"), True, 300, False,
+                                    dt, dev, seed=3))):
+        for dt, rtol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            spec, omega = make(dt)
+            gen = torch.Generator(device="cpu").manual_seed(7)
+            S0 = (torch.randn(spec.g.shape, generator=gen,
+                              dtype=torch.float64) * 1e-3).to(dt).to(dev)
+            _check_tiled(name, spec, omega, S0, rtol, errs)
+    torch.set_default_dtype(torch.float32)
+    phase4_tiled(card, dev, PARENT_SOR2D)
+    log("[5] the tiled phases passed (no result line: --tiled)")
+
+
 def main_blocks():
     """--blocks: phases 0 and 1, phase 2's 3-D block checks and phase 4's
     block timings alone (and --parent-sor3d's turns): B5s's loop."""
@@ -3907,6 +4210,7 @@ def main():
     stamp("phase 3 (sharded multigrid)")
     torch.set_default_dtype(torch.float32)
     per = phase4(card, dev)
+    phase4_tiled(card, dev, PARENT_SOR2D)
     per.update(phase4_resident(card, dev))
     per.update(phase4_blocks(card, dev))
     if PARENT_SOR3D:
@@ -3930,8 +4234,9 @@ def main():
 
 if __name__ == "__main__":
     # --parent-sor3d PATH: also time the whole-grid 3-D color sweep against
-    # another tree's csrc/sor3d.cu in turns (phase 4); --blocks: only the
-    # 3-D block kernels' phases
+    # another tree's csrc/sor3d.cu in turns (phase 4); --parent-sor2d PATH:
+    # the decade cell's tiled launch against another tree's csrc/sor2d.cu;
+    # --blocks, --resident, --tiled: only those kernels' phases
     args = sys.argv[1:]
     blocks = "--blocks" in args
     if blocks:
@@ -3939,14 +4244,24 @@ if __name__ == "__main__":
     resident = "--resident" in args
     if resident:
         args.remove("--resident")
-    if len(args) == 2 and args[0] == "--parent-sor3d":
-        PARENT_SOR3D = os.path.abspath(args[1])
-    elif args:
-        raise SystemExit("usage: chip_smoke.py [--blocks | --resident] "
-                         "[--parent-sor3d PATH]")
+    tiled = "--tiled" in args
+    if tiled:
+        args.remove("--tiled")
+    while len(args) >= 2 and args[0] in ("--parent-sor3d", "--parent-sor2d"):
+        if args[0] == "--parent-sor3d":
+            PARENT_SOR3D = os.path.abspath(args[1])
+        else:
+            PARENT_SOR2D = os.path.abspath(args[1])
+        args = args[2:]
+    if args:
+        raise SystemExit("usage: chip_smoke.py [--blocks | --resident | "
+                         "--tiled] [--parent-sor3d PATH] "
+                         "[--parent-sor2d PATH]")
     if blocks:
         main_blocks()
     elif resident:
         main_resident()
+    elif tiled:
+        main_tiled()
     else:
         main()

@@ -373,29 +373,39 @@ def test_2d_solve_launches_only_the_tiled_kernels(cuda, monkeypatch,
 
 
 def test_tiled_cell_counters(cuda):
-    """One tiled launch of a radius-2 stencil on 3 slices grows
-    TILED_WINDOW_CELLS and TILED_CELLS by ``tiled_cells`` of its plan; 32
-    sweeps through the resident route leave both unchanged."""
+    """One tiled launch of a radius-2 stencil on 3 slices, then on 600
+    (the shared planes' walk: several slices a block, staged), grows
+    TILED_WINDOW_CELLS and TILED_CELLS by ``tiled_cells`` of its plan and
+    TILED_STAGED_SLICES and TILED_SLICES by ``tiled_slices`` of its plan
+    and walk; 32 sweeps through the resident route leave all four
+    unchanged."""
     spec, S0 = _bih(torch.float32, cuda, ("extend", "periodic"))
-    S = S0.expand(3, *S0.shape).contiguous()
-    core = tuple(S.shape[-2:])
+    core = tuple(S0.shape[-2:])
     plan = sor2d.tile_plan(spec, core, torch.float32)
     assert plan.k == 1
-    before = (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS)
-    sor2d.sor2d_sweeps(spec, S, 1.0, 1)
-    torch.cuda.synchronize()
-    window, cells = sor2d.tiled_cells(plan, 3, core)
-    assert (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS) == (
-        before[0] + window, before[1] + cells)
+    names = ("TILED_WINDOW_CELLS", "TILED_CELLS", "TILED_STAGED_SLICES",
+             "TILED_SLICES")
+    for B in (3, 600):
+        S = S0.expand(B, *S0.shape).contiguous()
+        lay = sor2d._layout(spec, S, sor2d.relax_plane(spec, 1.0))
+        spb = sor2d._slices_per_block(lay, plan, S)
+        assert (spb > 1) == (B == 600)
+        before = [getattr(sor2d, n) for n in names]
+        sor2d.sor2d_sweeps(spec, S, 1.0, 1)
+        torch.cuda.synchronize()
+        grown = (sor2d.tiled_cells(plan, B, core)
+                 + sor2d.tiled_slices(plan, B, spb, core))
+        assert [getattr(sor2d, n) - b for n, b in zip(names, before)] == \
+            list(grown)
+        assert (grown[2] > 0) == (B == 600)
     spec, S0 = _year(cuda, batch=8)
     assert sor2d.resident_plan(spec, tuple(S0.shape[-2:]),
                                S0.dtype) is not None
-    before = (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS,
-              sor2d.RESIDENT_LAUNCHES)
+    before = [getattr(sor2d, n) for n in names] + [sor2d.RESIDENT_LAUNCHES]
     sor2d.sor2d_sweeps(spec, S0, 1.3, 32)
     torch.cuda.synchronize()
-    assert (sor2d.TILED_WINDOW_CELLS, sor2d.TILED_CELLS,
-            sor2d.RESIDENT_LAUNCHES) == before[:2] + (before[2] + 1,)
+    assert [getattr(sor2d, n) for n in names] + [
+        sor2d.RESIDENT_LAUNCHES] == before[:4] + [before[4] + 1]
 
 
 @pytest.mark.parametrize("dtype,check_every", [(torch.float32, 1),
@@ -425,6 +435,147 @@ def test_tiled_stops_like_the_plain_version(cuda, monkeypatch, dtype,
             assert torch.equal(getattr(res, field).cpu(),
                                getattr(plain, field)), (switch, field)
     assert bool(plain.overflow.any())
+
+
+def _munk(dtype, device, batch=7, ny=45, nx=96):
+    """build_stommelmunk on a random curl, pruned as solve prunes it (radius
+    2, 8 offsets, the two-row extend; (extend, periodic)): one land mask,
+    so w, w0 and relax are shared and g varies a slice, as in the decade
+    cell; 16 x 64 tiles, 3 x 2 of them."""
+    from xinvert_tpu_torch.stencil import prune_zero_offsets
+    rng = np.random.default_rng(11)
+    lat = np.linspace(-70.0, 80.0, ny)
+    lon = np.linspace(0.0, 360.0 - 360.0 / nx, nx)
+    grid = Grid.make(("lat", "lon"), (lat, lon), "lat-lon",
+                     bcs=("extend", "periodic"))
+    Fdef = np.ones((ny, nx), bool)
+    Fdef[12:20, 30:45] = False
+    vals = torch.as_tensor(rng.normal(0, 1e-7, (batch, ny, nx)),
+                           dtype=dtype, device=device)
+    spec = prune_zero_offsets(problems.build_stommelmunk(
+        vals, torch.as_tensor(Fdef, device=device), grid,
+        dict(default_mParams, R=2e-4, D=100, A4=5e3)))
+    return spec, torch.as_tensor(rng.normal(0, 1e-3, (batch, ny, nx)),
+                                 dtype=dtype, device=device)
+
+
+def _staged_case(case, dtype, device):
+    """(spec, S0, slices a block, kernel, counter) of a staged walk."""
+    if case in ("munk", "munk_spb1"):
+        # walks of 3, 3 and a short last one of 1; per-slice g
+        spec, S0 = _munk(dtype, device)
+        return (spec, S0, 3 if case == "munk" else 1,
+                sor2d.sor2d_sweeps_tiled, "TILED_LAUNCHES")
+    if case == "ws16":
+        # 16 offsets (their planes in shared memory) over 5 states, every
+        # plane shared, g too: walks of 2, 2 and 1
+        spec, S1 = _bih(dtype, device, ("extend", "periodic"))
+        gen = torch.Generator(device="cpu").manual_seed(5)
+        S0 = (torch.randn((5,) + tuple(S1.shape), generator=gen,
+                          dtype=torch.float64) * 1e-3).to(dtype).to(device)
+        return spec, S0, 2, sor2d.sor2d_sweeps_tiled, "TILED_LAUNCHES"
+    spec, S0 = _poisson(dtype, device, batch=5, nx=72)     # in place
+    return (spec, S0, 2, sor2d.sor2d_sweeps_tiled_inplace,
+            "TILED_INPLACE_LAUNCHES")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["munk", "munk_spb1", "ws16", "inplace"])
+def test_staged_walk_bit_equal_to_plain(cuda, monkeypatch, dtype, case):
+    """The ping-pong tiled kernel's pipelined slice walk (blocks walking
+    ``spb`` slices, the next slice's windows staged while one sweeps): 2k +
+    1 sweeps with and without factors, states torch.equal to the plain
+    version and to the same launches at one slice a block, |S| totals
+    torch.equal to those, and TILED_STAGED_SLICES grown by
+    ``tiled_slices``; a walk of one slice a block, and the in-place twin's
+    walk, stage nothing."""
+    spec, S0, spb, fn, counter = _staged_case(case, dtype, cuda)
+    core = tuple(S0.shape[-2:])
+    B = S0.shape[0]
+    plan = sor2d.tile_plan(spec, core, dtype,
+                           fn is sor2d.sor2d_sweeps_tiled_inplace)
+    n = 2 * plan.k + 1
+    rng = np.random.default_rng(4)
+    fac = [float(torch.tensor(f, dtype=dtype))
+           for f in 1.0 + 0.4 * rng.random(2 * n)]
+    staged = sor2d.tiled_slices(plan, B, spb, core)[0]
+    assert (staged > 0) == (spb > 1 and case != "inplace")
+    for f, omega in ((None, 1.3), (fac, 1.0)):
+        runs = {}
+        for walk in (spb, 1):
+            monkeypatch.setattr(sor2d, "_slices_per_block",
+                                lambda *a, walk=walk, **k: walk)
+            c0, s0 = getattr(sor2d, counter), sor2d.TILED_STAGED_SLICES
+            runs[walk] = fn(spec, S0, omega, n, with_norm=True, fac=f)
+            torch.cuda.synchronize()
+            assert getattr(sor2d, counter) == c0 + 3
+            assert sor2d.TILED_STAGED_SLICES == s0 + (
+                3 * staged if walk > 1 else 0)
+        out_p = sor2d.sor2d_sweeps_reference(spec, S0, omega, n, f)
+        assert torch.equal(runs[spb][0], out_p)
+        assert torch.equal(runs[1][0], out_p)
+        assert torch.equal(runs[spb][1], runs[1][1])
+        ref = out_p.double().abs().sum(dim=(-2, -1))
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        torch.testing.assert_close(runs[spb][1].double(), ref, rtol=rtol,
+                                   atol=0)
+
+
+def test_kernel_refuses_a_stage_it_does_not_take(cuda, monkeypatch):
+    """Only ping-pong plans of more than 4 offsets stage their walk: a
+    launch that asks a radius-1 plan (4 offsets) to stage is refused."""
+    spec, S0 = _poisson(torch.float32, cuda, batch=3)
+    assert not sor2d.tile_plan(spec, tuple(S0.shape[-2:]),
+                               torch.float32).stage
+    monkeypatch.setattr(sor2d, "tiled_slices",
+                        lambda plan, B, spb, core: (1, B))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        sor2d.sor2d_sweeps_tiled(spec, S0, 1.3, 1)
+
+
+@pytest.mark.parametrize("check_every", [1, 32])
+@pytest.mark.parametrize("case", ["diverging", "nan_seed"])
+def test_staged_walk_stops_like_the_plain_version(cuda, monkeypatch,
+                                                  check_every, case):
+    """The Stommel-Munk batch (it diverges at omega 1 on this coarse grid),
+    with a NaN seeded in slice 4, through the staged walk (3 slices a
+    block), against the same solve on the CPU: the same check, the same
+    overflow flag."""
+    spec, S0 = _munk(torch.float32, cuda)
+    if case == "nan_seed":
+        S0[4, 20, 50] = float("nan")
+    kw = dict(omega=1.0, tol=1e-12, max_iters=300, check_every=check_every)
+    spec_cpu = dataclasses.replace(spec, **{
+        f: getattr(spec, f).cpu() for f in ("w", "w0", "g", "relax",
+                                            "active")})
+    plain = xt.solve(spec_cpu, S0.cpu(), **kw)
+    monkeypatch.setattr(sor2d, "_slices_per_block", lambda *a, **k: 3)
+    s0 = sor2d.TILED_STAGED_SLICES
+    res = xt.solve(spec, S0, **kw)
+    assert sor2d.TILED_STAGED_SLICES > s0
+    for field in ("iters", "overflow"):
+        assert torch.equal(getattr(res, field).cpu(), getattr(plain, field))
+    assert bool(plain.overflow.all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_block_walk_of_slices_bit_equal_to_plain(cuda, monkeypatch, dtype):
+    """The block mode (B2s) walks unstaged: a batch of 3 ghost-padded
+    blocks at 2 slices a block, torch.equal to its plain version, NaN
+    boundary lines included, with the |S| partials."""
+    spec, S0, origin, owned, g, k = _block_case2d("batch_nan", dtype, cuda)
+    from xinvert_tpu_torch.parallel import halo
+    shape = tuple(S0.shape[-2:])
+    P = halo.padded_block(S0, origin, owned, g)
+    bspec = halo.padded_block_spec(spec, origin, owned, g)
+    monkeypatch.setattr(sor2d, "_slices_per_block", lambda *a, **k: 2)
+    for n in (1, k):
+        res = sor2d.sor2d_sweeps_block(bspec, P, 1.3, n, origin, shape, g,
+                                       with_norm=True)
+        ref = sor2d.sor2d_sweeps_block_reference(bspec, P, 1.3, n, origin,
+                                                 shape, g, None, True)
+        torch.cuda.synchronize()
+        assert _nan_equal(res[0], ref[0]) and _nan_equal(res[1], ref[1])
 
 
 def test_solve_on_card_matches_cpu(cuda):

@@ -17,8 +17,9 @@ in the windows that hold its rows, global parity, owned write-back):
   1e-12 * max|S| (XLA on the CPU may contract an FMA);
 - the plan: every (spec, core) the tiled kernels take with the package's
   radii (1, and 2 for the biharmonic) gets one, its tiles cover each cell
-  exactly once in whole 32 x 8 blocks, and its halo covers k sweeps
-  (h >= 2 r k).
+  exactly once in whole 32 x 8 blocks, its halo covers k sweeps
+  (h >= 2 r k), and its shared memory holds the stage of a pipelined
+  slice walk; ``tiled_slices`` counts the slice windows a launch stages.
 
 The CUDA kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
@@ -279,6 +280,55 @@ def test_every_spec_the_tiled_kernels_take_gets_a_plan(case):
                   j * plan.tx:(j + 1) * plan.tx] += 1
     assert (count == 1).all()
     assert ty_n <= 65535
+
+
+@settings(max_examples=150, deadline=None, database=None)
+@given(_plan_cases())
+def test_every_plan_holds_the_stage_in_shared_memory(case):
+    """The plan's shared memory with the stage of a pipelined slice walk
+    counted (one more state buffer and the g window,
+    csrc/sor2d.cu::launch_tiled) stays within what a block can have, for
+    every spec the tiled kernels take: every ping-pong plan of more than 4
+    offsets holds the stage; the in-place kernel and the plans of 4
+    offsets or fewer walk unstaged."""
+    offs, bih, bcs, core, dtype, inplace = case
+    plan = sor2d.tile_plan(_Spec(offs, bih, bcs), core, dtype, inplace)
+    buf = (plan.winy + 2 * plan.pad) * (plan.winx + 2 * plan.pad)
+    cells = plan.winy * plan.winx
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    footprint = ((1 if inplace else 2) * buf
+                 + (len(offs) * cells if plan.wsmem else 0)
+                 + -(-plan.ty // 8) * 8 * -(-plan.tx // 32)) * itemsize
+    stage = not inplace and len(offs) > 4
+    footprint += (buf + cells) * itemsize if stage else 0
+    assert plan.stage == stage
+    assert plan.smem == footprint <= sor2d._SMEM_MAX
+
+
+def _cross_plan():
+    """A ping-pong plan of 8 offsets (cross terms), which stages its walk."""
+    return sor2d.tile_plan(_Spec(X8, False, ("extend", "periodic")),
+                           (73, 144), torch.float32)
+
+
+@pytest.mark.parametrize("B,spb,staged", [
+    (7, 1, 0),             # one slice a block: unstaged
+    (1, 1, 0),             # one map
+    (6, 3, 4),             # two walks of 3: two slices each staged
+    (7, 3, 4),             # walks of 3, 3 and a short last one of 1
+    (120, 60, 118),        # the decade cell's walk
+])
+def test_tiled_slices_of_a_launch(B, spb, staged):
+    """``tiled_slices``: a launch loads B slice windows a tile, and stages
+    all but the first of each block's walk where it walks more than one
+    slice; a plan without the stage stages none."""
+    plan = _cross_plan()
+    assert plan.stage
+    tiles = np.prod(plan.tiles((73, 144)))
+    assert sor2d.tiled_slices(plan, B, spb, (73, 144)) == (
+        tiles * staged, tiles * B)
+    assert sor2d.tiled_slices(plan._replace(stage=False), B, spb,
+                              (73, 144)) == (0, tiles * B)
 
 
 def _instantiated(macro):

@@ -120,13 +120,37 @@ __device__ __forceinline__ T relax_cell(T s, T acc, T w0, T rel, T sel,
 // partials of its 32 x 8 blocks (header); tiles hold whole blocks (ty a
 // multiple of 8, tx of 32, or one tile along the axis).
 //
+// The slice walk of the whole-grid ping-pong kernel with more than 4
+// offsets is pipelined where a block walks more than one slice and the
+// plan's shared memory holds the stage (ops/sor2d.py::make_plan decides;
+// TiledParams.stage picks the staged instantiation, STAGE): before slice b
+// sweeps, the block issues cp.async copies of slice b+1's state window,
+// into a third buffer in the padded layout the sweeps read, and of its g
+// window where the batch varies g; slice b then sweeps and writes back
+// while they fly, and the block waits for them (cp.async.wait_group, then
+// the barrier that opens the next slice).  The staged buffer becomes the
+// next slice's buffer by a swap of offsets, not a copy, and the staged g
+// goes to the registers cg.  The copies use the thread's own modular
+// indices (gidx), so wrapped edge windows load as the plain loads do, and
+// every value, every operation and its order are those of the unstaged
+// walk: the result is the same bit for bit.  A block's first slice and the
+// planes other than g load as before.  The staged instantiation turns its
+// color loop and its write-back's row loop one at a time: fully unrolled
+// with the stage's code the walk ran slower (0.92 -> 1.25 ms at the decade
+// shape; chip_smoke.py phase 4, PERF.md).  Every other launch (one slice a
+// block, the block mode, the in-place twin, 4 offsets or fewer) runs the
+// unstaged instantiation, whose code is the walk without the stage.
+//
 // Bound: device-memory bytes per launch, (K+4) planes read and one written
 // per cell, over k sweeps.  What the design pays for that: the window
 // overhead (window over tile area) and K+2 shared-memory accesses per cell
 // and half-sweep.  Measured (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py
-// phase 4): a launch costs a fixed part about twice its windows' bytes at
-// the HBM rate plus a part per sweep, and the two do not overlap, since one
-// block fills an SM.
+// phase 4): unstaged, a launch costs a fixed part about twice its windows'
+// bytes at the HBM rate plus a part per sweep, and the two do not overlap,
+// since one block fills an SM; the staged walk hides a slice's state and g
+// loads behind the previous slice's sweeps (the decade launch 0.924 -> 0.852
+// ms in float32, 1.136 -> 1.103 ms in float64; 16 offsets at 120 x 165 x
+// 360, 0.573 -> 0.355 ms).
 // ---------------------------------------------------------------------------
 
 // The block mode (B2s, sor2d_sweeps_block; xinvert_tpu/parallel/
@@ -161,6 +185,7 @@ struct TiledParams {
   int tiles_y, tiles_x, spb;            // spb: slices each block walks
   int extend, periodic_x, bih;
   int kmax, cpt, nt, inplace, wsmem;    // the instantiation
+  int stage;                            // the staged instantiation runs
   // the block mode (sor2d_sweeps_block): the owned region's global origin
   // (oy, ox) and extent (by, bx), its ghost widths (gy, gx) and the buffer
   // (buf_y, buf_x) = (by + 2gy, bx + 2gx) the state and planes live in.
@@ -182,6 +207,26 @@ struct TiledArgs {
 __device__ __forceinline__ int pos_mod(int v, int n) {
   v %= n;
   return v < 0 ? v + n : v;
+}
+
+// One value from device memory into shared memory, asynchronously.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (sizeof(T) == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // Source of the extend pre-pass for global cell (R, C), as an offset
@@ -208,7 +253,7 @@ __device__ __forceinline__ bool extend_source(int R, int C, int ny, int nx,
 }
 
 template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS,
-          bool BLOCK>
+          bool BLOCK, bool STAGE>
 __global__ void __launch_bounds__(NT, 1)
 sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
                           const T* __restrict__ w, const T* __restrict__ w0,
@@ -223,7 +268,11 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
   const int tid = threadIdx.x;
   const int buf_cells = (p.winy + 2 * p.pad) * a.stride;
   const int cells = p.winy * p.winx;
-  T* const wsm = sm + (INPLACE ? 1 : 2) * buf_cells;
+  // the state buffers the sweeps use, and where the walk is staged (STAGE)
+  // one more for the next slice's window, then the next slice's g (gst)
+  const int nbuf = (INPLACE ? 1 : 2) + (STAGE ? 1 : 0);
+  T* const gst = sm + nbuf * buf_cells;
+  T* const wsm = gst + (STAGE ? cells : 0);
   T* const rowsum = wsm + (WS ? p.K * cells : 0);   // 8 per 32 x 8 block
   // the tile's origin in the owned region, its window's global origin (not
   // wrapped: it may lie before row 0 or run past ny - 1)
@@ -257,7 +306,7 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
       par |= (unsigned)((R + C) & 1) << j;
     }
   }
-  for (int e = tid; e < (INPLACE ? 1 : 2) * buf_cells; e += NT) sm[e] = T(0);
+  for (int e = tid; e < nbuf * buf_cells; e += NT) sm[e] = T(0);
   // the pre-pass writes a row of this window (edge tiles only)
   const bool edge = p.extend && (wy0 <= 1 || wy0 + p.winy >= p.ny - 1);
 
@@ -266,26 +315,54 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
   T cw[CPT][KR], cw0[CPT], cg[CPT], crel[CPT];
   const int b_first = blockIdx.z * p.spb;
   const int b_end = min(p.B, b_first + p.spb);
+  // offsets of the buffer that holds the slice (its sweeps end there, after
+  // an even number of swaps) and of the one the next slice's window lands
+  // in; the ping-pong kernel's other buffer stays at buf_cells
+  int base = 0, stg = (INPLACE ? 1 : 2) * buf_cells;
   for (int b = b_first; b < b_end; ++b) {
     const bool first = b == b_first;
+    const bool staged = STAGE && !first;   // s and g came ahead
     const bool lw = first || p.w_bstride, l0 = first || p.w0_bstride;
     const bool lg = first || p.g_bstride, lr = first || p.rel_bstride;
-    __syncthreads();   // the buffers are free (zeroed, or written back)
-    // every load of the slice first, then the stores to shared memory
-    T sv0[CPT];
+    __syncthreads();   // the buffers are free (zeroed, or written back) and
+                       // a staged window has landed
+    if (staged) {
+      // the slice's state window came ahead into its buffer, its g (where
+      // the batch varies g) into gst; its other planes the batch varies
+      // load now
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      if (!((live >> j) & 1u)) continue;
-      const long long q = gidx[j];
-      if (!WS && lw) {
+      for (int j = 0; j < CPT; ++j) {
+        if (!((live >> j) & 1u)) continue;
+        const long long q = gidx[j];
+        if (!WS && lw) {
 #pragma unroll
-        for (int k = 0; k < KR; ++k)
-          if (k < p.K) cw[j][k] = w[k * p.w_kstride + b * p.w_bstride + q];
+          for (int k = 0; k < KR; ++k)
+            if (k < p.K) cw[j][k] = w[k * p.w_kstride + b * p.w_bstride + q];
+        }
+        if (l0) cw0[j] = w0[b * p.w0_bstride + q];
+        if (lg) cg[j] = gst[tid + j * NT];
+        if (lr) crel[j] = rel[b * p.rel_bstride + q];
       }
-      if (l0) cw0[j] = w0[b * p.w0_bstride + q];
-      if (lg) cg[j] = g[b * p.g_bstride + q];
-      if (lr) crel[j] = rel[b * p.rel_bstride + q];
-      sv0[j] = s_in[b * plane + q];
+    } else {
+      // every load of the slice first, then the stores to shared memory
+      T sv0[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        if (!((live >> j) & 1u)) continue;
+        const long long q = gidx[j];
+        if (!WS && lw) {
+#pragma unroll
+          for (int k = 0; k < KR; ++k)
+            if (k < p.K) cw[j][k] = w[k * p.w_kstride + b * p.w_bstride + q];
+        }
+        if (l0) cw0[j] = w0[b * p.w0_bstride + q];
+        if (lg) cg[j] = g[b * p.g_bstride + q];
+        if (lr) crel[j] = rel[b * p.rel_bstride + q];
+        sv0[j] = s_in[b * plane + q];
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+        if ((live >> j) & 1u) sm[base + sidx[j]] = sv0[j];
     }
     if (WS && lw) {
       for (int k = 0; k < p.K; ++k) {
@@ -295,12 +372,23 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
           if ((live >> j) & 1u) wsm[k * cells + tid + j * NT] = wk[gidx[j]];
       }
     }
-#pragma unroll
-    for (int j = 0; j < CPT; ++j)
-      if ((live >> j) & 1u) sm[sidx[j]] = sv0[j];
     __syncthreads();
+    // the next slice's windows, in flight while this one sweeps: its state
+    // into the free buffer, its g where the batch varies g (gst, read into
+    // cg above, before the barrier)
+    const bool ahead = STAGE && b + 1 < b_end;
+    if (ahead) {
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        if (!((live >> j) & 1u)) continue;
+        cp_async(sm + stg + sidx[j], s_in + (b + 1) * plane + gidx[j]);
+        if (p.g_bstride)
+          cp_async(gst + tid + j * NT, g + (b + 1) * p.g_bstride + gidx[j]);
+      }
+      cp_async_commit();
+    }
 
-    int cur = 0, nxt = INPLACE ? 0 : buf_cells;   // offsets of the buffers
+    int cur = base, nxt = INPLACE ? base : buf_cells;   // buffer offsets
     for (int s = 0; s < p.nsweeps; ++s) {
       if (edge) {
         T ev[CPT];
@@ -333,7 +421,9 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
           if ((emask >> j) & 1u) sm[cur + sidx[j]] = ev[j];
         __syncthreads();
       }
-#pragma unroll
+      // the staged walk turns the color loop, and the write-back's rows
+      // below, one at a time (header)
+#pragma unroll (STAGE ? 1 : 2)
       for (int color = 0; color < 2; ++color) {
         const T fac = (T)p.fac[2 * s + color];
 #pragma unroll
@@ -358,21 +448,22 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
         nxt = t;
       }
     }
-    // write back the owned tile from buffer 0 (an even number of swaps),
-    // one warp a row of 32 cells; with partials, the |S| sum of each 32 x 8
-    // block of the grid the tile holds, in the header's order (the warp's
-    // shuffle tree over a row, then the 8 row sums in turn)
+    // write back the owned tile from the slice's buffer (an even number of
+    // swaps), one warp a row of 32 cells; with partials, the |S| sum of each
+    // 32 x 8 block of the grid the tile holds, in the header's order (the
+    // warp's shuffle tree over a row, then the 8 row sums in turn)
     const int by = BLOCK ? p.by : p.ny, bx = BLOCK ? p.bx : p.nx;
     const int ry = min(p.ty, by - ty0), rx = min(p.tx, bx - tx0);
     const int nby = (ry + 7) / 8, nbx = (rx + 31) / 32;
     const int lane = tid & 31;
-    for (int q = tid >> 5; q < nby * nbx * 8; q += NT / 32) {
+    // one row of 32 cells (q: the row's number in the tile's blocks)
+    auto write_row = [&](int q) {
       const int blk = q >> 3;
       const int i = (blk / nbx) * 8 + (q & 7);
       const int jx = (blk % nbx) * 32 + lane;
       T v = T(0);
       if (i < ry && jx < rx) {
-        v = sm[(p.hy + i + p.pad) * a.stride + p.hx + jx + p.pad];
+        v = sm[base + (p.hy + i + p.pad) * a.stride + p.hx + jx + p.pad];
         s_out[b * plane +
               (BLOCK ? (long long)(p.gy + ty0 + i) * p.buf_x + p.gx
                      : (long long)(ty0 + i) * p.nx) + tx0 + jx] = v;
@@ -381,6 +472,12 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
         v = warp_sum(v < T(0) ? -v : v);
         if (lane == 0) rowsum[q] = v;
       }
+    };
+    if constexpr (STAGE) {
+#pragma unroll 1
+      for (int q = tid >> 5; q < nby * nbx * 8; q += NT / 32) write_row(q);
+    } else {
+      for (int q = tid >> 5; q < nby * nbx * 8; q += NT / 32) write_row(q);
     }
     if (partials != nullptr) {
       __syncthreads();
@@ -394,17 +491,26 @@ sor2d_sweeps_tiled_kernel(const T* __restrict__ s_in, T* __restrict__ s_out,
                  tx0 / 32 + blk % nbx] = t;
       }
     }
+    if (ahead) {
+      // this thread's copies have landed (the barrier that opens the next
+      // slice shows them to the block); the staged buffer holds the next
+      // slice, and this slice's buffer is free for the one after
+      cp_async_wait_all();
+      const int t = base;
+      base = stg;
+      stg = t;
+    }
   }
 }
 
 template <typename T, int KMAX, int CPT, int NT, bool INPLACE, bool WS,
-          bool BLOCK>
+          bool BLOCK, bool STAGE>
 static int launch_tiled_inst(const T* s_in, T* s_out, const T* w,
                              const T* w0, const T* g, const T* rel,
                              T* partials, const TiledArgs& a, dim3 grid,
                              size_t smem, cudaStream_t stream) {
   auto kern =
-      sor2d_sweeps_tiled_kernel<T, KMAX, CPT, NT, INPLACE, WS, BLOCK>;
+      sor2d_sweeps_tiled_kernel<T, KMAX, CPT, NT, INPLACE, WS, BLOCK, STAGE>;
   // raise the instantiation's shared-memory limit only when a launch needs
   // more than before, on each device: set on every launch, it kept the host
   // from queueing launches ahead of the device (measured on the H100)
@@ -456,6 +562,8 @@ static int launch_tiled(const T* s_in, T* s_out, const T* w, const T* w0,
       p.nsweeps > TILED_MAX_SWEEPS || p.ty < 1 || p.tx < 1 ||
       p.winy != p.ty + 2 * p.hy || p.winx != p.tx + 2 * p.hx ||
       p.winy * p.winx > p.nt * p.cpt || p.spb < 1 ||
+      (p.stage != 0 && p.stage != 1) ||
+      (p.stage && (block || p.inplace || p.kmax <= 4)) ||
       p.tiles_y != (p.by + p.ty - 1) / p.ty ||
       p.tiles_x != (p.bx + p.tx - 1) / p.tx ||
       (p.B + p.spb - 1) / p.spb > 65535 || p.tiles_y > 65535)
@@ -482,25 +590,35 @@ static int launch_tiled(const T* s_in, T* s_out, const T* w, const T* w0,
   a.stride = p.winx + 2 * p.pad;
   for (int k = 0; k < SOR2D_MAX_K; ++k)
     a.soff[k] = k < p.K ? p.dy[k] * a.stride + p.dx[k] : 0;
-  // the state buffers, the weight planes where they live in shared
-  // memory, the row sums of the tile's 32 x 8 blocks
+  // the state buffers (one more where the walk is staged), the staged g
+  // window, the weight planes where they live in shared memory, the row
+  // sums of the tile's 32 x 8 blocks (ops/sor2d.py::make_plan)
   const size_t smem =
-      ((size_t)(p.inplace ? 1 : 2) * (p.winy + 2 * p.pad) * a.stride +
+      ((size_t)((p.inplace ? 1 : 2) + p.stage) * (p.winy + 2 * p.pad) *
+           a.stride +
+       (p.stage ? (size_t)p.winy * p.winx : 0) +
        (p.wsmem ? (size_t)p.K * p.winy * p.winx : 0) +
        (size_t)((p.ty + 7) / 8) * 8 * ((p.tx + 31) / 32)) * sizeof(T);
   dim3 grid(p.tiles_x, p.tiles_y, (p.B + p.spb - 1) / p.spb);
   cudaStream_t st = (cudaStream_t)stream;
   // the block mode takes the ping-pong kernel only (IP 0): an in-place
-  // instantiation's block branch names its whole-grid twin, never taken
+  // instantiation's block branch names its whole-grid twin, never taken;
+  // so does the staged branch of an instantiation that has no staged walk
+  // (4 offsets or in place: refused above)
 #define TILED_CASE(KM, CP, N, IP, WSM)                                      \
   if (p.kmax == KM && p.cpt == CP && p.nt == N && p.inplace == IP &&        \
       p.wsmem == WSM)                                                       \
-    return block ? launch_tiled_inst<T, KM, CP, N, IP, WSM, !IP>(           \
+    return block ? launch_tiled_inst<T, KM, CP, N, IP, WSM, !IP, false>(    \
                        s_in, s_out, w, w0, g, rel, partials, a, grid, smem, \
                        st)                                                  \
-                 : launch_tiled_inst<T, KM, CP, N, IP, WSM, false>(         \
-                       s_in, s_out, w, w0, g, rel, partials, a, grid, smem, \
-                       st);
+           : p.stage                                                        \
+               ? launch_tiled_inst<T, KM, CP, N, IP, WSM, false,            \
+                                   (KM > 4 && !IP)>(                        \
+                     s_in, s_out, w, w0, g, rel, partials, a, grid, smem,   \
+                     st)                                                    \
+               : launch_tiled_inst<T, KM, CP, N, IP, WSM, false, false>(    \
+                     s_in, s_out, w, w0, g, rel, partials, a, grid, smem,   \
+                     st);
   if constexpr (sizeof(T) == 4) {
     TILED_CASE(4, 4, 1024, 0, 0)
     TILED_CASE(4, 4, 1024, 1, 0)

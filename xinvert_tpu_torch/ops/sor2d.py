@@ -43,7 +43,9 @@ kernel launches, ``PLAIN_CALLS`` calls of the plain versions, so a run can
 show which path it took; ``TILED_WINDOW_CELLS`` and ``TILED_CELLS`` count
 the cells the tiled launches' windows load and the cells they update
 (:func:`tiled_cells`), so a run can show how much of their traffic is
-halo.  No function here changes the caller's tensors:
+halo; ``TILED_SLICES`` and ``TILED_STAGED_SLICES`` count the slice windows
+the tiled launches load and those of them staged while the slice before
+swept (:func:`tiled_slices`).  No function here changes the caller's tensors:
 the kernels work on buffers the wrappers allocate.
 """
 from __future__ import annotations
@@ -62,7 +64,8 @@ from ._driver import relax_plane
 
 __all__ = ["sor2d_sweeps", "sor2d_sweeps_tiled",
            "sor2d_sweeps_tiled_inplace", "sor2d_sweeps_tiled_emulated",
-           "tile_plan", "TilePlan", "tiled_cells", "sor2d_sweeps_resident",
+           "tile_plan", "TilePlan", "tiled_cells", "tiled_slices",
+           "sor2d_sweeps_resident",
            "sor2d_sweeps_resident_emulated", "resident_plan",
            "resident_footprint", "ResidentPlan", "sor2d_sweeps_reference",
            "sor2d_sweeps_reference_norm", "inplace_eligible",
@@ -86,6 +89,8 @@ BLOCK_LAUNCHES = 0          # sor2d_sweeps_block kernel launches
 PLAIN_CALLS = 0             # calls of the plain versions
 TILED_WINDOW_CELLS = 0      # cells the tiled launches' windows load
 TILED_CELLS = 0             # cells the tiled launches update
+TILED_SLICES = 0            # slice windows the tiled launches load
+TILED_STAGED_SLICES = 0     # of them, staged while the slice before swept
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +119,9 @@ class TilePlan(NamedTuple):
     ``ty`` x ``tx`` cells in windows of (ty + 2hy) x (tx + 2hx), ``k``
     sweeps per launch, ``threads`` per block each holding ``cpt`` cells,
     ``smem`` bytes of shared memory (the state, padded by ``pad``, the
-    weight planes where ``wsmem``, the row sums of the |S| partials)."""
+    weight planes where ``wsmem``, the row sums of the |S| partials, and
+    where ``stage`` the buffers a pipelined slice walk stages the next
+    slice's state and g windows in)."""
     ty: int
     tx: int
     k: int
@@ -127,6 +134,7 @@ class TilePlan(NamedTuple):
     kmax: int
     inplace: bool
     smem: int
+    stage: bool
 
     @property
     def winy(self):
@@ -152,6 +160,19 @@ def tiled_cells(plan, B, core):
             B * core[0] * core[1])
 
 
+def tiled_slices(plan, B, spb, core):
+    """(staged, total) slice windows of one tiled launch of ``plan`` on
+    ``B`` slices of a ``core`` = (ny, nx) grid, each block walking ``spb``
+    slices of its tile: the launch loads B windows a tile, and where it is
+    pipelined (the plan holds the stage and spb > 1) every slice of a block's
+    walk but the first is staged while the slice before it sweeps, B less
+    the ceil(B / spb) groups a tile."""
+    tiles = math.prod(plan.tiles(core))
+    groups = -(-B // spb)
+    staged = B - groups if plan.stage and spb > 1 else 0
+    return tiles * staged, tiles * B
+
+
 def _radius(spec):
     return max((abs(o) for off in spec.offsets for o in off), default=0)
 
@@ -168,10 +189,15 @@ def _extend_reach(spec):
 def make_plan(spec, core, dtype, inplace, k, ty, tx):
     """The plan with ``k`` sweeps per launch and ``ty`` x ``tx`` tiles, its
     halo the least that covers k sweeps; raises if the window does not fit
-    the instantiation's threads x cells or shared memory.  The kernels
-    write the fused |S| partials only for tiles that hold whole 32 x 8
-    blocks (ty a multiple of 8, tx of 32, or one tile along the axis):
-    :func:`tile_plan`'s plans do."""
+    the instantiation's threads x cells or shared memory.  A ping-pong plan
+    of more than 4 offsets holds the stage of a pipelined slice walk (a
+    third state buffer and the g window) where that fits too: this is the
+    one place that decides which plans stage (csrc/sor2d.cu has a staged
+    instantiation for these alone, and refuses the stage elsewhere); the
+    tiles do not depend on it.
+    The kernels write the fused |S| partials only for tiles that hold
+    whole 32 x 8 blocks (ty a multiple of 8, tx of 32, or one tile along
+    the axis): :func:`tile_plan`'s plans do."""
     K = len(spec.offsets)
     kmax = 4 if K <= 4 else (8 if K <= 8 else 16)
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -186,16 +212,18 @@ def make_plan(spec, core, dtype, inplace, k, ty, tx):
         raise ValueError(f"a {winy}x{winx} window exceeds the {nt * cpt} "
                          "cells of the kernel")
     # the state buffers, the weight planes where they live in shared
-    # memory, the row sums of the tile's 32 x 8 blocks
-    # (csrc/sor2d.cu::launch_tiled)
-    smem = ((1 if inplace else 2) * (winy + 2 * r) * (winx + 2 * r)
-            + (K * winy * winx if wsmem else 0)
+    # memory, the row sums of the tile's 32 x 8 blocks; the stage: one more
+    # state buffer and the g window (csrc/sor2d.cu::launch_tiled)
+    buf = (winy + 2 * r) * (winx + 2 * r)
+    smem = ((1 if inplace else 2) * buf + (K * winy * winx if wsmem else 0)
             + -(-ty // 8) * 8 * -(-tx // 32)) * itemsize
     if smem > _SMEM_MAX:
         raise ValueError(f"a {winy}x{winx} window needs {smem} bytes of "
                          "shared memory")
+    staged = smem + (buf + winy * winx) * itemsize
+    stage = not inplace and kmax > 4 and staged <= _SMEM_MAX
     return TilePlan(ty, tx, k, hy, hx, r, nt, cpt, wsmem, kmax, bool(inplace),
-                    smem)
+                    staged if stage else smem, stage)
 
 
 def tile_plan(spec, core, dtype, inplace=False, k=None):
@@ -714,8 +742,8 @@ class _TiledParams(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_int) for f in (
         "B", "ny", "nx", "K", "nsweeps", "ty", "tx", "hy", "hx", "winy",
         "winx", "pad", "tiles_y", "tiles_x", "spb", "extend", "periodic_x",
-        "bih", "kmax", "cpt", "nt", "inplace", "wsmem", "oy", "ox", "by",
-        "bx", "gy", "gx", "buf_y", "buf_x")]
+        "bih", "kmax", "cpt", "nt", "inplace", "wsmem", "stage", "oy", "ox",
+        "by", "bx", "gy", "gx", "buf_y", "buf_x")]
                 + [("dy", ctypes.c_int * MAX_K), ("dx", ctypes.c_int * MAX_K)]
                 + [(f, ctypes.c_longlong) for f in (
                     "w_kstride", "w_bstride", "w0_bstride", "g_bstride",
@@ -746,20 +774,23 @@ def _slices_per_block(lay, plan, S, core=None):
 
 def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
     """sor2d_sweeps_tiled (or its in-place twin, as ``plan.inplace`` says):
-    S_out = n sweeps of S_in in one launch, ``fac`` its 2n factors."""
+    S_out = n sweeps of S_in in one launch, ``fac`` its 2n factors; the
+    slice walk pipelined where :func:`tiled_slices` stages any window."""
     global TILED_LAUNCHES, TILED_INPLACE_LAUNCHES, TILED_WINDOW_CELLS
-    global TILED_CELLS
+    global TILED_CELLS, TILED_SLICES, TILED_STAGED_SLICES
     ny, nx = lay["core"]
     tiles_y, tiles_x = plan.tiles(lay["core"])
+    spb = _slices_per_block(lay, plan, S_in)
+    staged, slices = tiled_slices(plan, lay["B"], spb, lay["core"])
     p = _TiledParams(
         B=lay["B"], ny=ny, nx=nx, K=lay["K"], nsweeps=int(n), ty=plan.ty,
         tx=plan.tx, hy=plan.hy, hx=plan.hx, winy=plan.winy, winx=plan.winx,
-        pad=plan.pad, tiles_y=tiles_y, tiles_x=tiles_x,
-        spb=_slices_per_block(lay, plan, S_in),
+        pad=plan.pad, tiles_y=tiles_y, tiles_x=tiles_x, spb=spb,
         extend=int(spec.bcs[-2] == "extend"),
         periodic_x=int(spec.bcs[-1] == "periodic"), bih=int(spec.bih),
         kmax=plan.kmax, cpt=plan.cpt, nt=plan.threads, wsmem=plan.wsmem,
-        inplace=int(plan.inplace), dy=lay["dy"], dx=lay["dx"],
+        inplace=int(plan.inplace), stage=int(staged > 0), dy=lay["dy"],
+        dx=lay["dx"],
         w_kstride=lay["w_kstride"], w_bstride=lay["w_bstride"],
         w0_bstride=lay["w0_bstride"], g_bstride=lay["g_bstride"],
         rel_bstride=lay["relax_bstride"], by=ny, bx=nx, buf_y=ny, buf_x=nx)
@@ -778,6 +809,8 @@ def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
     window, cells = tiled_cells(plan, lay["B"], lay["core"])
     TILED_WINDOW_CELLS += window
     TILED_CELLS += cells
+    TILED_SLICES += slices
+    TILED_STAGED_SLICES += staged
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
