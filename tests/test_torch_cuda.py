@@ -558,6 +558,80 @@ def test_staged_walk_stops_like_the_plain_version(cuda, monkeypatch,
     assert bool(plain.overflow.all())
 
 
+def _eliassen(dtype, device, ny, nx, batch=7):
+    """build_eliassen on a (p, lat) grid from 1000 to 100 hPa and from
+    -88.75 to 88.75 degrees, pruned as solve prunes it: A, B and C vary
+    over every cell (|B| at most 0.4 sqrt(A C)), so the spec keeps its 8
+    offsets, four of them diagonal (radius 1, k 4); BCs (fixed, fixed);
+    a NaN block in the corner below 700 hPa south of 72S, one mask for
+    the batch, so w, w0 and relax are shared and g varies a slice."""
+    from xinvert_tpu_torch.stencil import prune_zero_offsets
+    rng = np.random.default_rng(12)
+    lev = np.linspace(1e5, 1e4, ny)
+    lat = np.linspace(-88.75, 88.75, nx)
+    grid = Grid.make(("LEV", "lat"), (lev, lat), "z-lat",
+                     bcs=("fixed", "fixed"))
+    p, phi = np.meshgrid(lev, np.deg2rad(lat), indexing="ij")
+    A = (1.5e-4 * np.sin(phi)) ** 2 + 2e-10 + 1e-9 * rng.random((ny, nx))
+    C = 2e-2 / p ** 0.8 * (1 + 0.1 * rng.random((ny, nx)))
+    B = 0.4 * np.sqrt(A * C) * np.sin(2 * phi) * np.cos(np.pi * p / 1e5)
+    Fdef = ~((p > 7e4) & (np.rad2deg(phi) < -72.0))
+    vals = torch.as_tensor(rng.normal(0, 1e-7, (batch, ny, nx)),
+                           dtype=dtype, device=device)
+    spec = prune_zero_offsets(problems.build_eliassen(
+        vals, torch.as_tensor(Fdef, device=device), grid,
+        dict(default_mParams, A=A, B=B, C=C)))
+    return spec, torch.as_tensor(rng.normal(0, 1e9, (batch, ny, nx)),
+                                 dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(37, 72), (19, 36), (45, 100)])
+def test_cross_coupled_fixed_walk_bit_equal_to_plain(cuda, monkeypatch,
+                                                     dtype, shape):
+    """The Eliassen cell's launch: 8 offsets with the four diagonals,
+    radius 1, k 4, fixed edges on both axes (no extend, x not periodic),
+    at the cell's 37 x 72 (5 x 2 tiles of 8 x 64, the last ones
+    overhanging), at 19 x 36 (one tile, its 35 x 52 window wider than the
+    grid on both axes) and at 45 x 100 (6 x 2 tiles, both axes odd and
+    overhung).  2k + 1 sweeps with and without factors through
+    the staged walk (3 slices a block) and the unstaged one (one slice a
+    block): states torch.equal to the plain version's, |S| totals equal
+    between the walks, TILED_CROSS_CELLS grown by every launch's cells."""
+    spec, S0 = _eliassen(dtype, cuda, *shape)
+    core = tuple(S0.shape[-2:])
+    B = S0.shape[0]
+    assert len(spec.offsets) == 8 and sor2d._has_cross(spec)
+    plan = sor2d.tile_plan(spec, core, dtype)
+    assert (plan.k, plan.hy, plan.hx, plan.stage) == (4, 8, 8, True)
+    n = 2 * plan.k + 1
+    rng = np.random.default_rng(6)
+    fac = [float(torch.tensor(f, dtype=dtype))
+           for f in 1.0 + 0.4 * rng.random(2 * n)]
+    staged = sor2d.tiled_slices(plan, B, 3, core)[0]
+    assert staged > 0
+    for f, omega in ((None, 1.6), (fac, 1.0)):
+        runs = {}
+        for walk in (3, 1):
+            monkeypatch.setattr(sor2d, "_slices_per_block",
+                                lambda *a, walk=walk, **k: walk)
+            s0, x0 = sor2d.TILED_STAGED_SLICES, sor2d.TILED_CROSS_CELLS
+            runs[walk] = sor2d.sor2d_sweeps_tiled(spec, S0, omega, n,
+                                                  with_norm=True, fac=f)
+            torch.cuda.synchronize()
+            assert sor2d.TILED_STAGED_SLICES == s0 + (
+                3 * staged if walk > 1 else 0)
+            assert sor2d.TILED_CROSS_CELLS == x0 + 3 * B * core[0] * core[1]
+        out_p = sor2d.sor2d_sweeps_reference(spec, S0, omega, n, f)
+        assert torch.equal(runs[3][0], out_p)
+        assert torch.equal(runs[1][0], out_p)
+        assert torch.equal(runs[3][1], runs[1][1])
+        ref = out_p.double().abs().sum(dim=(-2, -1))
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        torch.testing.assert_close(runs[3][1].double(), ref, rtol=rtol,
+                                   atol=0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_block_walk_of_slices_bit_equal_to_plain(cuda, monkeypatch, dtype):
     """The block mode (B2s) walks unstaged: a batch of 3 ghost-padded

@@ -45,8 +45,11 @@ the cells the tiled launches' windows load and the cells they update
 (:func:`tiled_cells`), so a run can show how much of their traffic is
 halo; ``TILED_SLICES`` and ``TILED_STAGED_SLICES`` count the slice windows
 the tiled launches load and those of them staged while the slice before
-swept (:func:`tiled_slices`).  No function here changes the caller's tensors:
-the kernels work on buffers the wrappers allocate.
+swept (:func:`tiled_slices`); ``TILED_CROSS_CELLS`` counts the cells that
+tiled launches of a spec with a cross (diagonal) coupling update, so a run
+can show how much of the tiled work reads diagonal neighbours.  No
+function here changes the caller's tensors: the kernels work on buffers
+the wrappers allocate.
 """
 from __future__ import annotations
 
@@ -91,6 +94,7 @@ TILED_WINDOW_CELLS = 0      # cells the tiled launches' windows load
 TILED_CELLS = 0             # cells the tiled launches update
 TILED_SLICES = 0            # slice windows the tiled launches load
 TILED_STAGED_SLICES = 0     # of them, staged while the slice before swept
+TILED_CROSS_CELLS = 0       # of TILED_CELLS, those of cross-coupled specs
 
 
 # ---------------------------------------------------------------------------
@@ -171,6 +175,12 @@ def tiled_slices(plan, B, spb, core):
     groups = -(-B // spb)
     staged = B - groups if plan.stage and spb > 1 else 0
     return tiles * staged, tiles * B
+
+
+def _has_cross(spec):
+    """True when an offset of ``spec`` couples a cell to a diagonal
+    neighbour (dy != 0 and dx != 0)."""
+    return any(dy and dx for dy, dx in spec.offsets)
 
 
 def _radius(spec):
@@ -777,7 +787,7 @@ def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
     S_out = n sweeps of S_in in one launch, ``fac`` its 2n factors; the
     slice walk pipelined where :func:`tiled_slices` stages any window."""
     global TILED_LAUNCHES, TILED_INPLACE_LAUNCHES, TILED_WINDOW_CELLS
-    global TILED_CELLS, TILED_SLICES, TILED_STAGED_SLICES
+    global TILED_CELLS, TILED_SLICES, TILED_STAGED_SLICES, TILED_CROSS_CELLS
     ny, nx = lay["core"]
     tiles_y, tiles_x = plan.tiles(lay["core"])
     spb = _slices_per_block(lay, plan, S_in)
@@ -811,6 +821,8 @@ def _launch_tiled(spec, lay, plan, rel, S_in, S_out, n, fac, partials=None):
     TILED_CELLS += cells
     TILED_SLICES += slices
     TILED_STAGED_SLICES += staged
+    if _has_cross(spec):
+        TILED_CROSS_CELLS += cells
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
